@@ -1,0 +1,127 @@
+"""Build the CUDA kernels at first use and load them with ctypes.
+
+The sources in ``cudacam_tpu_torch/csrc`` have a plain C interface, so nvcc
+builds them straight into one shared library (seconds; no PyTorch headers),
+which is loaded with ctypes. The library lands in ``cudacam_tpu_torch/_build``
+(git-ignored), named by a digest of the sources and flags, so an edited
+source rebuilds and an unchanged one loads the library already built.
+Nothing here runs at import time: this module imports on a host with no
+nvcc and no GPU.
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+PACKAGE_DIR = Path(__file__).resolve().parents[2]
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "_build"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+#: C entry points: name -> (restype, argtypes). Every pointer and the stream
+#: go as c_void_p; a plain int would cut them to 32 bits.
+SIGNATURES = {
+    "cc_ff_pack": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
+    "cc_hyst_phase1": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "cc_hyst_phase2": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "cc_hyst_scratch_words": (ctypes.c_longlong, [_I, _I, _I]),
+    "cc_unpack": (_I, [_P, _P, _I, _I, _I, _P]),
+    "cc_error_string": (ctypes.c_char_p, [_I]),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelLibrary:
+    lib: ctypes.CDLL
+    path: Path
+    built: bool  # False when an up-to-date library was already on disk
+    build_seconds: float
+    compiler_log: str  # nvcc's -Xptxas -v report (registers, shared memory)
+
+    def check(self, code: int, what: str) -> None:
+        """Raise when a C entry point returned a CUDA error."""
+        if code != 0:
+            msg = self.lib.cc_error_string(code).decode()
+            raise RuntimeError(f"{what} failed: CUDA error {code} ({msg})")
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    found = shutil.which("nvcc") or (
+        str(Path(CUDA_HOME) / "bin" / "nvcc") if CUDA_HOME else None
+    )
+    if not found or not os.access(found, os.X_OK):
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return found
+
+
+@functools.lru_cache(maxsize=None)
+def load() -> KernelLibrary:
+    """Build (when needed) and load the kernel library. Raises when nvcc is
+    missing or the build fails; there is no fallback."""
+    sources = sorted(CSRC_DIR.glob("*.cu"))
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC_DIR.glob("*.cu*")):
+        digest.update(src.name.encode() + src.read_bytes())
+    path = BUILD_DIR / f"libcudacam_kernels_{digest.hexdigest()[:16]}.so"
+    built, seconds, log = False, 0.0, ""
+    if not path.exists():
+        BUILD_DIR.mkdir(exist_ok=True)
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        seconds = time.perf_counter() - t0
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        os.replace(tmp, path)
+        built = True
+    lib = ctypes.CDLL(str(path))
+    for name, (restype, argtypes) in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.restype = restype
+        fn.argtypes = argtypes
+    return KernelLibrary(lib, path, built, seconds, log)
+
+
+def use_plain(*tensors) -> bool:
+    """Route of a wrapper: True (the plain PyTorch version) when every
+    tensor lies on the CPU, False (the kernel) when every tensor lies on a
+    CUDA device. Anything else raises: no other device has a route."""
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cpu"}:
+        return True
+    if kinds == {"cuda"} and len({t.device for t in tensors}) == 1:
+        return False
+    raise ValueError(
+        f"tensors must all lie on the CPU or all on one CUDA device, got "
+        f"{sorted(str(t.device) for t in tensors)}"
+    )
+
+
+def stream_of(t) -> int:
+    """Handle of PyTorch's current stream on ``t``'s device."""
+    import torch
+
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def require_contiguous(*tensors) -> None:
+    for t in tensors:
+        if not t.is_contiguous():
+            raise ValueError("kernel inputs must be contiguous")

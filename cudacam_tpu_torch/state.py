@@ -1,0 +1,38 @@
+"""Packed hysteresis state carried between the JAX package and the port.
+
+The system has no weights: what crosses is the ``CannyConfig`` (shared as
+the same object) and the packed FINAL / CANDIDATE planes. The JAX
+megakernel exports them in a guard-ringed (hwp, wp) uint32 layout
+(cudacam_tpu/ops/pallas/megakernel.py ``_mega_geometry``): word rows past
+ceil(h/32) and lanes past w are zero guards. The port keeps
+(ceil(h/32), w) int32 planes with the same bits; ``ops/bitpack.py`` of the
+JAX package keeps (ceil(h/32), w) uint32.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+
+def planes_from_jax(
+    fpack: np.ndarray, ppack: np.ndarray, h: int, w: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """JAX megakernel export planes (uint32, guard-ringed) -> the port's
+    (ceil(h/32), w) int32 planes."""
+    hw = -(-h // 32)
+
+    def core(x: np.ndarray) -> torch.Tensor:
+        x = np.asarray(x)
+        if x.dtype != np.uint32 or x.shape[0] < hw or x.shape[1] < w:
+            raise ValueError(f"expected uint32 planes of at least ({hw}, {w}), got {x.shape} {x.dtype}")
+        return torch.from_numpy(np.ascontiguousarray(x[:hw, :w]).view(np.int32))
+
+    return core(fpack), core(ppack)
+
+
+def planes_to_numpy(*planes: torch.Tensor) -> Tuple[np.ndarray, ...]:
+    """The port's int32 planes -> uint32 numpy arrays in the JAX package's
+    ``bitpack`` layout (the inverse of :func:`planes_from_jax` on the core)."""
+    return tuple(p.detach().cpu().contiguous().numpy().view(np.uint32) for p in planes)

@@ -1,0 +1,150 @@
+"""The port's CannyEngine (cudacam_tpu_torch/engine) on the CPU against the
+JAX package's CannyEngine (backend='xla') on the slice path (HYSTER), plus
+its spec lock, threshold controls and import hygiene.
+
+Tolerance: 0. Edge maps are uint8; the contract is byte equality.
+"""
+from __future__ import annotations
+
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from cudacam_tpu import CannyConfig, CannyStage
+from cudacam_tpu.engine import CannyEngine as JaxEngine
+from cudacam_tpu.io.sources import make_scene
+from cudacam_tpu_torch.engine import CannyEngine
+from cudacam_tpu_torch.ops.cuda import _build
+
+torch.set_num_threads(2)
+
+H, W = 80, 256
+REPO = Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture(scope="module")
+def cfg():
+    return CannyConfig(height=H, width=W, backend="xla")
+
+
+@pytest.fixture(scope="module")
+def frame():
+    return make_scene(H, W, seed=3)
+
+
+def test_hyster_matches_jax_engine(cfg, frame):
+    got = CannyEngine(cfg).process(frame)
+    assert got.dtype == torch.uint8 and got.device.type == "cpu"
+    want = np.asarray(JaxEngine(cfg).process(frame))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_tensor_input_and_batch(cfg, frame):
+    eng = CannyEngine(cfg)
+    single = eng.process(torch.from_numpy(frame))
+    other = make_scene(H, W, seed=4)
+    batch = eng.process(np.stack([frame, other]))
+    assert tuple(batch.shape) == (2, H, W)
+    assert torch.equal(batch[0], single)
+    assert torch.equal(batch[1], eng.process(other))
+
+
+def test_stages_on_cpu_match_jax_engine(cfg, frame):
+    eng, jeng = CannyEngine(cfg), JaxEngine(cfg)
+    for stage in (CannyStage.MONO, CannyStage.THRESH):
+        np.testing.assert_array_equal(eng.process(frame, stage).numpy(),
+                                      np.asarray(jeng.process(frame, stage)))
+
+
+def test_spec_lock_and_type_checks(cfg):
+    eng = CannyEngine(cfg)
+    with pytest.raises(ValueError, match="empty"):
+        eng.process(np.zeros((0,), np.uint8))
+    with pytest.raises(ValueError, match="empty"):
+        eng.process(torch.empty(0, dtype=torch.uint8))
+    with pytest.raises(ValueError, match="empty"):
+        eng.process(None)
+    with pytest.raises(ValueError, match="uint8"):
+        eng.process(np.zeros((H, W, 3), np.float32))
+    with pytest.raises(ValueError, match="uint8"):
+        eng.process(torch.zeros((H, W, 3), dtype=torch.int16))
+    with pytest.raises(ValueError, match="specs differ"):
+        eng.process(np.zeros((H + 1, W, 3), np.uint8))
+    with pytest.raises(ValueError, match="specs differ"):
+        eng.process(np.zeros((H, W), np.uint8))
+
+
+def test_mono_engine_accepts_2d():
+    cfg = CannyConfig(height=37, width=53, channels=1)
+    gray = make_scene(37, 53, seed=1)[..., 0].copy()
+    got = CannyEngine(cfg).process(gray)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(JaxEngine(cfg).process(gray)))
+
+
+def test_clamping_matches_jax_engine(cfg):
+    eng, jeng = CannyEngine(cfg), JaxEngine(cfg)
+    for setter, value in [("high", 300), ("low", 400), ("low", -5), ("high", 3),
+                          ("low", 10), ("high", 40), ("low", 41), ("high", 0)]:
+        getattr(eng, f"set_{setter}_threshold")(value)
+        getattr(jeng, f"set_{setter}_threshold")(value)
+        assert (eng.get_low_threshold(), eng.get_high_threshold()) == (
+            jeng.get_low_threshold(), jeng.get_high_threshold())
+
+
+def test_threshold_change_rebuilds_nothing(cfg, frame):
+    eng, jeng = CannyEngine(cfg), JaxEngine(cfg)
+    before = eng.process(frame)
+    builds = _build.load.cache_info()
+    for e in (eng, jeng):
+        e.set_high_threshold(80)
+        e.set_low_threshold(20)
+    after = eng.process(frame)
+    assert not torch.equal(before, after)
+    np.testing.assert_array_equal(after.numpy(), np.asarray(jeng.process(frame)))
+    assert _build.load.cache_info() == builds
+    thr = eng._thresholds()
+    assert thr.tolist() == [20, 80] and eng._thresholds() is thr  # cached by value
+
+
+def test_warmup_and_device(cfg):
+    eng = CannyEngine(cfg, device="cpu")
+    eng.warmup()
+    eng.warmup(batch=2)
+    assert eng.device == torch.device("cpu") and eng.config is cfg
+
+
+def test_device_checks(cfg):
+    with pytest.raises(ValueError, match="'cpu' or 'cuda'"):
+        CannyEngine(cfg, device="meta")
+    if shutil.which("nvcc") is None:
+        # A CUDA engine without a working build raises at construction.
+        with pytest.raises(RuntimeError, match="nvcc"):
+            CannyEngine(cfg, device="cuda:0")
+
+
+def test_import_needs_no_jax_nvcc_or_triton():
+    code = (
+        "import sys\n"
+        "import cudacam_tpu_torch, cudacam_tpu_torch.engine, cudacam_tpu_torch.state\n"
+        "import cudacam_tpu_torch.ops.cuda.canny\n"
+        "import cudacam_tpu.io.sources, cudacam_tpu.ops.numpy_oracle\n"
+        "from cudacam_tpu_torch import CannyConfig\n"
+        "from cudacam_tpu_torch.engine import CannyEngine\n"
+        "import numpy as np\n"
+        "out = CannyEngine(CannyConfig(height=37, width=53)).process(np.zeros((37, 53, 3), np.uint8))\n"
+        "assert int(out.sum()) == 0\n"
+        "for mod in ('jax', 'triton', 'cv2'):\n"
+        "    assert mod not in sys.modules, mod\n"
+        "print(cudacam_tpu_torch.probe()['cuda_available'])\n"
+    )
+    env = dict(os.environ, PATH=os.path.dirname(sys.executable), PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() in ("True", "False")  # probe()["cuda_available"]

@@ -1,0 +1,144 @@
+#!/usr/bin/env python3
+"""Where the device time goes in the PyTorch/CUDA port, on one GPU.
+
+Run from the root of a checkout, on a host with a CUDA device and nvcc:
+
+    python3 tools/port_profile.py [--out FILE]
+
+Two parts, each printing one JSON line per workload (and writing them all to
+``--out`` when given):
+
+* ``trace``: ``CannyEngine(device='cuda').process`` under torch.profiler on
+  the 1080p 8-scene stream (``make_scene`` seeds 0-7, five passes) and on the
+  1080p spiral frame (two passes): device µs per frame for each kernel, the
+  device's busy time, the idle share of the traced span, and the wall time
+  per frame with the profiler on;
+* ``sizes``: 4K and 8K streams (four scenes each) byte-equal to the plain
+  PyTorch path on the card, with each frame's round flags, CUDA-event
+  ms/frame (median of 5 passes), and the spiral frame's flags and ms.
+
+Imports no jax: the frame generators come from the JAX package's jax-free
+``cudacam_tpu.io.sources``.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import sys
+import time
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+import torch  # noqa: E402
+from torch.profiler import ProfilerActivity, profile  # noqa: E402
+
+from cudacam_tpu.io.sources import make_scene, make_spiral_frame  # noqa: E402
+from cudacam_tpu_torch import CannyConfig, CannyStage  # noqa: E402
+from cudacam_tpu_torch.engine import CannyEngine  # noqa: E402
+from cudacam_tpu_torch.ops import torch_ops  # noqa: E402
+from cudacam_tpu_torch.ops.cuda.canny import pipeline_kwargs  # noqa: E402
+from cudacam_tpu_torch.ops.cuda.megakernel import canny_mega_pipeline  # noqa: E402
+
+KERNELS = ("ff_pack_kernel", "hyst_kernel<false>", "hyst_kernel<true>", "unpack_kernel")
+
+
+def _busy_us(intervals) -> float:
+    """Length of the union of (start, end) intervals."""
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in sorted(intervals):
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    return busy + (cur_e - cur_s if cur_e is not None else 0.0)
+
+
+def trace(name: str, eng: CannyEngine, frames, passes: int) -> dict:
+    for f in frames:  # warm-up: build, launch configs, thresholds on the device
+        eng.process(f)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(passes):
+            for f in frames:
+                eng.process(f)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    n = passes * len(frames)
+    dev = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    per_kernel = {}
+    for e in dev:
+        key = next((k for k in KERNELS if k in e.name), e.name)
+        per_kernel[key] = per_kernel.get(key, 0.0) + e.time_range.elapsed_us() / n
+    span = max(e.time_range.end for e in dev) - min(e.time_range.start for e in dev)
+    busy = _busy_us((e.time_range.start, e.time_range.end) for e in dev)
+    return {
+        "workload": name, "frames": n, "device_events": len(dev),
+        "device_us_per_frame": per_kernel, "busy_us": busy, "span_us": span,
+        "idle_share": 1 - busy / span, "traced_wall_ms_per_frame": wall * 1e3 / n,
+    }
+
+
+def ms_per_call(fn, reps: int = 5) -> float:
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        out.append(a.elapsed_time(b))
+    return statistics.median(out)
+
+
+def sizes(h: int, w: int) -> dict:
+    cfg = CannyConfig(height=h, width=w)
+    eng = CannyEngine(cfg, device="cuda")
+    thr = eng._thresholds()
+    frames = [torch.from_numpy(make_scene(h, w, seed=s)).cuda() for s in range(4)]
+    equal, flags = [], []
+    for f in frames:
+        plain = torch_ops.canny_to_stage(f, thr[0], thr[1], cfg, CannyStage.HYSTER)
+        equal.append(bool(torch.equal(eng.process(f), plain)))
+        flags.append(canny_mega_pipeline(f, thr, **pipeline_kwargs(cfg))[1].tolist())
+    spiral = torch.from_numpy(make_spiral_frame(h, w)).cuda()
+    return {
+        "workload": f"stream {h}x{w}", "inner_steps": cfg.hysteresis_inner_steps,
+        "scan_after": cfg.hysteresis_scan_after, "equal_plain": equal, "flags": flags,
+        "ms_per_frame": ms_per_call(lambda: [eng.process(f) for f in frames]) / len(frames),
+        "spiral_flags": canny_mega_pipeline(spiral, thr, **pipeline_kwargs(cfg))[1].tolist(),
+        "spiral_ms": ms_per_call(lambda: eng.process(spiral), reps=3),
+    }
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--out", type=Path, help="also write the JSON lines here")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("port_profile: needs a CUDA device", file=sys.stderr)
+        return 1
+    eng = CannyEngine(CannyConfig(height=1080, width=1920), device="cuda")
+    scenes = [torch.from_numpy(make_scene(1080, 1920, seed=s)).cuda() for s in range(8)]
+    spiral = torch.from_numpy(make_spiral_frame(1080, 1920)).cuda()
+    rows = [trace("1080p 8-scene stream", eng, scenes, 5), trace("1080p spiral", eng, [spiral], 2)]
+    rows += [sizes(2160, 3840), sizes(4320, 7680)]
+    lines = [json.dumps(r) for r in rows]
+    print("\n".join(lines))
+    if args.out:
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text("\n".join(lines) + "\n")
+    if not all(all(r.get("equal_plain", [True])) for r in rows):
+        print("port_profile: a frame differs from the plain path", file=sys.stderr)
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
