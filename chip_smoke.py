@@ -8,18 +8,30 @@ Run from the root of a checkout, with no arguments:
 Phases, each printing its lines before the last:
 
 1. environment probe and the card's name and power limit (nvidia-smi);
-2. build of the kernels in ``cudacam_tpu_torch/csrc`` with nvcc (sm_90a);
+2. build of the kernels in ``cudacam_tpu_torch/csrc`` with nvcc (sm_90a, one
+   nvcc per source, all at once);
 3. every kernel against its plain PyTorch version on the card, at the main
-   path's shapes (1080p, 720p) and at 37x53 and 1x1, plus the 1080p spiral
-   cut off at the 100-round cap against its recorded digest. Tolerance 0:
-   every output is integer, and the contract is byte equality;
-4. ``CannyEngine(device='cuda').process`` on eight 1080p scenes and the
-   escalating spiral frame, byte-equal to the plain path on the card (and
-   seeds 0 and 1 to the NumPy oracle), with every kernel's launch count
-   moved; a threshold change changes the output and builds nothing;
-5. the steady-state hot path under ``torch.cuda.set_sync_debug_mode("error")``;
-6. CUDA-event timings of each kernel and of the 8-frame stream, kernel path
-   and plain path.
+   paths' shapes (1080p, 720p) and at 37x53 and 1x1: ``ff_pack``, the round
+   kernels and ``unpack``; ``ff_stages`` for the all-stages set, each stage
+   alone and NMSQ; ``pack_thresh`` in both modes; the batched kernels
+   against the single-frame ones (8 x 1080p with the escalating spiral, and
+   3 x 37x53). Then the 1080p spiral cut off at the 100-round cap against
+   its recorded digest, through the round kernels and through the
+   two-kernel hysteresis (K6), and at the 400-round cap through K6.
+   Tolerance 0: every output is integer, and the contract is byte equality;
+4. ``CannyEngine(device='cuda')`` on each path, every launch count set to 0
+   just before the path and read just after: ``process`` to HYSTER on eight
+   1080p scenes and the spiral (byte-equal to the plain path on the card,
+   seeds 0 and 1 to the NumPy oracle); ``process`` on an 8 x 1080p batch
+   with exactly one escalating frame (four launches, equal to eight
+   single-frame calls); ``process`` to every display stage (equal to the
+   plain path, seeds 0 and 1 to the oracle); ``process_all`` (equal to the
+   plain ``torch_ops.canny_all_stages``: integers exactly, grad and slope
+   within 1e-6 relative); a threshold change changes the output and builds
+   nothing;
+5. the steady-state hot paths under ``torch.cuda.set_sync_debug_mode("error")``;
+6. CUDA-event timings of each kernel, kernel against plain, and of the
+   streams: single frames, the x8 batch, THRESH and ``process_all``.
 
 Any failure raises and exits non-zero before the result line. Without a
 CUDA device, or outside a checkout of the repository, it fails at once.
@@ -37,24 +49,31 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-#: The 1080p spiral threshold map, max_iters 100, dilate_steps 16,
-#: scan_after 12: the output the JAX package's round schedule gives
-#: (tests/test_cap_golden.py), so a schedule regression flips it.
+#: The 1080p spiral threshold map, dilate_steps 16, scan_after 12, cut off at
+#: max_iters 100 and 400: the outputs the JAX package's round schedule gives
+#: (tests/test_cap_golden.py), so a schedule regression flips them.
 SPIRAL_1080P_CAP100_SHA = "61ca860520f82b7a43be20833dcc5858dd7e6d25770f37aa4d9ed3e991848417"
 SPIRAL_1080P_CAP100_FINALS = 248514
+SPIRAL_1080P_CAP400_SHA = "a822292e4a2125148907b11f7ca4ed75552e46db4bfa02d196364616b2bfa20d"
 
-#: The TPU kernel (pallas_call site) each CUDA kernel replaces.
+#: The TPU kernels (pallas_call sites) each CUDA kernel replaces.
+_MEGA = "cudacam_tpu/ops/pallas/megakernel.py"
+_FUSED = "cudacam_tpu/ops/pallas/hysteresis_fused.py:365/:373"
 REPLACES = {
-    "ff_pack": "cudacam_tpu/ops/pallas/megakernel.py:569",
-    "hyst_phase1": "cudacam_tpu/ops/pallas/megakernel.py:569",
-    "hyst_phase2": "cudacam_tpu/ops/pallas/megakernel.py:839",
-    "unpack": "cudacam_tpu/ops/pallas/megakernel.py:569",
+    "ff_pack": f"{_MEGA}:569, {_MEGA}:1109",
+    "hyst_phase1": f"{_MEGA}:569, {_MEGA}:1109, {_FUSED}",
+    "hyst_phase2": f"{_MEGA}:839, {_FUSED}",
+    "unpack": f"{_MEGA}:569, {_MEGA}:1109, {_FUSED}",
+    "ff_stages": "cudacam_tpu/ops/pallas/feedforward.py:810",
+    "pack_thresh": _FUSED,
 }
 SOURCES = {
     "ff_pack": "cudacam_tpu_torch/csrc/ff_pack.cu",
     "hyst_phase1": "cudacam_tpu_torch/csrc/hyst_rounds.cu",
     "hyst_phase2": "cudacam_tpu_torch/csrc/hyst_rounds.cu",
     "unpack": "cudacam_tpu_torch/csrc/hyst_rounds.cu",
+    "ff_stages": "cudacam_tpu_torch/csrc/ff_stages.cu",
+    "pack_thresh": "cudacam_tpu_torch/csrc/pack.cu",
 }
 
 
@@ -68,8 +87,8 @@ def require(cond: bool, what: str) -> None:
 
 
 class Smoke:
-    """State shared by the phases: the card, the errors seen per kernel
-    and the timings."""
+    """State shared by the phases: the card, the errors seen per kernel,
+    the launch counts per path and the timings."""
 
     def __init__(self) -> None:
         import torch
@@ -87,7 +106,7 @@ class Smoke:
         self.err = {name: 0 for name in REPLACES}
         self.ms = {}
         self.plain_ms = {}
-        self.launches = {}
+        self.launches = {name: 0 for name in REPLACES}
         self.card = ""
 
     # -- helpers -----------------------------------------------------------
@@ -101,6 +120,24 @@ class Smoke:
             d = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
             self.err[name] = max(self.err[name], d)
         require(self.err[name] == 0, f"{name}: kernel differs from its plain version")
+
+    def path(self, name: str, run, expect) -> object:
+        """Drive one path with every launch count set to 0 just before and
+        read just after; ``expect`` maps each kernel the path must launch to
+        its count."""
+        from cudacam_tpu_torch.ops import cuda as kernels
+
+        self.torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        out = run()
+        self.torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        for k, n in expect.items():
+            require(counts[k] == n, f"path {name}: {k} launched {counts[k]} times, expected {n}")
+        for k, n in counts.items():
+            self.launches[k] += n
+        print(f"launches on path '{name}':", json.dumps({k: n for k, n in counts.items() if n}))
+        return out
 
     def time_ms(self, fn, n: int, reps: int = 5, setup=None) -> float:
         """CUDA-event milliseconds per call of ``fn(state)``: ``n`` calls
@@ -149,7 +186,12 @@ class Smoke:
     def phase_kernels(self) -> None:
         torch = self.torch
         from cudacam_tpu_torch.ops import bitpack
-        from cudacam_tpu_torch.ops.cuda.feedforward import ff_pack, ff_pack_plain
+        from cudacam_tpu_torch.ops.cuda.feedforward import (
+            FF_STAGES, NMSQ, ff_pack, ff_pack_plain, ff_stages, ff_stages_plain,
+        )
+        from cudacam_tpu_torch.ops.cuda.hysteresis_fused import (
+            hysteresis_fused, pack_thresh, pack_thresh_plain,
+        )
         from cudacam_tpu_torch.ops.cuda.megakernel import (
             hyst_phase1, hyst_phase2, unpack, unpack_plain,
         )
@@ -164,6 +206,7 @@ class Smoke:
             ((37, 53), dict()),
             ((1, 1), dict()),
         ]
+        stage_sets = [FF_STAGES, (NMSQ,)] + [(s,) for s in FF_STAGES]
         for (h, w), kw in cases:
             frame = torch.from_numpy(make_scene(h, w, seed=h + w)).to(self.dev)
             for fr in (frame, frame[..., 1].contiguous()):  # BGR and mono
@@ -171,6 +214,16 @@ class Smoke:
                 f_ref, p_ref = ff_pack_plain(fr, thr, **kw)
                 self.diff("ff_pack", f, f_ref)
                 self.diff("ff_pack", p, p_ref)
+                for stages in stage_sets:
+                    got = ff_stages(fr, thr, stages, **kw)
+                    for g, e in zip(got, ff_stages_plain(fr, thr, stages, **kw)):
+                        self.diff("ff_stages", g, e)
+                (thresh,) = ff_stages(fr, thr, (FF_STAGES[-1],), **kw)
+                (kg,) = ff_stages(fr, None, (NMSQ,), **kw)
+                for got, want in ((pack_thresh(thresh), pack_thresh_plain(thresh)),
+                                  (pack_thresh(kg, thr * thr), pack_thresh_plain(kg, thr * thr))):
+                    self.diff("pack_thresh", got[0], want[0])
+                    self.diff("pack_thresh", got[1], want[1])
             # scan_after 64 converges in phase 1; 2 escalates into phase 2.
             for sa in (64, 2):
                 rounds = dict(dilate_steps=16, max_iters=100)
@@ -189,28 +242,78 @@ class Smoke:
                 self.diff("unpack", unpack(fk, h), unpack_plain(f2, h))
             print(f"kernels == plain at {h}x{w} {kw or 'defaults'}")
 
-        # The cap-truncated spiral: phase 1 to round 12, phase 2 to the cap.
+        self.batched_vs_single()
+
+        # The cap-truncated spiral: phase 1 to round 12, phase 2 to the cap,
+        # through the round kernels and through K6 (pack_thresh + the same).
         h, w = 1080, 1920
-        f, p = bitpack.pack_pair(torch.from_numpy(make_spiral_thresh(h, w)).to(self.dev))
+        spiral_t = torch.from_numpy(make_spiral_thresh(h, w)).to(self.dev)
+        f, p = bitpack.pack_pair(spiral_t)
         flags = torch.zeros((2, 2), dtype=torch.int32, device=self.dev)
         hyst_phase1(f, p, flags, h, dilate_steps=16, scan_after=12, max_iters=100)
         hyst_phase2(f, p, flags, h, dilate_steps=16, max_iters=100)
-        out = unpack(f, h).cpu().numpy()
+        out = unpack(f, h)
         require(flags.tolist() == [[12, 1], [100, 1]], f"spiral flags {flags.tolist()}")
-        finals = int((out == 255).sum())
-        sha = hashlib.sha256(out.tobytes()).hexdigest()
-        require(finals == SPIRAL_1080P_CAP100_FINALS and sha == SPIRAL_1080P_CAP100_SHA,
-                f"spiral cap-100 digest: {finals} finals, sha256 {sha}")
-        print(f"spiral 1080p cap 100: {finals} finals, sha256 {sha[:8]}...{sha[-4:]} (recorded)")
+        for cap, want_sha in ((100, SPIRAL_1080P_CAP100_SHA), (400, SPIRAL_1080P_CAP400_SHA)):
+            k6, iters = hysteresis_fused(spiral_t, max_iters=cap, dilate_steps=16,
+                                         scan_after=12, return_iters=True)
+            outs = [("K6", k6.cpu().numpy())] + ([("rounds", out.cpu().numpy())] if cap == 100 else [])
+            for route, o in outs:
+                finals = int((o == 255).sum())
+                sha = hashlib.sha256(o.tobytes()).hexdigest()
+                require(sha == want_sha and (cap != 100 or finals == SPIRAL_1080P_CAP100_FINALS),
+                        f"spiral cap-{cap} digest through {route}: {finals} finals, sha256 {sha}")
+                print(f"spiral 1080p cap {cap} through {route}: {finals} finals, "
+                      f"sha256 {sha[:8]}...{sha[-4:]} (recorded)")
+            require(int(iters) == cap, f"K6 spiral cap {cap}: {int(iters)} rounds")
+
+    def batched_vs_single(self) -> None:
+        """The batched kernels (one launch for the batch) against the
+        single-frame kernels, frame by frame, on batches whose frames stop
+        at different rounds."""
+        torch = self.torch
+        import numpy as np
+        from cudacam_tpu_torch.ops.cuda.feedforward import ff_pack, ff_pack_batched
+        from cudacam_tpu_torch.ops.cuda.megakernel import hyst_phase1, hyst_phase2, unpack
+        from cudacam_tpu.io.sources import make_scene, make_spiral_frame
+
+        thr = torch.tensor([10, 40], dtype=torch.int32, device=self.dev)
+        rounds = dict(dilate_steps=16, max_iters=100)
+        for h, w, n, sa in ((1080, 1920, 8, 12), (37, 53, 3, 2)):
+            frames = [make_scene(h, w, seed=s) for s in range(n - 1)] + [make_spiral_frame(h, w)]
+            batch = torch.from_numpy(np.stack(frames)).to(self.dev)
+            for x in (batch, batch[..., 0].contiguous()):
+                f, p = ff_pack_batched(x, thr)
+                f_packed = f.clone()
+                flags = torch.zeros((n, 2, 2), dtype=torch.int32, device=self.dev)
+                hyst_phase1(f, p, flags, h, scan_after=sa, **rounds)
+                hyst_phase2(f, p, flags, h, **rounds)
+                edges = unpack(f, h)
+                for b in range(n):
+                    f1, p1 = ff_pack(x[b], thr)
+                    self.diff("ff_pack", f_packed[b], f1)
+                    self.diff("ff_pack", p[b], p1)
+                    fl1 = torch.zeros((2, 2), dtype=torch.int32, device=self.dev)
+                    hyst_phase1(f1, p1, fl1, h, scan_after=sa, **rounds)
+                    self.diff("hyst_phase1", flags[b, 0], fl1[0])
+                    hyst_phase2(f1, p1, fl1, h, **rounds)
+                    self.diff("hyst_phase2", f[b], f1)
+                    self.diff("hyst_phase2", flags[b], fl1)
+                    self.diff("unpack", edges[b], unpack(f1, h))
+            grown = [int(v) for v in flags[:, 0, 1].tolist()]
+            print(f"batched == single-frame kernels at {n} x {h}x{w}, BGR and mono "
+                  f"(growing at scan_after {sa}: {grown})")
 
     def phase_engine(self) -> None:
         torch = self.torch
         from cudacam_tpu_torch import CannyConfig, CannyStage
         from cudacam_tpu_torch.engine import CannyEngine
-        from cudacam_tpu_torch.ops import cuda as kernels, torch_ops
+        from cudacam_tpu_torch.ops import torch_ops
         from cudacam_tpu_torch.ops.cuda import _build
         from cudacam_tpu_torch.ops.cuda.canny import pipeline_kwargs
-        from cudacam_tpu_torch.ops.cuda.megakernel import canny_mega_pipeline
+        from cudacam_tpu_torch.ops.cuda.megakernel import (
+            canny_mega_pipeline, canny_mega_pipeline_batched,
+        )
         from cudacam_tpu.io.sources import make_scene, make_spiral_frame
         from cudacam_tpu.ops import numpy_oracle
 
@@ -220,28 +323,63 @@ class Smoke:
         spiral = make_spiral_frame(1080, 1920)
         frames = [torch.from_numpy(x).to(self.dev) for x in scenes + [spiral]]
         eng.process(frames[0])  # thresholds to the device before the count
-        torch.cuda.synchronize()
-
-        kernels.reset_launch_counts()
-        outs = [eng.process(f) for f in frames]
-        torch.cuda.synchronize()
-        self.launches = kernels.launch_counts()
-        require(all(n > 0 for n in self.launches.values()),
-                f"a kernel of the main path never launched: {self.launches}")
-        print("launches on the main path:", json.dumps(self.launches))
-
         thr = eng._thresholds()
+        main = ("ff_pack", "hyst_phase1", "hyst_phase2", "unpack")
+
+        outs = self.path("process HYSTER, 9 frames", lambda: [eng.process(f) for f in frames],
+                         dict.fromkeys(main, len(frames)))
         for i, (f, out) in enumerate(zip(frames, outs)):
             plain = torch_ops.canny_to_stage(f, thr[0], thr[1], cfg, CannyStage.HYSTER)
             require(torch.equal(out, plain), f"engine frame {i} differs from the plain path")
+        oracle = [numpy_oracle.canny_pipeline(scenes[s]) for s in (0, 1)]
         for s in (0, 1):
-            want = numpy_oracle.canny_pipeline(scenes[s])["hyster"]
-            require((outs[s].cpu().numpy() == want).all(), f"seed {s} differs from the oracle")
+            require((outs[s].cpu().numpy() == oracle[s]["hyster"]).all(),
+                    f"seed {s} differs from the oracle")
         _, flags = canny_mega_pipeline(frames[-1], thr, **pipeline_kwargs(cfg))
         require(int(flags[0, 1]) == 1, f"spiral frame did not escalate: {flags.tolist()}")
         print(f"engine == plain on 8 scenes + spiral (flags {flags.tolist()}); seeds 0, 1 == oracle")
         rounds = [canny_mega_pipeline(f, thr, **pipeline_kwargs(cfg))[1].tolist() for f in frames]
         print("flags [[phase-1 rounds, growing], [final rounds, growing]] per frame:", rounds)
+
+        # x8 batch: seven scenes and the spiral, four launches in all.
+        batch = torch.stack(frames[:7] + frames[-1:])
+        bout = self.path("process HYSTER, 8 x 1080p batch", lambda: eng.process(batch),
+                         dict.fromkeys(main, 1))
+        for i in range(8):
+            require(torch.equal(bout[i], eng.process(batch[i])),
+                    f"batch frame {i} differs from its single-frame process")
+        _, bflags = canny_mega_pipeline_batched(batch, thr, **pipeline_kwargs(cfg))
+        grown = bflags[:, 0, 1].tolist()
+        require(grown == [0] * 7 + [1], f"batch escalation flags {bflags.tolist()}")
+        print(f"batch == 8 single-frame calls; only the spiral escalated: {bflags.tolist()}")
+
+        display = [s for s in CannyStage if s != CannyStage.HYSTER]
+        souts = self.path("process MONO..THRESH",
+                          lambda: [eng.process(frames[0], s) for s in display],
+                          {"ff_stages": len(display)})
+        for seed in (0, 1):
+            got = souts if seed == 0 else [eng.process(frames[1], s) for s in display]
+            for s, g in zip(display, got):
+                plain = torch_ops.canny_to_stage(frames[seed], thr[0], thr[1], cfg, s)
+                require(torch.equal(g, plain), f"stage {s.name} seed {seed} differs from plain")
+                key = torch_ops.STAGE_DISPLAY_KEY[s]
+                require((g.cpu().numpy() == oracle[seed][key]).all(),
+                        f"stage {s.name} seed {seed} differs from the oracle")
+        print("every display stage == plain path; seeds 0, 1 == oracle for every stage")
+
+        allk = self.path("process_all", lambda: eng.process_all(frames[-1]),
+                         dict(ff_stages=1, pack_thresh=1, hyst_phase1=1, hyst_phase2=1, unpack=1))
+        want = torch_ops.canny_all_stages(frames[-1], thr[0], thr[1], cfg)
+        require(allk.keys() == want.keys(), f"process_all keys {sorted(allk)}")
+        for k, e in want.items():
+            g = allk[k]
+            require(g.dtype == e.dtype and g.shape == e.shape, f"process_all {k}: {g.dtype}")
+            if k in ("grad", "slope"):
+                require(bool(torch.allclose(g, e, rtol=1e-6, atol=0)), f"process_all {k} not within 1e-6")
+            else:
+                require(torch.equal(g, e), f"process_all {k} differs from the plain path")
+        require(torch.equal(allk["hyster"], outs[-1]), "process_all edge map != process HYSTER")
+        print("process_all == torch_ops.canny_all_stages on the spiral frame (10 keys)")
 
         builds = _build.load.cache_info().misses
         eng.set_high_threshold(80)
@@ -255,27 +393,40 @@ class Smoke:
         eng.set_low_threshold(10)
         eng.set_high_threshold(40)
         print("threshold 10/40 -> 20/80 changes the output, builds nothing")
-        self.eng, self.frames, self.cfg = eng, frames, cfg
+        self.eng, self.frames, self.cfg, self.batch = eng, frames, cfg, batch
 
     def phase_no_sync(self) -> None:
         torch = self.torch
+        from cudacam_tpu_torch import CannyStage
+
         eng, frames = self.eng, self.frames[:8]
-        eng.process(frames[0])
+        calls = [lambda: [eng.process(f) for f in frames], lambda: eng.process(self.batch),
+                 lambda: eng.process(frames[0], CannyStage.THRESH),
+                 lambda: eng.process_all(frames[0])]
+        for call in calls:
+            call()
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
         try:
-            for f in frames:
-                eng.process(f)
+            for call in calls:
+                call()
         finally:
             torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize()
-        print("steady-state process(): no host sync under set_sync_debug_mode('error')")
+        print("steady-state process() (single, x8 batch, THRESH) and process_all(): "
+              "no host sync under set_sync_debug_mode('error')")
 
     def phase_timing(self) -> None:
         torch = self.torch
         from cudacam_tpu_torch import CannyStage
         from cudacam_tpu_torch.ops import bitpack, torch_ops
-        from cudacam_tpu_torch.ops.cuda.feedforward import ff_pack, ff_pack_plain
+        from cudacam_tpu_torch.ops.cuda.canny import hyster_kwargs
+        from cudacam_tpu_torch.ops.cuda.feedforward import (
+            FF_STAGES, ff_pack, ff_pack_plain, ff_stages, ff_stages_plain,
+        )
+        from cudacam_tpu_torch.ops.cuda.hysteresis_fused import (
+            hysteresis_fused, pack_thresh, pack_thresh_plain,
+        )
         from cudacam_tpu_torch.ops.cuda.megakernel import (
             hyst_phase1, hyst_phase2, unpack, unpack_plain,
         )
@@ -311,16 +462,46 @@ class Smoke:
         self.ms["unpack"] = self.time_ms(lambda _: unpack(f0, h), 50)
         self.plain_ms["unpack"] = self.time_ms(lambda _: unpack_plain(f0, h), 20)
 
+        self.ms["ff_stages"] = self.time_ms(lambda _: ff_stages(frame, thr, FF_STAGES), 50)
+        self.plain_ms["ff_stages"] = self.time_ms(
+            lambda _: ff_stages_plain(frame, thr, FF_STAGES), 5)
+        th = (CannyStage.THRESH,)
+        thresh_ms = self.time_ms(lambda _: ff_stages(frame, thr, th), 50)
+        thresh_plain_ms = self.time_ms(lambda _: ff_stages_plain(frame, thr, th), 5)
+        (tmap,) = ff_stages(frame, thr, th)
+        self.ms["pack_thresh"] = self.time_ms(lambda _: pack_thresh(tmap), 50)
+        self.plain_ms["pack_thresh"] = self.time_ms(lambda _: pack_thresh_plain(tmap), 20)
+        k6_kw = hyster_kwargs(cfg)
+        k6_ms = self.time_ms(lambda _: hysteresis_fused(tmap, **k6_kw), 50)
+        k6_plain_ms = self.time_ms(lambda _: bitpack.hysteresis_packed(tmap, **k6_kw), 1, reps=3)
+
         def stream(process, reps):
             return self.time_ms(lambda _: [process(f) for f in frames], 1, reps=reps) / len(frames)
 
         kernel_ms = stream(eng.process, 7)
         plain_ms = stream(lambda f: torch_ops.canny_to_stage(f, thr[0], thr[1], cfg, CannyStage.HYSTER), 5)
+        batches = {}
+        for label, batch in (("7 scenes + spiral", self.batch), ("8 scenes", torch.stack(frames))):
+            batches[label] = (
+                self.time_ms(lambda _: eng.process(batch), 1, reps=7) / len(batch),
+                self.time_ms(lambda _: [eng.process(f) for f in batch], 1, reps=7) / len(batch),
+            )
+        stage_ms = stream(lambda f: eng.process(f, CannyStage.THRESH), 7)
+        all_ms = stream(eng.process_all, 7)
         for name in REPLACES:
             print(f"time {name}: kernel {self.ms[name]!r} ms, plain {self.plain_ms[name]!r} ms (1080p)")
         print(f"time hyst_phase2 on a converged frame (returns at once): {noop_ms!r} ms")
+        print(f"time ff_stages THRESH alone: kernel {thresh_ms!r} ms, plain {thresh_plain_ms!r} ms")
+        print(f"time K6 whole (pack_thresh + rounds + unpack) on scene 0's threshold map "
+              f"({k6_kw}): "
+              f"kernels {k6_ms!r} ms, plain {k6_plain_ms!r} ms")
         print(f"time 1080p 8-scene stream: kernel path {kernel_ms!r} ms/frame (median of 7 "
               f"passes), plain path {plain_ms!r} ms/frame (median of 5), CUDA events, on {self.card}")
+        for label, (batch_ms, singles_ms) in batches.items():
+            print(f"time 1080p x8 batch ({label}): batched {batch_ms!r} ms/frame, "
+                  f"8 single-frame calls {singles_ms!r} ms/frame (medians of 7)")
+        print(f"time 1080p process(frame, THRESH) {stage_ms!r} ms/frame, process_all "
+              f"{all_ms!r} ms/frame (8 scenes, medians of 7)")
 
     def result(self) -> None:
         torch = self.torch
@@ -338,7 +519,7 @@ class Smoke:
         print(json.dumps({"kernels": kernels}))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-            "count": 1,  # the smoke drives cuda:0 only
+            "count": torch.cuda.device_count(),
         }}))
 
 

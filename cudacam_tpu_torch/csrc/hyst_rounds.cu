@@ -1,41 +1,57 @@
-// Hysteresis rounds on the packed planes, and the unpack to the edge map.
+// Hysteresis rounds on a batch of packed planes, and the unpack to edge maps.
 //
 // Replaces the back half of the TPU megakernel (cudacam_tpu/ops/pallas/
-// megakernel.py: _phase1_finalize, _unpack_out) and its phase-2
-// continuation (_cont_kernel / _cont_call). Both phases execute the round
-// schedule of cudacam_tpu/ops/bitpack.py::_make_ops exactly: the same
-// dilate_steps with bitpack's default carry cadence (every 8th step exact
-// across words) and an exact last step, the same 8 scan directions in the
-// same order, the same round counting. So an output cut off by the
-// max_iters cap is the JAX package's, bit for bit.
+// megakernel.py: _phase1_finalize, _unpack_out; per frame of a batch in
+// _kernel_batched), its phase-2 continuation (_cont_kernel / _cont_call),
+// and the convergence and unpack of the fused hysteresis kernel
+// (hysteresis_fused.py: _kernel). Both phases execute the round schedule of
+// cudacam_tpu/ops/bitpack.py::_make_ops exactly: the same dilate_steps with
+// bitpack's default carry cadence (every 8th step exact across words) and
+// an exact last step, the same 8 scan directions in the same order, the
+// same round counting. So an output cut off by the max_iters cap is the JAX
+// package's, bit for bit.
 //
 // Design: one cooperative persistent kernel per phase (route (a)), launched
 // with cudaLaunchCooperativeKernel on a grid sized from the occupancy
 // calculator, with grid.sync() between the steps that read other blocks'
-// words. The 1080p planes are 34 x 1920 words (261 KB each): they fit L2 but
-// not one SM's shared memory, and Hopper blocks carry nothing between them,
-// so the state lives in device memory (L2) between barriers.
+// words. A 1080p plane is 34 x 1920 words (261 KB): it fits L2 but not one
+// SM's shared memory, and Hopper blocks carry nothing between them, so the
+// state lives in device memory (L2) between barriers. A batch of B frames
+// is one launch per phase: every frame keeps its own planes, round count
+// and stop test, and the work of a round is enumerated over (frame, tile)
+// or (frame, word) of the frames still active.
 //
 // * A round's dilate_steps dilations run in shared memory per tile (TR word
 //   rows x TC columns core) with a halo as deep as the steps: dilate_steps
 //   columns and ceil(dilate_steps / 32) word rows. The core of a tile after
 //   the steps is exact; the halo is scratch. One grid barrier per round.
 // * The 8 directional scans propagate across the whole frame, so each
-//   doubling step (out = g | (pp & shifted(g))) is one pass over the plane
+//   doubling step (out = g | (pp & shifted(g))) is one pass over the planes
 //   followed by a grid barrier, on ping-pong buffers (Jacobi: every step
 //   reads only the previous step's words).
-// * The per-round "changed" flag rotates over three slots: a slot is
+// * Per-frame state. Each block holds a copy of every frame's (round count,
+//   still growing) in shared memory and updates it after each round's
+//   barrier from the frame's "changed" slot, so all blocks agree on which
+//   frames are active without another barrier. A frame that stopped is
+//   frozen: no more dilations, no more counted rounds. The round loop runs
+//   while any frame is active.
+// * Phase 1 ping-pongs each frame between its FINAL plane and one scratch
+//   plane by the frame's own round parity, and copies back the frames that
+//   ended on the scratch plane.
+// * The "changed" flags rotate over three slots of B words: a slot is
 //   cleared one round before it is written and two barriers after its last
 //   read, so no reset races a write or a read.
-// * Phase 1 writes flags[0..1] = (round count, still growing); phase 2 reads
-//   them on the device and returns at once when the frame converged, so the
-//   host never reads the flag back. Phase 2 writes flags[2..3].
+// * Phase 1 writes flags[b][0] = (round count, still growing); phase 2
+//   reads them on the device, works only on frames still growing, and
+//   returns at once when none is, so the host never reads a flag back.
+//   Phase 2 writes flags[b][1] for every frame.
 //
-// * The occupancy query and the shared-memory opt-in run once per (phase,
-//   device, dilate_steps), on the first launch; later launches reuse the grid.
+// * The occupancy query runs once per (phase, device, dilate_steps, B), on
+//   the first launch; later launches reuse the grid.
 //
 // Bound: grid barriers and L2 latency, not bytes or operations: a round moves
-// a few hundred KB through L2 and does ~10 integer ops per word per step.
+// a few hundred KB per frame through L2 and does ~10 integer ops per word
+// per step.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -43,7 +59,7 @@
 
 #include <map>
 #include <mutex>
-#include <utility>
+#include <tuple>
 
 #include "device_guard.cuh"
 
@@ -58,14 +74,24 @@ constexpr int CARRY_EVERY = 8;  // bitpack._CARRY_EVERY: every 8th dilation step
 constexpr int MAX_DILATE_STEPS = 256;  // the tile halo (steps columns) fits shared memory
 
 struct Params {
-  uint32_t* f;        // (hw, w) FINAL plane, updated in place
-  const uint32_t* p;  // (hw, w) CANDIDATE plane
-  uint32_t* buf[4];   // scratch planes
-  int* chg;           // [3] per-round change flags
-  int* flags;         // [4]: phase-1 (it, growing), final (it, growing)
+  uint32_t* f;        // (B, hw, w) FINAL planes, updated in place
+  const uint32_t* p;  // (B, hw, w) CANDIDATE planes
+  uint32_t* buf[4];   // scratch: B planes each
+  int* chg;           // [3][B] per-round change flags
+  int* flags;         // (B, 2, 2): phase-1 (it, growing), final (it, growing)
+  int nb;             // frames in the batch
   int hw, w, h;       // plane rows, plane columns (= image columns), image rows
+  long long plane;    // words per plane: hw * w
   int dilate_steps, cap;
   int halo_r, halo_c;  // tile halo: word rows, columns
+};
+
+// Per-frame state, one copy per block in shared memory after the tile.
+struct FrameState {
+  int* it;    // [B] round count
+  int* grow;  // [B] still growing (the last round changed the frame)
+  int* list;  // [B] frames active this round
+  int* n;     // [1] their number
 };
 
 __device__ __forceinline__ uint32_t ld(const uint32_t* x, int k, int c, int hw, int w) {
@@ -110,26 +136,37 @@ __device__ __forceinline__ uint32_t row_or(const uint32_t* A, int rr, int cc, in
   return row[cc] | (cc > 0 ? row[cc - 1] : 0u) | (cc < RW - 1 ? row[cc + 1] : 0u);
 }
 
-// One round of dilate_steps dilations, src -> dst, tile by tile in shared
-// memory. Returns (to every thread of the block) whether the block changed
-// a word, when COMPARE.
-template <bool COMPARE>
-__device__ bool dilate_round(const Params& a, const uint32_t* src, uint32_t* dst,
-                             uint32_t* sm) {
+__host__ __device__ inline int tile_words(int dilate_steps) {
+  return 3 * (TR + 2 * ((dilate_steps + 31) / 32)) * (TC + 2 * dilate_steps);
+}
+
+// One round of dilate_steps dilations on every active frame, tile by tile in
+// shared memory. Phase 1 reads frame b's plane of its round parity and
+// writes the other, and marks chg[slot][b] when a tile changed a word;
+// phase 2 reads f and writes buf[0].
+template <bool PHASE2>
+__device__ void dilate_round(const Params& a, const FrameState& st, int slot, uint32_t* sm) {
   const int RH = TR + 2 * a.halo_r, RW = TC + 2 * a.halo_c, RN = RH * RW;
   const int tiles_c = (a.w + TC - 1) / TC;
   const int n_tiles = ((a.hw + TR - 1) / TR) * tiles_c;
-  bool changed = false;
-  for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
-    const int k0 = (t / tiles_c) * TR - a.halo_r;
-    const int c0 = (t % tiles_c) * TC - a.halo_c;
+  const int n_act = *st.n;
+  for (int t = blockIdx.x; t < n_act * n_tiles; t += gridDim.x) {
+    const int b = st.list[t / n_tiles], tt = t - (t / n_tiles) * n_tiles;
+    uint32_t* fb = a.f + b * a.plane;
+    uint32_t* bb = a.buf[0] + b * a.plane;
+    const bool odd = !PHASE2 && (st.it[b] & 1);
+    const uint32_t* src = odd ? bb : fb;
+    uint32_t* dst = odd ? fb : bb;
+    const uint32_t* pb = a.p + b * a.plane;
+    const int k0 = (tt / tiles_c) * TR - a.halo_r;
+    const int c0 = (tt % tiles_c) * TC - a.halo_c;
     uint32_t* A = sm;
     uint32_t* B = sm + RN;
     uint32_t* P = sm + 2 * RN;
     for (int i = threadIdx.x; i < RN; i += NT) {
       int rr = i / RW, cc = i - rr * RW;
       A[i] = ld(src, k0 + rr, c0 + cc, a.hw, a.w);
-      P[i] = ld(a.p, k0 + rr, c0 + cc, a.hw, a.w);
+      P[i] = ld(pb, k0 + rr, c0 + cc, a.hw, a.w);
     }
     __syncthreads();
     for (int step = 1; step <= a.dilate_steps; ++step) {
@@ -149,24 +186,27 @@ __device__ bool dilate_round(const Params& a, const uint32_t* src, uint32_t* dst
       A = B;
       B = T;
     }
+    bool changed = false;
     for (int i = threadIdx.x; i < TR * TC; i += NT) {
       int rr = i / TC + a.halo_r, cc = i % TC + a.halo_c;
       int k = k0 + rr, c = c0 + cc;
       if (k < a.hw && c < a.w) {
         uint32_t v = A[rr * RW + cc];
-        if (COMPARE) changed |= v != __ldcg(src + k * a.w + c);
+        if (!PHASE2) changed |= v != __ldcg(src + k * a.w + c);
         dst[k * a.w + c] = v;
       }
     }
-    __syncthreads();  // the next tile reuses the shared memory
+    // The barrier also frees the shared memory for the next tile.
+    if (__syncthreads_or(changed) && threadIdx.x == 0) atomicOr(&a.chg[slot * a.nb + b], 1);
   }
-  return __syncthreads_or(changed);
 }
 
-// The 8 directional scans on the dilated plane in buf[0], then the result
-// into a.f. Returns whether the block changed a word of a.f.
-__device__ bool scan_round(const Params& a, cg::grid_group& grid) {
-  const int n = a.hw * a.w;
+// The 8 directional scans on the dilated planes in buf[0] of every active
+// frame, then the result into f; marks chg[slot][b] when frame b changed.
+__device__ void scan_round(const Params& a, const FrameState& st, int slot,
+                           cg::grid_group& grid) {
+  const int n = (int)a.plane;
+  const int n_act = *st.n;
   const int gtid = blockIdx.x * NT + threadIdx.x;
   const int gsize = gridDim.x * NT;
   const uint32_t* gs = a.buf[0];
@@ -177,120 +217,158 @@ __device__ bool scan_round(const Params& a, cg::grid_group& grid) {
       const bool last = 2 * s >= extent;
       uint32_t* gd = gs == a.buf[0] ? a.buf[1] : a.buf[0];
       uint32_t* pd = ps == a.buf[2] ? a.buf[3] : a.buf[2];
-      for (int idx = gtid; idx < n; idx += gsize) {
-        int k = idx / a.w, c = idx - k * a.w;
-        uint32_t gv = __ldcg(gs + idx), pv = __ldcg(ps + idx);
-        gd[idx] = gv | (pv & upstream(gs, k, c, dir, s, a.hw, a.w));
-        if (!last) pd[idx] = pv & upstream(ps, k, c, dir, s, a.hw, a.w);
+      for (int i = 0; i < n_act; ++i) {
+        const long long off = st.list[i] * a.plane;
+        const uint32_t* gsb = gs + off;
+        const uint32_t* psb = ps + off;
+        for (int e = gtid; e < n; e += gsize) {
+          const int k = e / a.w, c = e - k * a.w;
+          const uint32_t gv = __ldcg(gsb + e), pv = __ldcg(psb + e);
+          gd[off + e] = gv | (pv & upstream(gsb, k, c, dir, s, a.hw, a.w));
+          if (!last) pd[off + e] = pv & upstream(psb, k, c, dir, s, a.hw, a.w);
+        }
       }
       grid.sync();
       gs = gd;
       ps = pd;
     }
   }
-  bool changed = false;
-  for (int idx = gtid; idx < n; idx += gsize) {
-    uint32_t v = __ldcg(gs + idx);
-    changed |= v != __ldcg(a.f + idx);
-    a.f[idx] = v;
+  for (int i = 0; i < n_act; ++i) {
+    const int b = st.list[i];
+    const uint32_t* gb = gs + b * a.plane;
+    uint32_t* fb = a.f + b * a.plane;
+    bool changed = false;
+    for (int e = gtid; e < n; e += gsize) {
+      const uint32_t v = __ldcg(gb + e);
+      changed |= v != __ldcg(fb + e);
+      fb[e] = v;
+    }
+    if (__syncthreads_or(changed) && threadIdx.x == 0) atomicOr(&a.chg[slot * a.nb + b], 1);
   }
-  return __syncthreads_or(changed);
+}
+
+// Lists the frames that run round r (thread 0 only; the caller syncs the
+// block). Every block computes the same list from the same state.
+template <bool PHASE2>
+__device__ void list_active(const Params& a, const FrameState& st, int r) {
+  int n = 0;
+  for (int b = 0; b < a.nb; ++b) {
+    // Phase 1 runs its first round unconditionally; phase 2 starts at the
+    // phase-1 exit state.
+    const bool on = (!PHASE2 && r == 0) || (st.grow[b] && st.it[b] < a.cap);
+    if (on) st.list[n++] = b;
+  }
+  *st.n = n;
 }
 
 template <bool PHASE2>
 __global__ void __launch_bounds__(NT) hyst_kernel(Params a) {
   extern __shared__ uint32_t sm[];
+  int* state = reinterpret_cast<int*>(sm + tile_words(a.dilate_steps));
+  const FrameState st{state, state + a.nb, state + 2 * a.nb, state + 3 * a.nb};
   cg::grid_group grid = cg::this_grid();
   const bool lead = blockIdx.x == 0 && threadIdx.x == 0;
-  int it = 0;
-  if (PHASE2) {
-    it = a.flags[0];
-    if (a.flags[1] == 0) {  // converged in phase 1: nothing to continue
-      if (lead) {
-        a.flags[2] = it;
-        a.flags[3] = 0;
-      }
-      return;
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < a.nb; ++b) {
+      st.it[b] = PHASE2 ? a.flags[4 * b] : 0;
+      st.grow[b] = PHASE2 ? a.flags[4 * b + 1] : 1;
     }
+    list_active<PHASE2>(a, st, 0);
   }
-  if (lead) a.chg[0] = a.chg[1] = a.chg[2] = 0;
+  __syncthreads();
+  if (PHASE2 && *st.n == 0) {  // every frame converged in phase 1
+    for (int b = blockIdx.x * NT + threadIdx.x; b < a.nb; b += gridDim.x * NT) {
+      a.flags[4 * b + 2] = st.it[b];
+      a.flags[4 * b + 3] = st.grow[b];
+    }
+    return;
+  }
+  if (lead)
+    for (int i = 0; i < 3 * a.nb; ++i) a.chg[i] = 0;
   grid.sync();
 
-  uint32_t* cur = a.f;
-  uint32_t* nxt = a.buf[0];
-  int changed = 1;
-  for (int r = 0;; ++r) {
-    // Phase 1 runs one round unconditionally; phase 2 starts still growing.
-    if ((PHASE2 || r > 0) && !(changed && it < a.cap)) break;
+  for (int r = 0; *st.n > 0; ++r) {
     const int slot = r % 3;
-    if (lead) a.chg[(r + 1) % 3] = 0;
-    bool block_changed;
+    if (lead)
+      for (int b = 0; b < a.nb; ++b) a.chg[((r + 1) % 3) * a.nb + b] = 0;
     if (PHASE2) {
-      dilate_round<false>(a, a.f, a.buf[0], sm);
+      dilate_round<true>(a, st, slot, sm);
       grid.sync();
-      block_changed = scan_round(a, grid);
+      scan_round(a, st, slot, grid);
     } else {
-      block_changed = dilate_round<true>(a, cur, nxt, sm);
-      uint32_t* t = cur;
-      cur = nxt;
-      nxt = t;
+      dilate_round<false>(a, st, slot, sm);
     }
-    if (block_changed && threadIdx.x == 0) atomicOr(&a.chg[slot], 1);
     grid.sync();
-    changed = *(volatile int*)&a.chg[slot];
-    ++it;
+    if (threadIdx.x == 0) {
+      for (int i = 0; i < *st.n; ++i) {
+        const int b = st.list[i];
+        st.grow[b] = *(volatile int*)&a.chg[slot * a.nb + b];
+        ++st.it[b];
+      }
+      list_active<PHASE2>(a, st, r + 1);
+    }
+    __syncthreads();
   }
-  if (!PHASE2 && cur != a.f) {
-    const int n = a.hw * a.w;
-    for (int idx = blockIdx.x * NT + threadIdx.x; idx < n; idx += gridDim.x * NT)
-      a.f[idx] = __ldcg(cur + idx);
+  if (!PHASE2) {  // frames that ended on the scratch plane: copy it back
+    for (int b = 0; b < a.nb; ++b) {
+      if (!(st.it[b] & 1)) continue;
+      uint32_t* fb = a.f + b * a.plane;
+      const uint32_t* bb = a.buf[0] + b * a.plane;
+      for (int e = blockIdx.x * NT + threadIdx.x; e < a.plane; e += gridDim.x * NT)
+        fb[e] = __ldcg(bb + e);
+    }
   }
   if (lead) {
-    a.flags[PHASE2 ? 2 : 0] = it;
-    a.flags[PHASE2 ? 3 : 1] = changed;
+    for (int b = 0; b < a.nb; ++b) {
+      a.flags[4 * b + (PHASE2 ? 2 : 0)] = st.it[b];
+      a.flags[4 * b + (PHASE2 ? 3 : 1)] = st.grow[b];
+    }
   }
 }
 
-__global__ void unpack_kernel(const uint32_t* __restrict__ f, uint8_t* __restrict__ out,
-                              int h, int w) {
-  const long long n = (long long)h * w;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += (long long)gridDim.x * blockDim.x) {
-    int r = (int)(i / w), c = (int)(i - (long long)r * w);
-    out[i] = ((f[(r >> 5) * w + c] >> (r & 31)) & 1u) ? 255 : 0;
+// Frame blockIdx.y of the batch: every byte of its edge map written once.
+__global__ void unpack_kernel(const uint32_t* __restrict__ f, uint8_t* __restrict__ out, int h,
+                              int w) {
+  const int n = h * w;
+  const uint32_t* fb = f + (size_t)blockIdx.y * ((h + 31) / 32) * w;
+  uint8_t* ob = out + (size_t)blockIdx.y * n;
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x) {
+    const int r = i / w, c = i - r * w;
+    ob[i] = ((fb[(r >> 5) * w + c] >> (r & 31)) & 1u) ? 255 : 0;
   }
 }
 
 int scratch_planes(int phase) { return phase == 2 ? 4 : 1; }
 
-// Dynamic shared memory of one tile: A, B and P planes with the halo.
-size_t smem_bytes(int dilate_steps) {
-  const int RH = TR + 2 * ((dilate_steps + 31) / 32), RW = TC + 2 * dilate_steps;
-  return 3 * (size_t)RH * RW * sizeof(uint32_t);
+// Dynamic shared memory: the tile's A, B and P planes with the halo, then
+// the per-frame state (FrameState: 3 ints per frame and a count).
+size_t smem_bytes(int dilate_steps, int nb) {
+  return ((size_t)tile_words(dilate_steps) + 3 * (size_t)nb + 1) * sizeof(uint32_t);
 }
 
 // The most blocks of hyst_kernel<PHASE2> that can be co-resident on
 // `device` (the cooperative grid's limit), computed on the first launch for
-// each dilate_steps and cached.
+// each (dilate_steps, batch) and cached.
 template <bool PHASE2>
-cudaError_t max_grid(int device, int dilate_steps, int* out) {
+cudaError_t max_grid(int device, int dilate_steps, int nb, int* out) {
   static std::mutex mu;
-  static std::map<std::pair<int, int>, int> cache;
+  static std::map<std::tuple<int, int, int>, int> cache;
   std::lock_guard<std::mutex> lock(mu);
-  const auto key = std::make_pair(device, dilate_steps);
+  const auto key = std::make_tuple(device, dilate_steps, nb);
   const auto hit = cache.find(key);
   if (hit != cache.end()) {
     *out = hit->second;
     return cudaSuccess;
   }
   auto kern = hyst_kernel<PHASE2>;
-  // One opt-in for the largest tile serves every dilate_steps on the device.
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem_bytes(MAX_DILATE_STEPS));
+  const size_t bytes = smem_bytes(dilate_steps, nb);
+  int optin = 0, per_sm = 0, sms = 0;
+  cudaError_t err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (err != cudaSuccess) return err;
-  int per_sm = 0, sms = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, NT,
-                                                      smem_bytes(dilate_steps));
+  if (bytes > (size_t)optin) return cudaErrorInvalidValue;  // batch too large for one launch
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, NT, bytes);
   if (err != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return err;
@@ -301,33 +379,42 @@ cudaError_t max_grid(int device, int dilate_steps, int* out) {
 
 template <bool PHASE2>
 cudaError_t launch_rounds(Params a, int device, cudaStream_t stream) {
-  if (a.dilate_steps < 1 || a.dilate_steps > MAX_DILATE_STEPS) return cudaErrorInvalidValue;
+  if (a.dilate_steps < 1 || a.dilate_steps > MAX_DILATE_STEPS || a.nb < 1)
+    return cudaErrorInvalidValue;
   int limit = 0;
-  cudaError_t err = max_grid<PHASE2>(device, a.dilate_steps, &limit);
+  cudaError_t err = max_grid<PHASE2>(device, a.dilate_steps, a.nb, &limit);
   if (err != cudaSuccess) return err;
-  const int n_tiles = ((a.hw + TR - 1) / TR) * ((a.w + TC - 1) / TC);
-  const int n_blocks_words = (a.hw * a.w + NT - 1) / NT;
-  int grid = n_tiles > n_blocks_words ? n_tiles : n_blocks_words;
+  // Phase 1 starts with every frame active: its grid covers the batch's
+  // tiles. Phase 2 works on the escalated frames, rarely more than one, and
+  // a grid barrier costs more the more blocks take part, so its grid covers
+  // one frame (x8 1080p batch with one escalating frame: 1.53 -> 1.24
+  // ms/frame on an H100; with none escalating, unchanged).
+  const long long scale = PHASE2 ? 1 : a.nb;
+  const long long n_tiles = scale * ((a.hw + TR - 1) / TR) * ((a.w + TC - 1) / TC);
+  const long long n_blocks_words = (scale * a.plane + NT - 1) / NT;
+  long long grid = n_tiles > n_blocks_words ? n_tiles : n_blocks_words;
   if (grid > limit) grid = limit;
   void* args[] = {&a};
-  err = cudaLaunchCooperativeKernel((void*)hyst_kernel<PHASE2>, dim3(grid), dim3(NT), args,
-                                    smem_bytes(a.dilate_steps), stream);
+  err = cudaLaunchCooperativeKernel((void*)hyst_kernel<PHASE2>, dim3((unsigned)grid), dim3(NT),
+                                    args, smem_bytes(a.dilate_steps, a.nb), stream);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
-Params make_params(void* f, const void* p, void* scratch, void* flags, int h, int w,
+Params make_params(void* f, const void* p, void* scratch, void* flags, int nb, int h, int w,
                    int dilate_steps, int cap, int phase) {
   Params a;
+  a.nb = nb;
   a.hw = (h + 31) / 32;
   a.w = w;
   a.h = h;
+  a.plane = (long long)a.hw * w;
   a.f = static_cast<uint32_t*>(f);
   a.p = static_cast<const uint32_t*>(p);
   uint32_t* s = static_cast<uint32_t*>(scratch);
   const int planes = scratch_planes(phase);
-  for (int i = 0; i < 4; ++i) a.buf[i] = s + (size_t)(i < planes ? i : 0) * a.hw * w;
-  a.chg = reinterpret_cast<int*>(s + (size_t)planes * a.hw * w);
+  for (int i = 0; i < 4; ++i) a.buf[i] = s + (i < planes ? i : 0) * nb * a.plane;
+  a.chg = reinterpret_cast<int*>(s + planes * nb * a.plane);
   a.flags = static_cast<int*>(flags);
   a.dilate_steps = dilate_steps;
   a.cap = cap;
@@ -338,35 +425,38 @@ Params make_params(void* f, const void* p, void* scratch, void* flags, int h, in
 
 }  // namespace
 
-// int32 words of scratch the phase needs: its scratch planes + 3 flags.
-extern "C" long long cc_hyst_scratch_words(int h, int w, int phase) {
-  return (long long)scratch_planes(phase) * ((h + 31) / 32) * w + 3;
+// int32 words of scratch the phase needs for B frames: its scratch planes +
+// 3 change flags per frame.
+extern "C" long long cc_hyst_scratch_words(int nb, int h, int w, int phase) {
+  return (long long)nb * (scratch_planes(phase) * (long long)((h + 31) / 32) * w + 3);
 }
 
-extern "C" int cc_hyst_phase1(void* f, const void* p, void* scratch, void* flags, int h,
-                              int w, int dilate_steps, int scan_after, int max_iters,
+extern "C" int cc_hyst_phase1(void* f, const void* p, void* scratch, void* flags, int nb,
+                              int h, int w, int dilate_steps, int scan_after, int max_iters,
                               int device, void* stream) {
   DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return guard.err;
   int cap = scan_after < max_iters ? scan_after : max_iters;
-  Params a = make_params(f, p, scratch, flags, h, w, dilate_steps, cap, 1);
+  Params a = make_params(f, p, scratch, flags, nb, h, w, dilate_steps, cap, 1);
   return launch_rounds<false>(a, device, static_cast<cudaStream_t>(stream));
 }
 
-extern "C" int cc_hyst_phase2(void* f, const void* p, void* scratch, void* flags, int h,
-                              int w, int dilate_steps, int max_iters, int device,
+extern "C" int cc_hyst_phase2(void* f, const void* p, void* scratch, void* flags, int nb,
+                              int h, int w, int dilate_steps, int max_iters, int device,
                               void* stream) {
   DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return guard.err;
-  Params a = make_params(f, p, scratch, flags, h, w, dilate_steps, max_iters, 2);
+  Params a = make_params(f, p, scratch, flags, nb, h, w, dilate_steps, max_iters, 2);
   return launch_rounds<true>(a, device, static_cast<cudaStream_t>(stream));
 }
 
-extern "C" int cc_unpack(const void* f, void* out, int h, int w, int device, void* stream) {
+extern "C" int cc_unpack(const void* f, void* out, int nb, int h, int w, int device,
+                         void* stream) {
   DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return guard.err;
-  const long long n = (long long)h * w;
-  const int grid = (int)((n + 255) / 256);
+  if (nb < 1 || nb > 65535) return cudaErrorInvalidValue;  // grid.y
+  const long long blocks = ((long long)h * w + 255) / 256;
+  const dim3 grid((unsigned)(blocks < (1 << 30) ? blocks : (1 << 30)), nb);
   unpack_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(f), static_cast<uint8_t*>(out), h, w);
   return cudaGetLastError();

@@ -8,12 +8,13 @@ stage runs the plain PyTorch ops. There is no fallback between the two.
 
 Thresholds are held as one device int32 [low, high] tensor that the
 kernels read, so a threshold change rebuilds nothing and the hot path reads
-nothing back to the host. A batched (B, H, W[, 3]) input runs frame by frame
-through the single-frame path.
+nothing back to the host. A batched (B, H, W[, 3]) input runs HYSTER as one
+launch of each kernel for the whole batch; the display stages and
+``process_all`` loop over its frames, as the JAX package maps over them.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -126,13 +127,23 @@ class CannyEngine(ThresholdControls):
         final_stage = CannyStage(final_stage)
         thr = self._thresholds()
         if batched:
-            return torch.stack(
-                [canny.canny_to_stage(f, thr, self._cfg, final_stage) for f in arr]
-            )
+            return canny.canny_to_stage_batched(arr, thr, self._cfg, final_stage)
         return canny.canny_to_stage(arr, thr, self._cfg, final_stage)
 
+    def process_all(self, frame: FrameLike) -> Dict[str, torch.Tensor]:
+        """Run everything, returning every stage buffer on the engine's
+        device under the keys of ``xla_ops.canny_all_stages`` (stacked per
+        key for a batch)."""
+        arr, batched = self._validate(frame)
+        thr = self._thresholds()
+        if not batched:
+            return canny.canny_all_stages(arr, thr, self._cfg)
+        per_frame = [canny.canny_all_stages(f, thr, self._cfg) for f in arr]
+        return {k: torch.stack([d[k] for d in per_frame]) for k in per_frame[0]}
+
     def warmup(self, final_stage: CannyStage = CannyStage.HYSTER, batch: int = 0) -> None:
-        """Run one frame of zeros ahead of the first real frame."""
+        """Run one frame (or a batch of ``batch`` frames) of zeros ahead of
+        the first real frame: builds the kernels and sets up their launches."""
         c = self._cfg.channels
         shape = (self._cfg.height, self._cfg.width) + ((c,) if c == 3 else ())
         if batch:

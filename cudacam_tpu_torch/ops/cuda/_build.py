@@ -1,7 +1,8 @@
 """Build the CUDA kernels at first use and load them with ctypes.
 
-The sources in ``cudacam_tpu_torch/csrc`` have a plain C interface, so nvcc
-builds them straight into one shared library (seconds; no PyTorch headers),
+The sources in ``cudacam_tpu_torch/csrc`` have a plain C interface: nvcc
+compiles each ``.cu`` to an object, all of them at once in parallel, and
+links the objects into one shared library (seconds; no PyTorch headers),
 which is loaded with ctypes. The library lands in ``cudacam_tpu_torch/_build``
 (git-ignored), named by a digest of the sources and flags, so an edited
 source rebuilds and an unchanged one loads the library already built.
@@ -10,6 +11,7 @@ nvcc and no GPU.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import dataclasses
 import functools
@@ -26,7 +28,7 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -34,13 +36,19 @@ _I = ctypes.c_int
 #: C entry points: name -> (restype, argtypes). Every pointer and the stream
 #: go as c_void_p; a plain int would cut them to 32 bits.
 SIGNATURES = {
-    "cc_ff_pack": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
-    "cc_hyst_phase1": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
-    "cc_hyst_phase2": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
-    "cc_hyst_scratch_words": (ctypes.c_longlong, [_I, _I, _I]),
-    "cc_unpack": (_I, [_P, _P, _I, _I, _I, _P]),
+    "cc_ff_pack": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
+    "cc_ff_stages": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
+    "cc_pack_thresh": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "cc_hyst_phase1": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
+    "cc_hyst_phase2": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "cc_hyst_scratch_words": (ctypes.c_longlong, [_I, _I, _I, _I]),
+    "cc_unpack": (_I, [_P, _P, _I, _I, _I, _I, _P]),
     "cc_error_string": (ctypes.c_char_p, [_I]),
 }
+
+#: Launches per kernel, raised by one by its wrapper right after each launch
+#: and nowhere else (``ops/cuda/__init__.py`` reads and resets them).
+LAUNCHES: collections.Counter = collections.Counter()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,14 +89,27 @@ def load() -> KernelLibrary:
     built, seconds, log = False, 0.0, ""
     if not path.exists():
         BUILD_DIR.mkdir(exist_ok=True)
-        tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+        nvcc, tag = _nvcc(), f"{path.stem}.{os.getpid()}"
+        objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        procs = [
+            subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(sources, objs)
+        ]
+        outs = [proc.communicate()[0] for proc in procs]
+        log = "".join(outs)
+        for src, proc, out in zip(sources, procs, outs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src.name} ({proc.returncode}):\n{out}")
+        tmp = BUILD_DIR / f"{tag}.tmp"
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
         seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        for obj in objs:
+            obj.unlink()
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stdout}{link.stderr}")
         os.replace(tmp, path)
         built = True
     lib = ctypes.CDLL(str(path))
@@ -99,10 +120,15 @@ def load() -> KernelLibrary:
     return KernelLibrary(lib, path, built, seconds, log)
 
 
+def count_launch(name: str) -> None:
+    LAUNCHES[name] += 1
+
+
 def use_plain(*tensors) -> bool:
     """Route of a wrapper: True (the plain PyTorch version) when every
     tensor lies on the CPU, False (the kernel) when every tensor lies on a
     CUDA device. Anything else raises: no other device has a route."""
+    tensors = [t for t in tensors if t is not None]
     kinds = {t.device.type for t in tensors}
     if kinds == {"cpu"}:
         return True

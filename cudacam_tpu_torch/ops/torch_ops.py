@@ -1,4 +1,4 @@
-"""Plain PyTorch int32 implementation of every Canny stage up to THRESH.
+"""Plain PyTorch implementation of every Canny stage.
 
 Port of ``cudacam_tpu/ops/xla_ops.py``: the same integer semantics as the
 NumPy oracle (``cudacam_tpu/ops/numpy_oracle.py``), byte for byte, on any
@@ -8,10 +8,11 @@ against (``ops/cuda``), and the path a CPU tensor takes.
 
 Inputs are single frames: (H, W, 3) BGR or (H, W) mono uint8 tensors.
 uint8 arithmetic wraps in torch, so every stencil upcasts to int32 first.
+Only the float inspection planes (``sobel_xy``, ``grad_slope``) are float.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -64,6 +65,30 @@ def sobel_sums(blur: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     )
 
 
+def sobel_xy(blur: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Float Sobel planes: the raw sums / 8 (exact in float32)."""
+    sum_x, sum_y = sobel_sums(blur)
+    return sum_x.to(torch.float32) * 0.125, sum_y.to(torch.float32) * 0.125
+
+
+def grad_slope(
+    sx: torch.Tensor, sy: torch.Tensor, grad_coeff: int = 4, norm: str = "l2"
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Float magnitude and direction planes for display. Within an ulp or
+    so of ``xla_ops.grad_slope`` (the two libraries round sqrt and atan2
+    their own way)."""
+    if norm == "l2":
+        grad = grad_coeff * torch.sqrt(sx * sx + sy * sy)
+    else:
+        grad = grad_coeff * (sx.abs() + sy.abs())
+    return grad.to(torch.float32), torch.atan2(sx, sy).to(torch.float32)
+
+
+def float2uchar(x: torch.Tensor) -> torch.Tensor:
+    """Display conversion: min(|x|, 255) truncated to uint8."""
+    return torch.clamp(x.abs(), max=255.0).to(torch.uint8)
+
+
 def exact_isqrt_i32(m: torch.Tensor) -> torch.Tensor:
     """Exact integer floor-sqrt for int32 values < 2^24 (the float32 cast is
     exact there), with rounding fix-ups in both directions."""
@@ -72,7 +97,8 @@ def exact_isqrt_i32(m: torch.Tensor) -> torch.Tensor:
     return torch.where((s + 1) * (s + 1) <= m, s + 1, s)
 
 
-def _comparable_magnitude(sum_x: torch.Tensor, sum_y: torch.Tensor, norm: str) -> torch.Tensor:
+def comparable_magnitude(sum_x: torch.Tensor, sum_y: torch.Tensor, norm: str) -> torch.Tensor:
+    """The magnitude every decision compares: sx^2 + sy^2 (L2) or |sx| + |sy|."""
     if norm == "l2":
         return sum_x * sum_x + sum_y * sum_y  # <= 2*1020^2, int32-safe
     return sum_x.abs() + sum_y.abs()
@@ -103,7 +129,7 @@ def threshold_magnitude_bound(t: torch.Tensor, grad_coeff: int, norm: str) -> to
 def nms_keep_mask(sum_x: torch.Tensor, sum_y: torch.Tensor, norm: str = "l2") -> torch.Tensor:
     """NMS keep decision: both directional neighbours <= centre, Q15 sector
     bins, ties kept."""
-    g = _comparable_magnitude(sum_x, sum_y, norm)
+    g = comparable_magnitude(sum_x, sum_y, norm)
     h, w = g.shape
     gp = F.pad(g, (1, 1, 1, 1))
 
@@ -153,12 +179,14 @@ def double_threshold_opencv(
     thresholds clamp to the 2048 domain cap so squaring cannot overflow."""
     low = torch.clamp(torch.as_tensor(low).to(torch.int32), 0, 2048)
     high = torch.clamp(torch.as_tensor(high).to(torch.int32), 0, 2048)
-    m = _comparable_magnitude(sum_x, sum_y, norm)
+    m = comparable_magnitude(sum_x, sum_y, norm)
     lo_c, hi_c = (low * low, high * high) if norm == "l2" else (low, high)
     return _classify(keep & (m > hi_c), keep & (m > lo_c))
 
 
-def _display_coeff(cfg: CannyConfig) -> int:
+def display_coeff(cfg: CannyConfig) -> int:
+    """Magnitude coefficient of the display buffers: grad_coeff in
+    'reference' parity, 8 in 'opencv' parity (the raw Sobel magnitude)."""
     return cfg.grad_coeff if cfg.parity == "reference" else 8
 
 
@@ -174,7 +202,7 @@ def compute_threshold_map(
     isqrt)."""
     keep = nms_keep_mask(sum_x, sum_y, cfg.norm)
     if cfg.parity == "reference":
-        g = _comparable_magnitude(sum_x, sum_y, cfg.norm)
+        g = comparable_magnitude(sum_x, sum_y, cfg.norm)
         lo_b = threshold_magnitude_bound(torch.as_tensor(low), cfg.grad_coeff, cfg.norm)
         hi_b = threshold_magnitude_bound(torch.as_tensor(high), cfg.grad_coeff, cfg.norm)
         return _classify(keep & (g >= hi_b), keep & (g >= lo_b))
@@ -198,9 +226,9 @@ def canny_to_stage(
         return blur
     sum_x, sum_y = sobel_sums(blur)
     if final_stage == CannyStage.GRADIENT:
-        return nms_magnitude_u8(sum_x, sum_y, _display_coeff(cfg), cfg.norm)
+        return nms_magnitude_u8(sum_x, sum_y, display_coeff(cfg), cfg.norm)
     if final_stage == CannyStage.NMS:
-        return non_max_suppression(sum_x, sum_y, _display_coeff(cfg), cfg.norm)
+        return non_max_suppression(sum_x, sum_y, display_coeff(cfg), cfg.norm)
     thresh = compute_threshold_map(sum_x, sum_y, low, high, cfg)
     if final_stage == CannyStage.THRESH:
         return thresh
@@ -210,3 +238,48 @@ def canny_to_stage(
         dilate_steps=cfg.hysteresis_inner_steps,
         scan_after=cfg.hysteresis_scan_after,
     )
+
+
+def canny_all_stages(
+    frame: torch.Tensor,
+    low: torch.Tensor,
+    high: torch.Tensor,
+    cfg: CannyConfig,
+) -> Dict[str, torch.Tensor]:
+    """Every stage buffer of one frame (``xla_ops.canny_all_stages``): the
+    integer display buffers, the float inspection planes and the edge map.
+    The plain version of ``CannyEngine.process_all``."""
+    mono = rgb2mono(frame)
+    blur = gaussian_blur(mono, cfg.kernel_size)
+    sum_x, sum_y = sobel_sums(blur)
+    sx, sy = sum_x.to(torch.float32) * 0.125, sum_y.to(torch.float32) * 0.125
+    grad, slope = grad_slope(sx, sy, cfg.grad_coeff, cfg.norm)
+    thresh = compute_threshold_map(sum_x, sum_y, low, high, cfg)
+    return {
+        "mono": mono,
+        "gaussian": blur,
+        "sobel_x": sx,
+        "sobel_y": sy,
+        "grad": grad,
+        "slope": slope,
+        "gradient_display": nms_magnitude_u8(sum_x, sum_y, display_coeff(cfg), cfg.norm),
+        "nms": non_max_suppression(sum_x, sum_y, display_coeff(cfg), cfg.norm),
+        "thresh": thresh,
+        "hyster": hysteresis_packed(
+            thresh,
+            max_iters=cfg.max_hysteresis_iters,
+            dilate_steps=cfg.hysteresis_inner_steps,
+            scan_after=cfg.hysteresis_scan_after,
+        ),
+    }
+
+
+#: Display buffer key of each stage in :func:`canny_all_stages`' result.
+STAGE_DISPLAY_KEY: Dict[CannyStage, str] = {
+    CannyStage.MONO: "mono",
+    CannyStage.GAUSSIAN: "gaussian",
+    CannyStage.GRADIENT: "gradient_display",
+    CannyStage.NMS: "nms",
+    CannyStage.THRESH: "thresh",
+    CannyStage.HYSTER: "hyster",
+}

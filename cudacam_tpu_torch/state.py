@@ -4,9 +4,10 @@ The system has no weights: what crosses is the ``CannyConfig`` (shared as
 the same object) and the packed FINAL / CANDIDATE planes. The JAX
 megakernel exports them in a guard-ringed (hwp, wp) uint32 layout
 (cudacam_tpu/ops/pallas/megakernel.py ``_mega_geometry``): word rows past
-ceil(h/32) and lanes past w are zero guards. The port keeps
-(ceil(h/32), w) int32 planes with the same bits; ``ops/bitpack.py`` of the
-JAX package keeps (ceil(h/32), w) uint32.
+ceil(h/32) and lanes past w are zero guards. The batched kernel exports
+(B, hwp, wp) planes, its word rows padded up to 8 (megakernel.py:1070). The
+port keeps (ceil(h/32), w) or (B, ceil(h/32), w) int32 planes with the same
+bits; ``ops/bitpack.py`` of the JAX package keeps (ceil(h/32), w) uint32.
 """
 from __future__ import annotations
 
@@ -19,15 +20,16 @@ import torch
 def planes_from_jax(
     fpack: np.ndarray, ppack: np.ndarray, h: int, w: int
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """JAX megakernel export planes (uint32, guard-ringed) -> the port's
-    (ceil(h/32), w) int32 planes."""
+    """JAX megakernel export planes (uint32, guard-ringed; (hwp, wp), or
+    (B, hwp, wp) from the batched kernel) -> the port's (ceil(h/32), w) or
+    (B, ceil(h/32), w) int32 planes."""
     hw = -(-h // 32)
 
     def core(x: np.ndarray) -> torch.Tensor:
         x = np.asarray(x)
-        if x.dtype != np.uint32 or x.shape[0] < hw or x.shape[1] < w:
+        if x.dtype != np.uint32 or x.ndim not in (2, 3) or x.shape[-2] < hw or x.shape[-1] < w:
             raise ValueError(f"expected uint32 planes of at least ({hw}, {w}), got {x.shape} {x.dtype}")
-        return torch.from_numpy(np.ascontiguousarray(x[:hw, :w]).view(np.int32))
+        return torch.from_numpy(np.ascontiguousarray(x[..., :hw, :w]).view(np.int32))
 
     return core(fpack), core(ppack)
 

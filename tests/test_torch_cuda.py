@@ -5,26 +5,36 @@ without a card. The module imports no jax, so it runs on a GPU host that
 has none (``python -m pytest tests/test_torch_cuda.py -m cuda --noconftest``;
 the repository's conftest pins JAX to the CPU and imports it).
 
-Tolerance: 0. Packed words, flags and edge maps are integers; the contract
-is byte equality with the plain version on the same inputs.
+Tolerance: 0 for every integer output (packed words, flags, stage buffers,
+edge maps): the contract is byte equality with the plain version on the
+same inputs. The float inspection planes of ``process_all`` are plain torch
+ops on both sides, so they are equal too.
 """
 from __future__ import annotations
 
 import pytest
 import torch
 
-from cudacam_tpu.io.sources import make_scene, make_spiral_frame
+from cudacam_tpu.io.sources import make_scene, make_spiral_frame, make_spiral_thresh
 from cudacam_tpu_torch import CannyConfig, CannyStage
 from cudacam_tpu_torch.engine import CannyEngine
 from cudacam_tpu_torch.ops import bitpack, cuda as kernels, torch_ops
-from cudacam_tpu_torch.ops.cuda.feedforward import ff_pack, ff_pack_plain
+from cudacam_tpu_torch.ops.cuda.feedforward import (
+    FF_STAGES, NMSQ, ff_pack, ff_pack_batched, ff_pack_plain, ff_stages, ff_stages_plain,
+)
+from cudacam_tpu_torch.ops.cuda.hysteresis_fused import (
+    hysteresis_fused, hysteresis_fused_nmsq, pack_thresh, pack_thresh_plain,
+)
 from cudacam_tpu_torch.ops.cuda.megakernel import (
-    canny_mega_pipeline, hyst_phase1, hyst_phase2, unpack, unpack_plain,
+    canny_mega_pipeline, canny_mega_pipeline_batched, hyst_phase1, hyst_phase2, unpack,
+    unpack_plain,
 )
 
 pytestmark = pytest.mark.cuda
 
 SHAPES = [(80, 256), (37, 53), (1, 1), (2, 5), (720, 1280)]
+CONFIGS = [{}, dict(kernel_size=3, norm="l1"), dict(kernel_size=7, parity="opencv", grad_coeff=2)]
+MAIN_PATH = ("ff_pack", "hyst_phase1", "hyst_phase2", "unpack")
 
 
 @pytest.fixture
@@ -41,23 +51,88 @@ def _frame(h, w, dev, seed=0):
     return torch.from_numpy(make_scene(h, w, seed=seed)).to(dev)
 
 
+def _thr(lo, hi, dev):
+    return torch.tensor([lo, hi], dtype=torch.int32, device=dev)
+
+
 @pytest.mark.parametrize("h,w", SHAPES)
-@pytest.mark.parametrize("kw", [{}, dict(kernel_size=3, norm="l1"),
-                                dict(kernel_size=7, parity="opencv", grad_coeff=2)])
+@pytest.mark.parametrize("kw", CONFIGS)
 def test_ff_pack_matches_plain(dev, h, w, kw):
     fr = _frame(h, w, dev, seed=h)
     for lo, hi in [(0, 0), (10, 40), (254, 255), (-3, 300)]:  # C '/' truncates: floor_div
-        thr = torch.tensor([lo, hi], dtype=torch.int32, device=dev)
+        thr = _thr(lo, hi, dev)
         for x in (fr, fr[..., 2].contiguous()):
             got, want = ff_pack(x, thr, **kw), ff_pack_plain(x, thr, **kw)
             assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 @pytest.mark.parametrize("h,w", SHAPES)
+@pytest.mark.parametrize("kw", CONFIGS)
+def test_ff_stages_matches_plain(dev, h, w, kw):
+    fr = _frame(h, w, dev, seed=w)
+    sets = [FF_STAGES, FF_STAGES[1:], (NMSQ,)] + [(s,) for s in FF_STAGES]
+    for lo, hi in [(10, 40), (0, 255), (-3, 300)]:
+        thr = _thr(lo, hi, dev)
+        for x in (fr, fr[..., 0].contiguous()):
+            for stages in sets:
+                got = ff_stages(x, thr, stages, **kw)
+                want = ff_stages_plain(x, thr, stages, **kw)
+                for s, g, e in zip(stages, got, want):
+                    assert g.dtype == e.dtype and torch.equal(g, e), (s, lo, hi, x.ndim)
+
+
+@pytest.mark.parametrize("h,w", SHAPES)
+def test_pack_thresh_matches_plain(dev, h, w):
+    g = torch.Generator().manual_seed(h * w)
+    levels = torch.tensor([0, 128, 255, 127, 1], dtype=torch.uint8)
+    t = levels[torch.randint(0, 5, (h, w), generator=g)].to(dev)
+    got, want = pack_thresh(t), pack_thresh_plain(t)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    kg = torch.randint(0, 3000, (h, w), generator=g, dtype=torch.int32).to(dev)
+    for lo, hi in [(100, 900), (-5, 400), (-9, -1), (0, 0)]:
+        b = _thr(lo, hi, dev)
+        got, want = pack_thresh(kg, b), pack_thresh_plain(kg, b)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("h,w", [(80, 256), (37, 53), (1, 1), (720, 1280)])
+@pytest.mark.parametrize("scan_after,max_iters", [(10, 100), (2, 5), (3, 3)])
+def test_hysteresis_fused_matches_plain(dev, h, w, scan_after, max_iters):
+    kw = dict(dilate_steps=16, scan_after=scan_after, max_iters=max_iters)
+    fr = _frame(h, w, dev, seed=3)
+    (thresh,) = ff_stages_plain(fr, _thr(10, 40, dev), (CannyStage.THRESH,))
+    want = bitpack.hysteresis_packed(thresh, **kw)
+    out, iters = hysteresis_fused(thresh, return_iters=True, **kw)
+    assert torch.equal(out, want)
+    f, p = bitpack.pack_pair(thresh)
+    assert int(iters) == bitpack.converge_packed(f, p, h, w, **kw)[1]
+    kept = hysteresis_fused(thresh, remove_candidates=False, **kw)
+    assert torch.equal(kept, torch.where(want == 255, want, thresh))
+    (kg,) = ff_stages_plain(fr, None, (NMSQ,))
+    lo_c = torch_ops.threshold_magnitude_bound(torch.tensor(10), 4, "l2") - 1
+    hi_c = torch_ops.threshold_magnitude_bound(torch.tensor(40), 4, "l2") - 1
+    assert torch.equal(hysteresis_fused_nmsq(kg, lo_c, hi_c, **kw), want)
+
+
+def test_spiral_threshold_map_cap_digests(dev):
+    """K6 on the 1080p spiral threshold map cut off at caps 100 and 400: the
+    recorded digests of tests/test_cap_golden.py."""
+    import hashlib
+
+    t = torch.from_numpy(make_spiral_thresh(1080, 1920)).to(dev)
+    for cap, sha in [(100, "61ca860520f82b7a43be20833dcc5858dd7e6d25770f37aa4d9ed3e991848417"),
+                     (400, "a822292e4a2125148907b11f7ca4ed75552e46db4bfa02d196364616b2bfa20d")]:
+        out, iters = hysteresis_fused(t, max_iters=cap, dilate_steps=16, scan_after=12,
+                                      return_iters=True)
+        assert int(iters) == cap
+        assert hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest() == sha
+
+
+@pytest.mark.parametrize("h,w", SHAPES)
 @pytest.mark.parametrize("dilate_steps,scan_after,max_iters", [(16, 64, 100), (16, 1, 100),
                                                                (3, 2, 5), (40, 1, 3)])
 def test_rounds_match_plain(dev, h, w, dilate_steps, scan_after, max_iters):
-    f, p = ff_pack_plain(_frame(h, w, dev, seed=w), torch.tensor([10, 40], dtype=torch.int32, device=dev))
+    f, p = ff_pack_plain(_frame(h, w, dev, seed=w), _thr(10, 40, dev))
     fk, flags = f.clone(), torch.zeros((2, 2), dtype=torch.int32, device=dev)
     hyst_phase1(fk, p, flags, h, dilate_steps=dilate_steps, scan_after=scan_after, max_iters=max_iters)
     f1, it, grow = bitpack.converge_phase1(f, p, h, w, dilate_steps, scan_after, max_iters)
@@ -69,6 +144,43 @@ def test_rounds_match_plain(dev, h, w, dilate_steps, scan_after, max_iters):
     assert torch.equal(unpack(fk, h), unpack_plain(f1, h))
 
 
+@pytest.mark.parametrize("h,w,n", [(37, 53, 3), (80, 256, 5), (1, 1, 2), (720, 1280, 4)])
+@pytest.mark.parametrize("scan_after,max_iters", [(10, 100), (1, 100), (2, 5), (4, 4)])
+def test_batched_rounds_match_plain(dev, h, w, n, scan_after, max_iters):
+    """Batched round kernels against the plain frame-by-frame loops, on a
+    batch whose frames stop at different rounds (the spiral escalates)."""
+    frames = [_frame(h, w, dev, seed=s) for s in range(n - 1)]
+    frames.append(torch.from_numpy(make_spiral_frame(h, w)).to(dev) if min(h, w) >= 8
+                  else _frame(h, w, dev, seed=99))
+    thr = _thr(10, 40, dev)
+    f, p = ff_pack_batched(torch.stack(frames), thr)
+    kw = dict(dilate_steps=16, max_iters=max_iters)
+    fk, flags = f.clone(), torch.zeros((n, 2, 2), dtype=torch.int32, device=dev)
+    hyst_phase1(fk, p, flags, h, scan_after=scan_after, **kw)
+    fp, flags_p = f.clone().cpu(), torch.zeros((n, 2, 2), dtype=torch.int32)
+    hyst_phase1(fp, p.cpu(), flags_p, h, scan_after=scan_after, **kw)
+    assert torch.equal(fk.cpu(), fp) and torch.equal(flags.cpu()[:, 0], flags_p[:, 0])
+    hyst_phase2(fk, p, flags, h, **kw)
+    hyst_phase2(fp, p.cpu(), flags_p, h, **kw)
+    assert torch.equal(fk.cpu(), fp) and torch.equal(flags.cpu(), flags_p)
+    assert torch.equal(unpack(fk, h).cpu(), unpack_plain(fp, h))
+
+
+@pytest.mark.parametrize("h,w,n", [(37, 53, 3), (512, 1024, 4)])
+def test_batched_pipeline_matches_single_frames(dev, h, w, n):
+    frames = [_frame(h, w, dev, seed=s) for s in range(n - 1)]
+    frames.append(torch.from_numpy(make_spiral_frame(h, w)).to(dev))
+    batch, thr = torch.stack(frames), _thr(10, 40, dev)
+    for x in (batch, batch[..., 1].contiguous()):
+        kernels.reset_launch_counts()
+        edges, flags = canny_mega_pipeline_batched(x, thr, scan_after=2)
+        assert kernels.launch_counts() == dict(dict.fromkeys(kernels.KERNELS, 0),
+                                               **dict.fromkeys(MAIN_PATH, 1))
+        for i in range(n):
+            e1, f1 = canny_mega_pipeline(x[i], thr, scan_after=2)
+            assert torch.equal(edges[i], e1) and torch.equal(flags[i], f1)
+
+
 def test_pipeline_and_engine_match_plain(dev):
     cfg = CannyConfig(height=512, width=1024)
     eng = CannyEngine(cfg, device="cuda")
@@ -78,25 +190,47 @@ def test_pipeline_and_engine_match_plain(dev):
         got = eng.process(fr)
         want = torch_ops.canny_to_stage(fr, *eng._thresholds(), cfg, CannyStage.HYSTER)
         assert torch.equal(got, want)
-    assert all(n == 2 for n in kernels.launch_counts().values())
+    counts = kernels.launch_counts()
+    assert all(counts[k] == 2 for k in MAIN_PATH) and counts["ff_stages"] == 0
     _, flags = canny_mega_pipeline(spiral, eng._thresholds(), scan_after=2)
     assert flags[0].tolist()[1] == 1
+
+
+@pytest.mark.parametrize("channels", [3, 1])
+def test_every_stage_and_process_all_match_plain(dev, channels):
+    cfg = CannyConfig(height=96, width=200, channels=channels, hysteresis_scan_after=2)
+    eng = CannyEngine(cfg, device="cuda")
+    fr = _frame(96, 200, dev, seed=4)
+    if channels == 1:
+        fr = fr[..., 0].contiguous()
+    thr = eng._thresholds()
+    for stage in CannyStage:
+        want = torch_ops.canny_to_stage(fr, thr[0], thr[1], cfg, stage)
+        assert torch.equal(eng.process(fr, stage), want), stage
+    got = eng.process_all(fr)
+    want = torch_ops.canny_all_stages(fr, thr[0], thr[1], cfg)
+    assert got.keys() == want.keys()
+    for k in want:
+        assert got[k].dtype == want[k].dtype and torch.equal(got[k], want[k]), k
+    batch = torch.stack([fr, torch.flip(fr, (0,)).contiguous()])
+    for stage in (CannyStage.NMS, CannyStage.HYSTER):
+        out = eng.process(batch, stage)
+        assert all(torch.equal(out[i], eng.process(batch[i], stage)) for i in range(2))
 
 
 def test_no_host_sync_on_the_hot_path(dev):
     eng = CannyEngine(CannyConfig(height=256, width=512), device="cuda")
     fr = _frame(256, 512, dev, seed=2)
-    eng.process(fr)
+    batch = torch.stack([fr, _frame(256, 512, dev, seed=3)])
+    calls = [lambda: eng.process(fr), lambda: eng.process(batch),
+             lambda: eng.process(fr, CannyStage.GRADIENT), lambda: eng.process_all(fr)]
+    for call in calls:
+        call()
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        eng.process(fr)
+        for call in calls:
+            call()
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
-
-
-def test_non_hyster_stage_raises(dev):
-    eng = CannyEngine(CannyConfig(height=37, width=53), device="cuda")
-    with pytest.raises(NotImplementedError):
-        eng.process(_frame(37, 53, dev), CannyStage.THRESH)

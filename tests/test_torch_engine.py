@@ -1,8 +1,10 @@
 """The port's CannyEngine (cudacam_tpu_torch/engine) on the CPU against the
-JAX package's CannyEngine (backend='xla') on the slice path (HYSTER), plus
-its spec lock, threshold controls and import hygiene.
+JAX package's CannyEngine (backend='xla'): every stage, ``process_all`` and
+batches, plus its spec lock, threshold controls and import hygiene.
 
-Tolerance: 0. Edge maps are uint8; the contract is byte equality.
+Tolerance: 0 for every integer buffer (the contract is byte equality);
+``process_all``'s float planes grad and slope within 1e-6 relative (sqrt and
+atan2 round on their own in torch and XLA).
 """
 from __future__ import annotations
 
@@ -55,11 +57,48 @@ def test_tensor_input_and_batch(cfg, frame):
     assert torch.equal(batch[1], eng.process(other))
 
 
-def test_stages_on_cpu_match_jax_engine(cfg, frame):
-    eng, jeng = CannyEngine(cfg), JaxEngine(cfg)
-    for stage in (CannyStage.MONO, CannyStage.THRESH):
-        np.testing.assert_array_equal(eng.process(frame, stage).numpy(),
-                                      np.asarray(jeng.process(frame, stage)))
+@pytest.mark.parametrize("stage", list(CannyStage))
+def test_stages_on_cpu_match_jax_engine(cfg, frame, stage):
+    got = CannyEngine(cfg).process(frame, stage)
+    assert got.dtype == torch.uint8
+    np.testing.assert_array_equal(got.numpy(), np.asarray(JaxEngine(cfg).process(frame, stage)))
+
+
+def _assert_all_stages(got, want):
+    assert got.keys() == want.keys()
+    for k, e in want.items():
+        g, e = got[k].numpy(), np.asarray(e)
+        assert g.dtype == e.dtype and g.shape == e.shape, k
+        if k in ("grad", "slope"):
+            np.testing.assert_allclose(g, e, rtol=1e-6, atol=0, err_msg=k)
+        else:
+            np.testing.assert_array_equal(g, e, err_msg=k)
+
+
+@pytest.mark.parametrize("channels", [3, 1])
+def test_process_all_matches_jax_engine(channels):
+    cfg = CannyConfig(height=48, width=64, channels=channels, backend="xla",
+                      hysteresis_scan_after=2)
+    fr = make_scene(48, 64, seed=5)
+    if channels == 1:
+        fr = fr[..., 1].copy()
+    _assert_all_stages(CannyEngine(cfg).process_all(fr), JaxEngine(cfg).process_all(fr))
+
+
+def test_batched_stages_match_per_frame(cfg, frame):
+    """A batch runs HYSTER through the batched kernels and the display
+    stages frame by frame; either way each frame equals its own call, and
+    process_all stacks every key."""
+    eng = CannyEngine(cfg)
+    batch = np.stack([frame, make_scene(H, W, seed=6), make_scene(H, W, seed=7)])
+    for stage in (CannyStage.HYSTER, CannyStage.GRADIENT):
+        out = eng.process(batch, stage)
+        assert tuple(out.shape) == (3, H, W)
+        for i in range(3):
+            assert torch.equal(out[i], eng.process(batch[i], stage))
+    got = eng.process_all(batch[:2])
+    one = eng.process_all(batch[1])
+    assert all(torch.equal(got[k][1], one[k]) for k in one)
 
 
 def test_spec_lock_and_type_checks(cfg):
@@ -116,6 +155,7 @@ def test_warmup_and_device(cfg):
     eng = CannyEngine(cfg, device="cpu")
     eng.warmup()
     eng.warmup(batch=2)
+    eng.warmup(CannyStage.NMS, batch=3)
     assert eng.device == torch.device("cpu") and eng.config is cfg
 
 

@@ -167,18 +167,80 @@ def test_wrappers_reject_other_devices_and_bad_inputs():
 
 
 def test_non_hyster_stage_on_gpu_tensor_not_implemented():
-    """Only HYSTER runs on the GPU in this slice; the dispatch decides on the
-    tensor's device before touching a kernel (a meta tensor stands in for a
-    CUDA one here)."""
+    """Every stage now has a kernel route, so none raises NotImplementedError:
+    the dispatch hands each stage to a kernel wrapper, and the wrapper takes
+    a route by the tensor's device (a meta tensor has none, and raises
+    before touching a kernel); a CPU tensor takes the plain version."""
     cfg = CannyConfig(height=37, width=53)
     meta = torch.empty((37, 53, 3), dtype=torch.uint8, device="meta")
     for stage in CannyStage:
-        if stage == CannyStage.HYSTER:
-            continue
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
+        with pytest.raises(ValueError, match="CPU or all on one CUDA"):
             canny_to_stage(meta, THR.to("meta"), cfg, stage)
     cpu = torch.from_numpy(_frame(37, 53))
     out = canny_to_stage(cpu, THR, cfg, CannyStage.THRESH)
     want = xla_ops.canny_to_stage(jnp.asarray(cpu.numpy()), jnp.int32(10), jnp.int32(40), cfg,
                                   CannyStage.THRESH)
     np.testing.assert_array_equal(out.numpy(), np.asarray(want))
+
+
+def _batch(h, w):
+    """Three scenes that converge in phase 1 at scan_after 12 and the spiral
+    frame, which is still growing there."""
+    from cudacam_tpu.io.sources import make_spiral_frame
+
+    return np.stack([make_scene(h, w, seed=s) for s in range(3)] + [make_spiral_frame(h, w)])
+
+
+@pytest.mark.parametrize("scan_after", [1, 12])
+def test_batched_phase_boundary_matches_tpu_batched_megakernel(scan_after):
+    """Batched canny_mega (one launch per kernel for the batch) against the
+    TPU batched megakernel at B=2: per-frame flags, and the exported planes
+    (word rows padded to 8) of every frame still growing."""
+    h, w = 64, 256
+    fr = _batch(h, w)[2:]  # a converging scene and the spiral
+    planar, kw = _jax_mega(fr[0], scan_after)
+    _, jflags, jf, jp = jmk.canny_mega_batched(
+        jnp.transpose(jnp.asarray(fr), (0, 3, 1, 2)), np.int32(10), np.int32(40),
+        interpret=True, **kw)
+    assert np.asarray(jf).shape == (2, 8, 384)
+    f, p, flags = tmk.canny_mega_batched(torch.from_numpy(fr), THR, **kw)
+    assert flags.shape == (2, 2, 2)
+    assert flags[:, 0].tolist() == np.asarray(jflags).tolist()
+    want_f, want_p = state.planes_from_jax(np.asarray(jf), np.asarray(jp), h, w)
+    assert want_f.shape == f.shape == (2, 2, 256)
+    growing = [b for b in range(2) if flags[b, 0, 1] == 1]
+    assert growing == ([0, 1] if scan_after == 1 else [1])
+    for b in growing:
+        assert torch.equal(f[b], want_f[b]) and torch.equal(p[b], want_p[b])
+
+
+def test_batched_pipeline_mixed_escalation_matches_tpu():
+    """Only the spiral frame escalates: the port's batched pipeline equals the
+    TPU batched pipeline and the port's single-frame pipeline, frame by frame."""
+    h, w = 64, 256
+    fr = _batch(h, w)
+    kw = dict(kernel_size=5, grad_coeff=4, norm="l2", parity="reference",
+              dilate_steps=16, scan_after=12, max_iters=100)
+    edges, flags = tmk.canny_mega_pipeline_batched(torch.from_numpy(fr), THR, **kw)
+    assert flags[:, 0, 1].tolist() == [0, 0, 0, 1]
+    want = jmk.canny_mega_pipeline_batched(
+        jnp.transpose(jnp.asarray(fr), (0, 3, 1, 2)), np.int32(10), np.int32(40),
+        interpret=True, **kw)
+    np.testing.assert_array_equal(edges.numpy(), np.asarray(want))
+    for b in range(4):
+        e1, f1 = tmk.canny_mega_pipeline(torch.from_numpy(fr[b]), THR, **kw)
+        assert torch.equal(edges[b], e1) and torch.equal(flags[b], f1)
+    gray = torch.from_numpy(np.ascontiguousarray(fr[..., 1]))
+    gedges, gflags = tmk.canny_mega_pipeline_batched(gray, THR, **kw)
+    for b in range(4):
+        e1, f1 = tmk.canny_mega_pipeline(gray[b], THR, **kw)
+        assert torch.equal(gedges[b], e1) and torch.equal(gflags[b], f1)
+
+
+def test_batched_wrappers_check_shapes():
+    f = torch.zeros((3, 2, 53), dtype=torch.int32)
+    with pytest.raises(ValueError, match=r"flags must be a \(3, 2, 2\)"):
+        tmk.hyst_phase1(f, f.clone(), torch.zeros((2, 2), dtype=torch.int32), 37)
+    with pytest.raises(ValueError):
+        tmk.ff_pack_batched(torch.zeros((2, 37, 53, 4), dtype=torch.uint8), THR)
+    assert tmk.unpack(f, 37).shape == (3, 37, 53)

@@ -186,3 +186,54 @@ def test_canny_to_stage_matches_oracle():
 def test_canny_to_stage_grayscale():
     gray = _frame(37, 53, 12)[..., 0].copy()
     _all_stages(gray, CannyConfig(height=37, width=53, channels=1))
+
+
+@pytest.mark.parametrize("h,w", [(48, 64), (37, 53)])
+def test_sobel_xy(h, w):
+    blur = oracle.gaussian_blur(oracle.rgb2mono(_frame(h, w, 13)), 5)
+    got = torch_ops.sobel_xy(_t(blur))
+    want = xla_ops.sobel_xy(jnp.asarray(blur))
+    for g, e in zip(got, want):
+        assert g.dtype == torch.float32
+        np.testing.assert_array_equal(g.numpy(), np.asarray(e))  # sums / 8: exact
+
+
+@pytest.mark.parametrize("norm", ["l1", "l2"])
+@pytest.mark.parametrize("h,w", [(48, 64), (37, 53)])
+def test_grad_slope(h, w, norm):
+    """Float planes: within 1e-6 relative of XLA's (sqrt and atan2 round on
+    their own in each library; measured at most 1.2e-7)."""
+    sx, sy = (x.astype(np.float32) * np.float32(0.125) for x in _sobel(h, w, 14))
+    got = torch_ops.grad_slope(_t(sx), _t(sy), 4, norm)
+    want = xla_ops.grad_slope(jnp.asarray(sx), jnp.asarray(sy), 4, norm)
+    for g, e in zip(got, want):
+        assert g.dtype == torch.float32
+        np.testing.assert_allclose(g.numpy(), np.asarray(e), rtol=1e-6, atol=0)
+
+
+def test_float2uchar():
+    x = np.concatenate([np.linspace(-300, 300, 4001, dtype=np.float32),
+                        np.float32([0.5, 254.99, 255.0, 255.5, -0.0])])
+    np.testing.assert_array_equal(torch_ops.float2uchar(_t(x)).numpy(),
+                                  np.asarray(xla_ops.float2uchar(jnp.asarray(x))))
+
+
+@pytest.mark.parametrize("parity", ["reference", "opencv"])
+@pytest.mark.parametrize("norm", ["l1", "l2"])
+@pytest.mark.parametrize("h,w", [(48, 64), (37, 53)])
+def test_canny_all_stages(h, w, norm, parity):
+    """Every key of xla_ops.canny_all_stages: integer buffers exactly, the
+    float planes grad and slope within 1e-6 relative."""
+    cfg = CannyConfig(height=h, width=w, norm=norm, parity=parity, hysteresis_scan_after=2)
+    fr = _frame(h, w, 15)
+    got = torch_ops.canny_all_stages(_t(fr), _i32(10), _i32(40), cfg)
+    want = xla_ops.canny_all_stages(jnp.asarray(fr), jnp.int32(10), jnp.int32(40), cfg)
+    assert got.keys() == want.keys()
+    for k in want:
+        g, e = got[k].numpy(), np.asarray(want[k])
+        assert g.dtype == e.dtype, k
+        if k in ("grad", "slope"):
+            np.testing.assert_allclose(g, e, rtol=1e-6, atol=0, err_msg=k)
+        else:
+            np.testing.assert_array_equal(g, e, err_msg=k)
+    assert set(torch_ops.STAGE_DISPLAY_KEY.items()) == set(xla_ops.STAGE_DISPLAY_KEY.items())

@@ -8,11 +8,13 @@ Run from the root of a checkout, on a host with a CUDA device and nvcc:
 Two parts, each printing one JSON line per workload (and writing them all to
 ``--out`` when given):
 
-* ``trace``: ``CannyEngine(device='cuda').process`` under torch.profiler on
-  the 1080p 8-scene stream (``make_scene`` seeds 0-7, five passes) and on the
-  1080p spiral frame (two passes): device µs per frame for each kernel, the
-  device's busy time, the idle share of the traced span, and the wall time
-  per frame with the profiler on;
+* ``trace``: ``CannyEngine(device='cuda')`` under torch.profiler: ``process``
+  on the 1080p 8-scene stream (``make_scene`` seeds 0-7, five passes), on the
+  1080p spiral frame (two passes) and on the x8 batch of seven scenes and the
+  spiral (one call per pass, five passes), and ``process_all`` on the 8-scene
+  stream (three passes): device µs per frame for each kernel (other device
+  work under its own name), the device's busy time, the idle share of the
+  traced span, and the wall time per frame with the profiler on;
 * ``sizes``: 4K and 8K streams (four scenes each) byte-equal to the plain
   PyTorch path on the card, with each frame's round flags, CUDA-event
   ms/frame (median of 5 passes), and the spiral frame's flags and ms.
@@ -41,7 +43,8 @@ from cudacam_tpu_torch.ops import torch_ops  # noqa: E402
 from cudacam_tpu_torch.ops.cuda.canny import pipeline_kwargs  # noqa: E402
 from cudacam_tpu_torch.ops.cuda.megakernel import canny_mega_pipeline  # noqa: E402
 
-KERNELS = ("ff_pack_kernel", "hyst_kernel<false>", "hyst_kernel<true>", "unpack_kernel")
+KERNELS = ("ff_pack_kernel", "hyst_kernel<false>", "hyst_kernel<true>", "unpack_kernel",
+           "ff_stages_kernel", "pack_thresh_kernel")
 
 
 def _busy_us(intervals) -> float:
@@ -57,18 +60,19 @@ def _busy_us(intervals) -> float:
     return busy + (cur_e - cur_s if cur_e is not None else 0.0)
 
 
-def trace(name: str, eng: CannyEngine, frames, passes: int) -> dict:
-    for f in frames:  # warm-up: build, launch configs, thresholds on the device
-        eng.process(f)
+def trace(name: str, call, inputs, frames_per_input: int, passes: int) -> dict:
+    """``call(x)`` for every x of ``inputs``, ``passes`` times, traced."""
+    for x in inputs:  # warm-up: build, launch configs, thresholds on the device
+        call(x)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(passes):
-            for f in frames:
-                eng.process(f)
+            for x in inputs:
+                call(x)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    n = passes * len(frames)
+    n = passes * len(inputs) * frames_per_input
     dev = [e for e in prof.events() if e.device_type.name == "CUDA"]
     per_kernel = {}
     for e in dev:
@@ -127,7 +131,13 @@ def main() -> int:
     eng = CannyEngine(CannyConfig(height=1080, width=1920), device="cuda")
     scenes = [torch.from_numpy(make_scene(1080, 1920, seed=s)).cuda() for s in range(8)]
     spiral = torch.from_numpy(make_spiral_frame(1080, 1920)).cuda()
-    rows = [trace("1080p 8-scene stream", eng, scenes, 5), trace("1080p spiral", eng, [spiral], 2)]
+    batch = torch.stack(scenes[:7] + [spiral])
+    rows = [
+        trace("1080p 8-scene stream", eng.process, scenes, 1, 5),
+        trace("1080p spiral", eng.process, [spiral], 1, 2),
+        trace("1080p x8 batch (7 scenes + spiral)", eng.process, [batch], 8, 5),
+        trace("1080p process_all, 8-scene stream", eng.process_all, scenes, 1, 3),
+    ]
     rows += [sizes(2160, 3840), sizes(4320, 7680)]
     lines = [json.dumps(r) for r in rows]
     print("\n".join(lines))
