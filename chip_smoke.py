@@ -19,7 +19,16 @@ Phases, each printing its lines before the last:
    its recorded digest, through the round kernels and through the
    two-kernel hysteresis (K6), and at the 400-round cap through K6.
    Tolerance 0: every output is integer, and the contract is byte equality;
-4. ``CannyEngine(device='cuda')`` on each path, every launch count set to 0
+4. the threshold sweep's kernels (K5) against their plain versions:
+   ``sweep_pack`` slot by slot and the indexed ``unpack`` at 1080p K=16;
+   whole sweeps (``sweep_fused`` against ``sweep_fused_plain``), both seed
+   modes, at 1080p K=16 with ``benchmark.py``'s ``linspace`` pairs, at 720p
+   in three configs and at 37x53 with shuffled pairs (negative lows, an
+   exact duplicate), converged and cut off by the cap, and at 8K with a K=2
+   subset; the 64x128 spiral cut off by the cap against the JAX package's
+   finals per pair (seeded [5, 9, 13] and [738, 1410, 2018], cold
+   [5, 5, 5] and [738, 738, 738]). Tolerance 0;
+5. ``CannyEngine(device='cuda')`` on each path, every launch count set to 0
    just before the path and read just after: ``process`` to HYSTER on eight
    1080p scenes and the spiral (byte-equal to the plain path on the card,
    seeds 0 and 1 to the NumPy oracle); ``process`` on an 8 x 1080p batch
@@ -28,10 +37,14 @@ Phases, each printing its lines before the last:
    plain path, seeds 0 and 1 to the oracle); ``process_all`` (equal to the
    plain ``torch_ops.canny_all_stages``: integers exactly, grad and slope
    within 1e-6 relative); a threshold change changes the output and builds
-   nothing;
-5. the steady-state hot paths under ``torch.cuda.set_sync_debug_mode("error")``;
-6. CUDA-event timings of each kernel, kernel against plain, and of the
-   streams: single frames, the x8 batch, THRESH and ``process_all``.
+   nothing; ``threshold_sweep`` at 1080p K=16 (50 launches; equal to the
+   plain cold sweep ``torch_ops.threshold_sweep``, its first and last pair
+   to the NumPy oracle, edge counts falling as the thresholds rise);
+6. the steady-state hot paths under ``torch.cuda.set_sync_debug_mode("error")``;
+7. CUDA-event timings of each kernel, kernel against plain, and of the
+   streams: single frames, the x8 batch, THRESH and ``process_all``; and of
+   the K=16 sweeps at 1080p, 4K and 8K (plain at 1080p and 4K, and at 8K
+   for K=2), seeded against cold tails at 1080p.
 
 Any failure raises and exits non-zero before the result line. Without a
 CUDA device, or outside a checkout of the repository, it fails at once.
@@ -56,16 +69,24 @@ SPIRAL_1080P_CAP100_SHA = "61ca860520f82b7a43be20833dcc5858dd7e6d25770f37aa4d9ed
 SPIRAL_1080P_CAP100_FINALS = 248514
 SPIRAL_1080P_CAP400_SHA = "a822292e4a2125148907b11f7ca4ed75552e46db4bfa02d196364616b2bfa20d"
 
+#: The 64x128 spiral as a keep*g plane, bounds [1, 2, 1, 2, 0, 2], dilate
+#: steps 1: (max_iters, scan_after) -> FINAL pixels per pair, seeded and
+#: cold, as the JAX package's sweep_fused gives them (tests/test_torch_sweep.py).
+SPIRAL_SWEEP_FINALS = {(4, 100): ([5, 9, 13], [5, 5, 5]),
+                       (6, 2): ([738, 1410, 2018], [738, 738, 738])}
+
 #: The TPU kernels (pallas_call sites) each CUDA kernel replaces.
 _MEGA = "cudacam_tpu/ops/pallas/megakernel.py"
 _FUSED = "cudacam_tpu/ops/pallas/hysteresis_fused.py:365/:373"
+_SWEEP = "cudacam_tpu/ops/pallas/hysteresis_fused.py:729"
 REPLACES = {
     "ff_pack": f"{_MEGA}:569, {_MEGA}:1109",
-    "hyst_phase1": f"{_MEGA}:569, {_MEGA}:1109, {_FUSED}",
-    "hyst_phase2": f"{_MEGA}:839, {_FUSED}",
-    "unpack": f"{_MEGA}:569, {_MEGA}:1109, {_FUSED}",
+    "hyst_phase1": f"{_MEGA}:569, {_MEGA}:1109, {_FUSED}, {_SWEEP}",
+    "hyst_phase2": f"{_MEGA}:839, {_FUSED}, {_SWEEP}",
+    "unpack": f"{_MEGA}:569, {_MEGA}:1109, {_FUSED}, {_SWEEP}",
     "ff_stages": "cudacam_tpu/ops/pallas/feedforward.py:810",
     "pack_thresh": _FUSED,
+    "sweep_pack": _SWEEP,
 }
 SOURCES = {
     "ff_pack": "cudacam_tpu_torch/csrc/ff_pack.cu",
@@ -74,7 +95,32 @@ SOURCES = {
     "unpack": "cudacam_tpu_torch/csrc/hyst_rounds.cu",
     "ff_stages": "cudacam_tpu_torch/csrc/ff_stages.cu",
     "pack_thresh": "cudacam_tpu_torch/csrc/pack.cu",
+    "sweep_pack": "cudacam_tpu_torch/csrc/sweep.cu",
 }
+
+
+def sweep_pairs():
+    """``benchmark.py``'s K=16 sweep: lows 5..60, highs 20..180."""
+    import numpy as np
+
+    return np.linspace(5, 60, 16).astype(np.int32), np.linspace(20, 180, 16).astype(np.int32)
+
+
+#: Shuffled pairs: negative lows (-1 and -3 clamp to a 0 bound), an exact
+#: duplicate (20, 60), a pair that dominates nothing before it.
+SHUFFLED_LOWS = [20, -1, 5, -3, 20, 10, 40]
+SHUFFLED_HIGHS = [60, 40, 40, 30, 60, 25, 254]
+
+
+def plain_sweep(frame, lows, highs, cfg):
+    """The sweep's plain version, on the frame's device: ``ff_stages_plain``'s
+    keep*g plane, the bounds, ``sweep_fused_plain`` with the monotone seed."""
+    from cudacam_tpu_torch.ops.cuda.canny import ff_kwargs, hyster_kwargs, sweep_bounds
+    from cudacam_tpu_torch.ops.cuda.feedforward import NMSQ, ff_stages_plain
+    from cudacam_tpu_torch.ops.cuda.hysteresis_fused import sweep_fused_plain
+
+    (kg,) = ff_stages_plain(frame, None, (NMSQ,), **ff_kwargs(cfg))
+    return sweep_fused_plain(kg, sweep_bounds(lows, highs, cfg), **hyster_kwargs(cfg))
 
 
 class SmokeFailure(RuntimeError):
@@ -304,6 +350,81 @@ class Smoke:
             print(f"batched == single-frame kernels at {n} x {h}x{w}, BGR and mono "
                   f"(growing at scan_after {sa}: {grown})")
 
+    def phase_sweep(self) -> None:
+        torch = self.torch
+        from cudacam_tpu_torch import CannyConfig
+        from cudacam_tpu_torch.ops.cuda.canny import ff_kwargs, hyster_kwargs, sweep_bounds
+        from cudacam_tpu_torch.ops.cuda.feedforward import NMSQ, ff_stages
+        from cudacam_tpu_torch.ops.cuda.hysteresis_fused import (
+            sweep_fused, sweep_fused_plain, sweep_pack, sweep_pack_plain,
+        )
+        from cudacam_tpu_torch.ops.cuda.megakernel import unpack, unpack_plain
+        from cudacam_tpu.io.sources import make_scene, make_spiral_thresh
+
+        lows16, highs16 = sweep_pairs()
+        shuffled = (SHUFFLED_LOWS, SHUFFLED_HIGHS)
+        cases = [  # (h, w), config, (lows, highs), extra round settings
+            ((1080, 1920), dict(), (lows16, highs16), []),
+            ((720, 1280), dict(), shuffled, [(2, 5)]),
+            ((720, 1280), dict(kernel_size=3, norm="l1"), shuffled, [(2, 5)]),
+            ((720, 1280), dict(kernel_size=7, parity="opencv"), shuffled, [(2, 5)]),
+            ((37, 53), dict(), shuffled, [(2, 5), (3, 3)]),
+            ((4320, 7680), dict(), (lows16[[0, -1]], highs16[[0, -1]]), []),
+        ]
+        for (h, w), kw, (lows, highs), extra in cases:
+            cfg = CannyConfig(height=h, width=w, **kw)
+            frame = torch.from_numpy(make_scene(h, w, seed=h + w)).to(self.dev)
+            (kg,) = ff_stages(frame, None, (NMSQ,), **ff_kwargs(cfg))
+            bounds = sweep_bounds(torch.tensor(lows, dtype=torch.int32, device=self.dev),
+                                  torch.tensor(highs, dtype=torch.int32, device=self.dev), cfg)
+            rounds = [hyster_kwargs(cfg)] + [
+                dict(hyster_kwargs(cfg), scan_after=sa, max_iters=mi) for sa, mi in extra]
+            finals = {}
+            for rkw in rounds:
+                for seed in (True, False):
+                    got = sweep_fused(kg, bounds, monotone_seed=seed, **rkw)
+                    self.diff("sweep_pack", got, sweep_fused_plain(kg, bounds, monotone_seed=seed, **rkw))
+                    finals[(rkw["scan_after"], rkw["max_iters"], seed)] = (
+                        (got == 255).sum((1, 2)).tolist())
+            print(f"sweep_fused == plain at {h}x{w} {kw or 'defaults'}, K={len(lows)}, both seed "
+                  f"modes; finals per pair: {finals}")
+            if h == 1080:
+                self.sweep_slots(kg, bounds, sweep_pack, sweep_pack_plain)
+                f = torch.randint(-2**31, 2**31 - 1, (16, -(-h // 32), w), dtype=torch.int32,
+                                  device=self.dev)
+                index = torch.randperm(16, device=self.dev).to(torch.int32)
+                self.diff("unpack", unpack(f, h, index), unpack_plain(f, h, index))
+
+        # The spiral cut off by the cap: the JAX package's finals per pair.
+        t = torch.from_numpy(make_spiral_thresh(64, 128)).to(self.dev)
+        kg = torch.where(t == 255, 3, torch.where(t == 128, 2, 0)).to(torch.int32)
+        bounds = torch.tensor([1, 2, 1, 2, 0, 2], dtype=torch.int32, device=self.dev)
+        for (max_iters, scan_after), want in SPIRAL_SWEEP_FINALS.items():
+            rkw = dict(max_iters=max_iters, scan_after=scan_after, dilate_steps=1)
+            for seed, finals in zip((True, False), want):
+                got = sweep_fused(kg, bounds, monotone_seed=seed, **rkw)
+                self.diff("sweep_pack", got, sweep_fused_plain(kg, bounds, monotone_seed=seed, **rkw))
+                n = (got == 255).sum((1, 2)).tolist()
+                require(n == finals, f"spiral sweep {rkw} seed {seed}: finals {n}, want {finals}")
+        print(f"spiral 64x128 sweep cut off by the cap == JAX finals {SPIRAL_SWEEP_FINALS}")
+
+    def sweep_slots(self, kg, bounds, sweep_pack, sweep_pack_plain) -> None:
+        """``sweep_pack`` slot by slot on the same prior planes, both seed
+        modes."""
+        torch = self.torch
+        k, (h, w) = bounds.numel() // 2, kg.shape
+        shape = (k, -(-h // 32), w)
+        for monotone in (True, False):
+            f0 = torch.randint(-2**31, 2**31 - 1, shape, dtype=torch.int32, device=self.dev)
+            p0 = torch.randint(-2**31, 2**31 - 1, shape, dtype=torch.int32, device=self.dev)
+            for slot in range(k):
+                f, p, fp, pp = f0.clone(), p0.clone(), f0.clone(), p0.clone()
+                sweep_pack(kg, bounds, slot, f, p, monotone)
+                sweep_pack_plain(kg, bounds, slot, fp, pp, monotone)
+                self.diff("sweep_pack", f, fp)
+                self.diff("sweep_pack", p, pp)
+        print(f"sweep_pack == plain slot by slot at {h}x{w}, K={k}, both seed modes")
+
     def phase_engine(self) -> None:
         torch = self.torch
         from cudacam_tpu_torch import CannyConfig, CannyStage
@@ -393,6 +514,30 @@ class Smoke:
         eng.set_low_threshold(10)
         eng.set_high_threshold(40)
         print("threshold 10/40 -> 20/80 changes the output, builds nothing")
+
+        # The threshold sweep: K=16 pairs over scene 0, 50 launches.
+        lows, highs = sweep_pairs()
+        k = len(lows)
+        maps, counts = self.path(
+            "threshold_sweep, 1080p K=16", lambda: eng.threshold_sweep(frames[0], lows, highs),
+            dict(ff_pack=0, pack_thresh=0, ff_stages=1, sweep_pack=k, hyst_phase1=k,
+                 hyst_phase2=k, unpack=1))
+        require(maps.shape == (k, 1080, 1920) and maps.dtype == torch.uint8
+                and counts.shape == (k,) and counts.dtype == torch.int32,
+                f"sweep result {tuple(maps.shape)} {maps.dtype}, {tuple(counts.shape)} {counts.dtype}")
+        plain_maps, plain_counts = torch_ops.threshold_sweep(
+            frames[0], torch.from_numpy(lows).to(self.dev), torch.from_numpy(highs).to(self.dev),
+            cfg)
+        require(torch.equal(maps, plain_maps) and torch.equal(counts, plain_counts),
+                "threshold_sweep differs from the plain cold sweep")
+        for i in (0, k - 1):
+            ref = numpy_oracle.canny_pipeline(scenes[0], int(lows[i]), int(highs[i]))["hyster"]
+            require((maps[i].cpu().numpy() == ref).all(),
+                    f"sweep pair ({lows[i]}, {highs[i]}) differs from the oracle")
+        n = counts.tolist()
+        require(n == sorted(n, reverse=True) and n[0] > n[-1] > 0, f"sweep edge counts {n}")
+        print(f"threshold_sweep 1080p K=16 == plain cold sweep; pairs 0 and 15 == oracle; "
+              f"edge counts {n}")
         self.eng, self.frames, self.cfg, self.batch = eng, frames, cfg, batch
 
     def phase_no_sync(self) -> None:
@@ -400,9 +545,11 @@ class Smoke:
         from cudacam_tpu_torch import CannyStage
 
         eng, frames = self.eng, self.frames[:8]
+        lows, highs = sweep_pairs()
         calls = [lambda: [eng.process(f) for f in frames], lambda: eng.process(self.batch),
                  lambda: eng.process(frames[0], CannyStage.THRESH),
-                 lambda: eng.process_all(frames[0])]
+                 lambda: eng.process_all(frames[0]),
+                 lambda: eng.threshold_sweep(frames[0], lows, highs)]
         for call in calls:
             call()
         torch.cuda.synchronize()
@@ -413,8 +560,8 @@ class Smoke:
         finally:
             torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize()
-        print("steady-state process() (single, x8 batch, THRESH) and process_all(): "
-              "no host sync under set_sync_debug_mode('error')")
+        print("steady-state process() (single, x8 batch, THRESH), process_all() and "
+              "threshold_sweep() (K=16): no host sync under set_sync_debug_mode('error')")
 
     def phase_timing(self) -> None:
         torch = self.torch
@@ -488,7 +635,7 @@ class Smoke:
             )
         stage_ms = stream(lambda f: eng.process(f, CannyStage.THRESH), 7)
         all_ms = stream(eng.process_all, 7)
-        for name in REPLACES:
+        for name in self.ms:
             print(f"time {name}: kernel {self.ms[name]!r} ms, plain {self.plain_ms[name]!r} ms (1080p)")
         print(f"time hyst_phase2 on a converged frame (returns at once): {noop_ms!r} ms")
         print(f"time ff_stages THRESH alone: kernel {thresh_ms!r} ms, plain {thresh_plain_ms!r} ms")
@@ -502,6 +649,65 @@ class Smoke:
                   f"8 single-frame calls {singles_ms!r} ms/frame (medians of 7)")
         print(f"time 1080p process(frame, THRESH) {stage_ms!r} ms/frame, process_all "
               f"{all_ms!r} ms/frame (8 scenes, medians of 7)")
+
+    def phase_sweep_timing(self) -> None:
+        """``sweep_pack`` alone, seeded against cold tails, and the K=16
+        sweeps through the engine at 1080p, 4K and 8K against the plain
+        sweep (at 8K for K=2, the first and last pair)."""
+        torch = self.torch
+        from cudacam_tpu_torch import CannyConfig
+        from cudacam_tpu_torch.engine import CannyEngine
+        from cudacam_tpu_torch.ops.cuda.canny import hyster_kwargs, sweep_bounds
+        from cudacam_tpu_torch.ops.cuda.feedforward import NMSQ, ff_stages
+        from cudacam_tpu_torch.ops.cuda.hysteresis_fused import (
+            sweep_fused, sweep_pack, sweep_pack_plain,
+        )
+        from cudacam_tpu.io.sources import make_scene
+
+        lows, highs = sweep_pairs()
+        k = len(lows)
+        dev_pairs = lambda sel: [torch.from_numpy(x[sel]).to(self.dev) for x in (lows, highs)]  # noqa: E731
+        cfg, frame = self.cfg, self.frames[0]
+        (kg,) = ff_stages(frame, None, (NMSQ,))
+        bounds = sweep_bounds(*dev_pairs(slice(None)), cfg)
+        fk = torch.zeros((k, -(-1080 // 32), 1920), dtype=torch.int32, device=self.dev)
+        pk = torch.zeros_like(fk)
+        self.ms["sweep_pack"] = self.time_ms(lambda _: sweep_pack(kg, bounds, 1, fk, pk), 50)
+        self.plain_ms["sweep_pack"] = self.time_ms(
+            lambda _: sweep_pack_plain(kg, bounds, 1, fk, pk), 20)
+        print(f"time sweep_pack: kernel {self.ms['sweep_pack']!r} ms, plain "
+              f"{self.plain_ms['sweep_pack']!r} ms (1080p, one seeded slot)")
+        tails = {seed: self.time_ms(
+            lambda _: sweep_fused(kg, bounds, monotone_seed=seed, **hyster_kwargs(cfg)), 5, reps=7)
+            for seed in (True, False)}
+        print(f"time sweep_fused 1080p K=16 on scene 0's keep*g plane (medians of 7): seeded "
+              f"{tails[True]!r} ms, cold tails {tails[False]!r} ms")
+
+        for label, (h, w), n, plain_sel in (("1080p", (1080, 1920), 5, slice(None)),
+                                            ("4K", (2160, 3840), 3, slice(None)),
+                                            ("8K", (4320, 7680), 1, [0, -1])):
+            cfg_s = CannyConfig(height=h, width=w)
+            eng = CannyEngine(cfg_s, device="cuda")
+            fr = torch.from_numpy(make_scene(h, w, seed=0)).to(self.dev)
+            maps, counts = eng.threshold_sweep(fr, lows, highs)
+            c = counts.tolist()
+            require(maps.shape == (k, h, w) and c == sorted(c, reverse=True) and c[-1] > 0,
+                    f"{label} sweep: {tuple(maps.shape)}, counts {c}")
+            kernel_ms = self.time_ms(lambda _: eng.threshold_sweep(fr, lows, highs), n)
+            sub, sub_np = dev_pairs(plain_sel), (lows[plain_sel], highs[plain_sel])
+            plain = plain_sweep(fr, *sub, cfg_s)
+            got = eng.threshold_sweep(fr, *sub_np)[0]
+            self.diff("sweep_pack", got, plain)
+            plain_ms = self.time_ms(lambda _: plain_sweep(fr, *sub, cfg_s), 1,
+                                    reps=3 if h == 1080 else 1)
+            kp = len(plain)
+            sub_ms = kernel_ms if kp == k else self.time_ms(
+                lambda _: eng.threshold_sweep(fr, *sub_np), n)
+            print(f"time threshold_sweep {label} K={k}: kernels {kernel_ms!r} ms (CUDA events, "
+                  f"median of 5 windows of {n}); K={kp} kernels {sub_ms!r} ms, plain {plain_ms!r} "
+                  f"ms, byte-equal; edge counts {c}")
+            del maps, counts, got, plain
+            torch.cuda.empty_cache()
 
     def result(self) -> None:
         torch = self.torch
@@ -528,7 +734,8 @@ def main() -> int:
     try:
         smoke = Smoke()
         for phase in (smoke.phase_env, smoke.phase_build, smoke.phase_kernels,
-                      smoke.phase_engine, smoke.phase_no_sync, smoke.phase_timing):
+                      smoke.phase_sweep, smoke.phase_engine, smoke.phase_no_sync,
+                      smoke.phase_timing, smoke.phase_sweep_timing):
             phase()
             print(f"[{phase.__name__} done at {time.perf_counter() - t0:.1f} s]", flush=True)
     except SmokeFailure as e:

@@ -3,8 +3,9 @@
 // Replaces the back half of the TPU megakernel (cudacam_tpu/ops/pallas/
 // megakernel.py: _phase1_finalize, _unpack_out; per frame of a batch in
 // _kernel_batched), its phase-2 continuation (_cont_kernel / _cont_call),
-// and the convergence and unpack of the fused hysteresis kernel
-// (hysteresis_fused.py: _kernel). Both phases execute the round schedule of
+// and the convergence and unpack of the fused hysteresis kernel and of the
+// threshold-sweep kernel (hysteresis_fused.py: _kernel, _sweep_kernel; the
+// sweep runs both phases once per pair). Both phases execute the round schedule of
 // cudacam_tpu/ops/bitpack.py::_make_ops exactly: the same dilate_steps with
 // bitpack's default carry cadence (every 8th step exact across words) and
 // an exact last step, the same 8 scan directions in the same order, the
@@ -326,12 +327,17 @@ __global__ void __launch_bounds__(NT) hyst_kernel(Params a) {
   }
 }
 
-// Frame blockIdx.y of the batch: every byte of its edge map written once.
-__global__ void unpack_kernel(const uint32_t* __restrict__ f, uint8_t* __restrict__ out, int h,
-                              int w) {
+// Frame blockIdx.y of the batch: every byte of its edge map written once, to
+// out[index[b]] when an index is given (the sweep's original pair order: the
+// TPU sweep kernel's prefetch-indexed output block), else to out[b]. An index
+// outside [0, B) writes nothing.
+__global__ void unpack_kernel(const uint32_t* __restrict__ f, uint8_t* __restrict__ out,
+                              const int* __restrict__ index, int nb, int h, int w) {
   const int n = h * w;
+  const int to = index ? index[blockIdx.y] : (int)blockIdx.y;
+  if (to < 0 || to >= nb) return;
   const uint32_t* fb = f + (size_t)blockIdx.y * ((h + 31) / 32) * w;
-  uint8_t* ob = out + (size_t)blockIdx.y * n;
+  uint8_t* ob = out + (size_t)to * n;
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x) {
     const int r = i / w, c = i - r * w;
     ob[i] = ((fb[(r >> 5) * w + c] >> (r & 31)) & 1u) ? 255 : 0;
@@ -450,14 +456,15 @@ extern "C" int cc_hyst_phase2(void* f, const void* p, void* scratch, void* flags
   return launch_rounds<true>(a, device, static_cast<cudaStream_t>(stream));
 }
 
-extern "C" int cc_unpack(const void* f, void* out, int nb, int h, int w, int device,
-                         void* stream) {
+extern "C" int cc_unpack(const void* f, void* out, const void* index, int nb, int h, int w,
+                         int device, void* stream) {
   DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return guard.err;
   if (nb < 1 || nb > 65535) return cudaErrorInvalidValue;  // grid.y
   const long long blocks = ((long long)h * w + 255) / 256;
   const dim3 grid((unsigned)(blocks < (1 << 30) ? blocks : (1 << 30)), nb);
   unpack_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(f), static_cast<uint8_t*>(out), h, w);
+      static_cast<const uint32_t*>(f), static_cast<uint8_t*>(out),
+      static_cast<const int*>(index), nb, h, w);
   return cudaGetLastError();
 }

@@ -11,6 +11,7 @@ kernels read, so a threshold change rebuilds nothing and the hot path reads
 nothing back to the host. A batched (B, H, W[, 3]) input runs HYSTER as one
 launch of each kernel for the whole batch; the display stages and
 ``process_all`` loop over its frames, as the JAX package maps over them.
+``threshold_sweep`` runs K threshold pairs over one frame.
 """
 from __future__ import annotations
 
@@ -140,6 +141,25 @@ class CannyEngine(ThresholdControls):
             return canny.canny_all_stages(arr, thr, self._cfg)
         per_frame = [canny.canny_all_stages(f, thr, self._cfg) for f in arr]
         return {k: torch.stack([d[k] for d in per_frame]) for k in per_frame[0]}
+
+    def threshold_sweep(
+        self, frame: FrameLike, lows, highs
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Edge maps and FINAL-edge counts of one frame for K (low, high)
+        pairs, as given (unclamped): ((K, H, W) uint8, (K,) int32) on the
+        engine's device. The pairs go to the device once per call; nothing
+        is built per threshold and nothing is read back."""
+        arr, batched = self._validate(frame)
+        if batched:
+            raise ValueError("threshold_sweep takes a single frame")
+        lows = np.asarray(lows, np.int32)
+        highs = np.asarray(highs, np.int32)
+        if lows.shape != highs.shape or lows.ndim != 1:
+            raise ValueError("lows/highs must be equal-length 1D")
+        pairs = torch.from_numpy(np.stack([lows, highs]))
+        if self._device.type == "cuda":  # pinned: an asynchronous copy
+            pairs = pairs.pin_memory().to(self._device, non_blocking=True)
+        return canny.threshold_sweep(arr, pairs[0], pairs[1], self._cfg)
 
     def warmup(self, final_stage: CannyStage = CannyStage.HYSTER, batch: int = 0) -> None:
         """Run one frame (or a batch of ``batch`` frames) of zeros ahead of

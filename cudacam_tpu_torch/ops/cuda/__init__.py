@@ -11,8 +11,10 @@ from typing import Dict
 from cudacam_tpu_torch.ops.cuda._build import LAUNCHES
 
 #: Every kernel: the HYSTER main path's four in launch order, then the
-#: display stages' feed-forward kernel and the two-kernel path's pack.
-KERNELS = ("ff_pack", "hyst_phase1", "hyst_phase2", "unpack", "ff_stages", "pack_thresh")
+#: display stages' feed-forward kernel, the two-kernel path's pack and the
+#: threshold sweep's per-pair pack.
+KERNELS = ("ff_pack", "hyst_phase1", "hyst_phase2", "unpack", "ff_stages", "pack_thresh",
+           "sweep_pack")
 
 
 def launch_counts() -> Dict[str, int]:

@@ -42,7 +42,8 @@ SIGNATURES = {
     "cc_hyst_phase1": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
     "cc_hyst_phase2": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "cc_hyst_scratch_words": (ctypes.c_longlong, [_I, _I, _I, _I]),
-    "cc_unpack": (_I, [_P, _P, _I, _I, _I, _I, _P]),
+    "cc_unpack": (_I, [_P, _P, _P, _I, _I, _I, _I, _P]),
+    "cc_sweep_pack": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "cc_error_string": (ctypes.c_char_p, [_I]),
 }
 

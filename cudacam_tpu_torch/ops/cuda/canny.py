@@ -13,18 +13,25 @@ fallback. The same calls take the plain versions on CPU tensors.
   buffer, the float inspection planes are plain torch ops on its blur (as
   they are XLA ops in the JAX package), and the edge map comes from the
   threshold map through ``hysteresis_fused`` (K6), the two-kernel path.
+* The threshold sweep: one ``ff_stages`` pass emits the int32 ``keep * g``
+  plane, the pairs become comparable-domain bounds (plain torch ops, as XLA
+  ops in the JAX package), and ``sweep_fused`` (K5) runs every pair with the
+  monotone seed. One executor at every K and frame size: the JAX package's
+  switch to unseeded tails past K = 64 or at 8K (a VMEM limit) has no
+  counterpart, so there the port's maps cut off by the round cap are the
+  seeded ones, and converged maps are equal either way.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
 from cudacam_tpu.config import CannyConfig
-from cudacam_tpu.stages import CannyStage
+from cudacam_tpu.stages import FINAL_EDGE, CannyStage
 from cudacam_tpu_torch.ops import torch_ops
-from cudacam_tpu_torch.ops.cuda.feedforward import FF_STAGES, ff_stages
-from cudacam_tpu_torch.ops.cuda.hysteresis_fused import hysteresis_fused
+from cudacam_tpu_torch.ops.cuda.feedforward import FF_STAGES, NMSQ, ff_stages
+from cudacam_tpu_torch.ops.cuda.hysteresis_fused import hysteresis_fused, sweep_fused
 from cudacam_tpu_torch.ops.cuda.megakernel import (
     canny_mega_pipeline, canny_mega_pipeline_batched,
 )
@@ -103,3 +110,33 @@ def canny_all_stages(
         "thresh": thresh,
         "hyster": hysteresis_fused(thresh, **hyster_kwargs(cfg)),
     }
+
+
+def sweep_bounds(lows: torch.Tensor, highs: torch.Tensor, cfg: CannyConfig) -> torch.Tensor:
+    """(K,) int32 lows and highs -> (2K,) int32 [lo_0, hi_0, ...] bounds on
+    the ``keep * g`` plane (kg > hi is FINAL, kg > lo at least CANDIDATE),
+    as ``threshold_sweep_pallas``' ``cmp_bounds`` derives them: 'reference'
+    parity ``threshold_magnitude_bound(t) - 1`` (floor division, lows
+    unclamped); 'opencv' parity the thresholds clipped to [0, 2048], squared
+    for l2. Plain torch ops on the thresholds' device."""
+    if cfg.parity == "reference":
+        lo, hi = (torch_ops.threshold_magnitude_bound(t, cfg.grad_coeff, cfg.norm) - 1
+                  for t in (lows, highs))
+    else:
+        lo, hi = (t.to(torch.int32).clamp(0, 2048) for t in (lows, highs))
+        if cfg.norm == "l2":
+            lo, hi = lo * lo, hi * hi
+    return torch.stack([lo, hi], dim=1).reshape(-1).to(torch.int32)
+
+
+def threshold_sweep(
+    frame: torch.Tensor, lows: torch.Tensor, highs: torch.Tensor, cfg: CannyConfig
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Edge maps of one (H, W[, 3]) uint8 frame for K (low, high) pairs,
+    (K,) int32 tensors on the frame's device: ((K, H, W) uint8 maps, (K,)
+    int32 FINAL-edge counts), as ``threshold_sweep_pallas`` gives them. No
+    host sync."""
+    (kg,) = ff_stages(frame, None, (NMSQ,), **ff_kwargs(cfg))
+    maps = sweep_fused(kg, sweep_bounds(lows, highs, cfg), monotone_seed=True,
+                       **hyster_kwargs(cfg))
+    return maps, (maps == FINAL_EDGE).sum((1, 2), dtype=torch.int32)

@@ -1,4 +1,5 @@
-"""Hysteresis of a threshold map: the two-kernel path's second half.
+"""Hysteresis of a threshold map (the two-kernel path's second half) and of
+many threshold pairs at once (the threshold sweep).
 
 Port of the TPU fused hysteresis kernel (cudacam_tpu/ops/pallas/
 hysteresis_fused.py:365/:373 ``pallas_call``: ``_fused_call`` :310 ->
@@ -7,7 +8,13 @@ hysteresis_fused.py:365/:373 ``pallas_call``: ``_fused_call`` :310 ->
 unpack) becomes ``pack_thresh`` (``csrc/pack.cu``) followed by the round
 kernels and the unpack of ``ops/cuda/megakernel.py``, all on the device with
 no readback. It serves ``process_all``'s edge map; the nmsq mode takes the
-threshold sweep's int32 ``keep * g`` plane and two bounds instead of a u8 map.
+int32 ``keep * g`` plane and two bounds instead of a u8 map.
+
+Port of the TPU sweep kernel (hysteresis_fused.py:729 ``pallas_call`` in
+``sweep_fused`` :644 -> ``_sweep_kernel`` :478): the K grid steps of its one
+launch become, per pair in sorted order, ``sweep_pack`` (``csrc/sweep.cu``)
+and the two round kernels, then one unpack that writes each map at its
+original index. Pairs, round counts and seeds stay on the device.
 """
 from __future__ import annotations
 
@@ -20,7 +27,9 @@ from cudacam_tpu_torch.ops import bitpack
 from cudacam_tpu_torch.ops.cuda._build import (
     count_launch, load, require_contiguous, stream_of, use_plain,
 )
-from cudacam_tpu_torch.ops.cuda.megakernel import converge_unpack
+from cudacam_tpu_torch.ops.cuda.megakernel import (
+    converge, converge_unpack, unpack, unpack_plain,
+)
 
 
 def _check(src: torch.Tensor, bounds: Optional[torch.Tensor]) -> None:
@@ -118,3 +127,145 @@ def hysteresis_fused_nmsq(
         device=kg.device, dtype=torch.int32)
     out, _ = _hysteresis(kg, bounds, max_iters, dilate_steps, scan_after)
     return out
+
+
+def _check_sweep(kg: torch.Tensor, bounds: torch.Tensor) -> int:
+    """Validates a sweep's kg plane and (2K,) bounds; returns K."""
+    if kg.dtype != torch.int32 or kg.ndim != 2 or kg.numel() == 0:
+        raise ValueError(f"expected a (H, W) int32 keep*g plane, got {tuple(kg.shape)} {kg.dtype}")
+    if bounds.dtype != torch.int32 or bounds.ndim != 1 or bounds.numel() % 2:
+        raise ValueError("bounds must be a (2K,) int32 tensor [lo_0, hi_0, lo_1, hi_1, ...]")
+    return bounds.numel() // 2
+
+
+def sweep_order(bounds: torch.Tensor) -> torch.Tensor:
+    """(K,) int32 permutation that orders the pairs of (2K,) ``bounds``,
+    clamped at 0, by low descending, then high descending; exact duplicates
+    keep ascending original index (``jnp.lexsort((-hi, -lo))`` as the JAX
+    package orders them). A stable sort on the device, no readback."""
+    pairs = bounds.clamp_min(0).view(-1, 2).to(torch.int64)
+    key = (pairs[:, 0] << 31) | pairs[:, 1]  # both < 2^31 after the clamp
+    return torch.sort(-key, stable=True).indices.to(torch.int32)
+
+
+def _sweep_check_planes(kg: torch.Tensor, f: torch.Tensor, p: torch.Tensor, k: int) -> None:
+    h, w = kg.shape
+    want = (k, -(-h // 32), w)
+    if f.dtype != torch.int32 or p.dtype != torch.int32 or f.shape != want or p.shape != want:
+        raise ValueError(f"planes must be {want} int32 tensors, got {tuple(f.shape)}/{tuple(p.shape)}")
+
+
+def sweep_pack_plain(
+    kg: torch.Tensor, bounds: torch.Tensor, slot: int, f: torch.Tensor, p: torch.Tensor,
+    monotone: bool = True,
+) -> None:
+    """Plain PyTorch version of :func:`sweep_pack`, on any device."""
+    fw, pw = pack_thresh_plain(kg, bounds[2 * slot: 2 * slot + 2])
+    if monotone and slot > 0:
+        lo, hi = bounds[2 * slot: 2 * slot + 2].clamp_min(0)
+        plo, phi = bounds[2 * slot - 2: 2 * slot].clamp_min(0)
+        fw = torch.where((plo >= lo) & (phi >= hi), fw | f[slot - 1], fw)
+    f[slot], p[slot] = fw, pw
+
+
+def sweep_pack(
+    kg: torch.Tensor, bounds: torch.Tensor, slot: int, f: torch.Tensor, p: torch.Tensor,
+    monotone: bool = True,
+) -> None:
+    """Packs slot ``slot`` of a sweep in place: its FINAL (kg > hi) and
+    CANDIDATE (lo < kg <= hi) words into ``f[slot]`` and ``p[slot]`` of the
+    (K, ceil(H/32), W) int32 planes, for the pair ``bounds[2 slot : 2 slot
+    + 2]`` clamped at 0. With ``monotone``, when slot - 1's pair dominates
+    (both bounds >=, decided on the device), ``f[slot]`` is ORed with
+    ``f[slot - 1]`` as it stands: the monotone warm start."""
+    k = _check_sweep(kg, bounds)
+    _sweep_check_planes(kg, f, p, k)
+    if not 0 <= slot < k:
+        raise ValueError(f"slot {slot} is not in [0, {k})")
+    if use_plain(kg, bounds, f, p):
+        return sweep_pack_plain(kg, bounds, slot, f, p, monotone)
+    require_contiguous(kg, bounds, f, p)
+    h, w = kg.shape
+    lib = load()
+    lib.check(
+        lib.lib.cc_sweep_pack(kg.data_ptr(), bounds.data_ptr(), f.data_ptr(), p.data_ptr(), slot,
+                              h, w, int(monotone), kg.device.index, stream_of(kg)),
+        "sweep_pack",
+    )
+    count_launch("sweep_pack")
+
+
+def sweep_fused_plain(
+    kg: torch.Tensor,
+    bounds: torch.Tensor,
+    *,
+    max_iters: int = 100,
+    dilate_steps: int = 16,
+    scan_after: int = 10,
+    monotone_seed: bool = True,
+) -> torch.Tensor:
+    """Plain PyTorch version of :func:`sweep_fused`, on any device: pack,
+    both phases and unpack of ``ops/bitpack.py`` per pair, in the sorted
+    order with the same seeds. Reads the pairs back to the host."""
+    k = _check_sweep(kg, bounds)
+    h, w = kg.shape
+    pairs = bounds.clamp_min(0).view(k, 2).tolist()
+    order = sweep_order(bounds).tolist() if monotone_seed else range(k)
+    out = torch.empty((k, h, w), dtype=torch.uint8, device=kg.device)
+    prev = None  # (lo, hi, converged words) of the previous slot
+    for i in order:
+        lo, hi = pairs[i]
+        fw, pw = pack_thresh_plain(kg, bounds[2 * i: 2 * i + 2])
+        if monotone_seed and prev is not None and prev[0] >= lo and prev[1] >= hi:
+            fw = fw | prev[2]
+        fc, _, _ = bitpack.converge_packed(fw, pw, h, w, dilate_steps, scan_after, max_iters)
+        out[i] = unpack_plain(fc, h)
+        prev = (lo, hi, fc)
+    return out
+
+
+def _sweep_launches(kg, bounds, k, max_iters, dilate_steps, scan_after, monotone_seed):
+    """The kernels' sequence: per sorted slot, ``sweep_pack`` and both
+    phases on the slot's planes, in stream order (a slot's seed is the
+    previous slot's plane after its last round); then one unpack to the
+    original indices. On CPU tensors every step takes its plain version."""
+    h, w = kg.shape
+    order = sweep_order(bounds) if monotone_seed else None
+    sorted_b = bounds.view(k, 2)[order.long()].reshape(-1) if monotone_seed else bounds
+    f = torch.empty((k, -(-h // 32), w), dtype=torch.int32, device=kg.device)
+    p = torch.empty_like(f)
+    flags = torch.empty((k, 2, 2), dtype=torch.int32, device=kg.device)
+    for i in range(k):
+        sweep_pack(kg, sorted_b, i, f, p, monotone_seed)
+        converge(f[i], p[i], flags[i], h, dilate_steps=dilate_steps, scan_after=scan_after,
+                 max_iters=max_iters)
+    return unpack(f, h, order)
+
+
+def sweep_fused(
+    kg: torch.Tensor,
+    bounds: torch.Tensor,
+    *,
+    max_iters: int = 100,
+    dilate_steps: int = 16,
+    scan_after: int = 10,
+    monotone_seed: bool = True,
+) -> torch.Tensor:
+    """K threshold pairs over one (H, W) int32 ``keep * g`` plane -> (K, H, W)
+    uint8 edge maps, equal byte for byte to the JAX package's ``sweep_fused``
+    with the same ``monotone_seed``. ``bounds`` is (2K,) int32 [lo_0, hi_0,
+    lo_1, hi_1, ...] in the comparable domain, clamped at 0 here.
+
+    With ``monotone_seed`` the pairs run in :func:`sweep_order` and each
+    starts from the previous pair's plane when that pair dominates it.
+    Converged maps equal the cold starts; maps cut off by ``max_iters`` do
+    not, and equal the JAX package's seeded ones. Without it every pair
+    starts cold, in the given order. No host sync on the kernel route."""
+    k = _check_sweep(kg, bounds)
+    kw = dict(max_iters=max_iters, dilate_steps=dilate_steps, scan_after=scan_after,
+              monotone_seed=monotone_seed)
+    if k == 0:
+        return torch.empty((0,) + tuple(kg.shape), dtype=torch.uint8, device=kg.device)
+    if use_plain(kg, bounds):
+        return sweep_fused_plain(kg, bounds, **kw)
+    return _sweep_launches(kg, bounds, k, **kw)

@@ -33,7 +33,7 @@ mirrors.
 from __future__ import annotations
 
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -146,43 +146,71 @@ def hyst_phase2(
     _launch_rounds("hyst_phase2", f, p, flags, h, dilate_steps, max_iters)
 
 
-def unpack_plain(f: torch.Tensor, h: int) -> torch.Tensor:
+def unpack_plain(f: torch.Tensor, h: int, index: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain PyTorch version of :func:`unpack`, on any device."""
     if f.ndim == 3:
-        return torch.stack([unpack_plain(fb, h) for fb in f])
+        maps = torch.stack([unpack_plain(fb, h) for fb in f])
+        if index is None:
+            return maps
+        out = torch.empty_like(maps)
+        out[index.long()] = maps
+        return out
     reached = bitpack.unpack_mask(f, h)
     out = torch.full(reached.shape, NO_EDGE, dtype=torch.uint8, device=f.device)
     return out.masked_fill_(reached, FINAL_EDGE)
 
 
-def unpack(f: torch.Tensor, h: int) -> torch.Tensor:
+def unpack(f: torch.Tensor, h: int, index: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(ceil(h/32), W) FINAL plane -> (h, W) uint8 edge map, or a
     (B, ceil(h/32), W) batch -> (B, h, W): 255 where the bit is set, else 0
-    (remaining candidates are dropped)."""
+    (remaining candidates are dropped). With ``index``, a (B,) int32
+    permutation of range(B) on the planes' device, plane b lands at
+    ``out[index[b]]``."""
     if f.dtype != torch.int32 or f.ndim not in (2, 3) or f.shape[-2] != -(-h // 32):
         raise ValueError(f"plane {tuple(f.shape)} does not pack {h} rows")
-    if use_plain(f):
-        return unpack_plain(f, h)
-    require_contiguous(f)
+    if index is not None and (f.ndim != 3 or index.dtype != torch.int32
+                              or tuple(index.shape) != (f.shape[0],)):
+        raise ValueError("index must be a (B,) int32 tensor for (B, hw, w) planes")
+    if use_plain(f, index):
+        return unpack_plain(f, h, index)
+    require_contiguous(f, *([index] if index is not None else []))
     nb, w = (f.shape[0] if f.ndim == 3 else 1), f.shape[-1]
     out = torch.empty(tuple(f.shape[:-2]) + (h, w), dtype=torch.uint8, device=f.device)
     lib = load()
     lib.check(
-        lib.lib.cc_unpack(f.data_ptr(), out.data_ptr(), nb, h, w, f.device.index, stream_of(f)),
+        lib.lib.cc_unpack(f.data_ptr(), out.data_ptr(),
+                          index.data_ptr() if index is not None else None, nb, h, w,
+                          f.device.index, stream_of(f)),
         "unpack",
     )
     count_launch("unpack")
     return out
 
 
-def _finish(f, p, flags, h: int, dilate_steps: int, scan_after: int, max_iters: int):
-    """Phase 2 (or, when the cap is phase 1, its exit state as final) and
-    the unpack, after phase 1."""
+def _phase2(f, p, flags, h: int, dilate_steps: int, scan_after: int, max_iters: int) -> None:
+    """Phase 2 after phase 1 or, when the cap is phase 1, its exit state as
+    final."""
     if scan_after < max_iters:
         hyst_phase2(f, p, flags, h, dilate_steps=dilate_steps, max_iters=max_iters)
     else:
         flags[..., 1, :] = flags[..., 0, :]
-    return unpack(f, h)
+
+
+def converge(
+    f: torch.Tensor,
+    p: torch.Tensor,
+    flags: torch.Tensor,
+    h: int,
+    *,
+    dilate_steps: int = 16,
+    scan_after: int = 10,
+    max_iters: int = 100,
+) -> None:
+    """Both phases on packed planes (one frame or a batch), in place, with
+    ``flags`` filled in. No host sync."""
+    hyst_phase1(f, p, flags, h, dilate_steps=dilate_steps, scan_after=scan_after,
+                max_iters=max_iters)
+    _phase2(f, p, flags, h, dilate_steps, scan_after, max_iters)
 
 
 def converge_unpack(
@@ -195,11 +223,10 @@ def converge_unpack(
     scan_after: int = 10,
     max_iters: int = 100,
 ) -> torch.Tensor:
-    """Both phases on packed planes (one frame or a batch) with ``flags``
-    filled in, then the edge maps. No host sync."""
-    hyst_phase1(f, p, flags, h, dilate_steps=dilate_steps, scan_after=scan_after,
-                max_iters=max_iters)
-    return _finish(f, p, flags, h, dilate_steps, scan_after, max_iters)
+    """:func:`converge`, then the edge maps."""
+    converge(f, p, flags, h, dilate_steps=dilate_steps, scan_after=scan_after,
+             max_iters=max_iters)
+    return unpack(f, h)
 
 
 def canny_mega(
@@ -300,4 +327,5 @@ def canny_mega_pipeline_batched(
         norm=norm, parity=parity, dilate_steps=dilate_steps, scan_after=scan_after,
         max_iters=max_iters,
     )
-    return _finish(f, p, flags, frames.shape[1], dilate_steps, scan_after, max_iters), flags
+    _phase2(f, p, flags, frames.shape[1], dilate_steps, scan_after, max_iters)
+    return unpack(f, frames.shape[1]), flags

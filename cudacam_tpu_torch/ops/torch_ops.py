@@ -274,6 +274,32 @@ def canny_all_stages(
     }
 
 
+def threshold_sweep(
+    frame: torch.Tensor,
+    lows: torch.Tensor,
+    highs: torch.Tensor,
+    cfg: CannyConfig,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Edge maps for K (low, high) pairs (``xla_ops.threshold_sweep``): mono,
+    blur and Sobel once, then the threshold map and the bit-packed
+    hysteresis per pair, each pair from a cold start. Returns ((K, H, W)
+    uint8 maps, (K,) int32 FINAL-edge counts)."""
+    sum_x, sum_y = sobel_sums(gaussian_blur(rgb2mono(frame), cfg.kernel_size))
+    maps = [
+        hysteresis_packed(
+            compute_threshold_map(sum_x, sum_y, lo, hi, cfg),
+            max_iters=cfg.max_hysteresis_iters,
+            dilate_steps=cfg.hysteresis_inner_steps,
+            scan_after=cfg.hysteresis_scan_after,
+        )
+        for lo, hi in zip(torch.as_tensor(lows, dtype=torch.int32),
+                          torch.as_tensor(highs, dtype=torch.int32))
+    ]
+    out = (torch.stack(maps) if maps
+           else torch.empty((0,) + tuple(sum_x.shape), dtype=torch.uint8, device=frame.device))
+    return out, (out == FINAL_EDGE).sum((1, 2), dtype=torch.int32)
+
+
 #: Display buffer key of each stage in :func:`canny_all_stages`' result.
 STAGE_DISPLAY_KEY: Dict[CannyStage, str] = {
     CannyStage.MONO: "mono",

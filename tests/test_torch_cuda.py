@@ -22,8 +22,10 @@ from cudacam_tpu_torch.ops import bitpack, cuda as kernels, torch_ops
 from cudacam_tpu_torch.ops.cuda.feedforward import (
     FF_STAGES, NMSQ, ff_pack, ff_pack_batched, ff_pack_plain, ff_stages, ff_stages_plain,
 )
+from cudacam_tpu_torch.ops.cuda.canny import sweep_bounds
 from cudacam_tpu_torch.ops.cuda.hysteresis_fused import (
-    hysteresis_fused, hysteresis_fused_nmsq, pack_thresh, pack_thresh_plain,
+    hysteresis_fused, hysteresis_fused_nmsq, pack_thresh, pack_thresh_plain, sweep_fused,
+    sweep_fused_plain, sweep_pack, sweep_pack_plain,
 )
 from cudacam_tpu_torch.ops.cuda.megakernel import (
     canny_mega_pipeline, canny_mega_pipeline_batched, hyst_phase1, hyst_phase2, unpack,
@@ -231,6 +233,93 @@ def test_no_host_sync_on_the_hot_path(dev):
     try:
         for call in calls:
             call()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+def _kg(h, w, dev, seed=0, **kw):
+    (kg,) = ff_stages(_frame(h, w, dev, seed=seed), None, (NMSQ,), **kw)
+    return kg
+
+
+@pytest.mark.parametrize("h,w", SHAPES)
+def test_sweep_pack_matches_plain(dev, h, w):
+    """Each slot, seeded or not, from the same prior planes; the pairs hold
+    negatives, a duplicate and a pair that does not dominate the next."""
+    g = torch.Generator().manual_seed(h + w)
+    kg = torch.randint(0, 3000, (h, w), generator=g, dtype=torch.int32).to(dev)
+    bounds = torch.tensor([900, 2000, 900, 2000, -4, 2500, 100, 400, 0, 0],
+                          dtype=torch.int32, device=dev)
+    shape = (5, -(-h // 32), w)
+    for monotone in (True, False):
+        f0 = torch.randint(-2**31, 2**31 - 1, shape, generator=g, dtype=torch.int32).to(dev)
+        p0 = torch.randint(-2**31, 2**31 - 1, shape, generator=g, dtype=torch.int32).to(dev)
+        for slot in range(5):
+            f, p, fp, pp = f0.clone(), p0.clone(), f0.clone(), p0.clone()
+            sweep_pack(kg, bounds, slot, f, p, monotone)
+            sweep_pack_plain(kg, bounds, slot, fp, pp, monotone)
+            assert torch.equal(f, fp) and torch.equal(p, pp), (monotone, slot)
+
+
+@pytest.mark.parametrize("h,w,n", [(37, 53, 3), (80, 256, 6), (1, 1, 2), (720, 1280, 16)])
+def test_unpack_to_index_matches_plain(dev, h, w, n):
+    g = torch.Generator().manual_seed(n)
+    f = torch.randint(-2**31, 2**31 - 1, (n, -(-h // 32), w), generator=g,
+                      dtype=torch.int32).to(dev)
+    index = torch.randperm(n, generator=g).to(torch.int32).to(dev)
+    got = unpack(f, h, index)
+    assert torch.equal(got, unpack_plain(f, h, index))
+    assert torch.equal(got[index.long()], unpack(f, h))
+
+
+@pytest.mark.parametrize("h,w", [(80, 256), (37, 53), (1, 1), (720, 1280)])
+@pytest.mark.parametrize("scan_after,max_iters", [(64, 100), (2, 100), (2, 5), (3, 3)])
+def test_sweep_fused_matches_plain(dev, h, w, scan_after, max_iters):
+    """Shuffled pairs with negative lows and an exact duplicate, both seed
+    modes, converged and cut off by the cap."""
+    kg = _kg(h, w, dev, seed=5)
+    cfg = CannyConfig(height=h, width=w)
+    lows = torch.tensor([20, -1, 5, -3, 20, 10, 40], dtype=torch.int32, device=dev)
+    highs = torch.tensor([60, 40, 40, 30, 60, 25, 254], dtype=torch.int32, device=dev)
+    bounds = sweep_bounds(lows, highs, cfg)
+    kw = dict(dilate_steps=16, scan_after=scan_after, max_iters=max_iters)
+    for seed in (True, False):
+        got = sweep_fused(kg, bounds, monotone_seed=seed, **kw)
+        assert torch.equal(got, sweep_fused_plain(kg, bounds, monotone_seed=seed, **kw)), seed
+
+
+def test_sweep_spiral_cut_off_by_the_cap(dev):
+    """The truncating spiral: seeded finals [5, 9, 13] against cold [5, 5, 5]
+    (and [738, 1410, 2018] against [738, 738, 738] with phase 2)."""
+    t = torch.from_numpy(make_spiral_thresh(64, 128)).to(dev)
+    kg = torch.where(t == 255, 3, torch.where(t == 128, 2, 0)).to(torch.int32)
+    bounds = torch.tensor([1, 2, 1, 2, 0, 2], dtype=torch.int32, device=dev)
+    for (max_iters, scan_after), want in (((4, 100), ([5, 9, 13], [5, 5, 5])),
+                                          ((6, 2), ([738, 1410, 2018], [738, 738, 738]))):
+        kw = dict(max_iters=max_iters, scan_after=scan_after, dilate_steps=1)
+        for seed, finals in zip((True, False), want):
+            got = sweep_fused(kg, bounds, monotone_seed=seed, **kw)
+            assert torch.equal(got, sweep_fused_plain(kg, bounds, monotone_seed=seed, **kw))
+            assert (got == 255).sum((1, 2)).tolist() == finals
+
+
+@pytest.mark.parametrize("parity", ["reference", "opencv"])
+def test_engine_threshold_sweep_matches_plain(dev, parity):
+    cfg = CannyConfig(height=256, width=512, parity=parity, hysteresis_scan_after=2)
+    eng = CannyEngine(cfg, device="cuda")
+    fr = _frame(256, 512, dev, seed=6)
+    lows, highs = [20, -3, 5, 20, 10], [60, 30, 40, 60, 25]
+    kernels.reset_launch_counts()
+    maps, counts = eng.threshold_sweep(fr, lows, highs)
+    assert kernels.launch_counts() == dict(dict.fromkeys(kernels.KERNELS, 0), ff_stages=1,
+                                           sweep_pack=5, hyst_phase1=5, hyst_phase2=5, unpack=1)
+    want, want_counts = torch_ops.threshold_sweep(fr, torch.tensor(lows), torch.tensor(highs), cfg)
+    assert torch.equal(maps, want) and torch.equal(counts, want_counts)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng.threshold_sweep(fr, lows, highs)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()

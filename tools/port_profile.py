@@ -5,7 +5,7 @@ Run from the root of a checkout, on a host with a CUDA device and nvcc:
 
     python3 tools/port_profile.py [--out FILE]
 
-Two parts, each printing one JSON line per workload (and writing them all to
+Three parts, each printing one JSON line per workload (and writing them all to
 ``--out`` when given):
 
 * ``trace``: ``CannyEngine(device='cuda')`` under torch.profiler: ``process``
@@ -17,7 +17,10 @@ Two parts, each printing one JSON line per workload (and writing them all to
   traced span, and the wall time per frame with the profiler on;
 * ``sizes``: 4K and 8K streams (four scenes each) byte-equal to the plain
   PyTorch path on the card, with each frame's round flags, CUDA-event
-  ms/frame (median of 5 passes), and the spiral frame's flags and ms.
+  ms/frame (median of 5 passes), and the spiral frame's flags and ms;
+* ``sweeps``: ``threshold_sweep`` of scene 0 with ``benchmark.py``'s K=16
+  pairs at 1080p, 4K and 8K under torch.profiler (five passes; "per frame"
+  there is per sweep).
 
 Imports no jax: the frame generators come from the JAX package's jax-free
 ``cudacam_tpu.io.sources``.
@@ -33,6 +36,7 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
@@ -44,7 +48,7 @@ from cudacam_tpu_torch.ops.cuda.canny import pipeline_kwargs  # noqa: E402
 from cudacam_tpu_torch.ops.cuda.megakernel import canny_mega_pipeline  # noqa: E402
 
 KERNELS = ("ff_pack_kernel", "hyst_kernel<false>", "hyst_kernel<true>", "unpack_kernel",
-           "ff_stages_kernel", "pack_thresh_kernel")
+           "ff_stages_kernel", "pack_thresh_kernel", "sweep_pack_kernel")
 
 
 def _busy_us(intervals) -> float:
@@ -121,6 +125,14 @@ def sizes(h: int, w: int) -> dict:
     }
 
 
+def sweep(h: int, w: int) -> dict:
+    eng = CannyEngine(CannyConfig(height=h, width=w), device="cuda")
+    frame = torch.from_numpy(make_scene(h, w, seed=0)).cuda()
+    lows, highs = np.linspace(5, 60, 16).astype(np.int32), np.linspace(20, 180, 16).astype(np.int32)
+    return trace(f"threshold_sweep K=16 {h}x{w}", lambda x: eng.threshold_sweep(x, lows, highs),
+                 [frame], 1, 5)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", type=Path, help="also write the JSON lines here")
@@ -139,6 +151,7 @@ def main() -> int:
         trace("1080p process_all, 8-scene stream", eng.process_all, scenes, 1, 3),
     ]
     rows += [sizes(2160, 3840), sizes(4320, 7680)]
+    rows += [sweep(1080, 1920), sweep(2160, 3840), sweep(4320, 7680)]
     lines = [json.dumps(r) for r in rows]
     print("\n".join(lines))
     if args.out:
