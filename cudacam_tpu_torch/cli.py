@@ -8,9 +8,9 @@ Usage:
 
 ``--device cuda`` (the default) runs the hand-written kernels and raises
 when no CUDA device is present: it never runs on the CPU in its place.
-``--device cpu`` runs the plain PyTorch versions. ``convert`` is the JAX
-package's own host-only command. ``run``, ``parity`` and ``bench`` are not
-ported yet.
+``--device cpu`` runs the plain PyTorch versions. ``convert`` is host-only
+and writes the same bytes as ``python -m cudacam_tpu convert``. ``run``,
+``parity`` and ``bench`` are not ported yet.
 """
 from __future__ import annotations
 
@@ -18,6 +18,8 @@ import argparse
 import json
 import sys
 from typing import Optional
+
+import numpy as np
 
 
 def _add_device_arg(p: argparse.ArgumentParser) -> None:
@@ -35,9 +37,9 @@ def _device(name: str):
 
 
 def cmd_info(args: argparse.Namespace) -> int:
-    from cudacam_tpu.config import GAUSSIAN_TAPS
-    from cudacam_tpu.stages import CannyStage
     from cudacam_tpu_torch import __version__, probe
+    from cudacam_tpu_torch.config import GAUSSIAN_TAPS
+    from cudacam_tpu_torch.stages import CannyStage
 
     dev = _device(args.device)
     info = {
@@ -54,9 +56,9 @@ def cmd_info(args: argparse.Namespace) -> int:
 
 
 def cmd_sweep(args: argparse.Namespace) -> int:
-    from cudacam_tpu.config import CannyConfig
-    from cudacam_tpu.io import open_source
+    from cudacam_tpu_torch.config import CannyConfig
     from cudacam_tpu_torch.engine import CannyEngine
+    from cudacam_tpu_torch.io import open_source
 
     dev = _device(args.device)
     lows = [int(v) for v in args.lows.split(",")]
@@ -81,7 +83,7 @@ def cmd_sweep(args: argparse.Namespace) -> int:
     ]
     print(json.dumps({"frame": f"{h}x{w}", "device": str(eng.device), "sweep": rows}, indent=2))
     if args.save_dir:
-        from cudacam_tpu.io.preview import save_png
+        from cudacam_tpu_torch.io.preview import save_png
 
         arr = maps.cpu().numpy()
         for (lo, hi), m in zip(pairs, arr):
@@ -90,9 +92,35 @@ def cmd_sweep(args: argparse.Namespace) -> int:
     return 0
 
 
-def build_parser() -> argparse.ArgumentParser:
-    from cudacam_tpu.cli import cmd_convert
+def cmd_convert(args: argparse.Namespace) -> int:
+    from cudacam_tpu_torch.io import open_source, write_rawv
 
+    cap = args.frames or None
+    frames = []
+    with open_source(args.src) as src:
+        try:
+            for i, f in enumerate(src):
+                if cap is not None and i >= cap:
+                    break
+                frames.append(f)
+        except KeyboardInterrupt:
+            print(f"\ninterrupted after {len(frames)} frames", file=sys.stderr)
+    if not frames:
+        print("no frames captured", file=sys.stderr)
+        return 1
+    arr = np.stack(frames)
+    if args.dst.endswith(".rawv"):
+        write_rawv(args.dst, arr)
+    elif args.dst.endswith(".npy"):
+        np.save(args.dst, arr)
+    else:
+        print("dst must end in .npy or .rawv", file=sys.stderr)
+        return 2
+    print(f"wrote {len(frames)} frames {arr.shape[1:]} to {args.dst}")
+    return 0
+
+
+def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="cudacam_tpu_torch",
         description="Real-time Canny edge detection on PyTorch + hand-written CUDA kernels",

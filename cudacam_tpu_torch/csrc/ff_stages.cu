@@ -17,7 +17,11 @@
 //                  threshold sweep's input; alone, as on the TPU)
 //
 // A null output pointer is not written; the chain stops at the deepest
-// stage an output needs. Design: one block of 256 threads per TH x TW tile;
+// stage an output needs. With an origin, the frame is a tile of a larger
+// image (a halo-extended tile of a sharded frame): its pixel (0, 0) lies at
+// global (oy, ox) of an IH x IW image, zero padding is pinned to that image
+// (the TPU kernel's origin / image_size, sharded.py:255-321), and every
+// output is 0 outside it. Design: one block of 256 threads per TH x TW tile;
 // the tile is staged in shared memory as in ff_pack, then every thread
 // writes whole pixels row-major, so a warp writes 32 neighbouring bytes of
 // each output.
@@ -44,12 +48,13 @@ struct Outs {
 
 template <int KS, bool GRAY>
 __global__ void __launch_bounds__(256) ff_stages_kernel(
-    const uint8_t* __restrict__ frame, const int* __restrict__ thr, Outs o, int H, int W,
+    const uint8_t* __restrict__ frame, const int* __restrict__ thr, Outs o, Source s,
     int grad_coeff, bool l2, bool ref_parity, int depth) {
   __shared__ Tile t;
+  const int H = s.SH, W = s.SW;
   const int r0 = blockIdx.y * TH;
   const int c0 = blockIdx.x * TW;
-  stage_tile<KS, GRAY>(frame, H, W, r0, c0, l2, depth, t);
+  stage_tile<KS, GRAY>(frame, s, s.sy + r0, s.sx + c0, l2, depth, t);
 
   int lo_c = 0, hi_c = 0;
   if (o.thresh) class_bounds(thr[0], thr[1], grad_coeff, l2, ref_parity, &lo_c, &hi_c);
@@ -62,6 +67,13 @@ __global__ void __launch_bounds__(256) ff_stages_kernel(
     if (o.mono) o.mono[at] = mono_at<KS>(t, i, j);
     if (o.blur) o.blur[at] = blur_at(t, i, j);
     if (depth < kMag) continue;
+    if (!in_image(s, s.sy + y, s.sx + x)) {
+      if (o.grad) o.grad[at] = 0;
+      if (o.nms) o.nms[at] = 0;
+      if (o.thresh) o.thresh[at] = 0;
+      if (o.nmsq) o.nmsq[at] = 0;
+      continue;
+    }
     const Pixel px = pixel_at(t, i, j);
     const int mag = (o.grad || o.nms) ? display_magnitude(px.sx, px.sy, coeff, l2) : 0;
     if (o.grad) o.grad[at] = mag;
@@ -72,20 +84,23 @@ __global__ void __launch_bounds__(256) ff_stages_kernel(
 }
 
 template <int KS>
-cudaError_t launch(const uint8_t* frame, const int* thr, Outs o, int H, int W, int channels,
+cudaError_t launch(const uint8_t* frame, const int* thr, Outs o, const Source& s, int channels,
                    int grad_coeff, bool l2, bool ref_parity, int depth, cudaStream_t stream) {
-  dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH);
+  dim3 grid((s.SW + TW - 1) / TW, (s.SH + TH - 1) / TH);
   if (channels == 1)
-    ff_stages_kernel<KS, true><<<grid, 256, 0, stream>>>(frame, thr, o, H, W, grad_coeff, l2, ref_parity, depth);
+    ff_stages_kernel<KS, true><<<grid, 256, 0, stream>>>(frame, thr, o, s, grad_coeff, l2, ref_parity, depth);
   else
-    ff_stages_kernel<KS, false><<<grid, 256, 0, stream>>>(frame, thr, o, H, W, grad_coeff, l2, ref_parity, depth);
+    ff_stages_kernel<KS, false><<<grid, 256, 0, stream>>>(frame, thr, o, s, grad_coeff, l2, ref_parity, depth);
   return cudaGetLastError();
 }
 
 }  // namespace
 
+// The frame is H x W; (oy, ox) its global origin in an IH x IW image (0, 0,
+// H, W for a whole frame).
 extern "C" int cc_ff_stages(const void* frame, const void* thr, void* mono, void* blur,
                             void* grad, void* nms, void* thresh, void* nmsq, int H, int W,
+                            int oy, int ox, int IH, int IW,
                             int channels, int kernel_size, int grad_coeff, int l2,
                             int ref_parity, int device, void* stream) {
   DeviceGuard guard(device);
@@ -97,11 +112,12 @@ extern "C" int cc_ff_stages(const void* frame, const void* thr, void* mono, void
   const int depth = (grad || nms || thresh || nmsq) ? kMag : (blur ? kBlur : kMono);
   auto fr = static_cast<const uint8_t*>(frame);
   auto t = static_cast<const int*>(thr);
-  auto s = static_cast<cudaStream_t>(stream);
+  auto st = static_cast<cudaStream_t>(stream);
+  const Source s{H, W, oy, ox, IH, IW};
   switch (kernel_size) {
-    case 3: return launch<3>(fr, t, o, H, W, channels, grad_coeff, l2, ref_parity, depth, s);
-    case 5: return launch<5>(fr, t, o, H, W, channels, grad_coeff, l2, ref_parity, depth, s);
-    case 7: return launch<7>(fr, t, o, H, W, channels, grad_coeff, l2, ref_parity, depth, s);
+    case 3: return launch<3>(fr, t, o, s, channels, grad_coeff, l2, ref_parity, depth, st);
+    case 5: return launch<5>(fr, t, o, s, channels, grad_coeff, l2, ref_parity, depth, st);
+    case 7: return launch<7>(fr, t, o, s, channels, grad_coeff, l2, ref_parity, depth, st);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -5,7 +5,13 @@
 // _kernel_batched), its phase-2 continuation (_cont_kernel / _cont_call),
 // and the convergence and unpack of the fused hysteresis kernel and of the
 // threshold-sweep kernel (hysteresis_fused.py: _kernel, _sweep_kernel; the
-// sweep runs both phases once per pair). Both phases execute the round schedule of
+// sweep runs both phases once per pair). On a sharded frame they are also
+// the export megakernel's in-kernel phase 1 (megakernel.py:607 via :569) and
+// the local saturate of the collective round loop (hysteresis_fused.py:844
+// saturate_packed -> _sat_kernel :742: both phases, the round count starting
+// at 0 on each call), over a batch of extended tiles, and unpack_core
+// replaces the core unpack (megakernel.py:714 unpack_core_call ->
+// _unpack_core_kernel :653). Both phases execute the round schedule of
 // cudacam_tpu/ops/bitpack.py::_make_ops exactly: the same dilate_steps with
 // bitpack's default carry cadence (every 8th step exact across words) and
 // an exact last step, the same 8 scan directions in the same order, the
@@ -46,6 +52,10 @@
 //   reads them on the device, works only on frames still growing, and
 //   returns at once when none is, so the host never reads a flag back.
 //   Phase 2 writes flags[b][1] for every frame.
+// * An optional device gate: when *gate is 0 both phases return at once,
+//   writing nothing. The sharded round loop launches its bounded chain of
+//   rounds with the global pending flag as the gate, so the host never reads
+//   it back.
 //
 // * The occupancy query runs once per (phase, device, dilate_steps, B), on
 //   the first launch; later launches reuse the grid.
@@ -80,6 +90,7 @@ struct Params {
   uint32_t* buf[4];   // scratch: B planes each
   int* chg;           // [3][B] per-round change flags
   int* flags;         // (B, 2, 2): phase-1 (it, growing), final (it, growing)
+  const int* gate;    // null, or: return at once when *gate == 0
   int nb;             // frames in the batch
   int hw, w, h;       // plane rows, plane columns (= image columns), image rows
   long long plane;    // words per plane: hw * w
@@ -264,6 +275,7 @@ __device__ void list_active(const Params& a, const FrameState& st, int r) {
 
 template <bool PHASE2>
 __global__ void __launch_bounds__(NT) hyst_kernel(Params a) {
+  if (a.gate && __ldcg(a.gate) == 0) return;  // every block: the pending flag is down
   extern __shared__ uint32_t sm[];
   int* state = reinterpret_cast<int*>(sm + tile_words(a.dilate_steps));
   const FrameState st{state, state + a.nb, state + 2 * a.nb, state + 3 * a.nb};
@@ -344,6 +356,29 @@ __global__ void unpack_kernel(const uint32_t* __restrict__ f, uint8_t* __restric
   }
 }
 
+// The owned cores of a batch of extended tiles' FINAL planes, (T, hwe, ew)
+// words, into their places in the edge maps: tile t = (b, i, j) over an
+// nty x ntx grid per frame; its core is the h_loc x w_loc pixels from row
+// e_top, lane e_left of its plane, and lands at out[b][i h_loc + r][j w_loc
+// + c] of the (B, oh, ow) maps. Each byte of a core is written once, so a
+// sharded frame needs no gather after it; aligning the core is a bit and
+// lane offset in the word index. Bound: the output bytes (33 MB for an 8K
+// frame, ~10 us at HBM rate); one byte per thread, simple first.
+__global__ void unpack_core_kernel(const uint32_t* __restrict__ f, uint8_t* __restrict__ out,
+                                   int hwe, int ew, int e_top, int e_left, int h_loc, int w_loc,
+                                   int nty, int ntx, int oh, int ow) {
+  const int t = blockIdx.y;
+  const int b = t / (nty * ntx), i = (t / ntx) % nty, j = t % ntx;
+  const uint32_t* ft = f + (size_t)t * hwe * ew + e_left;
+  uint8_t* ob = out + ((size_t)b * oh + (size_t)i * h_loc) * ow + (size_t)j * w_loc;
+  const int n = h_loc * w_loc;
+  for (int k = blockIdx.x * blockDim.x + threadIdx.x; k < n; k += gridDim.x * blockDim.x) {
+    const int r = k / w_loc, c = k - r * w_loc;
+    const int er = e_top + r;
+    ob[(size_t)r * ow + c] = ((ft[(size_t)(er >> 5) * ew + c] >> (er & 31)) & 1u) ? 255 : 0;
+  }
+}
+
 int scratch_planes(int phase) { return phase == 2 ? 4 : 1; }
 
 // Dynamic shared memory: the tile's A, B and P planes with the halo, then
@@ -407,8 +442,8 @@ cudaError_t launch_rounds(Params a, int device, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-Params make_params(void* f, const void* p, void* scratch, void* flags, int nb, int h, int w,
-                   int dilate_steps, int cap, int phase) {
+Params make_params(void* f, const void* p, void* scratch, void* flags, const void* gate, int nb,
+                   int h, int w, int dilate_steps, int cap, int phase) {
   Params a;
   a.nb = nb;
   a.hw = (h + 31) / 32;
@@ -422,6 +457,7 @@ Params make_params(void* f, const void* p, void* scratch, void* flags, int nb, i
   for (int i = 0; i < 4; ++i) a.buf[i] = s + (i < planes ? i : 0) * nb * a.plane;
   a.chg = reinterpret_cast<int*>(s + planes * nb * a.plane);
   a.flags = static_cast<int*>(flags);
+  a.gate = static_cast<const int*>(gate);
   a.dilate_steps = dilate_steps;
   a.cap = cap;
   a.halo_r = (dilate_steps + 31) / 32;
@@ -437,22 +473,22 @@ extern "C" long long cc_hyst_scratch_words(int nb, int h, int w, int phase) {
   return (long long)nb * (scratch_planes(phase) * (long long)((h + 31) / 32) * w + 3);
 }
 
-extern "C" int cc_hyst_phase1(void* f, const void* p, void* scratch, void* flags, int nb,
-                              int h, int w, int dilate_steps, int scan_after, int max_iters,
-                              int device, void* stream) {
+extern "C" int cc_hyst_phase1(void* f, const void* p, void* scratch, void* flags,
+                              const void* gate, int nb, int h, int w, int dilate_steps,
+                              int scan_after, int max_iters, int device, void* stream) {
   DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return guard.err;
   int cap = scan_after < max_iters ? scan_after : max_iters;
-  Params a = make_params(f, p, scratch, flags, nb, h, w, dilate_steps, cap, 1);
+  Params a = make_params(f, p, scratch, flags, gate, nb, h, w, dilate_steps, cap, 1);
   return launch_rounds<false>(a, device, static_cast<cudaStream_t>(stream));
 }
 
-extern "C" int cc_hyst_phase2(void* f, const void* p, void* scratch, void* flags, int nb,
-                              int h, int w, int dilate_steps, int max_iters, int device,
-                              void* stream) {
+extern "C" int cc_hyst_phase2(void* f, const void* p, void* scratch, void* flags,
+                              const void* gate, int nb, int h, int w, int dilate_steps,
+                              int max_iters, int device, void* stream) {
   DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return guard.err;
-  Params a = make_params(f, p, scratch, flags, nb, h, w, dilate_steps, max_iters, 2);
+  Params a = make_params(f, p, scratch, flags, gate, nb, h, w, dilate_steps, max_iters, 2);
   return launch_rounds<true>(a, device, static_cast<cudaStream_t>(stream));
 }
 
@@ -466,5 +502,19 @@ extern "C" int cc_unpack(const void* f, void* out, const void* index, int nb, in
   unpack_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(f), static_cast<uint8_t*>(out),
       static_cast<const int*>(index), nb, h, w);
+  return cudaGetLastError();
+}
+
+extern "C" int cc_unpack_core(const void* f, void* out, int tiles, int hwe, int ew, int e_top,
+                              int e_left, int h_loc, int w_loc, int nty, int ntx, int oh, int ow,
+                              int device, void* stream) {
+  DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return guard.err;
+  if (tiles < 1 || tiles > 65535) return cudaErrorInvalidValue;  // grid.y
+  const long long blocks = ((long long)h_loc * w_loc + 255) / 256;
+  const dim3 grid((unsigned)(blocks < (1 << 30) ? blocks : (1 << 30)), tiles);
+  unpack_core_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(f), static_cast<uint8_t*>(out), hwe, ew, e_top, e_left, h_loc,
+      w_loc, nty, ntx, oh, ow);
   return cudaGetLastError();
 }

@@ -14,6 +14,14 @@
 // once in its interleaved HWC layout. Borders follow the JAX kernel: mono is
 // zero outside the image, the blur is masked to the image, Sobel sums are
 // unmasked but the magnitude used as the NMS neighbourhood is masked.
+//
+// Zero padding is pinned to a GLOBAL image (the megakernel's origin /
+// image_size, megakernel.py:211-220, and its valid mask, feedforward.py
+// _valid_mask_i32 :318): a launch reads a source frame whose pixel (0, 0)
+// lies at global (sy, sx), and tiles are placed in global coordinates. A
+// whole frame is the source at (0, 0) of an image of its own size; a tile of
+// a sharded frame reads the whole frame, or its halo-extended copy, at the
+// tile's origin.
 
 #pragma once
 
@@ -89,16 +97,29 @@ __device__ __forceinline__ int display_magnitude(int sx, int sy, int coeff, bool
 // How far stage_tile() runs the chain.
 enum Depth { kMono = 1, kBlur = 2, kMag = 3 };
 
+// Where a launch reads its pixels: source frames of SH x SW pixels whose
+// pixel (0, 0) lies at global (sy, sx) of an IH x IW image. A pixel outside
+// the image or outside the source reads 0.
+struct Source {
+  int SH, SW;
+  int sy, sx;
+  int IH, IW;
+};
+
+__device__ __forceinline__ bool in_image(const Source& s, int y, int x) {
+  return y >= 0 && y < s.IH && x >= 0 && x < s.IW;
+}
+
 struct Tile {
   int mono[TH + 2 * MAXR][TW + 2 * MAXR];  // tile + R halo, R = KS/2 + 2
   int blur[TH + 4][TW + 4];                // tile + 2 halo
   int gmag[TH + 2][TW + 2];                // tile + 1 halo
 };
 
-// Stage the tile at image (r0, c0) of one (H, W[, 3]) frame into t, up to
-// `depth`. Every thread of the block calls it; it ends on a barrier.
+// Stage the tile at global (r0, c0) of one (SH, SW[, 3]) source frame into
+// t, up to `depth`. Every thread of the block calls it; it ends on a barrier.
 template <int KS, bool GRAY>
-__device__ __forceinline__ void stage_tile(const uint8_t* __restrict__ frame, int H, int W,
+__device__ __forceinline__ void stage_tile(const uint8_t* __restrict__ frame, const Source& s,
                                            int r0, int c0, bool l2, int depth, Tile& t) {
   constexpr int R = KS / 2 + 2;  // mono halo: gaussian + sobel + nms
   constexpr int MW = TW + 2 * R;
@@ -110,13 +131,14 @@ __device__ __forceinline__ void stage_tile(const uint8_t* __restrict__ frame, in
   // 1. mono over the tile + R halo (zero outside the image).
   for (int i = tid; i < MH * MW; i += nthr) {
     int mr = i / MW, mc = i - mr * MW;
-    int y = r0 - R + mr, x = c0 - R + mc;
+    const int y = r0 - R + mr, x = c0 - R + mc;
+    const int ly = y - s.sy, lx = x - s.sx;
     int v = 0;
-    if (y >= 0 && y < H && x >= 0 && x < W) {
+    if (in_image(s, y, x) && ly >= 0 && ly < s.SH && lx >= 0 && lx < s.SW) {
       if (GRAY) {
-        v = frame[(size_t)y * W + x];
+        v = frame[(size_t)ly * s.SW + lx];
       } else {
-        const uint8_t* px = frame + ((size_t)y * W + x) * 3;
+        const uint8_t* px = frame + ((size_t)ly * s.SW + lx) * 3;
         v = (px[0] * 7 + px[1] * 38 + px[2] * 19) >> 6;
       }
     }
@@ -130,7 +152,7 @@ __device__ __forceinline__ void stage_tile(const uint8_t* __restrict__ frame, in
     int br = i / (TW + 4), bc = i - br * (TW + 4);
     int y = r0 - 2 + br, x = c0 - 2 + bc;
     int v = 0;
-    if (y >= 0 && y < H && x >= 0 && x < W) {
+    if (in_image(s, y, x)) {
       int acc = 0;
 #pragma unroll
       for (int dy = 0; dy < KS; ++dy)
@@ -149,7 +171,7 @@ __device__ __forceinline__ void stage_tile(const uint8_t* __restrict__ frame, in
     int gr = i / (TW + 2), gc = i - gr * (TW + 2);
     int y = r0 - 1 + gr, x = c0 - 1 + gc;
     int v = 0;
-    if (y >= 0 && y < H && x >= 0 && x < W) {
+    if (in_image(s, y, x)) {
       int b = gr + 1, c = gc + 1;  // blur coords of (y, x)
       int sx = -t.blur[b - 1][c - 1] + t.blur[b - 1][c + 1] - 2 * t.blur[b][c - 1] +
                2 * t.blur[b][c + 1] - t.blur[b + 1][c - 1] + t.blur[b + 1][c + 1];

@@ -2,9 +2,10 @@
 
 Port of ``cudacam_tpu/engine/engine.py``: spec-locked frames, run-to-stage
 execution, and runtime thresholds with the reference's clamping. The
-engine takes an explicit ``device``: on ``'cuda'`` it builds the kernels at
-construction and raises when they cannot be built; on ``'cpu'`` every
-stage runs the plain PyTorch ops. There is no fallback between the two.
+engine runs on ``device='cuda'`` unless asked for the CPU: on CUDA it builds
+the kernels at construction and raises when there is no card or they cannot
+be built; on ``'cpu'`` every stage runs the plain PyTorch ops. There is no
+fallback between the two.
 
 Thresholds are held as one device int32 [low, high] tensor that the
 kernels read, so a threshold change rebuilds nothing and the hot path reads
@@ -20,12 +21,27 @@ from typing import Dict, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from cudacam_tpu.config import CannyConfig
-from cudacam_tpu.stages import CannyStage
+from cudacam_tpu_torch.config import CannyConfig
+from cudacam_tpu_torch.stages import CannyStage
 from cudacam_tpu_torch.ops.cuda import canny
 from cudacam_tpu_torch.ops.cuda._build import load
 
 FrameLike = Union[np.ndarray, torch.Tensor]
+
+
+def resolve_device(device: Union[str, torch.device]) -> torch.device:
+    """'cuda' (one card, built kernels) or 'cpu' (the plain ops). A CUDA
+    device without a card or without a working kernel build raises."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"device {dev}: no CUDA device is available (pass device='cpu')")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        load()  # raises when the kernels cannot be built
+    elif dev.type != "cpu":
+        raise ValueError(f"device must be 'cpu' or 'cuda', got {dev}")
+    return dev
 
 
 class ThresholdControls:
@@ -67,15 +83,9 @@ class ThresholdControls:
 class CannyEngine(ThresholdControls):
     """Spec-locked Canny engine on one torch device."""
 
-    def __init__(self, config: CannyConfig, device: Union[str, torch.device] = "cpu") -> None:
+    def __init__(self, config: CannyConfig, device: Union[str, torch.device] = "cuda") -> None:
         self._cfg = config
-        self._device = torch.device(device)
-        if self._device.type == "cuda":
-            if self._device.index is None:
-                self._device = torch.device("cuda", torch.cuda.current_device())
-            load()  # raises when the kernels cannot be built
-        elif self._device.type != "cpu":
-            raise ValueError(f"device must be 'cpu' or 'cuda', got {self._device}")
+        self._device = resolve_device(device)
         self._init_thresholds(config)
 
     @property

@@ -26,7 +26,7 @@ from typing import Callable, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from cudacam_tpu.stages import CANDIDATE_EDGE, FINAL_EDGE, NO_EDGE
+from cudacam_tpu_torch.stages import CANDIDATE_EDGE, FINAL_EDGE, NO_EDGE
 
 _MASK = 0xFFFFFFFF
 _CARRY_EVERY = 8

@@ -10,11 +10,15 @@ from typing import Dict
 
 from cudacam_tpu_torch.ops.cuda._build import LAUNCHES
 
-#: Every kernel: the HYSTER main path's four in launch order, then the
-#: display stages' feed-forward kernel, the two-kernel path's pack and the
-#: threshold sweep's per-pair pack.
+#: Every kernel (and kernel mode): the HYSTER main path's four in launch
+#: order, then the display stages' feed-forward kernel, the two-kernel path's
+#: pack and the threshold sweep's per-pair pack; then the tile-sharded
+#: path's: ``ff_pack`` in its export mode (with ``hyst_phase1``, K8), the
+#: gated round kernels of the round loop's local saturate (K9), the core
+#: unpack (K10) and the halo exchange.
 KERNELS = ("ff_pack", "hyst_phase1", "hyst_phase2", "unpack", "ff_stages", "pack_thresh",
-           "sweep_pack")
+           "sweep_pack", "ff_pack_export", "saturate_phase1", "saturate_phase2", "unpack_core",
+           "halo_exchange")
 
 
 def launch_counts() -> Dict[str, int]:

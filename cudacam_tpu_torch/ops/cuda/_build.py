@@ -36,13 +36,16 @@ _I = ctypes.c_int
 #: C entry points: name -> (restype, argtypes). Every pointer and the stream
 #: go as c_void_p; a plain int would cut them to 32 bits.
 SIGNATURES = {
-    "cc_ff_pack": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
-    "cc_ff_stages": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
+    "cc_ff_pack": (_I, [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "cc_ff_stages": (_I, [_P] * 8 + [_I] * 12 + [_P]),
     "cc_pack_thresh": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
-    "cc_hyst_phase1": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
-    "cc_hyst_phase2": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "cc_hyst_phase1": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
+    "cc_hyst_phase2": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "cc_hyst_scratch_words": (ctypes.c_longlong, [_I, _I, _I, _I]),
     "cc_unpack": (_I, [_P, _P, _P, _I, _I, _I, _I, _P]),
+    "cc_unpack_core": (_I, [_P, _P] + [_I] * 12 + [_P]),
+    "cc_halo_exchange": (_I, [_P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P]),
+    "cc_exchange_scratch_words": (ctypes.c_longlong, [_I, _I]),
     "cc_sweep_pack": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "cc_error_string": (ctypes.c_char_p, [_I]),
 }

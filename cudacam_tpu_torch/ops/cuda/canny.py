@@ -27,8 +27,8 @@ from typing import Dict, Tuple
 
 import torch
 
-from cudacam_tpu.config import CannyConfig
-from cudacam_tpu.stages import FINAL_EDGE, CannyStage
+from cudacam_tpu_torch.config import CannyConfig
+from cudacam_tpu_torch.stages import FINAL_EDGE, CannyStage
 from cudacam_tpu_torch.ops import torch_ops
 from cudacam_tpu_torch.ops.cuda.feedforward import FF_STAGES, NMSQ, ff_stages
 from cudacam_tpu_torch.ops.cuda.hysteresis_fused import hysteresis_fused, sweep_fused
@@ -44,8 +44,9 @@ def ff_kwargs(cfg: CannyConfig) -> dict:
 
 
 def hyster_kwargs(cfg: CannyConfig) -> dict:
-    """The round kernels' arguments for a config (``cfg.continuation`` has
-    no counterpart: the port's single continuation is exact for all)."""
+    """The round kernels' arguments for a config (the JAX package's
+    ``continuation`` option has no counterpart: the port's single
+    continuation is exact for all its values)."""
     return dict(dilate_steps=cfg.hysteresis_inner_steps,
                 scan_after=cfg.hysteresis_scan_after,
                 max_iters=cfg.max_hysteresis_iters)

@@ -15,6 +15,12 @@ Port of the TPU sweep kernel (hysteresis_fused.py:729 ``pallas_call`` in
 launch become, per pair in sorted order, ``sweep_pack`` (``csrc/sweep.cu``)
 and the two round kernels, then one unpack that writes each map at its
 original index. Pairs, round counts and seeds stay on the device.
+
+Port of the TPU saturate kernel (hysteresis_fused.py:844 ``pallas_call`` in
+``saturate_packed`` :812 -> ``_sat_kernel`` :742), the local operator of the
+sharded round loop: both phases on the carried packed planes of a batch of
+extended tiles, the round count starting at 0 on each call, as the two round
+kernels with an optional device gate.
 """
 from __future__ import annotations
 
@@ -22,13 +28,14 @@ from typing import Optional, Tuple
 
 import torch
 
-from cudacam_tpu.stages import FINAL_EDGE
+from cudacam_tpu_torch.stages import FINAL_EDGE
 from cudacam_tpu_torch.ops import bitpack
 from cudacam_tpu_torch.ops.cuda._build import (
     count_launch, load, require_contiguous, stream_of, use_plain,
 )
 from cudacam_tpu_torch.ops.cuda.megakernel import (
-    converge, converge_unpack, unpack, unpack_plain,
+    _phase2, converge, converge_unpack, hyst_phase1, hyst_phase1_plain, hyst_phase2_plain,
+    unpack, unpack_plain,
 )
 
 
@@ -269,3 +276,53 @@ def sweep_fused(
     if use_plain(kg, bounds):
         return sweep_fused_plain(kg, bounds, **kw)
     return _sweep_launches(kg, bounds, k, **kw)
+
+
+def saturate_packed_plain(
+    f: torch.Tensor,
+    p: torch.Tensor,
+    flags: torch.Tensor,
+    h: int,
+    *,
+    dilate_steps: int = 16,
+    scan_after: int = 10,
+    max_iters: int = 100,
+    gate: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`saturate_packed`, on any device:
+    ``bitpack``'s two phases tile by tile (nothing when ``gate`` holds 0)."""
+    if gate is None or int(gate.reshape(())):
+        hyst_phase1_plain(f, p, flags, h, dilate_steps=dilate_steps, scan_after=scan_after,
+                          max_iters=max_iters)
+        if scan_after < max_iters:
+            hyst_phase2_plain(f, p, flags, h, dilate_steps=dilate_steps, max_iters=max_iters)
+        else:
+            flags[:, 1] = flags[:, 0]
+    return f, flags[:, 1, 1]
+
+
+def saturate_packed(
+    f: torch.Tensor,
+    p: torch.Tensor,
+    flags: torch.Tensor,
+    h: int,
+    *,
+    dilate_steps: int = 16,
+    scan_after: int = 10,
+    max_iters: int = 100,
+    gate: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Local saturation of (T, ceil(h/32), w) extended-tile planes, in
+    place, the round count starting at 0: phase 1, then phase 2 on the
+    tiles still growing. Returns ``(f, growing)``, ``growing`` the (T,)
+    int32 view ``flags[:, 1, 1]``: the cap stopped a state that was still
+    changing. Two launches on CUDA tensors (``hyst_phase1``,
+    ``hyst_phase2``), the plain ``bitpack`` loops on CPU tensors. With a
+    ``gate`` (one int32 on the planes' device) holding 0, nothing runs: the
+    round loop's pending flag, read on the device."""
+    if f.ndim != 3:
+        raise ValueError("saturate_packed takes (T, hw, w) planes")
+    hyst_phase1(f, p, flags, h, dilate_steps=dilate_steps, scan_after=scan_after,
+                max_iters=max_iters, gate=gate)
+    _phase2(f, p, flags, h, dilate_steps, scan_after, max_iters, gate)
+    return f, flags[:, 1, 1]

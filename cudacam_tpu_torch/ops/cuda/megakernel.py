@@ -18,10 +18,20 @@ same kernels:
    still growing);
 4. ``unpack``: the edge maps, every byte written once.
 
+The tile-sharded path (parallel/sharded.py) runs the same kernels over a
+batch of halo-extended tiles: :func:`mega_export` replaces the export-mode
+megakernel (``canny_mega_export`` :607 -> ``_mega_call`` :569 with
+``export_only``: ``ff_pack`` over a :class:`Tiling`, then phase 1), and
+:func:`unpack_core` replaces the core unpack (``unpack_core_call`` :689 ->
+``_unpack_core_kernel`` :653, ``pallas_call`` :714). Both round kernels take
+an optional device ``gate``: when it holds 0 they return at once, so the
+sharded round loop launches a bounded chain of rounds with no readback.
+
 Phase 2 is always launched (no host branch, no readback of a flag); it is
 skipped statically only when ``scan_after >= max_iters``, where the cap is
 phase 1. That is single-chip truncation identity with the JAX package for
-every ``CannyConfig.continuation`` value, so the port takes no such option.
+every value of the JAX package's ``CannyConfig.continuation``, so the port
+takes no such option.
 
 Each wrapper takes its plain version (``ops/bitpack.py``, frame by frame)
 only for CPU tensors; for CUDA tensors it launches its kernel or raises. The
@@ -37,12 +47,14 @@ from typing import Optional, Tuple
 
 import torch
 
-from cudacam_tpu.stages import FINAL_EDGE, NO_EDGE
+from cudacam_tpu_torch.stages import FINAL_EDGE, NO_EDGE
 from cudacam_tpu_torch.ops import bitpack
 from cudacam_tpu_torch.ops.cuda._build import (
     count_launch, load, require_contiguous, stream_of, use_plain,
 )
-from cudacam_tpu_torch.ops.cuda.feedforward import ff_pack, ff_pack_batched
+from cudacam_tpu_torch.ops.cuda.feedforward import (
+    Tiling, ff_pack, ff_pack_batched, ff_pack_plain, ff_pack_tiles,
+)
 
 _MAX_DILATE_STEPS = 256  # the tile halo (steps columns) must fit shared memory
 
@@ -75,20 +87,53 @@ def _scratch_words(nb: int, h: int, w: int, phase: int) -> int:
     return load().lib.cc_hyst_scratch_words(nb, h, w, phase)
 
 
-def _launch_rounds(name: str, f, p, flags, h: int, *args) -> None:
-    require_contiguous(f, p, flags)
+def _check_gate(gate: Optional[torch.Tensor]) -> None:
+    if gate is not None and (gate.dtype != torch.int32 or gate.numel() != 1):
+        raise ValueError("gate must be a one-element int32 tensor")
+
+
+def _gate_closed(gate: Optional[torch.Tensor]) -> bool:
+    """The plain versions' reading of the gate (a CPU tensor: no sync)."""
+    return gate is not None and int(gate.reshape(())) == 0
+
+
+def _launch_rounds(phase: int, f, p, flags, gate, h: int, *args) -> None:
+    """One launch of a round kernel. Its count is ``hyst_phase1`` /
+    ``hyst_phase2``, or ``saturate_phase1`` / ``saturate_phase2`` for a gated
+    launch: the sharded round loop's local saturate (K9)."""
+    require_contiguous(f, p, flags, *([gate] if gate is not None else []))
     nb, w = (f.shape[0] if f.ndim == 3 else 1), f.shape[-1]
     lib = load()
-    phase = 1 if name == "hyst_phase1" else 2
+    name = f"{'hyst' if gate is None else 'saturate'}_phase{phase}"
     # Stream-ordered: the scratch is reusable once the kernel ran.
     scratch = torch.empty(_scratch_words(nb, h, w, phase), dtype=torch.int32, device=f.device)
     entry = lib.lib.cc_hyst_phase1 if phase == 1 else lib.lib.cc_hyst_phase2
     lib.check(
-        entry(f.data_ptr(), p.data_ptr(), scratch.data_ptr(), flags.data_ptr(), nb, h, w,
-              *args, f.device.index, stream_of(f)),
+        entry(f.data_ptr(), p.data_ptr(), scratch.data_ptr(), flags.data_ptr(),
+              gate.data_ptr() if gate is not None else None, nb, h, w, *args, f.device.index,
+              stream_of(f)),
         name,
     )
     count_launch(name)
+
+
+def hyst_phase1_plain(
+    f: torch.Tensor,
+    p: torch.Tensor,
+    flags: torch.Tensor,
+    h: int,
+    *,
+    dilate_steps: int = 16,
+    scan_after: int = 10,
+    max_iters: int = 100,
+) -> None:
+    """Plain PyTorch version of :func:`hyst_phase1` (ungated), on any
+    device: ``bitpack``'s phase 1 frame by frame."""
+    for fb, pb, flb in zip(_frames(f, 2), _frames(p, 2), _frames(flags, 2)):
+        nf, it, growing = bitpack.converge_phase1(
+            fb, pb, h, fb.shape[1], dilate_steps, scan_after, max_iters)
+        fb.copy_(nf)
+        flb[0, 0], flb[0, 1] = int(it), int(growing)
 
 
 def hyst_phase1(
@@ -100,20 +145,43 @@ def hyst_phase1(
     dilate_steps: int = 16,
     scan_after: int = 10,
     max_iters: int = 100,
+    gate: Optional[torch.Tensor] = None,
 ) -> None:
     """Phase-1 rounds on the packed planes of one frame or a batch, in
     place: each frame's plane becomes its phase-1 exit state and its
-    flags[0] = (round count, still growing)."""
+    flags[0] = (round count, still growing). With a ``gate`` (one int32 on
+    the planes' device) holding 0, nothing runs."""
     _check_planes(f, p, h, flags)
-    if use_plain(f, p, flags):
-        for fb, pb, flb in zip(_frames(f, 2), _frames(p, 2), _frames(flags, 2)):
-            nf, it, growing = bitpack.converge_phase1(
-                fb, pb, h, fb.shape[1], dilate_steps, scan_after, max_iters)
-            fb.copy_(nf)
-            flb[0] = torch.tensor([it, int(growing)], dtype=torch.int32)
+    _check_gate(gate)
+    if use_plain(f, p, flags, gate):
+        if not _gate_closed(gate):
+            hyst_phase1_plain(f, p, flags, h, dilate_steps=dilate_steps, scan_after=scan_after,
+                              max_iters=max_iters)
         return
     _check_steps(dilate_steps)
-    _launch_rounds("hyst_phase1", f, p, flags, h, dilate_steps, scan_after, max_iters)
+    _launch_rounds(1, f, p, flags, gate, h, dilate_steps, scan_after, max_iters)
+
+
+def hyst_phase2_plain(
+    f: torch.Tensor,
+    p: torch.Tensor,
+    flags: torch.Tensor,
+    h: int,
+    *,
+    dilate_steps: int = 16,
+    max_iters: int = 100,
+) -> None:
+    """Plain PyTorch version of :func:`hyst_phase2` (ungated), on any
+    device: ``bitpack``'s phase 2 on the frames still growing."""
+    for fb, pb, flb in zip(_frames(f, 2), _frames(p, 2), _frames(flags, 2)):
+        it0, growing = (int(v) for v in flb[0])
+        if growing:
+            nf, it, still = bitpack.converge_phase2(
+                fb, pb, h, fb.shape[1], it0, dilate_steps, max_iters)
+            fb.copy_(nf)
+            flb[1, 0], flb[1, 1] = int(it), int(still)
+        else:
+            flb[1] = flb[0]
 
 
 def hyst_phase2(
@@ -124,26 +192,21 @@ def hyst_phase2(
     *,
     dilate_steps: int = 16,
     max_iters: int = 100,
+    gate: Optional[torch.Tensor] = None,
 ) -> None:
     """Phase-2 continuation of one frame or a batch, in place: each frame
     whose flags[0] says still growing resumes at its round count with
     dilations + scans while its state changes and the count is below
     ``max_iters``; every frame's flags[1] = its final (round count, still
-    growing)."""
+    growing). With a ``gate`` holding 0, nothing runs."""
     _check_planes(f, p, h, flags)
-    if use_plain(f, p, flags):
-        for fb, pb, flb in zip(_frames(f, 2), _frames(p, 2), _frames(flags, 2)):
-            it0, growing = (int(v) for v in flb[0])
-            if growing:
-                nf, it, still = bitpack.converge_phase2(
-                    fb, pb, h, fb.shape[1], it0, dilate_steps, max_iters)
-                fb.copy_(nf)
-                flb[1] = torch.tensor([it, int(still)], dtype=torch.int32)
-            else:
-                flb[1] = flb[0]
+    _check_gate(gate)
+    if use_plain(f, p, flags, gate):
+        if not _gate_closed(gate):
+            hyst_phase2_plain(f, p, flags, h, dilate_steps=dilate_steps, max_iters=max_iters)
         return
     _check_steps(dilate_steps)
-    _launch_rounds("hyst_phase2", f, p, flags, h, dilate_steps, max_iters)
+    _launch_rounds(2, f, p, flags, gate, h, dilate_steps, max_iters)
 
 
 def unpack_plain(f: torch.Tensor, h: int, index: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -187,13 +250,110 @@ def unpack(f: torch.Tensor, h: int, index: Optional[torch.Tensor] = None) -> tor
     return out
 
 
-def _phase2(f, p, flags, h: int, dilate_steps: int, scan_after: int, max_iters: int) -> None:
+def _check_core(f: torch.Tensor, out: torch.Tensor, tiling: Tiling) -> None:
+    t = tiling
+    if f.dtype != torch.int32 or f.ndim != 3 or tuple(f.shape[1:]) != (-(-t.ext_h // 32), t.ext_w):
+        raise ValueError(f"planes {tuple(f.shape)} are not the tiles' (T, ceil(ext_h/32), ext_w)")
+    want = (f.shape[0] // t.tiles, t.ny * t.h_loc, t.nx * t.w_loc)
+    if f.shape[0] % t.tiles or out.dtype != torch.uint8 or tuple(out.shape) != want:
+        raise ValueError(f"out must be a {want} uint8 tensor, got {tuple(out.shape)} {out.dtype}")
+    if not (t.e_top + t.h_loc <= t.ext_h and t.e_left + t.w_loc <= t.ext_w):
+        raise ValueError("the core does not lie inside the extended tile")
+
+
+def unpack_core_plain(f: torch.Tensor, out: torch.Tensor, tiling: Tiling) -> torch.Tensor:
+    """Plain PyTorch version of :func:`unpack_core`, on any device."""
+    t = tiling
+    for k, fk in enumerate(f):
+        b, i, j = k // t.tiles, (k // t.nx) % t.ny, k % t.nx
+        reached = bitpack.unpack_mask(fk, t.e_top + t.h_loc)[t.e_top:, t.e_left:t.e_left + t.w_loc]
+        out[b, i * t.h_loc:(i + 1) * t.h_loc, j * t.w_loc:(j + 1) * t.w_loc] = torch.where(
+            reached, FINAL_EDGE, NO_EDGE).to(torch.uint8)
+    return out
+
+
+def unpack_core(f: torch.Tensor, out: torch.Tensor, tiling: Tiling) -> torch.Tensor:
+    """The owned cores of (B ny nx, ceil(ext_h/32), ext_w) extended-tile
+    FINAL planes -> their places in the (B, ny h_loc, nx w_loc) uint8 edge
+    maps ``out``, written in place: 255 where the bit is set, else 0. Tile
+    (b, i, j)'s core (rows from ``e_top``, lanes from ``e_left``) lands at
+    out[b, i h_loc:, j w_loc:], so a sharded frame needs no gather."""
+    _check_core(f, out, tiling)
+    if use_plain(f, out):
+        return unpack_core_plain(f, out, tiling)
+    require_contiguous(f, out)
+    t = tiling
+    lib = load()
+    lib.check(
+        lib.lib.cc_unpack_core(f.data_ptr(), out.data_ptr(), f.shape[0], f.shape[1], f.shape[2],
+                               t.e_top, t.e_left, t.h_loc, t.w_loc, t.ny, t.nx, out.shape[1],
+                               out.shape[2], f.device.index, stream_of(f)),
+        "unpack_core",
+    )
+    count_launch("unpack_core")
+    return out
+
+
+def mega_export_plain(
+    frames: torch.Tensor,
+    thresholds: torch.Tensor,
+    tiling: Tiling,
+    *,
+    kernel_size: int = 5,
+    grad_coeff: int = 4,
+    norm: str = "l2",
+    parity: str = "reference",
+    dilate_steps: int = 16,
+    scan_after: int = 10,
+    max_iters: int = 100,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`mega_export`, on any device."""
+    planes = [ff_pack_plain(fr, thresholds, kernel_size=kernel_size, grad_coeff=grad_coeff,
+                            norm=norm, parity=parity, tiling=tiling) for fr in frames]
+    f, p = torch.cat([f for f, _ in planes]), torch.cat([p for _, p in planes])
+    flags = torch.zeros((f.shape[0], 2, 2), dtype=torch.int32, device=frames.device)
+    hyst_phase1_plain(f, p, flags, tiling.ext_h, dilate_steps=dilate_steps,
+                      scan_after=scan_after, max_iters=max_iters)
+    return f, p, flags
+
+
+def mega_export(
+    frames: torch.Tensor,
+    thresholds: torch.Tensor,
+    tiling: Tiling,
+    *,
+    kernel_size: int = 5,
+    grad_coeff: int = 4,
+    norm: str = "l2",
+    parity: str = "reference",
+    dilate_steps: int = 16,
+    scan_after: int = 10,
+    max_iters: int = 100,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The export-mode megakernel (K8) on every extended tile of a batch of
+    source frames: (F, P, flags) with (B ny nx, ceil(ext_h/32), ext_w) int32
+    planes at the local phase-1 exit and (B ny nx, 2, 2) int32 flags, row 0
+    of each tile holding (round count, still growing). Two launches:
+    ``ff_pack`` in its export mode, then ``hyst_phase1`` over the tiles with
+    the extended tile as the schedule extent."""
+    f, p = ff_pack_tiles(frames, thresholds, tiling, kernel_size=kernel_size,
+                         grad_coeff=grad_coeff, norm=norm, parity=parity)
+    flags = torch.zeros((f.shape[0], 2, 2), dtype=torch.int32, device=frames.device)
+    hyst_phase1(f, p, flags, tiling.ext_h, dilate_steps=dilate_steps, scan_after=scan_after,
+                max_iters=max_iters)
+    return f, p, flags
+
+
+def _phase2(f, p, flags, h: int, dilate_steps: int, scan_after: int, max_iters: int,
+            gate: Optional[torch.Tensor] = None) -> None:
     """Phase 2 after phase 1 or, when the cap is phase 1, its exit state as
-    final."""
+    final (left as it was when ``gate`` holds 0)."""
     if scan_after < max_iters:
-        hyst_phase2(f, p, flags, h, dilate_steps=dilate_steps, max_iters=max_iters)
-    else:
+        hyst_phase2(f, p, flags, h, dilate_steps=dilate_steps, max_iters=max_iters, gate=gate)
+    elif gate is None:
         flags[..., 1, :] = flags[..., 0, :]
+    else:
+        flags[..., 1, :] = torch.where(gate.bool(), flags[..., 0, :], flags[..., 1, :])
 
 
 def converge(

@@ -18,10 +18,18 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from cudacam_tpu.config import GAUSSIAN_TAPS, CannyConfig, gaussian_kernel_sum
-from cudacam_tpu.ops import numpy_oracle as oracle
-from cudacam_tpu.stages import CANDIDATE_EDGE, FINAL_EDGE, NO_EDGE, CannyStage
+from cudacam_tpu_torch.config import GAUSSIAN_TAPS, CannyConfig, gaussian_kernel_sum
 from cudacam_tpu_torch.ops.bitpack import hysteresis_packed
+from cudacam_tpu_torch.stages import CANDIDATE_EDGE, FINAL_EDGE, NO_EDGE, CannyStage
+
+# The NumPy oracle's constants (cudacam_tpu/ops/numpy_oracle.py): the
+# fixed-point BGR -> mono weights (>> 6), the Sobel taps, and tan(22.5 deg)
+# and tan(67.5 deg) in Q15 for the NMS sector bins.
+B_WT, G_WT, R_WT = 7, 38, 19
+SOBEL_X = np.array([[-1, 0, 1], [-2, 0, 2], [-1, 0, 1]], dtype=np.int64)
+SOBEL_Y = np.array([[1, 2, 1], [0, 0, 0], [-1, -2, -1]], dtype=np.int64)
+TG22 = 13573  # round(tan(22.5 deg) * 2^15)
+TG67 = 79109  # round(tan(67.5 deg) * 2^15)
 
 
 def rgb2mono(bgr: torch.Tensor) -> torch.Tensor:
@@ -29,7 +37,7 @@ def rgb2mono(bgr: torch.Tensor) -> torch.Tensor:
     if bgr.ndim == 2:
         return bgr.to(torch.uint8)
     px = bgr.to(torch.int32)
-    acc = px[..., 0] * oracle.B_WT + px[..., 1] * oracle.G_WT + px[..., 2] * oracle.R_WT
+    acc = px[..., 0] * B_WT + px[..., 1] * G_WT + px[..., 2] * R_WT
     return torch.clamp(acc >> 6, max=255).to(torch.uint8)
 
 
@@ -60,8 +68,8 @@ def gaussian_blur(mono: torch.Tensor, kernel_size: int = 5) -> torch.Tensor:
 def sobel_sums(blur: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Raw integer Sobel responses, range [-1020, 1020]."""
     return (
-        _conv2d_zero_pad_i32(blur, oracle.SOBEL_X),
-        _conv2d_zero_pad_i32(blur, oracle.SOBEL_Y),
+        _conv2d_zero_pad_i32(blur, SOBEL_X),
+        _conv2d_zero_pad_i32(blur, SOBEL_Y),
     )
 
 
@@ -139,8 +147,8 @@ def nms_keep_mask(sum_x: torch.Tensor, sum_y: torch.Tensor, norm: str = "l2") ->
     v = sum_x.abs() << 15
     wmag = sum_y.abs()
     folded_u = torch.where(sum_x >= 0, sum_y, -sum_y)
-    bin0 = v < wmag * oracle.TG22
-    bin2 = v >= wmag * oracle.TG67
+    bin0 = v < wmag * TG22
+    bin2 = v >= wmag * TG67
     pos = folded_u > 0
     q = torch.where(bin0, shift(1, 0), torch.where(bin2, shift(0, 1), torch.where(pos, shift(1, -1), shift(-1, -1))))
     r = torch.where(bin0, shift(-1, 0), torch.where(bin2, shift(0, -1), torch.where(pos, shift(-1, 1), shift(1, 1))))

@@ -1,7 +1,9 @@
-"""Packed hysteresis state carried between the JAX package and the port.
+"""Configs and packed hysteresis state carried between the JAX package and
+the port.
 
-The system has no weights: what crosses is the ``CannyConfig`` (shared as
-the same object) and the packed FINAL / CANDIDATE planes. The JAX
+The system has no weights: what crosses is the ``CannyConfig`` (the port
+keeps its own class with the same fields: :func:`config_from_jax`) and the
+packed FINAL / CANDIDATE planes. The JAX
 megakernel exports them in a guard-ringed (hwp, wp) uint32 layout
 (cudacam_tpu/ops/pallas/megakernel.py ``_mega_geometry``): word rows past
 ceil(h/32) and lanes past w are zero guards. The batched kernel exports
@@ -11,10 +13,19 @@ bits; ``ops/bitpack.py`` of the JAX package keeps (ceil(h/32), w) uint32.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Tuple
 
 import numpy as np
 import torch
+
+from cudacam_tpu_torch.config import CannyConfig
+
+
+def config_from_jax(cfg) -> CannyConfig:
+    """A JAX package ``CannyConfig`` -> the port's, field for field (the
+    derived defaults are already resolved in ``cfg``)."""
+    return CannyConfig(**{f.name: getattr(cfg, f.name) for f in dataclasses.fields(CannyConfig)})
 
 
 def planes_from_jax(

@@ -15,7 +15,7 @@ from __future__ import annotations
 import pytest
 import torch
 
-from cudacam_tpu.io.sources import make_scene, make_spiral_frame, make_spiral_thresh
+from cudacam_tpu_torch.io.sources import make_scene, make_spiral_frame, make_spiral_thresh
 from cudacam_tpu_torch import CannyConfig, CannyStage
 from cudacam_tpu_torch.engine import CannyEngine
 from cudacam_tpu_torch.ops import bitpack, cuda as kernels, torch_ops
@@ -320,6 +320,171 @@ def test_engine_threshold_sweep_matches_plain(dev, parity):
     torch.cuda.set_sync_debug_mode("error")
     try:
         eng.threshold_sweep(fr, lows, highs)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+# -- the tile-sharded path: K8 (mega_export), K9 (saturate_packed), K10
+# (unpack_core) and the halo exchange, each against its plain version, and
+# the sharded engine against the single-frame engine.
+
+from cudacam_tpu_torch.engine import ShardedCannyEngine  # noqa: E402
+from cudacam_tpu_torch.ops.cuda.halo import halo_exchange, halo_exchange_plain  # noqa: E402
+from cudacam_tpu_torch.ops.cuda.hysteresis_fused import (  # noqa: E402
+    saturate_packed, saturate_packed_plain,
+)
+from cudacam_tpu_torch.ops.cuda.megakernel import (  # noqa: E402
+    mega_export, mega_export_plain, unpack_core, unpack_core_plain,
+)
+from cudacam_tpu_torch.parallel import build_sharded_pipeline, make_mesh  # noqa: E402
+
+SHARDED = [((96, 384), (1, 2, 1)), ((200, 320), (1, 2, 2)), ((64, 96), (2, 4, 2)),
+           ((37, 53), (1, 1, 1)), ((540, 960), (1, 2, 2))]
+
+
+def _batch(h, w, n, dev):
+    frames = [_frame(h, w, dev, seed=s) for s in range(n - 1)]
+    if min(h, w) >= 28:
+        frames.append(torch.from_numpy(make_spiral_frame(h, w)).to(dev))
+    else:
+        frames.append(_frame(h, w, dev, seed=n))
+    return torch.stack(frames)
+
+
+def _tiles(h, w, mesh, **kw):
+    return build_sharded_pipeline(CannyConfig(height=h, width=w, **kw), make_mesh(*mesh))
+
+
+@pytest.mark.parametrize("hw,mesh", SHARDED)
+@pytest.mark.parametrize("kw", CONFIGS)
+def test_mega_export_matches_plain(dev, hw, mesh, kw):
+    h, w = hw
+    t = _tiles(h, w, mesh, **kw).tiling
+    batch, thr = _batch(h, w, 2, dev), _thr(10, 40, dev)
+    rounds = dict(dilate_steps=16, scan_after=3, max_iters=100)
+    for x in (batch, batch[..., 1].contiguous()):
+        got = mega_export(x, thr, t, **kw, **rounds)
+        want = mega_export_plain(x, thr, t, **kw, **rounds)
+        for g, e in zip(got, want):
+            assert torch.equal(g, e)
+
+
+@pytest.mark.parametrize("hw,mesh", SHARDED)
+@pytest.mark.parametrize("scan_after,max_iters", [(64, 100), (2, 100), (2, 5), (3, 3)])
+def test_saturate_packed_matches_plain(dev, hw, mesh, scan_after, max_iters):
+    h, w = hw
+    pipe = _tiles(h, w, mesh)
+    f, p, flags = mega_export(_batch(h, w, 2, dev), _thr(10, 40, dev), pipe.tiling,
+                              dilate_steps=16, scan_after=2, max_iters=100)
+    kw = dict(dilate_steps=16, scan_after=scan_after, max_iters=max_iters)
+    ext_h = pipe.geo.ext_h
+    for gate in (None, 1, 0):
+        g = None if gate is None else torch.tensor([gate], dtype=torch.int32, device=dev)
+        fk, flk = f.clone(), flags.clone()
+        fp, flp = f.clone(), flags.clone()
+        _, grow = saturate_packed(fk, p, flk, ext_h, gate=g, **kw)
+        _, grow_p = saturate_packed_plain(fp, p, flp, ext_h, gate=g, **kw)
+        assert torch.equal(fk, fp) and torch.equal(flk, flp) and torch.equal(grow, grow_p)
+        if gate == 0:
+            assert torch.equal(fk, f) and torch.equal(flk, flags)
+
+
+@pytest.mark.parametrize("hw,mesh", SHARDED)
+def test_unpack_core_matches_plain(dev, hw, mesh):
+    h, w = hw
+    t = _tiles(h, w, mesh).tiling
+    g = torch.Generator().manual_seed(h + w)
+    n = 2 * t.tiles
+    f = torch.randint(-2**31, 2**31 - 1, (n, -(-t.ext_h // 32), t.ext_w), generator=g,
+                      dtype=torch.int32).to(dev)
+    out = torch.full((2, h, w), 7, dtype=torch.uint8, device=dev)
+    want = unpack_core_plain(f, out.clone(), t)
+    assert torch.equal(unpack_core(f, out, t), want) and not (want == 7).any()
+
+
+@pytest.mark.parametrize("hw,mesh", SHARDED + [((64, 96), (1, 8, 1)), ((64, 96), (1, 2, 4))])
+def test_halo_exchange_matches_plain(dev, hw, mesh):
+    h, w = hw
+    geo = _tiles(h, w, mesh).geo
+    nb, ny, nx = mesh
+    g = torch.Generator().manual_seed(h * w)
+    x = torch.randint(-2**31, 2**31 - 1, (nb * ny * nx, geo.hw, geo.ext_w), generator=g,
+                      dtype=torch.int32)
+    x &= torch.randint(-2**31, 2**31 - 1, x.shape, generator=g, dtype=torch.int32)  # sparser
+    x = x.to(dev)
+    one = lambda v: torch.tensor([v], dtype=torch.int32, device=dev)  # noqa: E731
+    for grow in (None, torch.zeros(x.shape[0], dtype=torch.int32, device=dev)):
+        for gate in (None, 1, 0):
+            kw = [dict(grow=grow, gate=None if gate is None else one(gate), pending=one(5),
+                       rounds=one(3)) for _ in range(2)]
+            xk, xp = x.clone(), x.clone()
+            halo_exchange(xk, mesh, geo, **kw[0])
+            halo_exchange_plain(xp, mesh, geo, **kw[1])
+            assert torch.equal(xk, xp), (grow is None, gate)
+            for name in ("pending", "rounds"):
+                assert torch.equal(kw[0][name], kw[1][name]), name
+            if gate == 0:
+                assert torch.equal(xk, x) and int(kw[0]["rounds"]) == 3
+            else:  # every bit of a second refresh is already there
+                halo_exchange(xk, mesh, geo, pending=kw[0]["pending"])
+                assert torch.equal(xk, xp) and int(kw[0]["pending"]) == 0
+
+
+@pytest.mark.parametrize("hw,mesh", SHARDED)
+@pytest.mark.parametrize("channels", [3, 1])
+def test_sharded_engine_matches_engine(dev, hw, mesh, channels):
+    """Converged frames equal the single-frame engine's; every stage of the
+    sharded pipeline through the kernels equals its plain route."""
+    h, w = hw
+    cfg = CannyConfig(height=h, width=w, channels=channels)
+    batch = torch.stack([_frame(h, w, dev, seed=s) for s in range(2 * mesh[0])])
+    if channels == 1:
+        batch = batch[..., 0].contiguous()
+    eng = CannyEngine(cfg, device="cuda")
+    sharded = ShardedCannyEngine(cfg, make_mesh(*mesh))
+    kernels.reset_launch_counts()
+    got = sharded.process(batch)
+    counts = kernels.launch_counts()
+    assert counts["ff_pack_export"] == counts["unpack_core"] == 1
+    assert counts["ff_pack"] == counts["unpack"] == 0
+    assert counts["saturate_phase1"] == counts["halo_exchange"] - 2 == cfg.max_hysteresis_iters
+    assert torch.equal(got, eng.process(batch))
+    plain = ShardedCannyEngine(cfg, make_mesh(*mesh), device="cpu")
+    for stage in CannyStage:
+        want = plain.process(batch.cpu(), stage)
+        assert torch.equal(sharded.process(batch, stage).cpu(), want), stage
+
+
+def test_sharded_spiral_cut_off_by_the_cap_matches_plain(dev):
+    """Cap-class growth across tiles: the kernel route equals the plain
+    route byte for byte where the cap cuts the output off."""
+    h, w = 256, 384
+    cfg = CannyConfig(height=h, width=w, max_hysteresis_iters=12, hysteresis_scan_after=4)
+    spiral = torch.from_numpy(make_spiral_frame(h, w))[None]
+    mesh = make_mesh(1, 2, 2)
+    run = build_sharded_pipeline(cfg, mesh)
+    thr = _thr(10, 40, dev)
+    got = run(spiral.to(dev), thr)
+    rounds = int(run.rounds)
+    want = run(spiral, thr.cpu())
+    assert torch.equal(got.cpu(), want) and rounds == int(run.rounds) == 12
+    converged = CannyEngine(CannyConfig(height=h, width=w), device="cuda").process(spiral[0])
+    assert not torch.equal(got[0], converged)  # the cap cut it off
+
+
+def test_sharded_no_host_sync(dev):
+    cfg = CannyConfig(height=256, width=512)
+    eng = ShardedCannyEngine(cfg, make_mesh(2, 2, 2))
+    batch = torch.stack([_frame(256, 512, dev, seed=s) for s in range(2)])
+    calls = [lambda: eng.process(batch), lambda: eng.process(batch, CannyStage.THRESH)]
+    for call in calls:
+        call()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for call in calls:
+            call()
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()

@@ -23,6 +23,7 @@ from cudacam_tpu.engine import CannyEngine as JaxEngine
 from cudacam_tpu.io.sources import make_scene
 from cudacam_tpu_torch.engine import CannyEngine
 from cudacam_tpu_torch.ops.cuda import _build
+from cudacam_tpu_torch.state import config_from_jax
 
 torch.set_num_threads(2)
 
@@ -35,20 +36,25 @@ def cfg():
     return CannyConfig(height=H, width=W, backend="xla")
 
 
+def port(cfg) -> CannyEngine:
+    """The port's engine on the CPU for a JAX package config."""
+    return CannyEngine(config_from_jax(cfg), device="cpu")
+
+
 @pytest.fixture(scope="module")
 def frame():
     return make_scene(H, W, seed=3)
 
 
 def test_hyster_matches_jax_engine(cfg, frame):
-    got = CannyEngine(cfg).process(frame)
+    got = port(cfg).process(frame)
     assert got.dtype == torch.uint8 and got.device.type == "cpu"
     want = np.asarray(JaxEngine(cfg).process(frame))
     np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_tensor_input_and_batch(cfg, frame):
-    eng = CannyEngine(cfg)
+    eng = port(cfg)
     single = eng.process(torch.from_numpy(frame))
     other = make_scene(H, W, seed=4)
     batch = eng.process(np.stack([frame, other]))
@@ -59,7 +65,7 @@ def test_tensor_input_and_batch(cfg, frame):
 
 @pytest.mark.parametrize("stage", list(CannyStage))
 def test_stages_on_cpu_match_jax_engine(cfg, frame, stage):
-    got = CannyEngine(cfg).process(frame, stage)
+    got = port(cfg).process(frame, stage)
     assert got.dtype == torch.uint8
     np.testing.assert_array_equal(got.numpy(), np.asarray(JaxEngine(cfg).process(frame, stage)))
 
@@ -82,14 +88,14 @@ def test_process_all_matches_jax_engine(channels):
     fr = make_scene(48, 64, seed=5)
     if channels == 1:
         fr = fr[..., 1].copy()
-    _assert_all_stages(CannyEngine(cfg).process_all(fr), JaxEngine(cfg).process_all(fr))
+    _assert_all_stages(port(cfg).process_all(fr), JaxEngine(cfg).process_all(fr))
 
 
 def test_batched_stages_match_per_frame(cfg, frame):
     """A batch runs HYSTER through the batched kernels and the display
     stages frame by frame; either way each frame equals its own call, and
     process_all stacks every key."""
-    eng = CannyEngine(cfg)
+    eng = port(cfg)
     batch = np.stack([frame, make_scene(H, W, seed=6), make_scene(H, W, seed=7)])
     for stage in (CannyStage.HYSTER, CannyStage.GRADIENT):
         out = eng.process(batch, stage)
@@ -102,7 +108,7 @@ def test_batched_stages_match_per_frame(cfg, frame):
 
 
 def test_spec_lock_and_type_checks(cfg):
-    eng = CannyEngine(cfg)
+    eng = port(cfg)
     with pytest.raises(ValueError, match="empty"):
         eng.process(np.zeros((0,), np.uint8))
     with pytest.raises(ValueError, match="empty"):
@@ -122,12 +128,12 @@ def test_spec_lock_and_type_checks(cfg):
 def test_mono_engine_accepts_2d():
     cfg = CannyConfig(height=37, width=53, channels=1)
     gray = make_scene(37, 53, seed=1)[..., 0].copy()
-    got = CannyEngine(cfg).process(gray)
+    got = port(cfg).process(gray)
     np.testing.assert_array_equal(got.numpy(), np.asarray(JaxEngine(cfg).process(gray)))
 
 
 def test_clamping_matches_jax_engine(cfg):
-    eng, jeng = CannyEngine(cfg), JaxEngine(cfg)
+    eng, jeng = port(cfg), JaxEngine(cfg)
     for setter, value in [("high", 300), ("low", 400), ("low", -5), ("high", 3),
                           ("low", 10), ("high", 40), ("low", 41), ("high", 0)]:
         getattr(eng, f"set_{setter}_threshold")(value)
@@ -137,7 +143,7 @@ def test_clamping_matches_jax_engine(cfg):
 
 
 def test_threshold_change_rebuilds_nothing(cfg, frame):
-    eng, jeng = CannyEngine(cfg), JaxEngine(cfg)
+    eng, jeng = port(cfg), JaxEngine(cfg)
     before = eng.process(frame)
     builds = _build.load.cache_info()
     for e in (eng, jeng):
@@ -152,20 +158,27 @@ def test_threshold_change_rebuilds_nothing(cfg, frame):
 
 
 def test_warmup_and_device(cfg):
-    eng = CannyEngine(cfg, device="cpu")
+    pcfg = config_from_jax(cfg)
+    eng = CannyEngine(pcfg, device="cpu")
     eng.warmup()
     eng.warmup(batch=2)
     eng.warmup(CannyStage.NMS, batch=3)
-    assert eng.device == torch.device("cpu") and eng.config is cfg
+    assert eng.device == torch.device("cpu") and eng.config is pcfg
 
 
 def test_device_checks(cfg):
+    pcfg = config_from_jax(cfg)
     with pytest.raises(ValueError, match="'cpu' or 'cuda'"):
-        CannyEngine(cfg, device="meta")
-    if shutil.which("nvcc") is None:
+        CannyEngine(pcfg, device="meta")
+    if not torch.cuda.is_available():
+        # The default device is the card: without one, construction raises.
+        for dev in ({}, dict(device="cuda:0")):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                CannyEngine(pcfg, **dev)
+    elif shutil.which("nvcc") is None:
         # A CUDA engine without a working build raises at construction.
         with pytest.raises(RuntimeError, match="nvcc"):
-            CannyEngine(cfg, device="cuda:0")
+            CannyEngine(pcfg, device="cuda:0")
 
 
 def test_import_needs_no_jax_nvcc_or_triton():
@@ -173,11 +186,12 @@ def test_import_needs_no_jax_nvcc_or_triton():
         "import sys\n"
         "import cudacam_tpu_torch, cudacam_tpu_torch.engine, cudacam_tpu_torch.state\n"
         "import cudacam_tpu_torch.ops.cuda.canny\n"
-        "import cudacam_tpu.io.sources, cudacam_tpu.ops.numpy_oracle\n"
+        "import cudacam_tpu_torch.io.sources\n"
         "from cudacam_tpu_torch import CannyConfig\n"
         "from cudacam_tpu_torch.engine import CannyEngine\n"
         "import numpy as np\n"
-        "out = CannyEngine(CannyConfig(height=37, width=53)).process(np.zeros((37, 53, 3), np.uint8))\n"
+        "eng = CannyEngine(CannyConfig(height=37, width=53), device='cpu')\n"
+        "out = eng.process(np.zeros((37, 53, 3), np.uint8))\n"
         "assert int(out.sum()) == 0\n"
         "for mod in ('jax', 'triton', 'cv2'):\n"
         "    assert mod not in sys.modules, mod\n"

@@ -24,6 +24,7 @@ from cudacam_tpu.ops.pallas import hysteresis_fused as jhf
 from cudacam_tpu.ops.pallas.canny import threshold_sweep_pallas
 from cudacam_tpu_torch.cli import main as cli_main
 from cudacam_tpu_torch.engine import CannyEngine
+from cudacam_tpu_torch.state import config_from_jax
 from cudacam_tpu_torch.ops import torch_ops
 from cudacam_tpu_torch.ops.cuda import canny as tcanny
 from cudacam_tpu_torch.ops.cuda import hysteresis_fused as thf
@@ -184,7 +185,7 @@ def test_sweep_bounds_floor_divide_negative_lows():
 
 
 def test_engine_threshold_sweep(scene):
-    cfg = CannyConfig(height=H, width=W)
+    cfg = config_from_jax(CannyConfig(height=H, width=W))
     maps, counts = CannyEngine(cfg, device="cpu").threshold_sweep(scene, LOWS, HIGHS)
     assert tuple(maps.shape) == (len(LOWS), H, W) and maps.device.type == "cpu"
     want, want_counts = tcanny.threshold_sweep(
@@ -192,12 +193,12 @@ def test_engine_threshold_sweep(scene):
         torch.tensor(HIGHS, dtype=torch.int32), cfg)
     assert torch.equal(maps, want) and torch.equal(counts, want_counts)
     assert torch.equal(maps[0], maps[4])  # the duplicate pair
-    empty, none = CannyEngine(cfg).threshold_sweep(scene, [], [])
+    empty, none = CannyEngine(cfg, device="cpu").threshold_sweep(scene, [], [])
     assert tuple(empty.shape) == (0, H, W) and tuple(none.shape) == (0,)
 
 
 def test_engine_threshold_sweep_validation():
-    eng = CannyEngine(CannyConfig(height=16, width=16))
+    eng = CannyEngine(config_from_jax(CannyConfig(height=16, width=16)), device="cpu")
     f = np.zeros((16, 16, 3), np.uint8)
     with pytest.raises(ValueError):
         eng.threshold_sweep(f, [1, 2], [3])

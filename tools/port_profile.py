@@ -5,8 +5,8 @@ Run from the root of a checkout, on a host with a CUDA device and nvcc:
 
     python3 tools/port_profile.py [--out FILE]
 
-Three parts, each printing one JSON line per workload (and writing them all to
-``--out`` when given):
+Four parts (``--parts``, default all), each printing one JSON line per
+workload (and writing them all to ``--out`` when given):
 
 * ``trace``: ``CannyEngine(device='cuda')`` under torch.profiler: ``process``
   on the 1080p 8-scene stream (``make_scene`` seeds 0-7, five passes), on the
@@ -20,10 +20,15 @@ Three parts, each printing one JSON line per workload (and writing them all to
   ms/frame (median of 5 passes), and the spiral frame's flags and ms;
 * ``sweeps``: ``threshold_sweep`` of scene 0 with ``benchmark.py``'s K=16
   pairs at 1080p, 4K and 8K under torch.profiler (five passes; "per frame"
-  there is per sweep).
+  there is per sweep);
+* ``sharded``: ``ShardedCannyEngine`` on a one-card mesh under torch.profiler:
+  HYSTER on one 8K scene over (1, 4, 2) (five passes) and on the 1080p spiral
+  over (1, 2, 2) (two passes), with the device events per frame of each
+  kernel and the median µs of one event, which separates the gated round
+  kernels (returning at once) from the working ones.
 
-Imports no jax: the frame generators come from the JAX package's jax-free
-``cudacam_tpu.io.sources``.
+Imports no jax and nothing of the JAX package: the frame generators are the
+port's own (``cudacam_tpu_torch.io.sources``).
 """
 from __future__ import annotations
 
@@ -40,15 +45,17 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
-from cudacam_tpu.io.sources import make_scene, make_spiral_frame  # noqa: E402
+from cudacam_tpu_torch.io.sources import make_scene, make_spiral_frame  # noqa: E402
 from cudacam_tpu_torch import CannyConfig, CannyStage  # noqa: E402
-from cudacam_tpu_torch.engine import CannyEngine  # noqa: E402
+from cudacam_tpu_torch.engine import CannyEngine, ShardedCannyEngine  # noqa: E402
 from cudacam_tpu_torch.ops import torch_ops  # noqa: E402
 from cudacam_tpu_torch.ops.cuda.canny import pipeline_kwargs  # noqa: E402
 from cudacam_tpu_torch.ops.cuda.megakernel import canny_mega_pipeline  # noqa: E402
+from cudacam_tpu_torch.parallel import make_mesh  # noqa: E402
 
 KERNELS = ("ff_pack_kernel", "hyst_kernel<false>", "hyst_kernel<true>", "unpack_kernel",
-           "ff_stages_kernel", "pack_thresh_kernel", "sweep_pack_kernel")
+           "ff_stages_kernel", "pack_thresh_kernel", "sweep_pack_kernel", "unpack_core_kernel",
+           "exchange_kernel")
 
 
 def _busy_us(intervals) -> float:
@@ -81,12 +88,15 @@ def trace(name: str, call, inputs, frames_per_input: int, passes: int) -> dict:
     per_kernel = {}
     for e in dev:
         key = next((k for k in KERNELS if k in e.name), e.name)
-        per_kernel[key] = per_kernel.get(key, 0.0) + e.time_range.elapsed_us() / n
+        per_kernel.setdefault(key, []).append(e.time_range.elapsed_us())
     span = max(e.time_range.end for e in dev) - min(e.time_range.start for e in dev)
     busy = _busy_us((e.time_range.start, e.time_range.end) for e in dev)
     return {
         "workload": name, "frames": n, "device_events": len(dev),
-        "device_us_per_frame": per_kernel, "busy_us": busy, "span_us": span,
+        "device_us_per_frame": {k: sum(v) / n for k, v in per_kernel.items()},
+        "events_per_frame": {k: len(v) / n for k, v in per_kernel.items()},
+        "median_us_per_event": {k: statistics.median(v) for k, v in per_kernel.items()},
+        "busy_us": busy, "span_us": span,
         "idle_share": 1 - busy / span, "traced_wall_ms_per_frame": wall * 1e3 / n,
     }
 
@@ -133,25 +143,49 @@ def sweep(h: int, w: int) -> dict:
                  [frame], 1, 5)
 
 
+def sharded() -> list:
+    rows = []
+    for label, (h, w), mesh, frame, passes in (
+            ("8K scene", (4320, 7680), (1, 4, 2), make_scene, 5),
+            ("1080p spiral", (1080, 1920), (1, 2, 2), make_spiral_frame, 2)):
+        eng = ShardedCannyEngine(CannyConfig(height=h, width=w), make_mesh(*mesh))
+        x = torch.from_numpy(frame(h, w)).cuda()[None]
+        row = trace(f"sharded HYSTER {label} {mesh}", eng.process, [x], 1, passes)
+        row["collective_rounds"] = int(eng.pipeline().rounds)
+        rows.append(row)
+    return rows
+
+
+PARTS = ("trace", "sizes", "sweeps", "sharded")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", type=Path, help="also write the JSON lines here")
+    ap.add_argument("--parts", default=",".join(PARTS), help=f"comma-separated of {PARTS}")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("port_profile: needs a CUDA device", file=sys.stderr)
         return 1
-    eng = CannyEngine(CannyConfig(height=1080, width=1920), device="cuda")
-    scenes = [torch.from_numpy(make_scene(1080, 1920, seed=s)).cuda() for s in range(8)]
-    spiral = torch.from_numpy(make_spiral_frame(1080, 1920)).cuda()
-    batch = torch.stack(scenes[:7] + [spiral])
-    rows = [
-        trace("1080p 8-scene stream", eng.process, scenes, 1, 5),
-        trace("1080p spiral", eng.process, [spiral], 1, 2),
-        trace("1080p x8 batch (7 scenes + spiral)", eng.process, [batch], 8, 5),
-        trace("1080p process_all, 8-scene stream", eng.process_all, scenes, 1, 3),
-    ]
-    rows += [sizes(2160, 3840), sizes(4320, 7680)]
-    rows += [sweep(1080, 1920), sweep(2160, 3840), sweep(4320, 7680)]
+    parts = args.parts.split(",")
+    rows = []
+    if "trace" in parts:
+        eng = CannyEngine(CannyConfig(height=1080, width=1920), device="cuda")
+        scenes = [torch.from_numpy(make_scene(1080, 1920, seed=s)).cuda() for s in range(8)]
+        spiral = torch.from_numpy(make_spiral_frame(1080, 1920)).cuda()
+        batch = torch.stack(scenes[:7] + [spiral])
+        rows += [
+            trace("1080p 8-scene stream", eng.process, scenes, 1, 5),
+            trace("1080p spiral", eng.process, [spiral], 1, 2),
+            trace("1080p x8 batch (7 scenes + spiral)", eng.process, [batch], 8, 5),
+            trace("1080p process_all, 8-scene stream", eng.process_all, scenes, 1, 3),
+        ]
+    if "sizes" in parts:
+        rows += [sizes(2160, 3840), sizes(4320, 7680)]
+    if "sweeps" in parts:
+        rows += [sweep(1080, 1920), sweep(2160, 3840), sweep(4320, 7680)]
+    if "sharded" in parts:
+        rows += sharded()
     lines = [json.dumps(r) for r in rows]
     print("\n".join(lines))
     if args.out:
