@@ -62,7 +62,27 @@ Phases, each printing its lines before the last:
    at the 8K (1, 4, 2) tiles, of K9 on the 1080p spiral's first collective
    round over (1, 2, 2) (where both of its phases work), a gated round, and
    ms/frame of each sharded path beside the unsharded engine on the same
-   frames.
+   frames;
+9. the column-split continuation (K11, ``split_converge``) against its plain
+   version with ``n_split`` 2 and 4 on the 8K spiral's phase-1 exit state
+   (cut off by the round budget) and on an 8K scene that escalates and
+   converges; ``CannyEngine(continuation='split')`` on the converged 8K
+   frame equal to the default engine and on the spiral equal to the plain
+   split route, four launches a call whatever the cap, no host sync; 8K
+   ms/frame of ``split`` against ``kernel`` on the cap-class and on a calm
+   frame;
+10. the legacy row-sweep hysteresis (K12, ``hyst_sweeps``) against its plain
+   version at 1080p (scene 0 converged at two block heights; the spiral cut
+   off by ``max_iters`` and ``max_local_iters``), equal to the fused
+   hysteresis (K6) on converged maps, its ms beside K6's;
+11. the live app (``CannyApp`` on the card): 64 frames of a 1080p BGR
+   ``SyntheticSource`` through ``run`` equal to ``CannyEngine.process`` of
+   the same frames, the ring holding CUDA tensors; thresholds, a stage cycle
+   through all six, pipeline off/on and profiling on/off applied mid-stream
+   build nothing; ``profiling_table`` with a row per stage; a ``BatchSource``
+   of 8 through the batched kernels; ``device_health_check``; ms/frame and
+   fps of host frames (pinned staging) and of ``preload_device_loop``
+   against the bare engine stream.
 
 Any failure raises and exits non-zero before the result line. Without a
 CUDA device, or outside a checkout of the repository, it fails at once.
@@ -112,6 +132,9 @@ REPLACES = {
     "saturate_phase2": _SAT,
     "unpack_core": f"{_MEGA}:714",
     "halo_exchange": "cudacam_tpu/parallel/packed_halo.py:195 (XLA ops, no pallas_call)",
+    "split_converge": ("cudacam_tpu/ops/pallas/hysteresis_fused.py:876 (converge_packed_split: "
+                       f"{_SAT} per slice + XLA ops) via {_MEGA}:921"),
+    "hyst_sweeps": "cudacam_tpu/ops/pallas/hysteresis.py:157",
 }
 _CSRC = "cudacam_tpu_torch/csrc"
 SOURCES = {
@@ -127,6 +150,8 @@ SOURCES = {
     "saturate_phase2": f"{_CSRC}/hyst_rounds.cu",
     "unpack_core": f"{_CSRC}/hyst_rounds.cu",
     "halo_exchange": f"{_CSRC}/halo.cu",
+    "split_converge": f"{_CSRC}/hyst_rounds.cu",
+    "hyst_sweeps": f"{_CSRC}/hyst_sweep.cu",
 }
 
 #: The bound of a timed call: the larger of the bytes it must move (each
@@ -159,6 +184,11 @@ def round_ops(words: int, h: int, w: int, dilate_steps: int, scans: bool) -> int
         ops += SCAN_OPS * 2 * (len(_doubling_steps(w)) + len(_doubling_steps(h))
                                + 2 * len(_doubling_steps(min(h, w))))
     return words * ops
+
+
+#: Word operations per packed word of one promotion step of the row sweeps:
+#: three neighbour words ORed, two shifts, two carries, the mask and the test.
+SWEEP_STEP_OPS = 12
 
 
 def sweep_pairs():
@@ -909,6 +939,305 @@ class Smoke:
                          f"round instead {rb_ms!r} ms/frame")
             print(line)
 
+    def phase_split(self) -> None:
+        """K11: ``split_converge`` against its plain version at 8K, the engine
+        with ``continuation='split'``, its launch counts and its time beside
+        the whole-frame continuation (K2)."""
+        torch = self.torch
+        import dataclasses
+        from cudacam_tpu_torch import CannyConfig
+        from cudacam_tpu_torch.engine import CannyEngine
+        from cudacam_tpu_torch.io.sources import make_scene, make_spiral_frame
+        from cudacam_tpu_torch.ops.cuda.canny import pipeline_kwargs
+        from cudacam_tpu_torch.ops.cuda.hysteresis_fused import (
+            SPLIT_HALO, converge_packed_split, converge_packed_split_plain,
+        )
+        from cudacam_tpu_torch.ops.cuda.megakernel import (
+            SPLIT_CHUNK, canny_mega, split_count, unpack_plain,
+        )
+
+        dev = self.dev
+        h, w = 4320, 7680
+        cfg = CannyConfig(height=h, width=w)
+        thr = torch.tensor([10, 40], dtype=torch.int32, device=dev)
+        spiral = torch.from_numpy(make_spiral_frame(h, w)).to(dev)
+        scene = torch.from_numpy(make_scene(h, w, seed=0)).to(dev)
+        require(split_count(h, w) == 2, f"8K n_split {split_count(h, w)}")
+
+        def phase1(frame, c):
+            return canny_mega(frame, thr, **pipeline_kwargs(c))
+
+        def both(label, f, p, flags, c, n_split):
+            """Kernel and plain from the same phase-1 exit state."""
+            kw = dict(dilate_steps=c.hysteresis_inner_steps, scan_after=0,
+                      max_iters=c.max_hysteresis_iters, chunk=SPLIT_CHUNK)
+            fk, flk, fp, flp = f.clone(), flags.clone(), f.clone(), flags.clone()
+            converge_packed_split(fk, p, flk, h, n_split, **kw)
+            t0 = time.perf_counter()
+            converge_packed_split_plain(fp, p, flp, h, n_split, **kw)
+            torch.cuda.synchronize()
+            plain_s = time.perf_counter() - t0
+            self.diff("split_converge", fk, fp)
+            self.diff("split_converge", flk, flp)
+            print(f"split_converge == plain on {label}, n_split {n_split}: flags {flk.tolist()}, "
+                  f"{int((unpack_plain(fk, h) == 255).sum())} finals (plain took {plain_s:.2f} s)")
+            return fk, flk, plain_s
+
+        # (a) the spiral at its phase-1 exit: cut off by the round budget.
+        f, p, flags = phase1(spiral, cfg)
+        require(flags[0].tolist() == [cfg.hysteresis_scan_after, 1], f"8K spiral {flags.tolist()}")
+        for n_split in (2, 4):
+            fk, flk, plain_s = both("the 8K spiral (cut off)", f, p, flags, cfg, n_split)
+            require(int(flk[1, 1]) == 1 and int(flk[1, 0]) >= cfg.max_hysteresis_iters,
+                    f"8K spiral was not cut off: {flk.tolist()}")
+            if n_split == 2:
+                spiral_plain, spiral_flags = unpack_plain(fk, h), flk
+                self.plain_ms["split_converge"] = plain_s * 1e3
+        # (b) a scene that escalates and converges: lower scan_after until it does.
+        cfg_b = None
+        for sa in (8, 4, 2, 1):
+            c = dataclasses.replace(cfg, hysteresis_scan_after=sa)
+            fb, pb, flb = phase1(scene, c)
+            if int(flb[0, 1]) == 1:
+                cfg_b = c
+                break
+        require(cfg_b is not None, "no scan_after makes the 8K scene escalate")
+        for n_split in (2, 4):
+            _, flk, _ = both(f"8K scene 0, scan_after {cfg_b.hysteresis_scan_after} (converges)",
+                             fb, pb, flb, cfg_b, n_split)
+            require(int(flk[1, 1]) == 0, f"8K scene did not converge: {flk.tolist()}")
+
+        # The engine: 'split' equals the default engine on the converged frame
+        # and the plain split route on the spiral; four launches whatever the cap.
+        expect = dict(ff_pack=1, hyst_phase1=1, split_converge=1, unpack=1, hyst_phase2=0,
+                      unpack_core=0)
+        eng_b = CannyEngine(dataclasses.replace(cfg_b, continuation="split"), device="cuda")
+        eng_b.process(scene)
+        got = self.path("process HYSTER 8K scene, continuation='split'",
+                        lambda: eng_b.process(scene), expect)
+        require(torch.equal(got, CannyEngine(cfg_b, device="cuda").process(scene)),
+                "continuation='split' differs from the default engine on a converged frame")
+        self.eng8_split = CannyEngine(dataclasses.replace(cfg, continuation="split"), device="cuda")
+        self.eng8_split.process(spiral)
+        got = self.path("process HYSTER 8K spiral, continuation='split'",
+                        lambda: self.eng8_split.process(spiral), expect)
+        require(torch.equal(got, spiral_plain), "continuation='split' differs from the plain split")
+        eng400 = CannyEngine(dataclasses.replace(cfg, continuation="split",
+                                                 max_hysteresis_iters=400), device="cuda")
+        eng400.process(scene)
+        self.path("process HYSTER 8K scene, continuation='split', cap 400",
+                  lambda: eng400.process(scene), expect)
+        print("continuation='split': == default engine on the converged 8K frame, == plain split "
+              "on the spiral; 4 launches a call at cap 100 and cap 400")
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            self.eng8_split.process(spiral)
+            eng_b.process(scene)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        print("process() with continuation='split': no host sync under set_sync_debug_mode('error')")
+
+        # Times: the kernel alone on the spiral's phase-1 exit, then 8K
+        # ms/frame of 'split' against 'kernel' on the cap-class and a calm frame.
+        kw = dict(dilate_steps=cfg.hysteresis_inner_steps, scan_after=0,
+                  max_iters=cfg.max_hysteresis_iters, chunk=SPLIT_CHUNK)
+        self.ms["split_converge"] = self.time_ms(
+            lambda s: converge_packed_split(s[0], p, s[1], h, 2, **kw), 1, reps=3,
+            setup=lambda: (f.clone(), flags.clone()))
+        spent = int(spiral_flags[1, 0]) - int(spiral_flags[0, 0])
+        seams = -(-spent // SPLIT_CHUNK)
+        ws = w // 2
+        sw = -(-h // 32) * (ws + 2 * SPLIT_HALO)
+        words = -(-h // 32) * w
+        ds = cfg.hysteresis_inner_steps
+        self.set_bound("split_converge", 3 * 4 * words,
+                       2 * (seams * round_ops(sw, h, ws + 2 * SPLIT_HALO, ds, False)
+                            + (spent - seams) * round_ops(sw, h, ws + 2 * SPLIT_HALO, ds, True)))
+        print(f"time split_converge: kernel {self.ms['split_converge']!r} ms, plain "
+              f"{self.plain_ms['split_converge']!r} ms, bound {self.bound['split_converge'][0]!r} ms "
+              f"({self.bound['split_converge'][1]}) (8K spiral from round {int(flags[0, 0])}: "
+              f"{spent} rounds in {seams} seam rounds, n_split 2)")
+        eng8 = CannyEngine(cfg, device="cuda")
+        for label, frame, reps in (("cap-class spiral", spiral, 3), ("calm scene 0", scene, 7)):
+            t_split = self.time_ms(lambda _: self.eng8_split.process(frame), 1, reps=reps)
+            t_kernel = self.time_ms(lambda _: eng8.process(frame), 1, reps=reps)
+            t_split2 = self.time_ms(lambda _: self.eng8_split.process(frame), 1, reps=reps)
+            print(f"time 8K {label}: continuation='split' {t_split!r} / {t_split2!r} ms/frame, "
+                  f"'kernel' (K2) {t_kernel!r} ms/frame (medians of {reps}, split, kernel, split)")
+
+    def phase_legacy(self) -> None:
+        """K12: ``hyst_sweeps`` against its plain version and against the
+        fused hysteresis (K6) at 1080p."""
+        torch = self.torch
+        from cudacam_tpu_torch import CannyStage
+        from cudacam_tpu_torch.io.sources import make_spiral_thresh
+        from cudacam_tpu_torch.ops.cuda import hysteresis_sweeps, hysteresis_sweeps_plain
+        from cudacam_tpu_torch.ops.cuda.canny import hyster_kwargs
+        from cudacam_tpu_torch.ops.cuda.feedforward import ff_stages
+        from cudacam_tpu_torch.ops.cuda.hysteresis import DEFAULT_BLOCK_H, HALO
+        from cudacam_tpu_torch.ops.cuda.hysteresis_fused import hysteresis_fused
+
+        h, w = 1080, 1920
+        (tmap,) = ff_stages(self.frames[0], self.eng._thresholds(), (CannyStage.THRESH,))
+        k6 = hysteresis_fused(tmap, **hyster_kwargs(self.cfg))
+        for block_h, rc in ((DEFAULT_BLOCK_H, True), (64, False)):
+            kw = dict(block_h=block_h, remove_candidates=rc, return_info=True)
+            got, info = self.path(f"hysteresis_sweeps 1080p scene 0, block_h {block_h}",
+                                  lambda: hysteresis_sweeps(tmap, **kw), dict(hyst_sweeps=1))
+            t0 = time.perf_counter()
+            want, winfo = hysteresis_sweeps_plain(tmap, **kw)
+            torch.cuda.synchronize()
+            plain_s = time.perf_counter() - t0
+            self.diff("hyst_sweeps", got, want)
+            self.diff("hyst_sweeps", info[:2], winfo[:2])
+            require(int(info[1]) == 0, f"scene 0 did not converge: {info.tolist()}")
+            require(torch.equal(torch.where(got == 255, got, torch.zeros_like(got)), k6),
+                    "hyst_sweeps differs from the fused hysteresis (K6) on a converged map")
+            print(f"hyst_sweeps == plain == K6 on 1080p scene 0, block_h {block_h}: "
+                  f"{info.tolist()} [sweeps, changed, steps] (plain took {plain_s:.2f} s)")
+            if block_h == DEFAULT_BLOCK_H:
+                self.plain_ms["hyst_sweeps"], steps = plain_s * 1e3, int(info[2])
+        spiral_t = torch.from_numpy(make_spiral_thresh(h, w)).to(self.dev)
+        kw = dict(max_iters=2, block_h=128, max_local_iters=512, return_info=True)
+        got, info = hysteresis_sweeps(spiral_t, **kw)
+        want, winfo = hysteresis_sweeps_plain(spiral_t, **kw)
+        self.diff("hyst_sweeps", got, want)
+        self.diff("hyst_sweeps", info[:2], winfo[:2])
+        require(info[:2].tolist() == [4, 1], f"the spiral was not cut off: {info.tolist()}")
+        print(f"hyst_sweeps == plain on the 1080p spiral cut off (max_iters 2, block_h 128, "
+              f"max_local_iters 512): {int((got == 255).sum())} finals, {info.tolist()}")
+
+        self.ms["hyst_sweeps"] = self.time_ms(lambda _: hysteresis_sweeps(tmap), 3)
+        k6_ms = self.time_ms(lambda _: hysteresis_fused(tmap, **hyster_kwargs(self.cfg)), 20)
+        window_words = -(-(DEFAULT_BLOCK_H + 2 * HALO) // 32) * w
+        self.set_bound("hyst_sweeps", 2 * h * w, SWEEP_STEP_OPS * steps * window_words)
+        print(f"time hyst_sweeps: kernel {self.ms['hyst_sweeps']!r} ms, plain "
+              f"{self.plain_ms['hyst_sweeps']!r} ms, bound {self.bound['hyst_sweeps'][0]!r} ms "
+              f"({self.bound['hyst_sweeps'][1]}); K6 on the same map {k6_ms!r} ms (1080p scene 0, "
+              f"block_h {DEFAULT_BLOCK_H}, {steps} promotion steps)")
+
+    def phase_app(self) -> None:
+        """The live app on the card."""
+        torch = self.torch
+        import numpy as np
+        from cudacam_tpu_torch import CannyConfig, CannyStage
+        from cudacam_tpu_torch.app import CannyApp
+        from cudacam_tpu_torch.engine import CannyEngine
+        from cudacam_tpu_torch.io import SequenceSource, SyntheticSource, open_source, to_host
+        from cudacam_tpu_torch.io.compose import compose
+        from cudacam_tpu_torch.ops import cuda as kernels
+        from cudacam_tpu_torch.ops.cuda import _build
+        from cudacam_tpu_torch.utils.debug import device_health_check
+
+        h, w = 1080, 1920
+        main = ("ff_pack", "hyst_phase1", "hyst_phase2", "unpack")
+        require(device_health_check() == "cuda", "device_health_check")
+        ref = CannyEngine(CannyConfig(height=h, width=w), device="cuda")
+
+        def check(app, n, stage=CannyStage.HYSTER, expect=None):
+            """``n`` frames through ``app.run``; every output against
+            ``ref.process`` of the same raw frame at the app's thresholds."""
+            seen = []
+            ref.set_high_threshold(255)
+            ref.set_low_threshold(app.engine.get_low_threshold())
+            ref.set_high_threshold(app.engine.get_high_threshold())
+            run = lambda: app.run(n, on_frame=lambda i, o: seen.append((app._last_input, o)))  # noqa: E731
+            done = run() if expect is None else self.path(f"app, {n} x {stage.name}", run, expect)
+            require(done == n and len(seen) == n, f"app ran {done} of {n} frames")
+            for i, (raw, out) in enumerate(seen):
+                require(isinstance(out, torch.Tensor) and out.is_cuda, "app output is not on the card")
+                require(torch.equal(out, ref.process(raw, stage)),
+                        f"app frame {i} at {stage.name} differs from CannyEngine.process")
+
+        scenes = np.stack([to_host(f) for f in self.frames[:8]])
+        with CannyApp(SyntheticSource(height=h, width=w, n_frames=64), ring_capacity=8) as app:
+            app.warmup()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            check(app, 64, expect=dict.fromkeys(main, 64))
+            synth_ms = (time.perf_counter() - t0) * 1e3 / 64  # with the 64 reference calls
+            require(all(isinstance(t, torch.Tensor) and t.is_cuda for t in app.ring.history())
+                    and len(app.ring) == 8, "the ring does not hold 8 CUDA tensors")
+            print("app: 64 x 1080p BGR frames of a SyntheticSource through run() == "
+                  f"CannyEngine.process; the ring holds 8 CUDA tensors ({synth_ms!r} ms/frame, "
+                  "the source drawing each scene on the host)")
+        # Live controls on a running stream (a looped sequence of the eight
+        # scenes: a free source).
+        with CannyApp(SequenceSource.from_array(scenes, loop=True), ring_capacity=8) as app:
+            app.warmup()
+            check(app, 8, expect=dict.fromkeys(main, 8))
+            # Live controls on the running stream: nothing is built.
+            loads = _build.load.cache_info().misses
+            app.apply_controls(low=20, high=80)
+            check(app, 3, expect=dict.fromkeys(main, 3))
+            for _ in CannyStage:
+                stage = app.cycle_stage()
+                expect = (dict.fromkeys(main, 2) if stage == CannyStage.HYSTER
+                          else dict(ff_stages=2, ff_pack=0))
+                check(app, 2, stage, expect)
+            require(app.stage == CannyStage.HYSTER, f"stage cycle ended at {app.stage.name}")
+            app.apply_controls(pipeline=False)
+            out = self.path("app, pipeline off", app.step, dict.fromkeys(main + ("ff_stages",), 0))
+            require(out.is_cuda and torch.equal(out.cpu(), torch.from_numpy(app._last_input)),
+                    "pass-through is not the raw frame on the card")
+            app.engine.timers.reset()
+            app.apply_controls(pipeline=True, profiling=True)
+            check(app, 3)
+            table = app.profiling_table()
+            rows = {n: app.engine.timers.get_average_time(n) for n, _, _ in app.engine.timers.items()}
+            require(len(rows) == 6 and all(v >= 0.0 for v in rows.values())
+                    and sum(rows.values()) > 0.0, f"profiling table:\n{table}")
+            app.apply_controls(profiling=False, low=10, high=40)
+            check(app, 2, expect=dict.fromkeys(main, 2))
+            require(_build.load.cache_info().misses == loads, "a live control built or loaded something")
+            json.dumps(app.status())
+            print("app: thresholds, a stage cycle through all six, pipeline off/on, profiling "
+                  "on/off mid-stream == CannyEngine.process, nothing built; profiling table "
+                  f"(mode {app.engine._profiling_mode_resolved()}, CUDA events):\n{table}")
+
+        # Eight cameras: the batched kernels, one launch each a step.
+        with CannyApp(open_source("multi:8*synthetic:1080x1920", n_frames=4)) as app:
+            app.warmup()
+            out = self.path("app, BatchSource of 8 x 1080p", app.step, dict.fromkeys(main, 1))
+            raw = app._last_input
+            require(tuple(out.shape) == (8, h, w) and raw.shape == (8, h, w, 3), "batch shapes")
+            for b in range(8):
+                require(torch.equal(out[b], ref.process(raw[b])), f"camera {b} differs")
+            wall = compose(raw, to_host(out), "edges")
+            require(wall.shape == (3 * h + 4, 3 * w + 4, 3), f"montage {wall.shape}")
+            print(f"app: a BatchSource of 8 goes through the batched kernels (4 launches a "
+                  f"step), == CannyEngine.process per camera; montage {wall.shape}")
+
+        # ms/frame, wall clock to the last frame's end: host frames through the
+        # pinned staging buffers, the device loop, the bare engine stream.
+        def wall_ms(run, n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3 / n
+
+        def app_ms(source, n, loop=0):
+            with CannyApp(source) as app:
+                app.warmup()
+                if loop:
+                    app.preload_device_loop(loop)
+                app.run(16)
+                return statistics.median(wall_ms(lambda: app.run(n), n) for _ in range(5))
+
+        host_ms = app_ms(SequenceSource.from_array(scenes, loop=True), 200)
+        loop_ms = app_ms(SequenceSource.from_array(scenes, loop=True), 400, loop=8)
+        dev_frames = self.frames[:8]
+        eng_ms = statistics.median(
+            wall_ms(lambda: [self.eng.process(f) for f in dev_frames * 50], 400) for _ in range(5))
+        for label, ms in (("host frames, looped 8 scenes (pinned staging, non-blocking upload)", host_ms),
+                          ("preload_device_loop(8)", loop_ms),
+                          ("bare CannyEngine.process on 8 device frames", eng_ms)):
+            print(f"time app 1080p BGR, {label}: {ms!r} ms/frame, {1e3 / ms!r} fps (wall clock, "
+                  f"medians of 5 runs)")
+
     def phase_no_sync(self) -> None:
         torch = self.torch
         from cudacam_tpu_torch import CannyStage
@@ -1124,13 +1453,16 @@ class Smoke:
 
 
 def main() -> int:
+    """Every phase, then the result lines."""
     t0 = time.perf_counter()
     try:
         smoke = Smoke()
-        for phase in (smoke.phase_env, smoke.phase_build, smoke.phase_kernels,
-                      smoke.phase_sweep, smoke.phase_engine, smoke.phase_sharded,
-                      smoke.phase_no_sync, smoke.phase_timing, smoke.phase_sweep_timing,
-                      smoke.phase_sharded_timing):
+        phases = [smoke.phase_env, smoke.phase_build, smoke.phase_kernels,
+                  smoke.phase_sweep, smoke.phase_engine, smoke.phase_sharded,
+                  smoke.phase_no_sync, smoke.phase_timing, smoke.phase_sweep_timing,
+                  smoke.phase_sharded_timing, smoke.phase_split, smoke.phase_legacy,
+                  smoke.phase_app]
+        for phase in phases:
             phase()
             print(f"[{phase.__name__} done at {time.perf_counter() - t0:.1f} s]", flush=True)
     except SmokeFailure as e:

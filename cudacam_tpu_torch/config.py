@@ -5,8 +5,8 @@ The fields, their defaults, the derived defaults, the validation and the
 moves across (``state.config_from_jax``) and the round schedule
 (inner steps, scan_after, the cap) is the same on both sides. The JAX
 package's fields that select one of its executors (``backend``,
-``interpret``, ``continuation``) have no counterpart: the port's route
-follows the tensors' device, and it has one phase-2 continuation.
+``interpret``) have no counterpart: the port's route follows the tensors'
+device. ``continuation`` has the port's own values.
 """
 from __future__ import annotations
 
@@ -70,6 +70,13 @@ class CannyConfig:
     hysteresis_scan_after: Optional[int] = None
 
     parity: str = "reference"  # 'reference' | 'opencv'
+    # Phase-2 continuation on the HYSTER path. 'kernel': the whole-frame
+    # phase-2 kernel at every frame size; 'auto' is 'kernel'. 'split': the
+    # column-split form (ops/cuda/megakernel.py::_cont_split), opt-in: equal
+    # to 'kernel' on every converged frame, its own bytes when the round cap
+    # cuts the frame off (the JAX package's 'split', which its 'auto' takes
+    # at 8K).
+    continuation: str = "auto"  # 'auto' | 'kernel' | 'split'
 
     def __post_init__(self) -> None:
         if self.kernel_size not in GAUSSIAN_TAPS:
@@ -80,6 +87,8 @@ class CannyConfig:
             raise ValueError("channels must be 1 (mono) or 3 (BGR)")
         if self.parity not in ("reference", "opencv"):
             raise ValueError("parity must be 'reference' or 'opencv'")
+        if self.continuation not in ("auto", "kernel", "split"):
+            raise ValueError("continuation must be 'auto', 'kernel' or 'split'")
         if self.grad_coeff not in (1, 2, 4, 8):
             # (isqrt(m) * coeff) // 8 equals trunc(coeff * sqrt(m) / 8) only
             # when coeff divides 8.

@@ -63,6 +63,24 @@
 // Bound: grid barriers and L2 latency, not bytes or operations: a round moves
 // a few hundred KB per frame through L2 and does ~10 integer ops per word
 // per step.
+//
+// split_kernel replaces the column-split continuation (hysteresis_fused.py:876
+// converge_packed_split, driven by megakernel.py:921 _cont_split: a host-traced
+// loop of one saturate_packed launch per column slice with XLA pad / slice /
+// concatenate between). Here the whole seam loop is ONE cooperative launch,
+// gated on the frame's growing flag as phase 2 is: the slices are the batch
+// dimension of a scratch copy (n_split, hw, k + ws + k) that the round code
+// above works on unchanged (per-slice round counts and stop tests). A seam
+// round extracts every slice with its k halo columns from the frame's plane
+// (zero outside the frame), runs the saturate schedule on each (one
+// unconditional dilation round, dilation rounds below scan_after, then
+// dilations + scans, while the slice changes and below the inner cap), writes
+// the owned ws columns back, and adds the most rounds any slice took to the
+// budget counter; the loop ends on the device when a seam round changes no
+// owned word or the budget is spent. So a call is one launch whatever the
+// cap, and the host reads nothing back. Bound: as the round kernels, grid
+// barriers; the extract and merge passes move the planes through L2 once a
+// seam round.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -213,6 +231,28 @@ __device__ void dilate_round(const Params& a, const FrameState& st, int slot, ui
   }
 }
 
+// A round's result, the planes ``gs`` of every active frame, into f; marks
+// chg[slot][b] when frame b changed.
+__device__ void commit_round(const Params& a, const FrameState& st, int slot,
+                             const uint32_t* gs) {
+  const int n = (int)a.plane;
+  const int n_act = *st.n;
+  const int gtid = blockIdx.x * NT + threadIdx.x;
+  const int gsize = gridDim.x * NT;
+  for (int i = 0; i < n_act; ++i) {
+    const int b = st.list[i];
+    const uint32_t* gb = gs + b * a.plane;
+    uint32_t* fb = a.f + b * a.plane;
+    bool changed = false;
+    for (int e = gtid; e < n; e += gsize) {
+      const uint32_t v = __ldcg(gb + e);
+      changed |= v != __ldcg(fb + e);
+      fb[e] = v;
+    }
+    if (__syncthreads_or(changed) && threadIdx.x == 0) atomicOr(&a.chg[slot * a.nb + b], 1);
+  }
+}
+
 // The 8 directional scans on the dilated planes in buf[0] of every active
 // frame, then the result into f; marks chg[slot][b] when frame b changed.
 __device__ void scan_round(const Params& a, const FrameState& st, int slot,
@@ -245,18 +285,7 @@ __device__ void scan_round(const Params& a, const FrameState& st, int slot,
       ps = pd;
     }
   }
-  for (int i = 0; i < n_act; ++i) {
-    const int b = st.list[i];
-    const uint32_t* gb = gs + b * a.plane;
-    uint32_t* fb = a.f + b * a.plane;
-    bool changed = false;
-    for (int e = gtid; e < n; e += gsize) {
-      const uint32_t v = __ldcg(gb + e);
-      changed |= v != __ldcg(fb + e);
-      fb[e] = v;
-    }
-    if (__syncthreads_or(changed) && threadIdx.x == 0) atomicOr(&a.chg[slot * a.nb + b], 1);
-  }
+  commit_round(a, st, slot, gs);
 }
 
 // Lists the frames that run round r (thread 0 only; the caller syncs the
@@ -339,6 +368,110 @@ __global__ void __launch_bounds__(NT) hyst_kernel(Params a) {
   }
 }
 
+// The column-split continuation of one frame (see the head of this file).
+struct SplitParams {
+  uint32_t* ff;        // (hw, fw) the frame's FINAL plane, updated in place
+  const uint32_t* fp;  // (hw, fw) the frame's CANDIDATE plane
+  uint32_t* sp;        // (n_split, hw, k + ws + k) the slices' CANDIDATE planes (scratch)
+  int* fflags;         // (2, 2): row 0 read (round count, growing), row 1 written
+  int* mchg;           // [3] "a seam round changed an owned word", rotating
+  int fw, ws, k;       // frame columns, owned columns a slice, seam halo columns
+  int cap1;            // inner rounds below it are dilations only
+  int budget;          // the total round budget (max_iters)
+  int chunked;         // a seam round spends its slowest slice's rounds (else 1)
+};
+
+// Slice i of a frame plane with its halo, zero outside the frame.
+__device__ void split_extract(const Params& a, const SplitParams& s, const uint32_t* src,
+                              uint32_t* dst) {
+  const long long total = a.nb * a.plane;
+  for (long long e = blockIdx.x * NT + threadIdx.x; e < total; e += (long long)gridDim.x * NT) {
+    const int i = (int)(e / a.plane), rem = (int)(e - i * a.plane);
+    const int kr = rem / a.w, c = rem - kr * a.w;
+    const int gc = i * s.ws - s.k + c;
+    dst[e] = (gc >= 0 && gc < s.fw) ? __ldcg(src + (long long)kr * s.fw + gc) : 0u;
+  }
+}
+
+__global__ void __launch_bounds__(NT) split_kernel(Params a, SplitParams s) {
+  const bool lead = blockIdx.x == 0 && threadIdx.x == 0;
+  int it = s.fflags[0];
+  if (s.fflags[1] == 0) {  // every block: the frame converged in phase 1
+    if (lead) {
+      s.fflags[2] = it;
+      s.fflags[3] = 0;
+    }
+    return;
+  }
+  extern __shared__ uint32_t sm[];
+  int* state = reinterpret_cast<int*>(sm + tile_words(a.dilate_steps));
+  const FrameState st{state, state + a.nb, state + 2 * a.nb, state + 3 * a.nb};
+  cg::grid_group grid = cg::this_grid();
+  split_extract(a, s, s.fp, s.sp);
+  if (lead) {
+    for (int i = 0; i < 3 * a.nb; ++i) a.chg[i] = 0;
+    for (int i = 0; i < 3; ++i) s.mchg[i] = 0;
+  }
+  int changed = 1;
+  int r = 0;  // rounds over all seam rounds: the rotation of the chg slots
+  for (int seam = 0; changed && it < s.budget; ++seam) {
+    split_extract(a, s, s.ff, a.f);
+    if (lead) s.mchg[(seam + 1) % 3] = 0;
+    __syncthreads();  // the previous seam round's reads of the state are done
+    if (threadIdx.x == 0) {
+      for (int i = 0; i < a.nb; ++i) {
+        st.it[i] = 0;
+        st.grow[i] = 1;
+      }
+      list_active<false>(a, st, 0);  // round 0 runs on every slice
+    }
+    __syncthreads();
+    grid.sync();
+    for (int ri = 0; *st.n > 0; ++ri, ++r) {
+      const int slot = r % 3;
+      if (lead)
+        for (int i = 0; i < a.nb; ++i) a.chg[((r + 1) % 3) * a.nb + i] = 0;
+      dilate_round<true>(a, st, slot, sm);
+      grid.sync();
+      // Every active slice is at round ri: the kind of round is uniform.
+      if (ri == 0 || ri < s.cap1) commit_round(a, st, slot, a.buf[0]);
+      else scan_round(a, st, slot, grid);
+      grid.sync();
+      if (threadIdx.x == 0) {
+        for (int i = 0; i < *st.n; ++i) {
+          const int b = st.list[i];
+          st.grow[b] = *(volatile int*)&a.chg[slot * a.nb + b];
+          ++st.it[b];
+        }
+        list_active<true>(a, st, ri + 1);
+      }
+      __syncthreads();
+    }
+    int spent = 0;
+    for (int i = 0; i < a.nb; ++i) spent = max(spent, st.it[i]);
+    // Merge: the owned columns of every slice back into the frame's plane.
+    const int mslot = seam % 3;
+    const long long owned = (long long)a.hw * s.ws, total = a.nb * owned;
+    bool ch = false;
+    for (long long e = blockIdx.x * NT + threadIdx.x; e < total; e += (long long)gridDim.x * NT) {
+      const int i = (int)(e / owned), rem = (int)(e - i * owned);
+      const int kr = rem / s.ws, c = rem - kr * s.ws;
+      const uint32_t v = __ldcg(a.f + i * a.plane + (long long)kr * a.w + s.k + c);
+      uint32_t* dst = s.ff + (long long)kr * s.fw + i * s.ws + c;
+      ch |= v != __ldcg(dst);
+      *dst = v;
+    }
+    if (__syncthreads_or(ch) && threadIdx.x == 0) atomicOr(&s.mchg[mslot], 1);
+    grid.sync();
+    changed = *(volatile int*)&s.mchg[mslot];
+    it += s.chunked ? spent : 1;
+  }
+  if (lead) {
+    s.fflags[2] = it;
+    s.fflags[3] = changed;
+  }
+}
+
 // Frame blockIdx.y of the batch: every byte of its edge map written once, to
 // out[index[b]] when an index is given (the sweep's original pair order: the
 // TPU sweep kernel's prefetch-indexed output block), else to out[b]. An index
@@ -387,21 +520,19 @@ size_t smem_bytes(int dilate_steps, int nb) {
   return ((size_t)tile_words(dilate_steps) + 3 * (size_t)nb + 1) * sizeof(uint32_t);
 }
 
-// The most blocks of hyst_kernel<PHASE2> that can be co-resident on
-// `device` (the cooperative grid's limit), computed on the first launch for
-// each (dilate_steps, batch) and cached.
-template <bool PHASE2>
-cudaError_t max_grid(int device, int dilate_steps, int nb, int* out) {
+// The most blocks of the cooperative kernel ``kern`` that can be co-resident
+// on `device` (the cooperative grid's limit), computed on the first launch
+// for each (kernel, dilate_steps, batch) and cached.
+cudaError_t max_grid(const void* kern, int device, int dilate_steps, int nb, int* out) {
   static std::mutex mu;
-  static std::map<std::tuple<int, int, int>, int> cache;
+  static std::map<std::tuple<const void*, int, int, int>, int> cache;
   std::lock_guard<std::mutex> lock(mu);
-  const auto key = std::make_tuple(device, dilate_steps, nb);
+  const auto key = std::make_tuple(kern, device, dilate_steps, nb);
   const auto hit = cache.find(key);
   if (hit != cache.end()) {
     *out = hit->second;
     return cudaSuccess;
   }
-  auto kern = hyst_kernel<PHASE2>;
   const size_t bytes = smem_bytes(dilate_steps, nb);
   int optin = 0, per_sm = 0, sms = 0;
   cudaError_t err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
@@ -418,26 +549,36 @@ cudaError_t max_grid(int device, int dilate_steps, int nb, int* out) {
   return cudaSuccess;
 }
 
-template <bool PHASE2>
-cudaError_t launch_rounds(Params a, int device, cudaStream_t stream) {
+// The cooperative grid of a launch over ``scale`` planes of a: it covers
+// their tiles or their words, whichever is more, up to the limit.
+cudaError_t grid_blocks(const void* kern, const Params& a, long long scale, int device,
+                        unsigned* out) {
   if (a.dilate_steps < 1 || a.dilate_steps > MAX_DILATE_STEPS || a.nb < 1)
     return cudaErrorInvalidValue;
   int limit = 0;
-  cudaError_t err = max_grid<PHASE2>(device, a.dilate_steps, a.nb, &limit);
+  cudaError_t err = max_grid(kern, device, a.dilate_steps, a.nb, &limit);
   if (err != cudaSuccess) return err;
+  const long long n_tiles = scale * ((a.hw + TR - 1) / TR) * ((a.w + TC - 1) / TC);
+  const long long n_blocks_words = (scale * a.plane + NT - 1) / NT;
+  long long grid = n_tiles > n_blocks_words ? n_tiles : n_blocks_words;
+  *out = (unsigned)(grid > limit ? limit : grid);
+  return cudaSuccess;
+}
+
+template <bool PHASE2>
+cudaError_t launch_rounds(Params a, int device, cudaStream_t stream) {
   // Phase 1 starts with every frame active: its grid covers the batch's
   // tiles. Phase 2 works on the escalated frames, rarely more than one, and
   // a grid barrier costs more the more blocks take part, so its grid covers
   // one frame (x8 1080p batch with one escalating frame: 1.53 -> 1.24
   // ms/frame on an H100; with none escalating, unchanged).
-  const long long scale = PHASE2 ? 1 : a.nb;
-  const long long n_tiles = scale * ((a.hw + TR - 1) / TR) * ((a.w + TC - 1) / TC);
-  const long long n_blocks_words = (scale * a.plane + NT - 1) / NT;
-  long long grid = n_tiles > n_blocks_words ? n_tiles : n_blocks_words;
-  if (grid > limit) grid = limit;
+  const void* kern = (const void*)hyst_kernel<PHASE2>;
+  unsigned grid = 0;
+  cudaError_t err = grid_blocks(kern, a, PHASE2 ? 1 : a.nb, device, &grid);
+  if (err != cudaSuccess) return err;
   void* args[] = {&a};
-  err = cudaLaunchCooperativeKernel((void*)hyst_kernel<PHASE2>, dim3((unsigned)grid), dim3(NT),
-                                    args, smem_bytes(a.dilate_steps, a.nb), stream);
+  err = cudaLaunchCooperativeKernel(kern, dim3(grid), dim3(NT), args,
+                                    smem_bytes(a.dilate_steps, a.nb), stream);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -516,5 +657,52 @@ extern "C" int cc_unpack_core(const void* f, void* out, int tiles, int hwe, int 
   unpack_core_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(f), static_cast<uint8_t*>(out), hwe, ew, e_top, e_left, h_loc,
       w_loc, nty, ntx, oh, ow);
+  return cudaGetLastError();
+}
+
+// int32 words of scratch the column-split continuation needs: the slices'
+// FINAL and CANDIDATE planes and four scratch planes each, 3 change flags a
+// slice and 3 for the seam rounds.
+extern "C" long long cc_split_scratch_words(int n_split, int h, int slice_w) {
+  return (long long)n_split * (6 * (long long)((h + 31) / 32) * slice_w + 3) + 3;
+}
+
+// The column-split continuation of one (ceil(h/32), w) frame: flags row 0
+// (round count, growing) is read on the device, row 1 written. ``chunk`` < 1
+// is the unchunked mode: slices run to max_iters and a seam round counts 1.
+extern "C" int cc_split_converge(void* f, const void* p, void* scratch, void* flags, int h, int w,
+                                 int n_split, int dilate_steps, int scan_after, int max_iters,
+                                 int chunk, int device, void* stream) {
+  DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return guard.err;
+  if (n_split < 1 || w % n_split || max_iters < 1) return cudaErrorInvalidValue;
+  const int ws = w / n_split, k = ws < 64 ? ws : 64;
+  const int inner = chunk >= 1 ? chunk : max_iters;
+  uint32_t* sc = static_cast<uint32_t*>(scratch);
+  const long long planes = (long long)n_split * ((h + 31) / 32) * (ws + 2 * k);
+  // The slice batch: its FINAL planes first, then the four scratch planes
+  // and the change flags where make_params puts them, then the CANDIDATEs.
+  Params a = make_params(sc, sc + 5 * planes + 3 * n_split, sc + planes, nullptr, nullptr, n_split,
+                         h, ws + 2 * k, dilate_steps, inner, 2);
+  SplitParams s;
+  s.ff = static_cast<uint32_t*>(f);
+  s.fp = static_cast<const uint32_t*>(p);
+  s.sp = sc + 5 * planes + 3 * n_split;
+  s.mchg = reinterpret_cast<int*>(s.sp + planes);
+  s.fflags = static_cast<int*>(flags);
+  s.fw = w;
+  s.ws = ws;
+  s.k = k;
+  s.cap1 = scan_after < inner ? scan_after : inner;
+  s.budget = max_iters;
+  s.chunked = chunk >= 1;
+  const void* kern = (const void*)split_kernel;
+  unsigned grid = 0;
+  cudaError_t err = grid_blocks(kern, a, n_split, device, &grid);
+  if (err != cudaSuccess) return err;
+  void* args[] = {&a, &s};
+  err = cudaLaunchCooperativeKernel(kern, dim3(grid), dim3(NT), args,
+                                    smem_bytes(dilate_steps, n_split), static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }

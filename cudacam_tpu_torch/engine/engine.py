@@ -13,18 +13,43 @@ nothing back to the host. A batched (B, H, W[, 3]) input runs HYSTER as one
 launch of each kernel for the whole batch; the display stages and
 ``process_all`` loop over its frames, as the JAX package maps over them.
 ``threshold_sweep`` runs K threshold pairs over one frame.
+
+Per-stage profiling is off by default and then adds nothing to ``process``:
+no launch, no event, no sync. Switched on (``set_profiling``), each frame is
+timed per stage into a named-timer table (``profiling_table``), on the card
+with CUDA events (the reference's own ``cudaEventRecord`` timers,
+cannyEdgeH.cu:409-430), never a host clock around an asynchronous launch;
+on the CPU with the wall clock. ``profiling_mode``: ``stages`` times the
+plain stage ops one by one, which are the CPU engine's own path, so it is a
+mode of ``device='cpu'`` only and raises on the card (a profiled frame on the
+card is always the kernels' output); ``cumulative`` times the run-to-stage-k
+programs users actually run and gives stage k the increment t(k) - t(k-1),
+clamped at 0; ``device`` samples the same increments once per (batch, stage)
+from the kernels' busy time under ``torch.profiler`` and then streams
+untimed; ``auto`` is ``cumulative`` on the card and ``stages`` on the CPU.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple, Union
+import contextlib
+import os
+import time
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from cudacam_tpu_torch.config import CannyConfig
-from cudacam_tpu_torch.stages import CannyStage
+from cudacam_tpu_torch.stages import CANNY_STAGE_NAMES, CannyStage
+from cudacam_tpu_torch.ops import bitpack, torch_ops
 from cudacam_tpu_torch.ops.cuda import canny
 from cudacam_tpu_torch.ops.cuda._build import load
+from cudacam_tpu_torch.utils.devtime import device_time_ms_per_call, event_time_ms_per_call
+from cudacam_tpu_torch.utils.logging import get_logger
+from cudacam_tpu_torch.utils.timer import TimerManager
+
+log = get_logger("engine")
+
+PROFILING_MODES = ("auto", "stages", "cumulative", "device")
 
 FrameLike = Union[np.ndarray, torch.Tensor]
 
@@ -83,10 +108,24 @@ class ThresholdControls:
 class CannyEngine(ThresholdControls):
     """Spec-locked Canny engine on one torch device."""
 
-    def __init__(self, config: CannyConfig, device: Union[str, torch.device] = "cuda") -> None:
+    def __init__(
+        self,
+        config: CannyConfig,
+        device: Union[str, torch.device] = "cuda",
+        profiling: bool = False,
+        timers: Optional[TimerManager] = None,
+    ) -> None:
         self._cfg = config
         self._device = resolve_device(device)
         self._init_thresholds(config)
+        self._profiling = bool(profiling)
+        #: 'auto' | 'stages' | 'cumulative' | 'device' (module docstring).
+        self.profiling_mode = "auto"
+        self._timers = timers or TimerManager.get()
+        self._profile_warmed: set = set()
+        for name in CANNY_STAGE_NAMES.values():
+            self._timers.create_timer(name)
+        log.debug("engine created: %s device=%s", config, self._device)
 
     @property
     def config(self) -> CannyConfig:
@@ -95,6 +134,37 @@ class CannyEngine(ThresholdControls):
     @property
     def device(self) -> torch.device:
         return self._device
+
+    @property
+    def backend(self) -> str:
+        """'cuda' (the kernels) or 'cpu' (the plain ops)."""
+        return self._device.type
+
+    def is_profiling_enabled(self) -> bool:
+        return self._profiling
+
+    def set_profiling(self, enabled: bool) -> None:
+        """Toggle per-stage timing (reference cannyEdgeH.hpp:31)."""
+        self._profiling = bool(enabled)
+
+    @property
+    def timers(self) -> TimerManager:
+        return self._timers
+
+    def profiling_table(self) -> str:
+        return self._timers.table()
+
+    def _profiling_mode_resolved(self) -> str:
+        if self.profiling_mode not in PROFILING_MODES:
+            raise ValueError(f"profiling_mode must be one of {PROFILING_MODES}")
+        on_card = self._device.type == "cuda"
+        if self.profiling_mode == "stages" and on_card:
+            raise ValueError(
+                "profiling_mode 'stages' times the plain stage ops and runs on "
+                "device='cpu' only; on the card use 'cumulative' or 'device'")
+        if self.profiling_mode != "auto":
+            return self.profiling_mode
+        return "cumulative" if on_card else "stages"
 
     def _validate(self, frame: FrameLike) -> Tuple[torch.Tensor, bool]:
         """Spec lock + type checks; returns (tensor on the engine's device,
@@ -137,9 +207,139 @@ class CannyEngine(ThresholdControls):
         arr, batched = self._validate(frame)
         final_stage = CannyStage(final_stage)
         thr = self._thresholds()
+        if self._profiling:
+            return self._process_profiled(arr, batched, final_stage, thr)
+        return self._to_stage(arr, batched, final_stage, thr)
+
+    def _to_stage(self, arr, batched: bool, stage: CannyStage, thr) -> torch.Tensor:
+        """The program users run: the cumulative run to ``stage``."""
         if batched:
-            return canny.canny_to_stage_batched(arr, thr, self._cfg, final_stage)
-        return canny.canny_to_stage(arr, thr, self._cfg, final_stage)
+            return canny.canny_to_stage_batched(arr, thr, self._cfg, stage)
+        return canny.canny_to_stage(arr, thr, self._cfg, stage)
+
+    # -- profiling ----------------------------------------------------------
+
+    def _timed_ms(self, fn: Callable[[], object]) -> Tuple[object, float]:
+        """``fn()`` and its milliseconds: CUDA events on the engine's stream
+        around it on the card (one event synchronize), the wall clock on the
+        CPU."""
+        if self._device.type != "cuda":
+            t0 = time.perf_counter()
+            out = fn()
+            return out, (time.perf_counter() - t0) * 1e3
+        stream = torch.cuda.current_stream(self._device)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record(stream)
+        out = fn()
+        end.record(stream)
+        end.synchronize()
+        return out, start.elapsed_time(end)
+
+    def _process_profiled(self, arr, batched: bool, final_stage: CannyStage, thr) -> torch.Tensor:
+        mode = self._profiling_mode_resolved()
+        if mode == "device":
+            return self._process_profiled_device(arr, batched, final_stage, thr)
+        if mode == "cumulative":
+            return self._process_profiled_cumulative(arr, batched, final_stage, thr)
+        return self._process_profiled_stages(arr, batched, final_stage, thr)
+
+    def _process_profiled_stages(self, arr, batched: bool, final_stage: CannyStage,
+                                 thr) -> torch.Tensor:
+        """The CPU engine's stage ops one by one, each timed into its stage's
+        timer (Sobel and the magnitude together as "3/6", as the reference
+        times them); the outputs are the unprofiled path's, byte for byte.
+        A batch runs each op frame by frame inside its stage's window. Never
+        reached on the card (``_profiling_mode_resolved`` raises there)."""
+        cfg, names = self._cfg, CANNY_STAGE_NAMES
+        disp = torch_ops.display_coeff(cfg)
+
+        def over(fn):
+            """``fn`` over the frames of a batch (or the one frame)."""
+            if not batched:
+                return fn
+            def run(*xs):
+                outs = [fn(*(x[b] for x in xs)) for b in range(len(xs[0]))]
+                if isinstance(outs[0], tuple):
+                    return tuple(torch.stack(o) for o in zip(*outs))
+                return torch.stack(outs)
+            return run
+
+        def timed(stage: CannyStage, fn, *xs):
+            out, ms = self._timed_ms(lambda: over(fn)(*xs))
+            self._timers.add_time(names[stage], ms)
+            return out
+
+        mono = timed(CannyStage.MONO, torch_ops.rgb2mono, arr)
+        if final_stage == CannyStage.MONO:
+            return mono
+        blur = timed(CannyStage.GAUSSIAN, lambda m: torch_ops.gaussian_blur(m, cfg.kernel_size),
+                     mono)
+        if final_stage == CannyStage.GAUSSIAN:
+            return blur
+        sum_x, sum_y = timed(CannyStage.GRADIENT, torch_ops.sobel_sums, blur)
+        if final_stage == CannyStage.GRADIENT:
+            return over(lambda sx, sy: torch_ops.nms_magnitude_u8(sx, sy, disp, cfg.norm))(
+                sum_x, sum_y)
+        nms = timed(CannyStage.NMS,
+                    lambda sx, sy: torch_ops.non_max_suppression(sx, sy, disp, cfg.norm),
+                    sum_x, sum_y)
+        if final_stage == CannyStage.NMS:
+            return nms
+        thresh = timed(CannyStage.THRESH,
+                       lambda sx, sy: torch_ops.compute_threshold_map(sx, sy, thr[0], thr[1], cfg),
+                       sum_x, sum_y)
+        if final_stage == CannyStage.THRESH:
+            return thresh
+        return timed(CannyStage.HYSTER, lambda t: bitpack.hysteresis_packed(
+            t, max_iters=cfg.max_hysteresis_iters, dilate_steps=cfg.hysteresis_inner_steps,
+            scan_after=cfg.hysteresis_scan_after), thresh)
+
+    def _stages_to(self, final_stage: CannyStage):
+        return [s for s in CannyStage if s <= final_stage]
+
+    def _process_profiled_cumulative(self, arr, batched: bool, final_stage: CannyStage,
+                                     thr) -> torch.Tensor:
+        """Profiling on the programs users run: the cumulative run-to-stage-k
+        calls, stage k given the increment t(k) - t(k-1), clamped at 0. Costs
+        about two frames. The first profiled frame of a (batch, stage) runs
+        every program once outside the timed loop, so that enabling profiling
+        on a live stream records no set-up time as stage time."""
+        key = ("cumwarm", batched, final_stage)
+        if key not in self._profile_warmed:
+            for stage in self._stages_to(final_stage):
+                self._to_stage(arr, batched, stage, thr)
+            self._profile_warmed.add(key)
+        prev, out = 0.0, None
+        for stage in self._stages_to(final_stage):
+            out, ms = self._timed_ms(lambda: self._to_stage(arr, batched, stage, thr))
+            self._timers.add_time(CANNY_STAGE_NAMES[stage], max(0.0, ms - prev))
+            prev = ms
+        return out
+
+    def _process_profiled_device(self, arr, batched: bool, final_stage: CannyStage,
+                                 thr) -> torch.Tensor:
+        """Per-stage times from the kernels' busy time (``torch.profiler``),
+        not from a clock around the calls: the first profiled frame of a
+        (batch, stage) samples each cumulative run-to-stage-k program under
+        the profiler and records the increments; later frames run the
+        program untimed, so the stream keeps its speed and the table shows
+        the sample. Where the profiler shows no device time, CUDA events
+        take its place; on the CPU, the wall clock."""
+        key = ("devsample", batched, final_stage)
+        if key not in self._profile_warmed:
+            prev = 0.0
+            for stage in self._stages_to(final_stage):
+                run = lambda: self._to_stage(arr, batched, stage, thr)  # noqa: E731
+                run()  # warm
+                ms = device_time_ms_per_call(run, calls=3, device=self._device)
+                if ms is None:
+                    ms = event_time_ms_per_call(run, calls=3, device=self._device)
+                if ms is None:  # the CPU: the wall clock is honest
+                    ms = self._timed_ms(run)[1]
+                self._timers.add_time(CANNY_STAGE_NAMES[stage], max(0.0, ms - prev))
+                prev = ms
+            self._profile_warmed.add(key)
+        return self._to_stage(arr, batched, final_stage, thr)
 
     def process_all(self, frame: FrameLike) -> Dict[str, torch.Tensor]:
         """Run everything, returning every stage buffer on the engine's
@@ -181,3 +381,26 @@ class CannyEngine(ThresholdControls):
         self.process(torch.zeros(shape, dtype=torch.uint8, device=self._device), final_stage)
         if self._device.type == "cuda":
             torch.cuda.synchronize(self._device)
+        if self._profiling:
+            # Drop the warm-up samples: they time set-up, not kernels. The
+            # device-mode sample keys go too, so the first real frame
+            # samples again (its table entries were just reset).
+            self._timers.reset()
+            self._profile_warmed = {k for k in self._profile_warmed if k[0] != "devsample"}
+
+    @contextlib.contextmanager
+    def trace(self, logdir: str):
+        """Capture a ``torch.profiler`` profile of everything run inside the
+        context and write it as a chrome trace, ``<logdir>/trace.json``: the
+        deep-dive layer under the per-stage timer table."""
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self._device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        os.makedirs(logdir, exist_ok=True)
+        with profile(activities=activities) as prof:
+            yield
+            if self._device.type == "cuda":
+                torch.cuda.synchronize(self._device)
+        prof.export_chrome_trace(os.path.join(logdir, "trace.json"))

@@ -5,8 +5,9 @@ The scene generators (``make_scene``, ``make_spiral_frame``,
 ``make_spiral_thresh``) give the same bytes as the JAX package's for the
 same arguments, and ``open_source`` opens the spec forms the CLI takes:
 ``synthetic[:HxW[x1]]``, ``spiral[:HxW]``, ``webcam[:IDX]``, ``video:PATH``,
-``seq:PATH``, ``rawv:PATH`` and bare ``.rawv`` / ``.npy`` / directory /
-video paths. Every source locks its frame spec at ``start()``; frames are
+``seq:PATH``, ``rawv:PATH``, bare ``.rawv`` / ``.npy`` / directory /
+video paths, and ``multi:<spec>,<spec>,...`` or ``multi:N*<spec>`` (a batch
+of cameras, ``io/multi.py``). Every source locks its frame spec at ``start()``; frames are
 uint8 (H, W, 3) BGR or (H, W) mono.
 """
 from __future__ import annotations
@@ -126,10 +127,15 @@ class FrameSource(abc.ABC):
             raise RuntimeError(f"{type(self).__name__}: no first frame")
         self._frame = first
         self._pending = first
-        c = 1 if first.ndim == 2 else first.shape[2]
-        self._spec = (first.shape[0], first.shape[1], c)
+        self._spec = self._derive_spec(first)
         self._running = True
         log.info("%s started: spec=%s", type(self).__name__, self._spec)
+
+    def _derive_spec(self, first: np.ndarray) -> Tuple[int, int, int]:
+        """Per-frame (height, width, channels) from the first frame;
+        batched sources override (their frames carry a leading batch dim)."""
+        c = 1 if first.ndim == 2 else first.shape[2]
+        return (first.shape[0], first.shape[1], c)
 
     def stop(self) -> None:
         if self._running:
@@ -391,7 +397,25 @@ def open_source(spec: str, **kw) -> FrameSource:
     ``synthetic`` | ``synthetic:HxW`` | ``synthetic:HxWx1`` (grayscale) |
     ``spiral[:HxW]`` | ``webcam[:IDX]`` | ``video:PATH`` | ``seq:PATH`` |
     ``rawv:PATH`` | a bare path (``.rawv`` / ``.npy`` / directory / video,
-    by extension)."""
+    by extension) | ``multi:<spec>,<spec>,...`` or ``multi:N*<spec>`` (batched
+    multi-camera; children must share a frame spec)."""
+    if spec.startswith("multi:"):
+        from cudacam_tpu_torch.io.multi import BatchSource
+
+        body = spec.split(":", 1)[1]
+        if "*" in body.split(",")[0] and "," not in body:
+            n_str, child = body.split("*", 1)
+            children_specs = [child] * int(n_str)
+        else:
+            children_specs = [s for s in body.split(",") if s]
+        # Distinct seeds for synthetic children so the cameras differ.
+        children = []
+        for i, cs in enumerate(children_specs):
+            src = open_source(cs, **dict(kw))
+            if isinstance(src, SyntheticSource):
+                src._seed = src._seed + i
+            children.append(src)
+        return BatchSource(children)
     if spec.startswith("synthetic"):
         if ":" in spec:
             dims = [int(v) for v in spec.split(":", 1)[1].lower().split("x")]

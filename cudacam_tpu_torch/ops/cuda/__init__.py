@@ -9,16 +9,22 @@ from __future__ import annotations
 from typing import Dict
 
 from cudacam_tpu_torch.ops.cuda._build import LAUNCHES
+from cudacam_tpu_torch.ops.cuda.hysteresis import hysteresis_sweeps, hysteresis_sweeps_plain
 
 #: Every kernel (and kernel mode): the HYSTER main path's four in launch
 #: order, then the display stages' feed-forward kernel, the two-kernel path's
 #: pack and the threshold sweep's per-pair pack; then the tile-sharded
 #: path's: ``ff_pack`` in its export mode (with ``hyst_phase1``, K8), the
 #: gated round kernels of the round loop's local saturate (K9), the core
-#: unpack (K10) and the halo exchange.
+#: unpack (K10) and the halo exchange; then the column-split continuation
+#: (K11) and the legacy row-sweep hysteresis (K12).
 KERNELS = ("ff_pack", "hyst_phase1", "hyst_phase2", "unpack", "ff_stages", "pack_thresh",
            "sweep_pack", "ff_pack_export", "saturate_phase1", "saturate_phase2", "unpack_core",
-           "halo_exchange")
+           "halo_exchange", "split_converge", "hyst_sweeps")
+
+
+__all__ = ["KERNELS", "hysteresis_sweeps", "hysteresis_sweeps_plain", "launch_counts",
+           "reset_launch_counts"]
 
 
 def launch_counts() -> Dict[str, int]:

@@ -42,6 +42,10 @@ SIGNATURES = {
     "cc_hyst_phase1": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
     "cc_hyst_phase2": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "cc_hyst_scratch_words": (ctypes.c_longlong, [_I, _I, _I, _I]),
+    "cc_split_converge": (_I, [_P, _P, _P, _P] + [_I] * 8 + [_P]),
+    "cc_split_scratch_words": (ctypes.c_longlong, [_I, _I, _I]),
+    "cc_hyst_sweeps": (_I, [_P, _P] + [_I] * 6 + [_P]),
+    "cc_hyst_sweeps_smem": (ctypes.c_longlong, [_I, _I]),
     "cc_unpack": (_I, [_P, _P, _P, _I, _I, _I, _I, _P]),
     "cc_unpack_core": (_I, [_P, _P] + [_I] * 12 + [_P]),
     "cc_halo_exchange": (_I, [_P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P]),
@@ -64,10 +68,17 @@ class KernelLibrary:
     compiler_log: str  # nvcc's -Xptxas -v report (registers, shared memory)
 
     def check(self, code: int, what: str) -> None:
-        """Raise when a C entry point returned a CUDA error."""
+        """Raise when a C entry point returned a CUDA error. Every launch
+        passes through here, so with the debugging switch on
+        (:func:`set_sync_after_launch`) this also synchronizes the device:
+        a fault during the kernel's run raises at its launch."""
         if code != 0:
             msg = self.lib.cc_error_string(code).decode()
             raise RuntimeError(f"{what} failed: CUDA error {code} ({msg})")
+        if _sync_after_launch:
+            import torch
+
+            torch.cuda.synchronize()
 
 
 def _nvcc() -> str:
@@ -124,7 +135,19 @@ def load() -> KernelLibrary:
     return KernelLibrary(lib, path, built, seconds, log)
 
 
+_sync_after_launch = False
+
+
+def set_sync_after_launch(enabled: bool) -> None:
+    """Debugging switch (``utils/debug.py::enable_checks``): when on,
+    ``KernelLibrary.check`` synchronizes the device right after each launch,
+    so a fault during a kernel's run raises at that launch."""
+    global _sync_after_launch
+    _sync_after_launch = bool(enabled)
+
+
 def count_launch(name: str) -> None:
+    """Called by a wrapper right after it launched kernel ``name``."""
     LAUNCHES[name] += 1
 
 

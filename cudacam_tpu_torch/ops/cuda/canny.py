@@ -44,16 +44,15 @@ def ff_kwargs(cfg: CannyConfig) -> dict:
 
 
 def hyster_kwargs(cfg: CannyConfig) -> dict:
-    """The round kernels' arguments for a config (the JAX package's
-    ``continuation`` option has no counterpart: the port's single
-    continuation is exact for all its values)."""
+    """The round kernels' arguments for a config."""
     return dict(dilate_steps=cfg.hysteresis_inner_steps,
                 scan_after=cfg.hysteresis_scan_after,
                 max_iters=cfg.max_hysteresis_iters)
 
 
 def pipeline_kwargs(cfg: CannyConfig) -> dict:
-    """The kernel pipeline's arguments for a config."""
+    """The kernel pipeline's arguments for a config (the whole-frame path
+    adds ``continuation``; the tile export has no such choice)."""
     return {**ff_kwargs(cfg), **hyster_kwargs(cfg)}
 
 
@@ -68,7 +67,8 @@ def canny_to_stage(
     device; returns the stage's (H, W) uint8 buffer."""
     final_stage = CannyStage(final_stage)
     if final_stage == CannyStage.HYSTER:
-        edge, _ = canny_mega_pipeline(frame, thresholds, **pipeline_kwargs(cfg))
+        edge, _ = canny_mega_pipeline(frame, thresholds, **pipeline_kwargs(cfg),
+                                      continuation=cfg.continuation)
         return edge
     if final_stage == CannyStage.MONO and frame.ndim == 2:
         return frame  # a gray frame is its own mono
@@ -83,7 +83,8 @@ def canny_to_stage_batched(
 ) -> torch.Tensor:
     """:func:`canny_to_stage` on a (B, H, W[, 3]) batch -> (B, H, W)."""
     if CannyStage(final_stage) == CannyStage.HYSTER:
-        edges, _ = canny_mega_pipeline_batched(frames, thresholds, **pipeline_kwargs(cfg))
+        edges, _ = canny_mega_pipeline_batched(frames, thresholds, **pipeline_kwargs(cfg),
+                                               continuation=cfg.continuation)
         return edges
     return torch.stack([canny_to_stage(f, thresholds, cfg, final_stage) for f in frames])
 

@@ -21,6 +21,13 @@ Port of the TPU saturate kernel (hysteresis_fused.py:844 ``pallas_call`` in
 sharded round loop: both phases on the carried packed planes of a batch of
 extended tiles, the round count starting at 0 on each call, as the two round
 kernels with an optional device gate.
+
+Port of the column-split convergence (hysteresis_fused.py:876
+``converge_packed_split``, no ``pallas_call`` of its own: one
+``saturate_packed`` launch per column slice per seam round, XLA pad / slice /
+concatenate between, in a traced loop): :func:`converge_packed_split` runs
+the same seam schedule as one cooperative launch (``split_kernel`` in
+``csrc/hyst_rounds.cu``), the loop on the device.
 """
 from __future__ import annotations
 
@@ -34,9 +41,13 @@ from cudacam_tpu_torch.ops.cuda._build import (
     count_launch, load, require_contiguous, stream_of, use_plain,
 )
 from cudacam_tpu_torch.ops.cuda.megakernel import (
-    _phase2, converge, converge_unpack, hyst_phase1, hyst_phase1_plain, hyst_phase2_plain,
-    unpack, unpack_plain,
+    _check_planes, _check_steps, _phase2, converge, converge_unpack, hyst_phase1,
+    hyst_phase1_plain, hyst_phase2_plain, unpack, unpack_plain,
 )
+
+#: Seam halo of a column slice, in columns: the neighbour state a seam round
+#: carries across each seam.
+SPLIT_HALO = 64
 
 
 def _check(src: torch.Tensor, bounds: Optional[torch.Tensor]) -> None:
@@ -326,3 +337,122 @@ def saturate_packed(
                 max_iters=max_iters, gate=gate)
     _phase2(f, p, flags, h, dilate_steps, scan_after, max_iters, gate)
     return f, flags[:, 1, 1]
+
+
+def _split_geometry(w: int, n_split: int) -> Tuple[int, int]:
+    """(owned columns, halo columns) of a slice."""
+    if n_split < 1 or w % n_split:
+        raise ValueError(f"width {w} is not divisible by n_split {n_split}")
+    ws = w // n_split
+    return ws, min(SPLIT_HALO, ws)
+
+
+def _split_check(f, p, flags, h, max_iters, chunk) -> None:
+    _check_planes(f, p, h, flags)
+    if f.ndim != 2:
+        raise ValueError("converge_packed_split takes the (hw, w) planes of one frame")
+    if max_iters < 1 or (chunk is not None and chunk < 1):
+        raise ValueError("max_iters and chunk must be >= 1")
+
+
+def converge_packed_split_plain(
+    f: torch.Tensor,
+    p: torch.Tensor,
+    flags: torch.Tensor,
+    h: int,
+    n_split: int,
+    *,
+    dilate_steps: int = 16,
+    scan_after: int = 10,
+    max_iters: int = 100,
+    chunk: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`converge_packed_split`, on any
+    device: the same seam schedule with ``bitpack.converge_packed`` on each
+    slice. Reads the flags and every stop test back to the host."""
+    _split_check(f, p, flags, h, max_iters, chunk)
+    w = f.shape[1]
+    ws, k = _split_geometry(w, n_split)
+    it, growing = (int(v) for v in flags[0])
+    if not growing:
+        flags[1] = flags[0]
+        return f, flags[1, 1]
+    pad = torch.nn.functional.pad
+
+    def extract(x: torch.Tensor, i: int) -> torch.Tensor:
+        lo, hi = i * ws - k, (i + 1) * ws + k
+        return pad(x[:, max(0, lo):min(hi, w)], (max(0, -lo), hi - min(hi, w)))
+
+    p_slices = [extract(p, i) for i in range(n_split)]
+    inner_cap = chunk if chunk is not None else max_iters
+    changed = True
+    while changed and it < max_iters:
+        owned, spent = [], 0
+        for i in range(n_split):
+            sf, si, _ = bitpack.converge_packed(extract(f, i), p_slices[i], h, k + ws + k,
+                                                dilate_steps, scan_after, inner_cap)
+            spent = max(spent, si)
+            owned.append(sf[:, k:k + ws])
+        nf = torch.cat(owned, dim=1)
+        changed = bool((nf != f).any())
+        f.copy_(nf)
+        it += spent if chunk is not None else 1
+    flags[1, 0], flags[1, 1] = it, int(changed)
+    return f, flags[1, 1]
+
+
+def converge_packed_split(
+    f: torch.Tensor,
+    p: torch.Tensor,
+    flags: torch.Tensor,
+    h: int,
+    n_split: int,
+    *,
+    dilate_steps: int = 16,
+    scan_after: int = 10,
+    max_iters: int = 100,
+    chunk: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Converge the (ceil(h/32), w) packed planes of one frame by
+    ``n_split`` column slices with seam-halo rounds, in place: the JAX
+    package's ``converge_packed_split`` on the same planes, byte for byte,
+    outputs cut off by the budget included.
+
+    ``flags`` is the frame's (2, 2) int32 tensor: row 0 = (round count to
+    resume the budget at, still growing) is read on the device, and nothing
+    runs when it says converged; row 1 = the final (round count, still
+    changing) is written. Each seam round extracts slice i = columns
+    [i ws - k, (i + 1) ws + k) of F and P (ws = w / n_split, k = min(64,
+    ws), zero outside the frame), runs the saturate schedule on each from
+    the same round-start state (one unconditional dilation round, dilation
+    rounds below ``scan_after``, then dilations + scans, while the slice
+    changes and below ``chunk`` rounds; schedule extents (h, k + ws + k)),
+    writes back the owned ws columns, and adds the most rounds any slice took
+    to the round count; it loops while the plane changed and the count is
+    below ``max_iters``. Without ``chunk`` a slice runs up to ``max_iters``
+    rounds and a seam round counts 1.
+
+    Returns ``(f, growing)``, ``growing`` the 0-d int32 view ``flags[1, 1]``.
+    One cooperative launch on CUDA tensors whatever the budget, no host
+    sync. Converged outputs equal every other route's; outputs cut off by
+    the budget are this multi-slice executor's own."""
+    _split_check(f, p, flags, h, max_iters, chunk)
+    kw = dict(dilate_steps=dilate_steps, scan_after=scan_after, max_iters=max_iters, chunk=chunk)
+    if use_plain(f, p, flags):
+        return converge_packed_split_plain(f, p, flags, h, n_split, **kw)
+    _check_steps(dilate_steps)
+    require_contiguous(f, p, flags)
+    w = f.shape[1]
+    ws, k = _split_geometry(w, n_split)
+    lib = load()
+    # Stream-ordered: the scratch is reusable once the kernel ran.
+    scratch = torch.empty(lib.lib.cc_split_scratch_words(n_split, h, ws + 2 * k),
+                          dtype=torch.int32, device=f.device)
+    lib.check(
+        lib.lib.cc_split_converge(f.data_ptr(), p.data_ptr(), scratch.data_ptr(), flags.data_ptr(),
+                                  h, w, n_split, dilate_steps, scan_after, max_iters,
+                                  chunk if chunk is not None else 0, f.device.index, stream_of(f)),
+        "split_converge",
+    )
+    count_launch("split_converge")
+    return f, flags[1, 1]

@@ -29,9 +29,14 @@ sharded round loop launches a bounded chain of rounds with no readback.
 
 Phase 2 is always launched (no host branch, no readback of a flag); it is
 skipped statically only when ``scan_after >= max_iters``, where the cap is
-phase 1. That is single-chip truncation identity with the JAX package for
-every value of the JAX package's ``CannyConfig.continuation``, so the port
-takes no such option.
+phase 1. ``continuation`` picks its form: ``'kernel'`` (and ``'auto'``) is
+the whole-frame ``hyst_phase2`` at every size, single-chip truncation
+identity with the JAX package's ``'pallas'`` and ``'xla'`` forms;
+``'split'`` is the column-split form (``_cont_split`` :921 there, which its
+``'auto'`` takes at 8K): :func:`_cont_split`, one launch of
+``hysteresis_fused.converge_packed_split`` per frame and then ``unpack``,
+equal to ``'kernel'`` on every converged frame and to the JAX package's
+split form when the cap cuts it off.
 
 Each wrapper takes its plain version (``ops/bitpack.py``, frame by frame)
 only for CPU tensors; for CUDA tensors it launches its kernel or raises. The
@@ -57,6 +62,17 @@ from cudacam_tpu_torch.ops.cuda.feedforward import (
 )
 
 _MAX_DILATE_STEPS = 256  # the tile halo (steps columns) must fit shared memory
+
+CONTINUATIONS = ("auto", "kernel", "split")
+#: Internal rounds a slice may take in one seam round of the split form (the
+#: JAX package's ``_SPLIT_CHUNK``: part of the result when the cap cuts in).
+SPLIT_CHUNK = 8
+#: The split form doubles ``n_split`` from 2 while a slice's six planes in
+#: the kernel's scratch (FINAL, CANDIDATE, four scan buffers) pass this many
+#: bytes: half of the H100's 50 MB L2, so that a slice's step stays in cache
+#: beside the frame's own planes. It is locality, not a limit of the kernel
+#: (the JAX package's slice budget is a compiler limit); 8K gives 2.
+SPLIT_SLICE_BYTES = 25_000_000
 
 
 def _check_planes(f: torch.Tensor, p: torch.Tensor, h: int, flags=None) -> None:
@@ -344,6 +360,34 @@ def mega_export(
     return f, p, flags
 
 
+def split_count(h: int, w: int) -> int:
+    """``n_split`` of the split continuation for an h x w frame: 2, doubled
+    while a slice is over ``SPLIT_SLICE_BYTES`` and the doubled count still
+    divides ``w`` (so the result always divides an even ``w``)."""
+    hw = -(-h // 32)
+    n = 2
+    while w % (2 * n) == 0 and 6 * 4 * hw * (w // n + 128) > SPLIT_SLICE_BYTES:
+        n *= 2
+    return n
+
+
+def _cont_split(f, p, flags, h: int, dilate_steps: int, max_iters: int) -> torch.Tensor:
+    """The column-split phase-2 continuation of a (B, hw, w) batch at its
+    phase-1 exit, in place, then the edge maps: per frame one
+    ``converge_packed_split`` (resuming the round budget at the frame's
+    phase-1 count, ``scan_after`` 0, ``SPLIT_CHUNK`` internal rounds; gated on
+    the frame's growing flag on the device), then ``unpack``, as the kernel
+    route ends. B + 1 launches whatever the cap, no host sync."""
+    from cudacam_tpu_torch.ops.cuda.hysteresis_fused import converge_packed_split
+
+    w = f.shape[-1]
+    n_split = split_count(h, w)
+    for fb, pb, flb in zip(f, p, flags):
+        converge_packed_split(fb, pb, flb, h, n_split, dilate_steps=dilate_steps, scan_after=0,
+                              max_iters=max_iters, chunk=SPLIT_CHUNK)
+    return unpack(f, h)
+
+
 def _phase2(f, p, flags, h: int, dilate_steps: int, scan_after: int, max_iters: int,
             gate: Optional[torch.Tensor] = None) -> None:
     """Phase 2 after phase 1 or, when the cap is phase 1, its exit state as
@@ -455,13 +499,14 @@ def canny_mega_pipeline(
     dilate_steps: int = 16,
     scan_after: int = 10,
     max_iters: int = 100,
+    continuation: str = "auto",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Frame -> ((H, W) uint8 edge map, (2, 2) int32 flags): phase-1 exit
     in row 0, final (round count, still growing) in row 1. No host sync."""
     edges, flags = canny_mega_pipeline_batched(
         frame.unsqueeze(0), thresholds, kernel_size=kernel_size, grad_coeff=grad_coeff,
         norm=norm, parity=parity, dilate_steps=dilate_steps, scan_after=scan_after,
-        max_iters=max_iters,
+        max_iters=max_iters, continuation=continuation,
     )
     return edges[0], flags[0]
 
@@ -477,15 +522,24 @@ def canny_mega_pipeline_batched(
     dilate_steps: int = 16,
     scan_after: int = 10,
     max_iters: int = 100,
+    continuation: str = "auto",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(B, H, W[, 3]) frames -> ((B, H, W) uint8 edge maps, (B, 2, 2) int32
     flags), four launches whatever B is. Frame by frame it equals
     :func:`canny_mega_pipeline`: phase 2 continues only the frames still
-    growing at ``scan_after``. No host sync."""
+    growing at ``scan_after``. With ``continuation='split'`` and an even
+    width the continuation is :func:`_cont_split` (3 + B launches); an odd
+    width has no column split and takes the whole-frame kernel, as the JAX
+    package's policy does. No host sync."""
+    if continuation not in CONTINUATIONS:
+        raise ValueError(f"continuation must be one of {CONTINUATIONS}, got {continuation!r}")
     f, p, flags = canny_mega_batched(
         frames, thresholds, kernel_size=kernel_size, grad_coeff=grad_coeff,
         norm=norm, parity=parity, dilate_steps=dilate_steps, scan_after=scan_after,
         max_iters=max_iters,
     )
-    _phase2(f, p, flags, frames.shape[1], dilate_steps, scan_after, max_iters)
-    return unpack(f, frames.shape[1]), flags
+    h = frames.shape[1]
+    if continuation == "split" and scan_after < max_iters and f.shape[-1] % 2 == 0:
+        return _cont_split(f, p, flags, h, dilate_steps, max_iters), flags
+    _phase2(f, p, flags, h, dilate_steps, scan_after, max_iters)
+    return unpack(f, h), flags

@@ -24,8 +24,12 @@ from cudacam_tpu_torch.config import CannyConfig
 
 def config_from_jax(cfg) -> CannyConfig:
     """A JAX package ``CannyConfig`` -> the port's, field for field (the
-    derived defaults are already resolved in ``cfg``)."""
-    return CannyConfig(**{f.name: getattr(cfg, f.name) for f in dataclasses.fields(CannyConfig)})
+    derived defaults are already resolved in ``cfg``). Its ``continuation``
+    'split' stays 'split'; 'auto', 'pallas' and 'xla' become 'auto' (the
+    whole-frame kernel, which gives their bytes)."""
+    kw = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(CannyConfig)}
+    kw["continuation"] = "split" if cfg.continuation == "split" else "auto"
+    return CannyConfig(**kw)
 
 
 def planes_from_jax(
@@ -40,9 +44,18 @@ def planes_from_jax(
         x = np.asarray(x)
         if x.dtype != np.uint32 or x.ndim not in (2, 3) or x.shape[-2] < hw or x.shape[-1] < w:
             raise ValueError(f"expected uint32 planes of at least ({hw}, {w}), got {x.shape} {x.dtype}")
-        return torch.from_numpy(np.ascontiguousarray(x[..., :hw, :w]).view(np.int32))
+        # A copy: the port updates planes in place, the JAX export is read-only.
+        return torch.from_numpy(np.array(x[..., :hw, :w], order="C").view(np.int32))
 
     return core(fpack), core(ppack)
+
+
+def planes_to_jax(*planes: torch.Tensor) -> Tuple[np.ndarray, ...]:
+    """The port's (ceil(h/32), w) int32 planes -> uint32 planes in the guard
+    ringed layout the JAX package's packed kernels take (``saturate_packed``,
+    ``converge_packed_split``): one zero word row below and 128 zero lanes
+    to the right (the inverse of :func:`planes_from_jax`)."""
+    return tuple(np.pad(x, ((0, 1), (0, 128))) for x in planes_to_numpy(*planes))
 
 
 def planes_to_numpy(*planes: torch.Tensor) -> Tuple[np.ndarray, ...]:

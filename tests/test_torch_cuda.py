@@ -488,3 +488,232 @@ def test_sharded_no_host_sync(dev):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
+
+
+# -- K11: the column-split continuation ---------------------------------------
+
+from cudacam_tpu_torch.ops.cuda.hysteresis import (  # noqa: E402
+    hysteresis_sweeps, hysteresis_sweeps_plain,
+)
+from cudacam_tpu_torch.ops.cuda.hysteresis_fused import (  # noqa: E402
+    converge_packed_split, converge_packed_split_plain,
+)
+
+
+def _split_both(t, flags0, n_split, dev, **kw):
+    """Kernel and plain from the same planes and flags: (f, flags) of each."""
+    h = t.shape[0]
+    f, p = bitpack.pack_pair(t.to(dev))
+    out = []
+    for fn in (converge_packed_split, converge_packed_split_plain):
+        fk, fl = f.clone(), torch.tensor(flags0, dtype=torch.int32, device=dev)
+        _, growing = fn(fk, p, fl, h, n_split, **kw)
+        assert int(growing) == int(fl[1, 1])
+        out.append((fk, fl))
+    return out
+
+
+@pytest.mark.parametrize("n_split", [1, 2, 4])
+@pytest.mark.parametrize("kw", [
+    dict(dilate_steps=4, scan_after=2, max_iters=12, chunk=4),   # cut off by the budget
+    dict(dilate_steps=4, scan_after=0, max_iters=20, chunk=8),   # the continuation's schedule
+    dict(dilate_steps=4, scan_after=2, max_iters=5),             # unchunked, cut off
+    dict(dilate_steps=4, scan_after=2, max_iters=3000, chunk=8),  # converges
+    dict(dilate_steps=1, scan_after=3, max_iters=9, chunk=1),
+])
+def test_converge_packed_split_matches_plain(dev, n_split, kw):
+    for t in (make_spiral_thresh(64, 512), make_spiral_thresh(96, 384)):
+        for it0 in (0, 3):
+            (fk, flk), (fp, flp) = _split_both(torch.from_numpy(t), [[it0, 1], [0, 0]], n_split,
+                                               dev, **kw)
+            assert flk.tolist() == flp.tolist(), (flk.tolist(), flp.tolist())
+            assert torch.equal(fk, fp)
+
+
+def test_converge_packed_split_gate_and_odd_shapes(dev):
+    g = torch.Generator().manual_seed(5)
+    t = torch.tensor([0, 128, 255], dtype=torch.uint8)[
+        torch.multinomial(torch.tensor([0.5, 0.45, 0.05]), 37 * 54, True, generator=g)
+    ].reshape(37, 54)
+    for n_split in (2, 3, 6):
+        kw = dict(dilate_steps=3, scan_after=1, max_iters=40, chunk=4)
+        (fk, flk), (fp, flp) = _split_both(t, [[2, 1], [0, 0]], n_split, dev, **kw)
+        assert torch.equal(fk, fp) and flk.tolist() == flp.tolist()
+        # growing == 0: nothing runs, row 1 = row 0
+        (fk, flk), (fp, flp) = _split_both(t, [[7, 0], [9, 9]], n_split, dev, **kw)
+        f0, _ = bitpack.pack_pair(t.to(dev))
+        assert torch.equal(fk, f0) and torch.equal(fp, f0)
+        assert flk.tolist() == flp.tolist() == [[7, 0], [7, 0]]
+    with pytest.raises(ValueError):
+        _split_both(t, [[0, 1], [0, 0]], 4, dev, dilate_steps=3, max_iters=4)
+
+
+@pytest.mark.parametrize("h,w", [(64, 512), (270, 480), (37, 54)])
+def test_engine_split_continuation(dev, h, w):
+    """continuation='split' equals the default engine wherever the frame
+    converges, equals the plain split route when the cap cuts it off, and
+    its launch count does not depend on the cap."""
+    frames = [make_scene(h, w, seed=1), make_spiral_frame(h, w) if min(h, w) >= 32 else
+              make_scene(h, w, seed=2)]
+    for cap in (100, 400):
+        kw = dict(height=h, width=w, hysteresis_scan_after=2, max_hysteresis_iters=cap)
+        base = CannyEngine(CannyConfig(**kw), device="cuda")
+        split = CannyEngine(CannyConfig(continuation="split", **kw), device="cuda")
+        plain = CannyEngine(CannyConfig(continuation="split", **kw), device="cpu")
+        for fr in frames:
+            split.process(fr)
+            kernels.reset_launch_counts()
+            got = split.process(fr)
+            counts = kernels.launch_counts()
+            assert {k: v for k, v in counts.items() if v} == dict(
+                ff_pack=1, hyst_phase1=1, split_converge=1, unpack=1)
+            assert torch.equal(got.cpu(), plain.process(fr))
+            _, flags = canny_mega_pipeline(torch.from_numpy(fr).to(dev), split._thresholds(),
+                                           **_pipeline_kw(split.config), continuation="split")
+            if int(flags[1, 1]) == 0:
+                assert torch.equal(got, base.process(fr))
+        batch = torch.from_numpy(__import__("numpy").stack(frames)).to(dev)
+        kernels.reset_launch_counts()
+        bout = split.process(batch)
+        assert kernels.launch_counts()["split_converge"] == 2
+        for b, fr in enumerate(frames):
+            assert torch.equal(bout[b], split.process(fr))
+
+
+def _pipeline_kw(cfg):
+    from cudacam_tpu_torch.ops.cuda.canny import pipeline_kwargs
+
+    return pipeline_kwargs(cfg)
+
+
+# -- K12: the legacy row-sweep hysteresis ------------------------------------
+
+
+def _random_map(h, w, seed, p_final=0.03):
+    g = torch.Generator().manual_seed(seed)
+    idx = torch.multinomial(torch.tensor([0.5, 0.5 - p_final, p_final]), h * w, True, generator=g)
+    return torch.tensor([0, 128, 255], dtype=torch.uint8)[idx].reshape(h, w)
+
+
+@pytest.mark.parametrize("h,w", [(40, 96), (37, 53), (1, 1), (200, 300)])
+@pytest.mark.parametrize("block_h", [None, 8, 16, 24, 56])
+def test_hysteresis_sweeps_matches_plain(dev, h, w, block_h):
+    t = _random_map(h, w, h + w).to(dev)
+    for max_iters, max_local in ((100, 4096), (1, 4096), (100, 2), (1, 1), (0, 3), (3, 0)):
+        for rc in (True, False):
+            kw = dict(max_iters=max_iters, remove_candidates=rc, block_h=block_h,
+                      max_local_iters=max_local, return_info=True)
+            got, info = hysteresis_sweeps(t, **kw)
+            want, winfo = hysteresis_sweeps_plain(t, **kw)
+            assert torch.equal(got, want), kw
+            assert info[:2].tolist() == winfo[:2].tolist(), kw
+    # converged: the fused hysteresis' fixed point
+    assert torch.equal(hysteresis_sweeps(t, block_h=block_h), hysteresis_fused(t, max_iters=10000))
+
+
+def test_hysteresis_sweeps_spiral_cut_off(dev):
+    t = torch.from_numpy(make_spiral_thresh(64, 128)).to(dev)
+    for max_iters, max_local, finals in ((100, 4096, 4097), (2, 4096, 875), (3, 16, 97)):
+        got = hysteresis_sweeps(t, max_iters=max_iters, block_h=16, max_local_iters=max_local)
+        assert torch.equal(got, hysteresis_sweeps_plain(t, max_iters=max_iters, block_h=16,
+                                                        max_local_iters=max_local))
+        assert int((got == 255).sum()) == finals  # the JAX package's, in interpret mode
+    with pytest.raises(ValueError):
+        hysteresis_sweeps(torch.zeros((64, 30000), dtype=torch.uint8, device=dev))
+
+
+# -- the live app, profiling and the debug switches on the card --------------
+
+
+def test_app_on_the_card_matches_the_engine(dev):
+    from cudacam_tpu_torch.app import CannyApp
+    from cudacam_tpu_torch.io import SyntheticSource, open_source, to_host
+
+    h, w = 72, 128
+    eng = CannyEngine(CannyConfig(height=h, width=w), device="cuda")
+    with CannyApp(SyntheticSource(height=h, width=w, n_frames=100), ring_capacity=3) as app:
+        seen = []
+        assert app.run(10, on_frame=lambda i, o: seen.append((app._last_input, o))) == 10
+        for raw, out in seen:  # more frames than staging buffers: each was reused
+            assert out.is_cuda and torch.equal(out, eng.process(raw))
+        assert all(t.is_cuda for t in app.ring.history()) and len(app._staging) == 3
+        assert all(b.is_pinned() for b in app._staging)
+        app.ring.wait(len(app.ring) - 1)
+        app.toggle_pipeline()
+        out = app.step()
+        assert out.is_cuda and torch.equal(out.cpu(), torch.from_numpy(app._last_input))
+        app.toggle_pipeline()
+        assert app.preload_device_loop(4) == 4 and all(t.is_cuda for t in app._device_frames)
+        outs = [to_host(app.step()) for _ in range(8)]
+        assert (outs[0] == outs[4]).all() and app.status()["backend"] == "cuda"
+    with CannyApp(open_source("multi:3*synthetic:72x128", n_frames=4)) as app:
+        kernels.reset_launch_counts()
+        out = app.step()
+        assert {k: v for k, v in kernels.launch_counts().items() if v} == dict.fromkeys(MAIN_PATH, 1)
+        for b in range(3):
+            assert torch.equal(out[b], eng.process(app._last_input[b]))
+
+
+@pytest.mark.parametrize("mode", ["auto", "stages", "cumulative", "device"])
+def test_profiling_on_the_card(dev, mode):
+    from cudacam_tpu_torch.utils.timer import TimerManager
+
+    h, w = 72, 128
+    fr = _frame(h, w, dev, seed=2)
+    plain = CannyEngine(CannyConfig(height=h, width=w), device="cuda")
+    eng = CannyEngine(CannyConfig(height=h, width=w), device="cuda", profiling=True,
+                      timers=TimerManager())
+    eng.profiling_mode = mode
+    if mode == "stages":
+        # The plain stage ops are the CPU engine's path: on the card the mode
+        # raises, in the engine and when an app is made with it.
+        from cudacam_tpu_torch.app import CannyApp
+        from cudacam_tpu_torch.io import SyntheticSource
+
+        with pytest.raises(ValueError, match="cpu"):
+            eng.process(fr)
+        with pytest.raises(ValueError, match="cpu"):
+            CannyApp(SyntheticSource(height=h, width=w, n_frames=2), profiling_mode="stages")
+    else:
+        kernels.reset_launch_counts()
+        for stage in CannyStage:
+            for x in (fr, torch.stack([fr, fr])):
+                assert torch.equal(eng.process(x, stage), plain.process(x, stage))
+        assert kernels.launch_counts()["ff_pack"] > 2  # beyond the unprofiled engine's two
+        names = [n for n, _, _ in eng.timers.items()]
+        assert len(names) == 6 and sum(eng.timers.get_average_time(n) for n in names) > 0.0
+    # off again: process launches exactly the main path and reads nothing back
+    eng.set_profiling(False)
+    eng.process(fr)
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng.process(fr)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert {k: v for k, v in kernels.launch_counts().items() if v} == dict.fromkeys(MAIN_PATH, 1)
+
+
+def test_devtime_and_debug_switches_on_the_card(dev, tmp_path):
+    from cudacam_tpu_torch.ops.cuda import _build
+    from cudacam_tpu_torch.utils import debug
+    from cudacam_tpu_torch.utils.devtime import device_time_ms_per_call, event_time_ms_per_call
+
+    eng = CannyEngine(CannyConfig(height=72, width=128), device="cuda")
+    fr = _frame(72, 128, dev)
+    ev = event_time_ms_per_call(lambda: eng.process(fr), calls=3, device=dev)
+    assert ev is not None and ev > 0.0
+    busy = device_time_ms_per_call(lambda: eng.process(fr), calls=3, device=dev)
+    assert busy is None or 0.0 < busy  # None: this host's profiler cannot see the card
+    assert debug.device_health_check() == "cuda"
+    debug.enable_checks()
+    try:
+        assert _build._sync_after_launch
+        out = eng.process(fr)  # every launch synchronizes: still the same bytes
+    finally:
+        debug.disable_checks()
+    assert torch.equal(out, eng.process(fr)) and not _build._sync_after_launch
+    with eng.trace(str(tmp_path / "prof")):
+        eng.process(fr)
+    assert (tmp_path / "prof" / "trace.json").stat().st_size > 0

@@ -202,3 +202,93 @@ def test_import_needs_no_jax_nvcc_or_triton():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() in ("True", "False")  # probe()["cuda_available"]
+
+
+# -- per-stage profiling ------------------------------------------------------
+
+from cudacam_tpu.stages import CANNY_STAGE_NAMES  # noqa: E402
+from cudacam_tpu_torch.utils.timer import TimerManager  # noqa: E402
+
+
+def _profiled(cfg, mode: str) -> CannyEngine:
+    eng = CannyEngine(config_from_jax(cfg), device="cpu", profiling=True, timers=TimerManager())
+    eng.profiling_mode = mode
+    return eng
+
+
+@pytest.mark.parametrize("mode", ["auto", "stages", "cumulative", "device"])
+def test_profiled_outputs_equal_unprofiled(cfg, frame, mode):
+    """Every profiling mode returns the unprofiled bytes, for every final
+    stage, single and batched, and fills the timers of the stages it ran."""
+    eng, plain = _profiled(cfg, mode), port(cfg)
+    batch = np.stack([frame, make_scene(H, W, seed=4)])
+    for stage in CannyStage:
+        for x in (frame, batch):
+            assert torch.equal(eng.process(x, stage), plain.process(x, stage)), (mode, stage)
+    names = [CANNY_STAGE_NAMES[s] for s in CannyStage]
+    counts = [eng.timers.get_count(n) for n in names]
+    # Stage k is timed by every run to a stage >= k: 6 final stages x 2 inputs.
+    assert counts == [12, 10, 8, 6, 4, 2]
+    table = eng.profiling_table()
+    assert all(n in table for n in names) and "TOTAL" in table
+    assert all(eng.timers.get_average_time(n) >= 0.0 for n in names)
+
+
+def test_profiling_modes_and_toggles(cfg, frame):
+    eng = port(cfg)
+    assert not eng.is_profiling_enabled() and eng.profiling_mode == "auto"
+    assert eng.backend == "cpu" and eng._profiling_mode_resolved() == "stages"
+    hyster = CANNY_STAGE_NAMES[CannyStage.HYSTER]
+    before = eng.timers.get_count(hyster)
+    eng.process(frame)
+    assert eng.timers.get_count(hyster) == before  # off: nothing is timed
+    eng.set_profiling(True)
+    eng.process(frame)
+    assert eng.timers.get_count(hyster) == before + 1
+    eng.set_profiling(False)
+    eng.profiling_mode = "nope"
+    eng.process(frame)  # off: the mode is not read
+    eng.set_profiling(True)
+    with pytest.raises(ValueError):
+        eng.process(frame)
+
+
+def test_cumulative_increments_are_clamped_and_sum_to_the_last_run(cfg, frame):
+    eng = _profiled(cfg, "cumulative")
+    eng.process(frame)
+    times = [eng.timers.get_average_time(CANNY_STAGE_NAMES[s]) for s in CannyStage]
+    assert all(t >= 0.0 for t in times) and sum(times) > 0.0
+    assert ("cumwarm", False, CannyStage.HYSTER) in eng._profile_warmed
+
+
+def test_device_mode_samples_once_and_warmup_drops_samples(cfg, frame):
+    eng = _profiled(cfg, "device")
+    hyster = CANNY_STAGE_NAMES[CannyStage.HYSTER]
+    eng.warmup()
+    assert eng.timers.get_count(hyster) == 0  # the warm-up samples are dropped
+    assert not [k for k in eng._profile_warmed if k[0] == "devsample"]
+    for _ in range(3):
+        eng.process(frame)
+    assert eng.timers.get_count(hyster) == 1  # sampled on the first frame only
+    eng2 = _profiled(cfg, "stages")
+    eng2.warmup(CannyStage.NMS, batch=2)
+    assert eng2.profiling_table() == "(no timers)"
+
+
+def test_trace_writes_a_chrome_trace(cfg, frame, tmp_path):
+    import json
+
+    eng = port(cfg)
+    with eng.trace(str(tmp_path / "prof")):
+        eng.process(frame)
+    with open(tmp_path / "prof" / "trace.json") as f:
+        assert "traceEvents" in json.load(f)
+
+
+def test_devtime_on_the_cpu_is_none():
+    from cudacam_tpu_torch.utils.devtime import device_time_ms_per_call, event_time_ms_per_call
+
+    calls = []
+    assert device_time_ms_per_call(lambda: calls.append(1), device="cpu") is None
+    assert event_time_ms_per_call(lambda: calls.append(1), device="cpu") is None
+    assert not calls  # no device lane: nothing is run

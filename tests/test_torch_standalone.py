@@ -46,6 +46,10 @@ def test_every_module_imports_with_jax_and_the_jax_package_blocked():
                                                          "cudacam_tpu_torch.")
                    if not m.name.endswith("__main__"))
     assert "cudacam_tpu_torch.parallel.sharded" in names and len(names) > 20
+    for new in ("app", "io.ring", "io.metrics", "io.multi", "io.compose", "io.keys", "io.server",
+                "utils.logging", "utils.timer", "utils.devtime", "utils.debug",
+                "ops.cuda.hysteresis"):
+        assert f"cudacam_tpu_torch.{new}" in names
     code = _BLOCKED + (
         "import importlib, numpy as np\n"
         f"for name in {names!r}:\n"
@@ -57,6 +61,13 @@ def test_every_module_imports_with_jax_and_the_jax_package_blocked():
         "out = eng.process(make_scene(37, 53, seed=2))\n"
         "assert out.shape == (37, 53) and int((out == 255).sum()) > 0\n"
         "assert eng.process(np.zeros((37, 53, 3), np.uint8), CannyStage.NMS).sum() == 0\n"
+        "from cudacam_tpu_torch.app import CannyApp\n"
+        "from cudacam_tpu_torch.io import SyntheticSource\n"
+        "from cudacam_tpu_torch.cli import main\n"
+        "with CannyApp(SyntheticSource(height=24, width=32, n_frames=4), device='cpu') as app:\n"
+        "    assert app.run(3) == 3 and app.ring.latest_np().shape == (24, 32)\n"
+        "assert main(['run', '--device', 'cpu', '--source', 'synthetic:24x32', '--frames', '2',\n"
+        "             '--continuation', 'split']) == 0\n"
         "assert not [m for m in sys.modules if m.split('.')[0] in ('jax', 'cudacam_tpu')]\n"
         "print('standalone ok')\n"
     )
@@ -67,7 +78,10 @@ def test_every_module_imports_with_jax_and_the_jax_package_blocked():
 
 #: The JAX package's fields that select one of its executors: the port's
 #: route follows the tensors' device, so its config has no such field.
-_JAX_ONLY = ("backend", "interpret", "continuation")
+_JAX_ONLY = ("backend", "interpret")
+#: Fields both have, with values of their own ('continuation': the JAX
+#: package's auto | pallas | xla | split, the port's auto | kernel | split).
+_OWN_VALUES = ("continuation",)
 
 
 def _shared(cfg) -> dict:
@@ -92,15 +106,20 @@ def test_canny_config_is_a_copy():
         assert _shared(j.with_thresholds(-3, 900)) == dataclasses.asdict(
             p.with_thresholds(-3, 900))
         assert config_from_jax(j) == p
-        assert config_from_jax(jax_config.CannyConfig(**kw, backend="xla", interpret=True,
-                                                      continuation="split")) == p
+        for jcont, cont in (("split", "split"), ("pallas", "auto"), ("xla", "auto"),
+                            ("auto", "auto")):
+            assert config_from_jax(jax_config.CannyConfig(
+                **kw, backend="xla", interpret=True, continuation=jcont)) == dataclasses.replace(
+                    p, continuation=cont)
 
 
 @pytest.mark.parametrize("name,value", [("backend", "xla"), ("interpret", True),
-                                        ("continuation", "split")])
+                                        ("continuation", "pallas")])
 def test_jax_only_fields_are_not_in_the_port(name, value):
+    """The executor fields have no counterpart; ``continuation`` returned
+    with the port's own values, so the JAX package's 'pallas' is refused."""
     jax_config.CannyConfig(height=64, width=96, **{name: value})
-    with pytest.raises(TypeError):
+    with pytest.raises(ValueError if name in _OWN_VALUES else TypeError):
         config.CannyConfig(height=64, width=96, **{name: value})
 
 

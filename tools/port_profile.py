@@ -5,7 +5,7 @@ Run from the root of a checkout, on a host with a CUDA device and nvcc:
 
     python3 tools/port_profile.py [--out FILE]
 
-Four parts (``--parts``, default all), each printing one JSON line per
+Six parts (``--parts``, default all), each printing one JSON line per
 workload (and writing them all to ``--out`` when given):
 
 * ``trace``: ``CannyEngine(device='cuda')`` under torch.profiler: ``process``
@@ -25,7 +25,14 @@ workload (and writing them all to ``--out`` when given):
   HYSTER on one 8K scene over (1, 4, 2) (five passes) and on the 1080p spiral
   over (1, 2, 2) (two passes), with the device events per frame of each
   kernel and the median µs of one event, which separates the gated round
-  kernels (returning at once) from the working ones.
+  kernels (returning at once) from the working ones;
+* ``split``: ``CannyEngine.process`` at 8K under torch.profiler with
+  ``continuation='split'`` (K11) and with the whole-frame continuation (K2):
+  the cap-class spiral (two passes) and calm scene 0 (five passes);
+* ``app``: ``CannyApp`` at 1080p BGR under torch.profiler, 64 frames of a
+  looped sequence of the eight scenes: host frames through the pinned
+  staging buffers (the uploads show as ``Memcpy HtoD``) and
+  ``preload_device_loop(8)``.
 
 Imports no jax and nothing of the JAX package: the frame generators are the
 port's own (``cudacam_tpu_torch.io.sources``).
@@ -45,7 +52,10 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
-from cudacam_tpu_torch.io.sources import make_scene, make_spiral_frame  # noqa: E402
+from cudacam_tpu_torch.app import CannyApp  # noqa: E402
+from cudacam_tpu_torch.io.sources import (  # noqa: E402
+    SequenceSource, make_scene, make_spiral_frame,
+)
 from cudacam_tpu_torch import CannyConfig, CannyStage  # noqa: E402
 from cudacam_tpu_torch.engine import CannyEngine, ShardedCannyEngine  # noqa: E402
 from cudacam_tpu_torch.ops import torch_ops  # noqa: E402
@@ -55,7 +65,7 @@ from cudacam_tpu_torch.parallel import make_mesh  # noqa: E402
 
 KERNELS = ("ff_pack_kernel", "hyst_kernel<false>", "hyst_kernel<true>", "unpack_kernel",
            "ff_stages_kernel", "pack_thresh_kernel", "sweep_pack_kernel", "unpack_core_kernel",
-           "exchange_kernel")
+           "exchange_kernel", "split_kernel", "sweeps_kernel")
 
 
 def _busy_us(intervals) -> float:
@@ -156,7 +166,31 @@ def sharded() -> list:
     return rows
 
 
-PARTS = ("trace", "sizes", "sweeps", "sharded")
+def split() -> list:
+    h, w = 4320, 7680
+    spiral = torch.from_numpy(make_spiral_frame(h, w)).cuda()
+    scene = torch.from_numpy(make_scene(h, w, seed=0)).cuda()
+    rows = []
+    for cont in ("split", "kernel"):
+        eng = CannyEngine(CannyConfig(height=h, width=w, continuation=cont), device="cuda")
+        rows += [trace(f"8K spiral, continuation={cont}", eng.process, [spiral], 1, 2),
+                 trace(f"8K scene 0, continuation={cont}", eng.process, [scene], 1, 5)]
+    return rows
+
+
+def app() -> list:
+    scenes = np.stack([make_scene(1080, 1920, seed=s) for s in range(8)])
+    rows = []
+    for label, loop in (("host frames (pinned staging)", 0), ("preload_device_loop(8)", 8)):
+        with CannyApp(SequenceSource.from_array(scenes, loop=True)) as a:
+            a.warmup()
+            if loop:
+                a.preload_device_loop(loop)
+            rows.append(trace(f"app 1080p BGR, {label}", lambda n: a.run(n), [64], 64, 1))
+    return rows
+
+
+PARTS = ("trace", "sizes", "sweeps", "sharded", "split", "app")
 
 
 def main() -> int:
@@ -186,6 +220,10 @@ def main() -> int:
         rows += [sweep(1080, 1920), sweep(2160, 3840), sweep(4320, 7680)]
     if "sharded" in parts:
         rows += sharded()
+    if "split" in parts:
+        rows += split()
+    if "app" in parts:
+        rows += app()
     lines = [json.dumps(r) for r in rows]
     print("\n".join(lines))
     if args.out:
