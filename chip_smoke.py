@@ -41,28 +41,33 @@ Phases, each printing its lines before the last:
    the thresholds rise). The CPU tests hold the plain path to the NumPy
    oracle and the JAX package;
 6. the tile-sharded path (``ShardedCannyEngine`` on a one-card mesh): the
-   export pack (``ff_pack_export``) and phase 1 (K8), the gated round
-   kernels (K9), ``unpack_core`` (K10) and ``halo_exchange`` against their
-   plain versions step by step through the first collective rounds, at
-   each mesh's own tile shapes: 1080p (1, 2, 2) (scene + spiral, BGR and
-   mono), 8K (1, 4, 2), 4K x4 (2, 2, 1) and 1080p (1, 1, 1); then, counts
-   set to 0 just before each and read just after, HYSTER on one 8K scene
-   over (1, 4, 2) and on four 4K scenes over (2, 2, 1) equal to
+   export pack (``ff_pack_export``) and phase 1 (K8), the two refreshes
+   (``halo_exchange``), the host loop's round kernels (K9, ``saturate_packed``)
+   step by step through the first collective rounds, the one-launch round
+   loop (``sharded_loop``) from the export's state against the host loop
+   with the plain saturate and refresh, and ``unpack_core`` (K10), each
+   against its plain version at each mesh's own tile shapes: 1080p (1, 2, 2)
+   (scene + spiral, BGR and mono), 8K (1, 4, 2), 4K x4 (2, 2, 1) and 1080p
+   (1, 1, 1); then, counts set to 0 just before each and read just after
+   (six launches a call at caps 100 and 400), HYSTER on one 8K scene over
+   (1, 4, 2) and on four 4K scenes over (2, 2, 1) equal to
    ``CannyEngine.process``, on 1080p over (1, 1, 1) equal to it too, the
-   1080p spiral over (1, 2, 2) cut off by the cap equal to the plain route
-   (on the CPU), and THRESH over (1, 2, 2) equal to
-   ``CannyEngine.process(frame, THRESH)``; no host sync;
+   1080p spiral over (1, 2, 2) cut off by the cap (100 and 400) equal to the
+   plain route on the CPU, rounds included, and THRESH over (1, 2, 2) equal
+   to ``CannyEngine.process(frame, THRESH)``; no host sync; then the
+   distributed route (the host loop: K9 as two launches a round, the flag
+   all-reduced) on a one-process NCCL group, equal to the one-card loop;
 7. the steady-state hot paths under ``torch.cuda.set_sync_debug_mode("error")``;
 8. CUDA-event timings of each kernel, kernel against plain, with its bound
    (the larger of its bytes over HBM bandwidth and its 32-bit operations
    over the card's peak, counted from this run's inputs and rounds), and of
    the streams: single frames, the x8 batch, THRESH and ``process_all``; of
    the K=16 sweeps at 1080p, 4K and 8K (plain at 1080p and 4K, and at 8K
-   for K=2), seeded against cold tails at 1080p; of K8, K10 and the exchange
-   at the 8K (1, 4, 2) tiles, of K9 on the 1080p spiral's first collective
-   round over (1, 2, 2) (where both of its phases work), a gated round, and
-   ms/frame of each sharded path beside the unsharded engine on the same
-   frames;
+   for K=2), seeded against cold tails at 1080p; of K8, K10, the exchange
+   and the round loop at the 8K (1, 4, 2) tiles, of K9 on the 1080p spiral's
+   first collective round over (1, 2, 2) (where both of its phases work),
+   and ms/frame of each sharded path beside the unsharded engine and the
+   host loop on the same frames;
 9. the column-split continuation (K11, ``split_converge``) against its plain
    version with ``n_split`` 2 and 4 on the 8K spiral's phase-1 exit state
    (cut off by the round budget) and on an 8K scene that escalates and
@@ -75,11 +80,18 @@ Phases, each printing its lines before the last:
    version at 1080p (scene 0 converged at two block heights; the spiral cut
    off by ``max_iters`` and ``max_local_iters``), equal to the fused
    hysteresis (K6) on converged maps, its ms beside K6's;
-11. the live app (``CannyApp`` on the card): 64 frames of a 1080p BGR
+11. the probes (K13: ``probe_pack``, ``probe_pack_ballot``, ``probe_loop``,
+   ``probe_unpack``; K14: ``swar_stencil``): the port's probe tools' runs,
+   each kernel against its plain version at the TPU probes' shapes and at
+   8K, B/C/D's (326, 0); the cost of one ``grid.sync()`` against the grid
+   size, the unpack a thread per word against a thread per byte, P4 in
+   SWAR against int32 at 1080p and 8K;
+12. the live app (``CannyApp`` on the card): 64 frames of a 1080p BGR
    ``SyntheticSource`` through ``run`` equal to ``CannyEngine.process`` of
    the same frames, the ring holding CUDA tensors; thresholds, a stage cycle
    through all six, pipeline off/on and profiling on/off applied mid-stream
-   build nothing; ``profiling_table`` with a row per stage; a ``BatchSource``
+   build nothing; ``profiling_table`` with a time > 0 in every stage's row
+   (the card's ``auto`` mode: kernel busy time); a ``BatchSource``
    of 8 through the batched kernels; ``device_health_check``; ms/frame and
    fps of host frames (pinned staging) and of ``preload_device_loop``
    against the bare engine stream.
@@ -132,9 +144,16 @@ REPLACES = {
     "saturate_phase2": _SAT,
     "unpack_core": f"{_MEGA}:714",
     "halo_exchange": "cudacam_tpu/parallel/packed_halo.py:195 (XLA ops, no pallas_call)",
+    "sharded_loop": ("cudacam_tpu/parallel/packed_halo.py:256-306 (lax.while_loop: K9 per tile "
+                     f"({_SAT}) + the strip exchange + psum)"),
     "split_converge": ("cudacam_tpu/ops/pallas/hysteresis_fused.py:876 (converge_packed_split: "
                        f"{_SAT} per slice + XLA ops) via {_MEGA}:921"),
     "hyst_sweeps": "cudacam_tpu/ops/pallas/hysteresis.py:157",
+    "probe_pack": "tools/hyster_kernel_probe.py:42",
+    "probe_pack_ballot": "tools/hyster_kernel_probe.py:68",
+    "probe_loop": "tools/hyster_kernel_probe.py:114",
+    "probe_unpack": "tools/hyster_kernel_probe.py:150",
+    "swar_stencil": "tools/i16_swar_probe.py:37",
 }
 _CSRC = "cudacam_tpu_torch/csrc"
 SOURCES = {
@@ -150,8 +169,14 @@ SOURCES = {
     "saturate_phase2": f"{_CSRC}/hyst_rounds.cu",
     "unpack_core": f"{_CSRC}/hyst_rounds.cu",
     "halo_exchange": f"{_CSRC}/halo.cu",
+    "sharded_loop": f"{_CSRC}/hyst_rounds.cu",
     "split_converge": f"{_CSRC}/hyst_rounds.cu",
     "hyst_sweeps": f"{_CSRC}/hyst_sweep.cu",
+    "probe_pack": f"{_CSRC}/probe_hyster.cu",
+    "probe_pack_ballot": f"{_CSRC}/probe_hyster.cu",
+    "probe_loop": f"{_CSRC}/probe_hyster.cu",
+    "probe_unpack": f"{_CSRC}/probe_hyster.cu",
+    "swar_stencil": f"{_CSRC}/probe_swar.cu",
 }
 
 #: The bound of a timed call: the larger of the bytes it must move (each
@@ -246,6 +271,7 @@ class Smoke:
         self.plain_ms = {}
         self.launches = {name: 0 for name in REPLACES}
         self.bound = {}  # name -> (ms, "bytes" | "operations")
+        self.library_ms = {}  # name -> ms of one PyTorch call computing the same function
         self.card = ""
 
     # -- helpers -----------------------------------------------------------
@@ -627,91 +653,96 @@ class Smoke:
         print(f"threshold_sweep 1080p K=16 == plain cold sweep; edge counts {n}")
         self.eng, self.frames, self.cfg, self.batch = eng, frames, cfg, batch
 
-    def check_tiles(self, label: str, eng, frames, max_rounds: int = 2, **schedule) -> None:
+    def check_tiles(self, label: str, eng, frames, loop_rounds=None, max_rounds: int = 2,
+                    **schedule) -> None:
         """Hold every kernel of the sharded HYSTER path against its plain
-        version at ``eng``'s own tile shapes on ``frames``, step by step as the
-        path runs them, kernel and plain from the same state: the export pack
-        and its phase 1 (K8), the exchange of both planes, up to
-        ``max_rounds`` collective rounds of the gated saturate (K9) and the
-        exchange, one round with the gate closed (nothing may change), and
-        the core unpack (K10). ``schedule`` overrides the round arguments."""
+        version at ``eng``'s own tile shapes on ``frames``, kernel and plain
+        from the same state: the export pack and its phase 1 (K8); the two
+        refreshes before the loop; up to ``max_rounds`` collective rounds of
+        the host loop step by step (K9 as ``saturate_packed``'s two round
+        kernels, then the refresh); the one-launch round loop
+        (``sharded_loop``) from the export's state against the host loop with
+        the plain saturate and refresh, over ``loop_rounds`` rounds at most
+        (default: the config's budget); the core unpack (K10). ``schedule``
+        overrides the round arguments."""
         torch = self.torch
         from cudacam_tpu_torch.ops.cuda.canny import hyster_kwargs
         from cudacam_tpu_torch.ops.cuda.feedforward import ff_pack_plain, ff_pack_tiles
         from cudacam_tpu_torch.ops.cuda.halo import halo_exchange, halo_exchange_plain
-        from cudacam_tpu_torch.ops.cuda.megakernel import (
-            hyst_phase1, hyst_phase1_plain, hyst_phase2, hyst_phase2_plain, unpack_core,
-            unpack_core_plain,
+        from cudacam_tpu_torch.ops.cuda.hysteresis_fused import (
+            saturate_packed, saturate_packed_plain,
         )
+        from cudacam_tpu_torch.ops.cuda.megakernel import (
+            hyst_phase1, hyst_phase1_plain, unpack_core, unpack_core_plain,
+        )
+        from cudacam_tpu_torch.parallel.packed_halo import sharded_loop, sharded_loop_plain
 
         pipe, cfg = eng.pipeline(), eng.config
         t, g = pipe.tiling, pipe.geo
         hk = dict(hyster_kwargs(cfg), **schedule)
-        p2 = dict(dilate_steps=hk["dilate_steps"], max_iters=hk["max_iters"])
         thr = eng._thresholds()
         one = lambda v: torch.tensor([v], dtype=torch.int32, device=self.dev)  # noqa: E731
         grid = (len(frames), t.ny, t.nx)
 
-        def step(name, kernel, plain, *state):
-            # The plain version first, on copies: a gate that the kernel's
-            # call rewrites (the exchange's pending flag) is read unchanged.
+        def step(names, kernel, plain, *state):
             twin = [s.clone() for s in state]
             plain(*twin)
             kernel(*state)
-            for a, b in zip(state, twin):
-                self.diff(name, a, b)
+            for name in names:
+                for a, b in zip(state, twin):
+                    self.diff(name, a, b)
 
         f, p = ff_pack_tiles(frames, thr, t)
         planes = [ff_pack_plain(fr, thr, tiling=t) for fr in frames]
         self.diff("ff_pack_export", f, torch.cat([a for a, _ in planes]))
         self.diff("ff_pack_export", p, torch.cat([b for _, b in planes]))
         flags = torch.zeros((f.shape[0], 2, 2), dtype=torch.int32, device=self.dev)
-        step("hyst_phase1", lambda x, fl: hyst_phase1(x, p, fl, g.ext_h, **hk),
+        step(("hyst_phase1",), lambda x, fl: hyst_phase1(x, p, fl, g.ext_h, **hk),
              lambda x, fl: hyst_phase1_plain(x, p, fl, g.ext_h, **hk), f, flags)
-        step("halo_exchange", lambda x: halo_exchange(x, grid, g),
+        export = (f.clone(), p.clone(), flags.clone())
+        step(("halo_exchange",), lambda x: halo_exchange(x, grid, g),
              lambda x: halo_exchange_plain(x, grid, g), p)
-        pending, rounds = one(0), one(0)
-        step("halo_exchange",
+        pending = one(0)
+        step(("halo_exchange",),
              lambda x, pe: halo_exchange(x, grid, g, grow=flags[:, 0, 1], pending=pe),
              lambda x, pe: halo_exchange_plain(x, grid, g, grow=flags[:, 0, 1], pending=pe),
              f, pending)
-
-        def collective_round(gate):
-            def gated(fn):
-                return lambda *s: fn(*s) if int(gate) else None
-
-            step("saturate_phase1", lambda x, fl: hyst_phase1(x, p, fl, g.ext_h, gate=gate, **hk),
-                 gated(lambda x, fl: hyst_phase1_plain(x, p, fl, g.ext_h, **hk)), f, flags)
-            step("saturate_phase2", lambda x, fl: hyst_phase2(x, p, fl, g.ext_h, gate=gate, **p2),
-                 gated(lambda x, fl: hyst_phase2_plain(x, p, fl, g.ext_h, **p2)), f, flags)
-            kw = dict(grow=flags[:, 1, 1], gate=gate)
-            step("halo_exchange",
-                 lambda x, pe, rd: halo_exchange(x, grid, g, pending=pe, rounds=rd, **kw),
-                 lambda x, pe, rd: halo_exchange_plain(x, grid, g, pending=pe, rounds=rd, **kw),
-                 f, pending, rounds)
-
-        while int(rounds) < max_rounds and int(pending):
-            collective_round(pending)
-        taken = int(rounds)
-        collective_round(one(0))
-        require(int(rounds) == taken, f"{label}: a closed gate counted a round")
+        taken = 0
+        while taken < max_rounds and int(pending):
+            step(("saturate_phase1", "saturate_phase2"),
+                 lambda x, fl: saturate_packed(x, p, fl, g.ext_h, **hk),
+                 lambda x, fl: saturate_packed_plain(x, p, fl, g.ext_h, **hk), f, flags)
+            step(("halo_exchange",),
+                 lambda x, pe: halo_exchange(x, grid, g, grow=flags[:, 1, 1], pending=pe),
+                 lambda x, pe: halo_exchange_plain(x, grid, g, grow=flags[:, 1, 1], pending=pe),
+                 f, pending)
+            taken += 1
+        budget = cfg.max_hysteresis_iters if loop_rounds is None else loop_rounds
+        fk, pk, flk = (s.clone() for s in export)
+        rk = sharded_loop(fk, pk, flk, grid, g, max_rounds=budget, **hk)
+        rp = sharded_loop_plain(*export, grid, g, max_rounds=budget, **hk)
+        for a, b in ((fk, export[0]), (pk, export[1]), (flk, export[2]), (rk, rp)):
+            self.diff("sharded_loop", a, b)
         out = torch.full((len(frames), cfg.height, cfg.width), 7, dtype=torch.uint8,
                          device=self.dev)
-        want = unpack_core_plain(f, out.clone(), t)
-        self.diff("unpack_core", unpack_core(f, out, t), want)
-        print(f"{label}: ff_pack_export, hyst_phase1, halo_exchange, saturate_phase1/2 and "
-              f"unpack_core == plain at its {t.ny}x{t.nx} tiles of {g.ext_h}x{g.ext_w} over "
-              f"{taken} collective rounds (pending after: {int(pending)}) and a closed gate")
+        want = unpack_core_plain(fk, out.clone(), t)
+        self.diff("unpack_core", unpack_core(fk, out, t), want)
+        print(f"{label}: ff_pack_export, hyst_phase1, halo_exchange, saturate_phase1/2 over "
+              f"{taken} collective rounds, sharded_loop over {int(rk)} rounds (budget {budget}) "
+              f"and unpack_core == plain at its {t.ny}x{t.nx} tiles of {g.ext_h}x{g.ext_w}")
 
     def phase_sharded(self) -> None:
         """The tile-sharded path on a one-card mesh: for each mesh, every
-        kernel of the path (K8: ``ff_pack_export`` + ``hyst_phase1``; K9: the
-        gated round kernels; K10: ``unpack_core``; the halo exchange) against
-        its plain version at that mesh's tile shapes (:meth:`check_tiles`);
-        then the sharded engine on it, counts set to 0 just before and read
-        just after, against ``CannyEngine`` (and the spiral, cut off by the
-        cap, against the plain route on the CPU)."""
+        kernel of the path (K8: ``ff_pack_export`` + ``hyst_phase1``; the
+        refreshes; K9 as the host loop's round kernels; the one-launch round
+        loop; K10: ``unpack_core``) against its plain version at that mesh's
+        tile shapes (:meth:`check_tiles`); then the sharded engine, counts
+        set to 0 just before and read just after (six launches a call at
+        caps 100 and 400), against ``CannyEngine`` and the spiral, cut off by
+        the cap, against the plain route on the CPU; then the distributed
+        route (the host loop) on a one-process NCCL group."""
         torch = self.torch
+        import dataclasses
         import numpy as np
         from cudacam_tpu_torch import CannyConfig, CannyStage
         from cudacam_tpu_torch.engine import CannyEngine, ShardedCannyEngine
@@ -727,16 +758,16 @@ class Smoke:
         batch = torch.stack([scene, spiral])
         sh = ShardedCannyEngine(cfg, make_mesh(1, 2, 2))
         sh.process(batch)  # thresholds to the device
-        self.check_tiles("1080p (1, 2, 2), scene + spiral, BGR", sh, batch)
+        self.check_tiles("1080p (1, 2, 2), scene + spiral, BGR", sh, batch, loop_rounds=3)
         self.check_tiles("1080p (1, 2, 2), scene + spiral, mono, scan_after 2", sh,
-                         batch[..., 1].contiguous(), scan_after=2)
+                         batch[..., 1].contiguous(), loop_rounds=3, scan_after=2)
 
-        main = dict(ff_pack_export=1, hyst_phase1=1, saturate_phase1=cfg.max_hysteresis_iters,
-                    saturate_phase2=cfg.max_hysteresis_iters,
-                    halo_exchange=cfg.max_hysteresis_iters + 2, unpack_core=1, ff_pack=0, unpack=0)
+        main = dict(ff_pack_export=1, hyst_phase1=1, halo_exchange=2, sharded_loop=1,
+                    unpack_core=1, saturate_phase1=0, saturate_phase2=0, ff_pack=0, unpack=0)
         self.sharded = {}
 
-        def run(label, cfg_s, mesh, frames, expect, want, stage=CannyStage.HYSTER, check=False):
+        def run(label, cfg_s, mesh, frames, expect, want, stage=CannyStage.HYSTER, check=False,
+                keep=True):
             eng = ShardedCannyEngine(cfg_s, make_mesh(*mesh))
             eng.process(frames, stage)  # thresholds to the device before the count
             out = self.path(label, lambda: eng.process(frames, stage), expect)
@@ -744,18 +775,22 @@ class Smoke:
             rounds = None if rounds is None else int(rounds)
             require(torch.equal(out, want), f"{label} differs")
             print(f"{label}: == reference, {rounds} collective rounds")
-            self.sharded[label] = (eng, frames, stage, rounds)
+            if keep:
+                self.sharded[label] = (eng, frames, stage, rounds)
             if check:
                 self.check_tiles(label, eng, frames)
             return eng, out, rounds
 
-        # 8K (1, 4, 2): one scene; equal to the unsharded engine.
+        # 8K (1, 4, 2): one scene; equal to the unsharded engine, at cap 100 and 400.
         h8, w8 = 4320, 7680
         cfg8 = CannyConfig(height=h8, width=w8)
         f8 = torch.from_numpy(make_scene(h8, w8, seed=0)).to(dev)[None]
         self.eng8 = CannyEngine(cfg8, device="cuda")
-        run("sharded HYSTER 8K (1, 4, 2)", cfg8, (1, 4, 2), f8,
-            main, self.eng8.process(f8), check=True)
+        want8 = self.eng8.process(f8)
+        run("sharded HYSTER 8K (1, 4, 2)", cfg8, (1, 4, 2), f8, main, want8, check=True)
+        run("sharded HYSTER 8K (1, 4, 2), cap 400",
+            dataclasses.replace(cfg8, max_hysteresis_iters=400), (1, 4, 2), f8, main, want8,
+            keep=False)
         # 4K x4 (2, 2, 1): a batch of four scenes.
         h4, w4 = 2160, 3840
         cfg4 = CannyConfig(height=h4, width=w4)
@@ -766,17 +801,28 @@ class Smoke:
         # 1080p (1, 1, 1): the geometry is the raw frame.
         run("sharded HYSTER 1080p (1, 1, 1)", cfg, (1, 1, 1), scene[None], main,
             eng1080.process(scene)[None], check=True)
-        # The spiral on (1, 2, 2): growth across tiles, cut off by the cap;
-        # against the plain route (the CPU) on the same frame.
-        plain = ShardedCannyEngine(cfg, make_mesh(1, 2, 2), device="cpu").process(spiral[None].cpu())
-        _, sp_out, sp_rounds = run("sharded HYSTER 1080p spiral (1, 2, 2)", cfg, (1, 2, 2),
-                                   spiral[None], main, plain.to(dev))
-        require(sp_rounds == cfg.max_hysteresis_iters, f"spiral: {sp_rounds} rounds")
-        print(f"  cut off by the cap: {int((sp_out == 255).sum())} finals (the unsharded "
-              f"engine's, cut off by its own cap: {int((eng1080.process(spiral) == 255).sum())})")
+        # The spiral on (1, 2, 2): growth across tiles, cut off by the cap at
+        # 100 and 400; against the plain route (the CPU: the host loop) on the
+        # same frame, its round count included.
+        for cap in (100, 400):
+            cfg_c = dataclasses.replace(cfg, max_hysteresis_iters=cap)
+            plain_eng = ShardedCannyEngine(cfg_c, make_mesh(1, 2, 2), device="cpu")
+            t0 = time.perf_counter()
+            plain = plain_eng.process(spiral[None].cpu())
+            plain_s = time.perf_counter() - t0
+            suffix = "" if cap == 100 else ", cap 400"
+            _, sp_out, sp_rounds = run(f"sharded HYSTER 1080p spiral (1, 2, 2){suffix}", cfg_c,
+                                       (1, 2, 2), spiral[None], main, plain.to(dev),
+                                       keep=cap == 100)
+            require(sp_rounds == int(plain_eng.pipeline().rounds) <= cap,
+                    f"spiral cap {cap}: {sp_rounds} rounds, the host loop "
+                    f"{int(plain_eng.pipeline().rounds)}")
+            print(f"  cap {cap}: {int((sp_out == 255).sum())} finals (the plain "
+                  f"route on the CPU took {plain_s:.1f} s; the unsharded engine's, cut off by "
+                  f"its own cap: {int((eng1080.process(spiral) == 255).sum())})")
         # THRESH on (1, 2, 2): the display route, one ff_stages per tile.
         run("sharded THRESH 1080p (1, 2, 2)", cfg, (1, 2, 2), scene[None],
-            dict(ff_stages=4, ff_pack_export=0, unpack_core=0),
+            dict(ff_stages=4, ff_pack_export=0, unpack_core=0, sharded_loop=0),
             eng1080.process(scene, CannyStage.THRESH)[None], CannyStage.THRESH)
 
         # No host sync on the single-card sharded path.
@@ -793,23 +839,67 @@ class Smoke:
             torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize()
         print("sharded process() on every mesh: no host sync under set_sync_debug_mode('error')")
+        self.distributed_route(cfg, spiral)
+
+    def distributed_route(self, cfg, spiral) -> None:
+        """The distributed route on this card: a one-process NCCL group, a
+        (1, 1, 1) mesh over it, the spiral cut off by a short budget. Its
+        round loop is the host loop (K9 as two round-kernel launches a
+        round, the plain refresh, the pending flag all-reduced and read once
+        a round); its output and rounds equal the one-card loop's."""
+        torch = self.torch
+        import dataclasses
+        import socket
+        import torch.distributed as dist
+        from cudacam_tpu_torch.engine import ShardedCannyEngine
+        from cudacam_tpu_torch.parallel import distributed, make_mesh
+
+        cap = 8
+        cfg_c = dataclasses.replace(cfg, max_hysteresis_iters=cap, hysteresis_scan_after=4)
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        distributed.initialize(f"localhost:{port}", num_processes=1, process_id=0, backend="nccl")
+        try:
+            mesh = distributed.pod_mesh(batch=1)
+            require(mesh.distributed and (mesh.batch, mesh.rows, mesh.cols) == (1, 1, 1),
+                    f"pod mesh {mesh}")
+            eng = ShardedCannyEngine(cfg_c, mesh)
+            frames = spiral[None]
+            eng.process(frames)
+            out = self.path("sharded HYSTER 1080p spiral, one-process NCCL mesh (the host loop)",
+                            lambda: eng.process(frames),
+                            dict(ff_pack_export=1, hyst_phase1=1, saturate_phase1=cap,
+                                 saturate_phase2=cap, sharded_loop=0, halo_exchange=0,
+                                 unpack_core=1))
+            local = ShardedCannyEngine(cfg_c, make_mesh(1, 1, 1))
+            require(torch.equal(out, local.process(frames)), "the distributed route differs")
+            require(int(eng.pipeline().rounds) == int(local.pipeline().rounds) == cap,
+                    f"distributed rounds {int(eng.pipeline().rounds)}")
+            print(f"distributed route (NCCL, one process): == the one-card loop, {cap} rounds")
+        finally:
+            dist.destroy_process_group()
 
     def phase_sharded_timing(self) -> None:
-        """K8, K10 and the exchange at the 8K (1, 4, 2) tiles and K9 where it
-        works (the 1080p spiral over (1, 2, 2) at its first collective
-        round), kernel against plain, with their bounds; ms/frame of each
-        sharded path beside the unsharded engine on the same frames; the
-        cost of a gated round."""
+        """K8, K10, the refresh and the round loop at the 8K (1, 4, 2) tiles
+        and K9 where it works (the 1080p spiral over (1, 2, 2) at its first
+        collective round), kernel against plain, with their bounds; ms/frame
+        of each sharded path beside the unsharded engine and the host loop
+        (one readback a round) on the same frames."""
         torch = self.torch
         from cudacam_tpu_torch.ops.cuda.canny import hyster_kwargs, pipeline_kwargs
         from cudacam_tpu_torch.ops.cuda.feedforward import ff_pack_plain, ff_pack_tiles
         from cudacam_tpu_torch.ops.cuda.halo import halo_exchange, halo_exchange_plain
-        from cudacam_tpu_torch.ops.cuda.hysteresis_fused import saturate_packed
+        from cudacam_tpu_torch.ops.cuda.hysteresis_fused import (
+            saturate_packed, saturate_packed_plain,
+        )
         from cudacam_tpu_torch.ops.cuda.megakernel import (
             hyst_phase1, hyst_phase1_plain, hyst_phase2, hyst_phase2_plain, mega_export,
             unpack_core, unpack_core_plain,
         )
-        from cudacam_tpu_torch.parallel.packed_halo import packed_hysteresis_loop
+        from cudacam_tpu_torch.parallel.packed_halo import (
+            packed_hysteresis_loop, sharded_loop, sharded_loop_plain,
+        )
 
         dev = self.dev
         eng, frames, _, _ = self.sharded["sharded HYSTER 8K (1, 4, 2)"]
@@ -819,6 +909,7 @@ class Smoke:
         h, w = cfg.height, cfg.width
         ntile = t.tiles
         words = g.hw * g.ext_w
+        ds = hk["dilate_steps"]
         one = lambda v: torch.tensor([v], dtype=torch.int32, device=dev)  # noqa: E731
 
         self.ms["ff_pack_export"] = self.time_ms(lambda _: ff_pack_tiles(frames, thr, t), 20)
@@ -826,75 +917,99 @@ class Smoke:
             lambda _: ff_pack_plain(frames[0], thr, tiling=t), 1, reps=3)
         self.set_bound("ff_pack_export", 3 * h * w + 2 * 4 * words * ntile,
                        chain_ops(cfg.kernel_size) * g.ext_h * g.ext_w * ntile)
-        f, p = ff_pack_tiles(frames, thr, t)
-        flags = torch.zeros((ntile, 2, 2), dtype=torch.int32, device=dev)
-        hyst_phase1(f, p, flags, g.ext_h, **hk)
+        f, p, flags = mega_export(frames, thr, t, **pipeline_kwargs(cfg))
         grid = (1, t.ny, t.nx)
-        x_state = lambda: (f.clone(), one(1), one(0))  # noqa: E731
+        x_state = lambda: (f.clone(), one(0))  # noqa: E731
         self.ms["halo_exchange"] = self.time_ms(
-            lambda s: halo_exchange(s[0], grid, g, grow=flags[:, 0, 1], pending=s[1],
-                                    rounds=s[2]), 50, setup=x_state)
+            lambda s: halo_exchange(s[0], grid, g, grow=flags[:, 0, 1], pending=s[1]), 50,
+            setup=x_state)
         self.plain_ms["halo_exchange"] = self.time_ms(
-            lambda s: halo_exchange_plain(s[0], grid, g, grow=flags[:, 0, 1], pending=s[1],
-                                          rounds=s[2]), 5, setup=x_state)
+            lambda s: halo_exchange_plain(s[0], grid, g, grow=flags[:, 0, 1], pending=s[1]), 5,
+            setup=x_state)
         k = min(64, g.e_left)
         strips = ntile * (2 * g.ext_w + 2 * g.hw * k)  # words moved per refresh
         self.set_bound("halo_exchange", 2 * 4 * strips, 4 * strips)
-        fx = f.clone()
-        halo_exchange(fx, grid, g, grow=flags[:, 0, 1])
-        flx = flags.clone()
+
+        # The round loop from the export's state (8K scene 0: the tiles meet
+        # in one collective round), kernel and plain; its bound from the
+        # rounds its saturates take, counted on the plain host loop.
+        loop_state = lambda: (f.clone(), p.clone(), flags.clone())  # noqa: E731
+        kw = dict(hk, max_rounds=cfg.max_hysteresis_iters)
+        self.ms["sharded_loop"] = self.time_ms(
+            lambda s: sharded_loop(*s, grid, g, **kw), 20, setup=loop_state)
+        self.plain_ms["sharded_loop"] = self.time_ms(
+            lambda s: sharded_loop_plain(*s, grid, g, **kw), 1, reps=1, setup=loop_state)
+        fc, pc, flc = loop_state()
+        sat_rounds = []
+
+        def counting(ff, pp):
+            saturate_packed_plain(ff, pp, flc, g.ext_h, **hk)
+            sat_rounds.append((int(flc[:, 0, 0].sum()), int((flc[:, 1, 0] - flc[:, 0, 0]).sum())))
+            return flc[:, 1, 1]
+
+        taken = int(packed_hysteresis_loop(
+            fc, pc, flc[:, 0, 1], counting,
+            lambda x, **k2: halo_exchange_plain(x, grid, g, **k2), cfg.max_hysteresis_iters))
+        loop_ops = sum(r1 * round_ops(words, g.ext_h, g.ext_w, ds, False)
+                       + r2 * round_ops(words, g.ext_h, g.ext_w, ds, True) for r1, r2 in sat_rounds)
+        self.set_bound("sharded_loop", 3 * 4 * words * ntile + taken * 2 * 4 * strips,
+                       loop_ops + taken * 4 * strips)
+        fx = fc
         out = torch.empty((1, h, w), dtype=torch.uint8, device=dev)
         self.ms["unpack_core"] = self.time_ms(lambda _: unpack_core(fx, out, t), 50)
         self.plain_ms["unpack_core"] = self.time_ms(lambda _: unpack_core_plain(fx, out, t), 3)
         core_words = ntile * (-(-(g.e_top + g.h_loc) // 32) - g.e_top // 32) * g.w_loc
         self.set_bound("unpack_core", 4 * core_words + h * w, 2 * h * w)
-        gate0 = one(0)
-        noop_ms = self.time_ms(lambda _: (saturate_packed(fx, p, flx, g.ext_h, gate=gate0, **hk),
-                                          halo_exchange(fx, grid, g, grow=flx[:, 1, 1],
-                                                        gate=gate0, pending=gate0)), 100)
 
-        # K9 where it works: at 8K both phases find a converged state (one
-        # phase-1 round; phase 2 returns at once), so the saturate is timed
-        # on the spiral over (1, 2, 2) at the state of its first collective
-        # round, the bound counted from the rounds each tile takes there.
+        # K9 where it works: at 8K both phases find a converged state, so the
+        # saturate's two round kernels are timed on the spiral over (1, 2, 2)
+        # at the state of its first collective round, the bound counted from
+        # the rounds each tile takes there.
         seng, sfr, _, _ = self.sharded["sharded HYSTER 1080p spiral (1, 2, 2)"]
         sp, scfg = seng.pipeline(), seng.config
         st, sg, shk = sp.tiling, sp.geo, hyster_kwargs(scfg)
         sf, spl, sfl = mega_export(sfr, seng._thresholds(), st, **pipeline_kwargs(scfg))
-        sgrid, gate1 = (len(sfr), st.ny, st.nx), one(0)
+        sgrid, pend = (len(sfr), st.ny, st.nx), one(0)
         halo_exchange(spl, sgrid, sg)
-        halo_exchange(sf, sgrid, sg, grow=sfl[:, 0, 1], pending=gate1)
-        require(int(gate1) == 1, "spiral: no collective round pending after the export")
+        halo_exchange(sf, sgrid, sg, grow=sfl[:, 0, 1], pending=pend)
+        require(int(pend) == 1, "spiral: no collective round pending after the export")
         sat_state = lambda: (sf.clone(), sfl.clone())  # noqa: E731
         self.ms["saturate_phase1"] = self.time_ms(
-            lambda s: hyst_phase1(s[0], spl, s[1], sg.ext_h, gate=gate1, **shk), 5,
-            setup=sat_state)
+            lambda s: hyst_phase1(s[0], spl, s[1], sg.ext_h, **shk), 5, setup=sat_state)
         self.plain_ms["saturate_phase1"] = self.time_ms(
             lambda s: hyst_phase1_plain(s[0], spl, s[1], sg.ext_h, **shk), 1, reps=1,
             setup=sat_state)
         fs, fls = sat_state()
-        hyst_phase1(fs, spl, fls, sg.ext_h, gate=gate1, **shk)
+        hyst_phase1(fs, spl, fls, sg.ext_h, **shk)
         p2_state = lambda: (fs.clone(), fls.clone())  # noqa: E731
         p2 = dict(dilate_steps=shk["dilate_steps"], max_iters=shk["max_iters"])
         self.ms["saturate_phase2"] = self.time_ms(
-            lambda s: hyst_phase2(s[0], spl, s[1], sg.ext_h, gate=gate1, **p2), 5,
-            setup=p2_state)
+            lambda s: hyst_phase2(s[0], spl, s[1], sg.ext_h, **p2), 5, setup=p2_state)
         self.plain_ms["saturate_phase2"] = self.time_ms(
             lambda s: hyst_phase2_plain(s[0], spl, s[1], sg.ext_h, **p2), 1, reps=1,
             setup=p2_state)
-        hyst_phase2(fs, spl, fls, sg.ext_h, gate=gate1, **p2)
+        fs2, fls2 = sat_state()
+        saturate_packed(fs2, spl, fls2, sg.ext_h, **shk)
+        hyst_phase2(fs, spl, fls, sg.ext_h, **p2)
+        require(torch.equal(fs, fs2) and torch.equal(fls, fls2),
+                "saturate_packed differs from its two round kernels")
         r1, r2 = fls[:, 0, 0].tolist(), (fls[:, 1, 0] - fls[:, 0, 0]).tolist()
         grew = int(fls[:, 0, 1].sum())  # tiles phase 2 continues
         require(sum(r2) > 0, f"spiral saturate: phase 2 took no round ({r1}, {r2})")
         sw = sg.hw * sg.ext_w
-        ds = shk["dilate_steps"]
+        sds = shk["dilate_steps"]
         self.set_bound("saturate_phase1", 3 * 4 * sw * len(r1),
-                       sum(r1) * round_ops(sw, sg.ext_h, sg.ext_w, ds, False))
+                       sum(r1) * round_ops(sw, sg.ext_h, sg.ext_w, sds, False))
         self.set_bound("saturate_phase2", 3 * 4 * sw * grew,
-                       sum(r2) * round_ops(sw, sg.ext_h, sg.ext_w, ds, True))
+                       sum(r2) * round_ops(sw, sg.ext_h, sg.ext_w, sds, True))
+        spiral_loop_ms = self.time_ms(
+            lambda s: sharded_loop(*s, sgrid, sg, max_rounds=scfg.max_hysteresis_iters, **shk),
+            1, reps=3, setup=lambda: (sf.clone(), spl.clone(), sfl.clone()))
 
         for name, where in (("ff_pack_export", "8K (1, 4, 2) tiles"),
                             ("halo_exchange", "8K (1, 4, 2) tiles"),
+                            ("sharded_loop", f"8K (1, 4, 2) tiles, {taken} collective round(s), "
+                                             f"saturate rounds {sat_rounds}"),
                             ("unpack_core", "8K (1, 4, 2) tiles"),
                             ("saturate_phase1", "1080p spiral (1, 2, 2), first round"),
                             ("saturate_phase2", "1080p spiral (1, 2, 2), first round")):
@@ -902,18 +1017,18 @@ class Smoke:
                   f"bound {self.bound[name][0]!r} ms ({self.bound[name][1]}) ({where})")
         print(f"  saturate on the spiral's first collective round, rounds per tile: phase 1 "
               f"{r1}, phase 2 {r2} ({grew} tiles continue)")
-        print(f"time a gated round (saturate_phase1 + saturate_phase2 + halo_exchange, the "
-              f"pending flag 0) at 8K (1, 4, 2): {noop_ms!r} ms")
+        print(f"time sharded_loop on the 1080p spiral (1, 2, 2) from the export's state, "
+              f"{scfg.max_hysteresis_iters} collective rounds: {spiral_loop_ms!r} ms")
 
-        def with_readback(seng, fr):
-            """The same HYSTER frame with the host reading the pending flag
-            before each collective round (one sync a round), so no gated
-            round is launched: what the gated rounds cost, end to end."""
+        def host_loop(seng, fr):
+            """The same HYSTER frame through the host loop on this card (the
+            distributed route's loop: K9 as two launches a round, the refresh
+            kernel, one readback of the pending flag a round)."""
             sp = seng.pipeline()
             f, p, flags = mega_export(fr, seng._thresholds(), sp.tiling, **pipeline_kwargs(sp.cfg))
             packed_hysteresis_loop(f, p, flags[:, 0, 1], sp._saturate(flags),
                                    lambda x, **kw: sp.mesh.exchange(x, sp.geo, **kw),
-                                   sp.cfg.max_hysteresis_iters, True)
+                                   sp.cfg.max_hysteresis_iters)
             out = torch.empty((len(fr), sp.cfg.height, sp.cfg.width), dtype=torch.uint8,
                               device=dev)
             return unpack_core(f, out, sp.tiling)
@@ -926,17 +1041,17 @@ class Smoke:
         for label, (seng, fr, stage, rounds) in self.sharded.items():
             n = len(fr)
             reps = 3 if "spiral" in label else 7
-            sharded_ms = self.time_ms(lambda _: seng.process(fr, stage), 1, reps=reps) / n
-            plain_ms = self.time_ms(lambda _: refs[label](fr), 1, reps=reps) / n
-            line = (f"time {label}: sharded {sharded_ms!r} ms/frame, unsharded engine "
-                    f"{plain_ms!r} ms/frame (same frames, medians of {reps})")
+            run_s = lambda _: seng.process(fr, stage)  # noqa: E731
+            run_u = lambda _: refs[label](fr)  # noqa: E731
+            # unsharded, sharded, sharded, unsharded: the two compared in turns
+            times = [self.time_ms(fn, 1, reps=reps) / n for fn in (run_u, run_s, run_s, run_u)]
+            line = (f"time {label}: sharded {times[1]!r} / {times[2]!r} ms/frame, unsharded "
+                    f"engine {times[0]!r} / {times[3]!r} ms/frame (same frames, medians of {reps})")
             if rounds is not None:
-                require(torch.equal(with_readback(seng, fr), seng.process(fr)),
-                        f"{label}: the readback loop differs")
-                rb_ms = self.time_ms(lambda _: with_readback(seng, fr), 1, reps=reps) / n
-                idle = cfg.max_hysteresis_iters - rounds
-                line += (f"; {rounds} collective rounds, {idle} gated; with a readback per "
-                         f"round instead {rb_ms!r} ms/frame")
+                require(torch.equal(host_loop(seng, fr), seng.process(fr)),
+                        f"{label}: the host loop differs")
+                hl_ms = self.time_ms(lambda _: host_loop(seng, fr), 1, reps=reps) / n
+                line += f"; {rounds} collective rounds; the host loop instead {hl_ms!r} ms/frame"
             print(line)
 
     def phase_split(self) -> None:
@@ -1118,6 +1233,115 @@ class Smoke:
               f"({self.bound['hyst_sweeps'][1]}); K6 on the same map {k6_ms!r} ms (1080p scene 0, "
               f"block_h {DEFAULT_BLOCK_H}, {steps} promotion steps)")
 
+    def phase_probes(self) -> None:
+        """K13 and K14: the port's probe tools' runs as paths (counts set to
+        0 just before, read just after), every probe kernel against its
+        plain version at the TPU probes' shapes and at a larger one
+        (tolerance 0), B/C/D's (326, 0); then the timings: one grid.sync()
+        against the grid size, the unpack a thread per word against a thread
+        per byte on an 8K plane, the P4 stencil in SWAR against its int32
+        mode at 1080p and 8K."""
+        torch = self.torch
+        from cudacam_tpu_torch.probes import hyster_kernel as hk
+        from cudacam_tpu_torch.probes import i16_swar as sw
+
+        dev = self.dev
+        rows = self.path("K13 probes (tools/port_kernel_probe.py's run)",
+                         lambda: hk.run_probes(dev),
+                         dict(probe_pack=1, probe_pack_ballot=1, probe_loop=1, probe_unpack=2))
+        rows += self.path("K14 probe (tools/port_i16_probe.py's run)",
+                          lambda: sw.run_probes(dev), dict(swar_stencil=8))
+        for name, ok, detail in rows:
+            print(f"  {name}: {'OK' if ok else 'MISMATCH'} {detail}")
+        require(all(ok for _, ok, _ in rows), "a probe failed")
+
+        h8, w8 = 4320, 7680
+        for h, w in (hk.PACK_SHAPE, (h8, w8)):
+            mask = torch.from_numpy(hk.pack_input(0, h, w)).to(dev)
+            want = hk.probe_pack_plain(mask)
+            self.diff("probe_pack", hk.probe_pack(mask), want)
+            self.diff("probe_pack_ballot", hk.probe_pack_ballot(mask), want)
+        for hw, w in (hk.UNPACK_WORDS, (h8 // 32, w8)):
+            f = torch.from_numpy(hk.unpack_input(2, hw, w)).to(dev)
+            for per_word in (True, False):
+                self.diff("probe_unpack", hk.probe_unpack(f, per_word), hk.probe_unpack_plain(f))
+        for shape, cap in ((hk.LOOP_SHAPE, hk.LOOP_ROUNDS), ((h8 // 32, w8), 40)):
+            plane = torch.from_numpy(hk.loop_input(*shape)).to(dev)
+            got, flags = hk.probe_loop(plane, cap)
+            want, want_flags = hk.probe_loop_plain(plane, cap)
+            self.diff("probe_loop", got, want)
+            self.diff("probe_loop", flags, want_flags)
+            if shape == hk.LOOP_SHAPE:
+                require(flags.tolist() == [[326, 0]], f"B/C/D flags {flags.tolist()}")
+        for (h, w) in (sw.SHAPE, (1080, 1920), (h8, w8)):
+            xi16, xu8 = (torch.from_numpy(a).to(dev) for a in sw.probe_inputs(h, w))
+            for body in sw.BODIES:
+                x = xu8 if body == 4 else xi16
+                want = sw.swar_stencil_plain(x, body)
+                for swar in (True, False):
+                    self.diff("swar_stencil", sw.swar_stencil(x, body, swar), want)
+        print("probe_pack, probe_pack_ballot, probe_unpack (both modes), probe_loop and "
+              "swar_stencil (P1-P4, both modes) == plain at the TPU probes' shapes and at 8K "
+              "(swar_stencil at 1080p too); B/C/D (rounds, changed) = (326, 0)")
+
+        # Times, each beside its bound and its plain version.
+        mask = torch.from_numpy(hk.pack_input(0, h8, w8)).to(dev)
+        words = (h8 // 32) * w8
+        for name, fn in (("probe_pack", hk.probe_pack), ("probe_pack_ballot", hk.probe_pack_ballot)):
+            self.ms[name] = self.time_ms(lambda _: fn(mask), 20)
+            self.plain_ms[name] = self.time_ms(lambda _: hk.probe_pack_plain(mask), 3)
+            self.set_bound(name, h8 * w8 + 4 * words, 3 * h8 * w8)
+        f8 = torch.from_numpy(hk.unpack_input(2, h8 // 32, w8)).to(dev)
+        self.ms["probe_unpack"] = self.time_ms(lambda _: hk.probe_unpack(f8, True), 20)
+        byte_ms = self.time_ms(lambda _: hk.probe_unpack(f8, False), 20)
+        self.plain_ms["probe_unpack"] = self.time_ms(lambda _: hk.probe_unpack_plain(f8), 3)
+        self.set_bound("probe_unpack", 4 * words + h8 * w8, 2 * h8 * w8)
+        loop_plane = torch.from_numpy(hk.loop_input()).to(dev)
+        self.ms["probe_loop"] = self.time_ms(lambda _: hk.probe_loop(loop_plane), 5)
+        self.plain_ms["probe_loop"] = self.time_ms(lambda _: hk.probe_loop_plain(loop_plane), 1,
+                                                   reps=3)
+        lw = loop_plane.numel()
+        self.set_bound("probe_loop", 2 * 4 * lw, 326 * 6 * lw)  # 326 rounds: 3 ORs, a shift, a compare, a store
+        x16, x8 = (torch.from_numpy(a).to(dev) for a in sw.probe_inputs(1080, 1920))
+        self.ms["swar_stencil"] = self.time_ms(lambda _: sw.swar_stencil(x8, 4, True), 50)
+        self.plain_ms["swar_stencil"] = self.time_ms(lambda _: sw.swar_stencil_plain(x8, 4), 5)
+        self.set_bound("swar_stencil", 1080 * 1920 * (1 + 4), 5 * 1080 * 1920)
+        # The library yardstick: one 3x3 circular convolution in float32 (exact
+        # here: every value < 2^24, TF32 off) on the same plane, converted
+        # outside the timing.
+        conv = torch.nn.Conv2d(1, 1, 3, padding=1, padding_mode="circular", bias=False).to(dev)
+        with torch.no_grad():
+            conv.weight.copy_(torch.tensor([[1.0, 2.0, 1.0]] * 3, device=dev)[None, None])
+            xf = x8.float()[None, None]
+            tf32 = torch.backends.cudnn.allow_tf32
+            torch.backends.cudnn.allow_tf32 = False
+            try:
+                lib_out = conv(xf)[0, 0].to(torch.int32)
+                require(torch.equal(lib_out, sw.swar_stencil_plain(x8, 4)),
+                        "the circular convolution is not P4")
+                self.library_ms["swar_stencil"] = self.time_ms(lambda _: conv(xf), 50)
+            finally:
+                torch.backends.cudnn.allow_tf32 = tf32
+        for name, where in (("probe_pack", "8K mask"), ("probe_pack_ballot", "8K mask"),
+                            ("probe_unpack", "135x7680 words, a thread per word"),
+                            ("probe_loop", "40x256 plane, 326 rounds"),
+                            ("swar_stencil", "P4 SWAR at 1080p")):
+            print(f"time {name}: kernel {self.ms[name]!r} ms, plain {self.plain_ms[name]!r} ms, "
+                  f"bound {self.bound[name][0]!r} ms ({self.bound[name][1]}) ({where})")
+        print(f"time probe_unpack 135x7680 words: a thread per word {self.ms['probe_unpack']!r} "
+              f"ms, a thread per byte {byte_ms!r} ms")
+        print(f"time swar_stencil P4 1080p: library (circular conv2d, float32) "
+              f"{self.library_ms['swar_stencil']!r} ms")
+        for label, (h, w) in (("1080p", (1080, 1920)), ("8K", (h8, w8))):
+            xu8 = torch.from_numpy(sw.probe_inputs(h, w)[1]).to(dev)
+            t = [self.time_ms(lambda _, s=s: sw.swar_stencil(xu8, 4, s), 50)
+                 for s in (True, False, False, True)]
+            print(f"time swar_stencil P4 {label}: SWAR {t[0]!r} / {t[3]!r} ms, int32 mode "
+                  f"{t[1]!r} / {t[2]!r} ms (SWAR, int32, int32, SWAR)")
+        for blocks, us in hk.grid_sync_us(dev):
+            print(f"time grid.sync() at {blocks} blocks: {us!r} us a barrier (1000 in one "
+                  f"launch, median of 5)")
+
     def phase_app(self) -> None:
         """The live app on the card."""
         torch = self.torch
@@ -1187,15 +1411,17 @@ class Smoke:
             check(app, 3)
             table = app.profiling_table()
             rows = {n: app.engine.timers.get_average_time(n) for n, _, _ in app.engine.timers.items()}
-            require(len(rows) == 6 and all(v >= 0.0 for v in rows.values())
-                    and sum(rows.values()) > 0.0, f"profiling table:\n{table}")
+            require(app.engine._profiling_mode_resolved() == "device" and len(rows) == 6
+                    and all(v > 0.0 for v in rows.values()),
+                    f"profiling table: a stage reads no time:\n{table}")
             app.apply_controls(profiling=False, low=10, high=40)
             check(app, 2, expect=dict.fromkeys(main, 2))
             require(_build.load.cache_info().misses == loads, "a live control built or loaded something")
             json.dumps(app.status())
             print("app: thresholds, a stage cycle through all six, pipeline off/on, profiling "
                   "on/off mid-stream == CannyEngine.process, nothing built; profiling table "
-                  f"(mode {app.engine._profiling_mode_resolved()}, CUDA events):\n{table}")
+                  f"(mode {app.engine._profiling_mode_resolved()}: kernel busy time, every row "
+                  f"> 0):\n{table}")
 
         # Eight cameras: the batched kernels, one launch each a step.
         with CannyApp(open_source("multi:8*synthetic:1080x1920", n_frames=4)) as app:
@@ -1441,7 +1667,7 @@ class Smoke:
                 "max_abs_err": self.err[name], "ms": self.ms[name],
                 "plain_ms": self.plain_ms[name], "bound_ms": self.bound[name][0],
                 "bound_by": self.bound[name][1],
-                "library_ms": None,  # no one PyTorch call computes any of these functions
+                "library_ms": self.library_ms.get(name),  # None: no one PyTorch call computes it
             }
             for name in REPLACES
         ]
@@ -1461,7 +1687,7 @@ def main() -> int:
                   smoke.phase_sweep, smoke.phase_engine, smoke.phase_sharded,
                   smoke.phase_no_sync, smoke.phase_timing, smoke.phase_sweep_timing,
                   smoke.phase_sharded_timing, smoke.phase_split, smoke.phase_legacy,
-                  smoke.phase_app]
+                  smoke.phase_probes, smoke.phase_app]
         for phase in phases:
             phase()
             print(f"[{phase.__name__} done at {time.perf_counter() - t0:.1f} s]", flush=True)

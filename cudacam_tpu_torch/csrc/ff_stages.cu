@@ -17,7 +17,9 @@
 //                  threshold sweep's input; alone, as on the TPU)
 //
 // A null output pointer is not written; the chain stops at the deepest
-// stage an output needs. With an origin, the frame is a tile of a larger
+// stage an output needs: the gradient display alone stops at the blur and
+// takes each pixel's Sobel sums from it (no magnitude tile, no NMS), so
+// NMS, THRESH and NMSQ are what add the magnitude tile and the NMS test. With an origin, the frame is a tile of a larger
 // image (a halo-extended tile of a sharded frame): its pixel (0, 0) lies at
 // global (oy, ox) of an IH x IW image, zero padding is pinned to that image
 // (the TPU kernel's origin / image_size, sharded.py:255-321), and every
@@ -66,12 +68,17 @@ __global__ void __launch_bounds__(256) ff_stages_kernel(
     const size_t at = (size_t)y * W + x;
     if (o.mono) o.mono[at] = mono_at<KS>(t, i, j);
     if (o.blur) o.blur[at] = blur_at(t, i, j);
-    if (depth < kMag) continue;
+    if (depth < kBlur || (depth == kBlur && !o.grad)) continue;
     if (!in_image(s, s.sy + y, s.sx + x)) {
       if (o.grad) o.grad[at] = 0;
       if (o.nms) o.nms[at] = 0;
       if (o.thresh) o.thresh[at] = 0;
       if (o.nmsq) o.nmsq[at] = 0;
+      continue;
+    }
+    if (depth == kBlur) {  // the gradient display without a deeper stage
+      const Sobel sb = sobel_at(t, i, j);
+      o.grad[at] = display_magnitude(sb.sx, sb.sy, coeff, l2);
       continue;
     }
     const Pixel px = pixel_at(t, i, j);
@@ -109,7 +116,7 @@ extern "C" int cc_ff_stages(const void* frame, const void* thr, void* mono, void
          static_cast<uint8_t*>(grad),   static_cast<uint8_t*>(nms),
          static_cast<uint8_t*>(thresh), static_cast<int*>(nmsq)};
   if (thresh && !thr) return cudaErrorInvalidValue;
-  const int depth = (grad || nms || thresh || nmsq) ? kMag : (blur ? kBlur : kMono);
+  const int depth = (nms || thresh || nmsq) ? kMag : ((grad || blur) ? kBlur : kMono);
   auto fr = static_cast<const uint8_t*>(frame);
   auto t = static_cast<const int*>(thr);
   auto st = static_cast<cudaStream_t>(stream);

@@ -9,7 +9,8 @@
 // the export megakernel's in-kernel phase 1 (megakernel.py:607 via :569) and
 // the local saturate of the collective round loop (hysteresis_fused.py:844
 // saturate_packed -> _sat_kernel :742: both phases, the round count starting
-// at 0 on each call), over a batch of extended tiles, and unpack_core
+// at 0 on each call), over a batch of extended tiles, inside
+// sharded_loop_kernel or as two launches per round, and unpack_core
 // replaces the core unpack (megakernel.py:714 unpack_core_call ->
 // _unpack_core_kernel :653). Both phases execute the round schedule of
 // cudacam_tpu/ops/bitpack.py::_make_ops exactly: the same dilate_steps with
@@ -52,11 +53,6 @@
 //   reads them on the device, works only on frames still growing, and
 //   returns at once when none is, so the host never reads a flag back.
 //   Phase 2 writes flags[b][1] for every frame.
-// * An optional device gate: when *gate is 0 both phases return at once,
-//   writing nothing. The sharded round loop launches its bounded chain of
-//   rounds with the global pending flag as the gate, so the host never reads
-//   it back.
-//
 // * The occupancy query runs once per (phase, device, dilate_steps, B), on
 //   the first launch; later launches reuse the grid.
 //
@@ -81,6 +77,20 @@
 // cap, and the host reads nothing back. Bound: as the round kernels, grid
 // barriers; the extract and merge passes move the planes through L2 once a
 // seam round.
+//
+// sharded_loop_kernel replaces the collective round loop of the sharded path
+// on one card (cudacam_tpu/parallel/packed_halo.py:256-306: a lax.while_loop
+// whose body is K9 on every tile, the FINAL strip exchange, and a psum of
+// "some tile still growing | some new halo bit"). The whole loop is ONE
+// cooperative launch: a collective round runs both phases' round loops
+// (round_loop, the body the two round kernels launch alone) on every
+// extended tile, the round count from 0, then halo.cuh's refresh, which
+// writes the pending flag; the loop reads it after a grid barrier and runs
+// while it is up and below the round budget, then writes the rounds taken.
+// So a sharded HYSTER call is a constant handful of launches whatever the
+// cap and however soon the tiles converge, and nothing is read back. Bound:
+// grid barriers, as the round kernels; one barrier more per collective round
+// than the separate launches had, and no launch.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -91,6 +101,7 @@
 #include <tuple>
 
 #include "device_guard.cuh"
+#include "halo.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -108,7 +119,6 @@ struct Params {
   uint32_t* buf[4];   // scratch: B planes each
   int* chg;           // [3][B] per-round change flags
   int* flags;         // (B, 2, 2): phase-1 (it, growing), final (it, growing)
-  const int* gate;    // null, or: return at once when *gate == 0
   int nb;             // frames in the batch
   int hw, w, h;       // plane rows, plane columns (= image columns), image rows
   long long plane;    // words per plane: hw * w
@@ -302,18 +312,21 @@ __device__ void list_active(const Params& a, const FrameState& st, int r) {
   *st.n = n;
 }
 
+// One phase's round loop on every frame of a (hyst_kernel's body; each
+// collective round of sharded_loop_kernel runs both). Every block of a
+// cooperative grid calls it with the same arguments, and every block takes
+// the same branches: the per-frame state is a copy per block. Phase 2 reads
+// flags[b][0] through L2, so a caller may run it right after phase 1 in the
+// same launch, with a grid barrier between.
 template <bool PHASE2>
-__global__ void __launch_bounds__(NT) hyst_kernel(Params a) {
-  if (a.gate && __ldcg(a.gate) == 0) return;  // every block: the pending flag is down
-  extern __shared__ uint32_t sm[];
+__device__ void round_loop(const Params& a, uint32_t* sm, cg::grid_group& grid) {
   int* state = reinterpret_cast<int*>(sm + tile_words(a.dilate_steps));
   const FrameState st{state, state + a.nb, state + 2 * a.nb, state + 3 * a.nb};
-  cg::grid_group grid = cg::this_grid();
   const bool lead = blockIdx.x == 0 && threadIdx.x == 0;
   if (threadIdx.x == 0) {
     for (int b = 0; b < a.nb; ++b) {
-      st.it[b] = PHASE2 ? a.flags[4 * b] : 0;
-      st.grow[b] = PHASE2 ? a.flags[4 * b + 1] : 1;
+      st.it[b] = PHASE2 ? __ldcg(a.flags + 4 * b) : 0;
+      st.grow[b] = PHASE2 ? __ldcg(a.flags + 4 * b + 1) : 1;
     }
     list_active<PHASE2>(a, st, 0);
   }
@@ -366,6 +379,48 @@ __global__ void __launch_bounds__(NT) hyst_kernel(Params a) {
       a.flags[4 * b + (PHASE2 ? 3 : 1)] = st.grow[b];
     }
   }
+}
+
+template <bool PHASE2>
+__global__ void __launch_bounds__(NT) hyst_kernel(Params a) {
+  extern __shared__ uint32_t sm[];
+  cg::grid_group grid = cg::this_grid();
+  round_loop<PHASE2>(a, sm, grid);
+}
+
+// The collective round loop of a one-card sharded batch of extended tiles
+// (see the head of this file): the loop's flag, set before the launch by the
+// refresh that follows the export; the round count it writes at the end;
+// phase 1's cap, min(scan_after, max_iters); the round budget.
+struct LoopParams {
+  const int* pending;
+  int* rounds;
+  int cap1;
+  int max_rounds;
+};
+
+__global__ void __launch_bounds__(NT) sharded_loop_kernel(Params a, halo::Xchg x, LoopParams l) {
+  extern __shared__ uint32_t sm[];
+  cg::grid_group grid = cg::this_grid();
+  Params a1 = a;
+  a1.cap = l.cap1;
+  int it = 0;
+  // The reference's cond (packed_halo.py:294): the budget is tested before
+  // a round. Every thread reads the flag after a grid barrier, through L2.
+  while (it < l.max_rounds && *(volatile const int*)l.pending) {
+    // K9 on every tile, its round count from 0: phase 1, then phase 2 on the
+    // tiles still growing. Where the cap is phase 1, phase 2 finds no tile
+    // below the cap and copies each tile's phase-1 flags as final, as the
+    // host loop does, and only in a round that runs.
+    round_loop<false>(a1, sm, grid);
+    grid.sync();
+    round_loop<true>(a, sm, grid);
+    grid.sync();
+    halo::exchange_body(x, grid);  // clears newbit first, ends on a barrier
+    grid.sync();                   // *pending is written
+    ++it;
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) *l.rounds = it;
 }
 
 // The column-split continuation of one frame (see the head of this file).
@@ -583,8 +638,8 @@ cudaError_t launch_rounds(Params a, int device, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-Params make_params(void* f, const void* p, void* scratch, void* flags, const void* gate, int nb,
-                   int h, int w, int dilate_steps, int cap, int phase) {
+Params make_params(void* f, const void* p, void* scratch, void* flags, int nb, int h, int w,
+                   int dilate_steps, int cap, int phase) {
   Params a;
   a.nb = nb;
   a.hw = (h + 31) / 32;
@@ -598,7 +653,6 @@ Params make_params(void* f, const void* p, void* scratch, void* flags, const voi
   for (int i = 0; i < 4; ++i) a.buf[i] = s + (i < planes ? i : 0) * nb * a.plane;
   a.chg = reinterpret_cast<int*>(s + planes * nb * a.plane);
   a.flags = static_cast<int*>(flags);
-  a.gate = static_cast<const int*>(gate);
   a.dilate_steps = dilate_steps;
   a.cap = cap;
   a.halo_r = (dilate_steps + 31) / 32;
@@ -614,22 +668,21 @@ extern "C" long long cc_hyst_scratch_words(int nb, int h, int w, int phase) {
   return (long long)nb * (scratch_planes(phase) * (long long)((h + 31) / 32) * w + 3);
 }
 
-extern "C" int cc_hyst_phase1(void* f, const void* p, void* scratch, void* flags,
-                              const void* gate, int nb, int h, int w, int dilate_steps,
-                              int scan_after, int max_iters, int device, void* stream) {
+extern "C" int cc_hyst_phase1(void* f, const void* p, void* scratch, void* flags, int nb, int h,
+                              int w, int dilate_steps, int scan_after, int max_iters, int device,
+                              void* stream) {
   DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return guard.err;
   int cap = scan_after < max_iters ? scan_after : max_iters;
-  Params a = make_params(f, p, scratch, flags, gate, nb, h, w, dilate_steps, cap, 1);
+  Params a = make_params(f, p, scratch, flags, nb, h, w, dilate_steps, cap, 1);
   return launch_rounds<false>(a, device, static_cast<cudaStream_t>(stream));
 }
 
-extern "C" int cc_hyst_phase2(void* f, const void* p, void* scratch, void* flags,
-                              const void* gate, int nb, int h, int w, int dilate_steps,
-                              int max_iters, int device, void* stream) {
+extern "C" int cc_hyst_phase2(void* f, const void* p, void* scratch, void* flags, int nb, int h,
+                              int w, int dilate_steps, int max_iters, int device, void* stream) {
   DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return guard.err;
-  Params a = make_params(f, p, scratch, flags, gate, nb, h, w, dilate_steps, max_iters, 2);
+  Params a = make_params(f, p, scratch, flags, nb, h, w, dilate_steps, max_iters, 2);
   return launch_rounds<true>(a, device, static_cast<cudaStream_t>(stream));
 }
 
@@ -682,8 +735,8 @@ extern "C" int cc_split_converge(void* f, const void* p, void* scratch, void* fl
   const long long planes = (long long)n_split * ((h + 31) / 32) * (ws + 2 * k);
   // The slice batch: its FINAL planes first, then the four scratch planes
   // and the change flags where make_params puts them, then the CANDIDATEs.
-  Params a = make_params(sc, sc + 5 * planes + 3 * n_split, sc + planes, nullptr, nullptr, n_split,
-                         h, ws + 2 * k, dilate_steps, inner, 2);
+  Params a = make_params(sc, sc + 5 * planes + 3 * n_split, sc + planes, nullptr, n_split, h,
+                         ws + 2 * k, dilate_steps, inner, 2);
   SplitParams s;
   s.ff = static_cast<uint32_t*>(f);
   s.fp = static_cast<const uint32_t*>(p);
@@ -703,6 +756,70 @@ extern "C" int cc_split_converge(void* f, const void* p, void* scratch, void* fl
   void* args[] = {&a, &s};
   err = cudaLaunchCooperativeKernel(kern, dim3(grid), dim3(NT), args,
                                     smem_bytes(dilate_steps, n_split), static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// int32 words of scratch the sharded loop needs for T extended tiles of
+// h x w: phase 2's four scratch planes and 3 change flags a tile (phase 1
+// uses the first plane), then the refresh's strips and new-bit word.
+extern "C" long long cc_sharded_loop_scratch_words(int tiles, int h, int w) {
+  return cc_hyst_scratch_words(tiles, h, w, 2) + halo::scratch_words(tiles, w);
+}
+
+// The collective round loop of a one-card (nb, ny, nx) mesh, one launch:
+// f, p are the (T, ceil(h/32), w) extended-tile planes (T = nb ny nx, h x w
+// the extended tile), flags the (T, 2, 2) round flags, pending the one-int
+// loop flag the refresh before it set, rounds the one int it writes. geo: 5
+// ints (e_top, h_loc, e_left, w_loc, ext_h), as cc_halo_exchange's.
+extern "C" int cc_sharded_loop(void* f, const void* p, void* scratch, void* flags,
+                               const void* pending, void* rounds, int nb, int ny, int nx, int h,
+                               int w, const int* geo, int dilate_steps, int scan_after,
+                               int max_iters, int max_rounds, int device, void* stream) {
+  DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return guard.err;
+  if (nb < 1 || ny < 1 || nx < 1 || max_rounds < 0) return cudaErrorInvalidValue;
+  const int tiles = nb * ny * nx;
+  Params a = make_params(f, p, scratch, flags, tiles, h, w, dilate_steps, max_iters, 2);
+  halo::Xchg x;
+  x.x = a.f;
+  x.strips = reinterpret_cast<uint32_t*>(a.chg + 3 * tiles);
+  x.newbit = reinterpret_cast<int*>(x.strips + 2LL * tiles * w);
+  x.grow = a.flags + 3;  // flags[t][1][1]: the saturate's final "still growing"
+  x.n_grow = tiles;
+  x.grow_stride = 4;
+  x.pending = const_cast<int*>(static_cast<const int*>(pending));
+  x.nb = nb;
+  x.ny = ny;
+  x.nx = nx;
+  x.hw = a.hw;
+  x.w = w;
+  x.e_top = geo[0];
+  x.h_loc = geo[1];
+  x.e_left = geo[2];
+  x.w_loc = geo[3];
+  x.ext_h = geo[4];
+  LoopParams l;
+  l.pending = static_cast<const int*>(pending);
+  l.rounds = static_cast<int*>(rounds);
+  l.cap1 = scan_after < max_iters ? scan_after : max_iters;
+  l.max_rounds = max_rounds;
+  // One grid for the saturate and the refresh: it covers phase 1's tiles of
+  // every extended tile, their words, or the refresh's lanes, whichever is
+  // more, up to this kernel's own co-resident limit (its registers and
+  // shared memory are the union of both steps').
+  const void* kern = (const void*)sharded_loop_kernel;
+  unsigned grid = 0;
+  cudaError_t err = grid_blocks(kern, a, tiles, device, &grid);
+  if (err != cudaSuccess) return err;
+  int limit = 0;
+  err = max_grid(kern, device, dilate_steps, tiles, &limit);
+  if (err != cudaSuccess) return err;
+  const long long xgrid = (halo::work_items(x) + NT - 1) / NT;
+  if (xgrid > grid) grid = (unsigned)(xgrid < limit ? xgrid : limit);
+  void* args[] = {&a, &x, &l};
+  err = cudaLaunchCooperativeKernel(kern, dim3(grid), dim3(NT), args,
+                                    smem_bytes(dilate_steps, tiles), static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }

@@ -194,6 +194,19 @@ __device__ __forceinline__ int blur_at(const Tile& t, int i, int j) {
   return t.blur[i + 2][j + 2];
 }
 
+// Sobel sums of tile pixel (i, j): needs the chain to kBlur only.
+struct Sobel {
+  int sx, sy;
+};
+
+__device__ __forceinline__ Sobel sobel_at(const Tile& t, int i, int j) {
+  const int b = i + 2, c = j + 2;
+  return {-t.blur[b - 1][c - 1] + t.blur[b - 1][c + 1] - 2 * t.blur[b][c - 1] +
+              2 * t.blur[b][c + 1] - t.blur[b + 1][c - 1] + t.blur[b + 1][c + 1],
+          t.blur[b - 1][c - 1] + 2 * t.blur[b - 1][c] + t.blur[b - 1][c + 1] -
+              t.blur[b + 1][c - 1] - 2 * t.blur[b + 1][c] - t.blur[b + 1][c + 1]};
+}
+
 // Sobel sums, comparable magnitude and NMS decision of tile pixel (i, j).
 struct Pixel {
   int sx, sy, g;
@@ -202,11 +215,9 @@ struct Pixel {
 
 __device__ __forceinline__ Pixel pixel_at(const Tile& t, int i, int j) {
   Pixel px;
-  const int b = i + 2, c = j + 2;
-  px.sx = -t.blur[b - 1][c - 1] + t.blur[b - 1][c + 1] - 2 * t.blur[b][c - 1] +
-          2 * t.blur[b][c + 1] - t.blur[b + 1][c - 1] + t.blur[b + 1][c + 1];
-  px.sy = t.blur[b - 1][c - 1] + 2 * t.blur[b - 1][c] + t.blur[b - 1][c + 1] -
-          t.blur[b + 1][c - 1] - 2 * t.blur[b + 1][c] - t.blur[b + 1][c + 1];
+  const Sobel sb = sobel_at(t, i, j);
+  px.sx = sb.sx;
+  px.sy = sb.sy;
   const int gr = i + 1, gc = j + 1;
   px.g = t.gmag[gr][gc];
   const int v = abs(px.sx) << 15;

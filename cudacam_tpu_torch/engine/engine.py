@@ -24,9 +24,13 @@ plain stage ops one by one, which are the CPU engine's own path, so it is a
 mode of ``device='cpu'`` only and raises on the card (a profiled frame on the
 card is always the kernels' output); ``cumulative`` times the run-to-stage-k
 programs users actually run and gives stage k the increment t(k) - t(k-1),
-clamped at 0; ``device`` samples the same increments once per (batch, stage)
-from the kernels' busy time under ``torch.profiler`` and then streams
-untimed; ``auto`` is ``cumulative`` on the card and ``stages`` on the CPU.
+clamped at 0; ``device`` samples increments once per (batch, stage) from the
+kernels' busy time under ``torch.profiler`` and then streams untimed: t(k)
+of a display stage is the one-pass feed-forward kernel writing every buffer
+MONO..k, so each stage's row is what producing its own buffer adds (the
+run-to-stage-k programs differ by less than their noise: THRESH's skips the
+magnitude that NMS's computes); ``auto`` is ``device`` on the card and
+``stages`` on the CPU.
 """
 from __future__ import annotations
 
@@ -43,6 +47,7 @@ from cudacam_tpu_torch.stages import CANNY_STAGE_NAMES, CannyStage
 from cudacam_tpu_torch.ops import bitpack, torch_ops
 from cudacam_tpu_torch.ops.cuda import canny
 from cudacam_tpu_torch.ops.cuda._build import load
+from cudacam_tpu_torch.ops.cuda.feedforward import ff_stages
 from cudacam_tpu_torch.utils.devtime import device_time_ms_per_call, event_time_ms_per_call
 from cudacam_tpu_torch.utils.logging import get_logger
 from cudacam_tpu_torch.utils.timer import TimerManager
@@ -108,6 +113,9 @@ class ThresholdControls:
 class CannyEngine(ThresholdControls):
     """Spec-locked Canny engine on one torch device."""
 
+    #: Interleaved sampling rounds of the ``device`` profiling mode.
+    PROFILE_ROUNDS = 5
+
     def __init__(
         self,
         config: CannyConfig,
@@ -164,7 +172,7 @@ class CannyEngine(ThresholdControls):
                 "device='cpu' only; on the card use 'cumulative' or 'device'")
         if self.profiling_mode != "auto":
             return self.profiling_mode
-        return "cumulative" if on_card else "stages"
+        return "device" if on_card else "stages"
 
     def _validate(self, frame: FrameLike) -> Tuple[torch.Tensor, bool]:
         """Spec lock + type checks; returns (tensor on the engine's device,
@@ -316,26 +324,51 @@ class CannyEngine(ThresholdControls):
             prev = ms
         return out
 
+    def _sample_program(self, arr, batched: bool, stage: CannyStage, thr) -> Callable[[], object]:
+        """The program whose time ends stage ``stage`` in the ``device``
+        mode: HYSTER's own; for a display stage the one-pass feed-forward
+        kernel (``ff_stages``, K7) writing every buffer MONO..``stage``,
+        frame by frame as the display stages run a batch."""
+        if stage == CannyStage.HYSTER:
+            return lambda: self._to_stage(arr, batched, stage, thr)
+        stages = tuple(s for s in CannyStage if s <= stage)
+        frames = arr if batched else arr.unsqueeze(0)
+        kw = canny.ff_kwargs(self._cfg)
+        return lambda: [ff_stages(f, thr, stages, **kw) for f in frames]
+
+    def _sample_ms(self, run: Callable[[], object]) -> float:
+        """One device-mode sample of ``run``: kernel busy ms per call over 20
+        calls; CUDA events where the profiler shows no device time; on the
+        CPU, the wall clock of one call, which is honest there."""
+        ms = None
+        if self._device.type == "cuda":
+            ms = device_time_ms_per_call(run, calls=20, device=self._device)
+            if ms is None:
+                ms = event_time_ms_per_call(run, calls=5, device=self._device)
+        return self._timed_ms(run)[1] if ms is None else ms
+
     def _process_profiled_device(self, arr, batched: bool, final_stage: CannyStage,
                                  thr) -> torch.Tensor:
         """Per-stage times from the kernels' busy time (``torch.profiler``),
         not from a clock around the calls: the first profiled frame of a
-        (batch, stage) samples each cumulative run-to-stage-k program under
-        the profiler and records the increments; later frames run the
-        program untimed, so the stream keeps its speed and the table shows
-        the sample. Where the profiler shows no device time, CUDA events
-        take its place; on the CPU, the wall clock."""
+        (batch, stage) samples each stage's program (:meth:`_sample_program`)
+        in ``PROFILE_ROUNDS`` interleaved rounds, so that a drift of the
+        card's clock falls on every stage alike, and records the increments
+        of the medians; later frames run the program untimed, so the stream
+        keeps its speed and the table shows the sample."""
         key = ("devsample", batched, final_stage)
         if key not in self._profile_warmed:
-            prev = 0.0
-            for stage in self._stages_to(final_stage):
-                run = lambda: self._to_stage(arr, batched, stage, thr)  # noqa: E731
+            stages = self._stages_to(final_stage)
+            runs = [self._sample_program(arr, batched, s, thr) for s in stages]
+            for run in runs:
                 run()  # warm
-                ms = device_time_ms_per_call(run, calls=3, device=self._device)
-                if ms is None:
-                    ms = event_time_ms_per_call(run, calls=3, device=self._device)
-                if ms is None:  # the CPU: the wall clock is honest
-                    ms = self._timed_ms(run)[1]
+            samples = [[] for _ in stages]
+            for _ in range(self.PROFILE_ROUNDS):
+                for got, run in zip(samples, runs):
+                    got.append(self._sample_ms(run))
+            prev = 0.0
+            for stage, got in zip(stages, samples):
+                ms = float(np.median(got))
                 self._timers.add_time(CANNY_STAGE_NAMES[stage], max(0.0, ms - prev))
                 prev = ms
             self._profile_warmed.add(key)

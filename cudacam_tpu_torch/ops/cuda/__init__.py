@@ -15,13 +15,14 @@ from cudacam_tpu_torch.ops.cuda.hysteresis import hysteresis_sweeps, hysteresis_
 #: order, then the display stages' feed-forward kernel, the two-kernel path's
 #: pack and the threshold sweep's per-pair pack; then the tile-sharded
 #: path's: ``ff_pack`` in its export mode (with ``hyst_phase1``, K8), the
-#: gated round kernels of the round loop's local saturate (K9), the core
-#: unpack (K10) and the halo exchange; then the column-split continuation
-#: (K11) and the legacy row-sweep hysteresis (K12).
+#: round kernels as the host loop's local saturate (K9), the core unpack
+#: (K10), the halo exchange and the one-card round loop (K9 + the exchange
+#: in one launch); then the column-split continuation (K11) and the legacy
+#: row-sweep hysteresis (K12); then the probes' kernels (K13, K14).
 KERNELS = ("ff_pack", "hyst_phase1", "hyst_phase2", "unpack", "ff_stages", "pack_thresh",
            "sweep_pack", "ff_pack_export", "saturate_phase1", "saturate_phase2", "unpack_core",
-           "halo_exchange", "split_converge", "hyst_sweeps")
-
+           "halo_exchange", "sharded_loop", "split_converge", "hyst_sweeps", "probe_pack",
+           "probe_pack_ballot", "probe_loop", "probe_unpack", "swar_stencil")
 
 __all__ = ["KERNELS", "hysteresis_sweeps", "hysteresis_sweeps_plain", "launch_counts",
            "reset_launch_counts"]

@@ -39,8 +39,8 @@ SIGNATURES = {
     "cc_ff_pack": (_I, [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P]),
     "cc_ff_stages": (_I, [_P] * 8 + [_I] * 12 + [_P]),
     "cc_pack_thresh": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
-    "cc_hyst_phase1": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
-    "cc_hyst_phase2": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "cc_hyst_phase1": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
+    "cc_hyst_phase2": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "cc_hyst_scratch_words": (ctypes.c_longlong, [_I, _I, _I, _I]),
     "cc_split_converge": (_I, [_P, _P, _P, _P] + [_I] * 8 + [_P]),
     "cc_split_scratch_words": (ctypes.c_longlong, [_I, _I, _I]),
@@ -48,9 +48,16 @@ SIGNATURES = {
     "cc_hyst_sweeps_smem": (ctypes.c_longlong, [_I, _I]),
     "cc_unpack": (_I, [_P, _P, _P, _I, _I, _I, _I, _P]),
     "cc_unpack_core": (_I, [_P, _P] + [_I] * 12 + [_P]),
-    "cc_halo_exchange": (_I, [_P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P]),
+    "cc_halo_exchange": (_I, [_P, _P, _P, _I, _I, _P, _I, _I, _I, _I, _I, _P, _I, _P]),
     "cc_exchange_scratch_words": (ctypes.c_longlong, [_I, _I]),
+    "cc_sharded_loop": (_I, [_P] * 6 + [_I] * 5 + [_P] + [_I] * 5 + [_P]),
+    "cc_sharded_loop_scratch_words": (ctypes.c_longlong, [_I, _I, _I]),
     "cc_sweep_pack": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "cc_probe_pack": (_I, [_P, _P, _I, _I, _I, _I, _P]),
+    "cc_probe_loop": (_I, [_P, _P, _P] + [_I] * 6 + [_P]),
+    "cc_probe_loop_max_blocks": (_I, [_I]),
+    "cc_probe_unpack": (_I, [_P, _P, _I, _I, _I, _I, _P]),
+    "cc_swar_stencil": (_I, [_P, _P, _I, _I, _I, _I, _I, _P]),
     "cc_error_string": (ctypes.c_char_p, [_I]),
 }
 

@@ -2,15 +2,17 @@
 launch.
 
 Wraps ``csrc/halo.cu``, which replaces the strip exchange of the sharded
-round loop. The JAX package computes it as XLA ops around
-``jax.lax.ppermute`` (cudacam_tpu/parallel/packed_halo.py: ``exchange_packed``
-:195, ``_extract32`` :124, ``_or_place32`` :150) with a ``psum``'d flag
+round loop; its body (``csrc/halo.cuh``) is also one step of the round loop
+kernel (``parallel/packed_halo.py::sharded_loop``). The JAX package
+computes it as XLA ops around ``jax.lax.ppermute``
+(cudacam_tpu/parallel/packed_halo.py: ``exchange_packed`` :195,
+``_extract32`` :124, ``_or_place32`` :150) with a ``psum``'d flag
 (``packed_hysteresis_loop`` :288-306); as plain torch ops it would be about
 30 launches per round. On one card every tile of the (b, y, x) mesh is a
 slice of one tensor, so the kernel does the vertical strips, the horizontal
 ones, the OR placement, the new-bit test and the pending flag for all tiles
 in one cooperative launch. Its plain version is
-``parallel/packed_halo.py::exchange_packed`` with the index-shift hop.
+``ops/packed_strips.py::exchange_packed`` with the index-shift hop.
 """
 from __future__ import annotations
 
@@ -31,16 +33,15 @@ def _scratch_words(tiles: int, w: int) -> int:
     return load().lib.cc_exchange_scratch_words(tiles, w)
 
 
-def _check(x, grid, geo, grow, gate, pending, rounds) -> None:
+def _check(x, grid, geo, grow, pending) -> None:
     nb, ny, nx = grid
     want = (nb * ny * nx, geo.hw, geo.ext_w)
     if x.dtype != torch.int32 or tuple(x.shape) != want:
         raise ValueError(f"planes must be a {want} int32 tensor, got {tuple(x.shape)} {x.dtype}")
     if grow is not None and grow.ndim != 1:
         raise ValueError("grow must be a 1-D tensor")
-    for name, t in (("gate", gate), ("pending", pending), ("rounds", rounds)):
-        if t is not None and (t.dtype != torch.int32 or t.numel() != 1):
-            raise ValueError(f"{name} must be a one-element int32 tensor")
+    if pending is not None and (pending.dtype != torch.int32 or pending.numel() != 1):
+        raise ValueError("pending must be a one-element int32 tensor")
 
 
 def halo_exchange_plain(
@@ -49,22 +50,16 @@ def halo_exchange_plain(
     geo: PackedGeo,
     *,
     grow: Optional[torch.Tensor] = None,
-    gate: Optional[torch.Tensor] = None,
     pending: Optional[torch.Tensor] = None,
-    rounds: Optional[torch.Tensor] = None,
 ) -> None:
     """Plain PyTorch version of :func:`halo_exchange`, on any device:
     ``exchange_packed`` with the index-shift hop."""
-    if gate is not None and int(gate.reshape(())) == 0:
-        return
     _, ny, nx = grid
     out, new = exchange_packed(x, geo, ny, nx, local_shift(ny, nx))
     x.copy_(out)
     if pending is not None:
         grown = grow is not None and bool(grow.ne(0).any())
         pending.fill_(int(grown or bool(new.any())))
-    if rounds is not None:
-        rounds += 1
 
 
 def halo_exchange(
@@ -73,39 +68,36 @@ def halo_exchange(
     geo: PackedGeo,
     *,
     grow: Optional[torch.Tensor] = None,
-    gate: Optional[torch.Tensor] = None,
     pending: Optional[torch.Tensor] = None,
-    rounds: Optional[torch.Tensor] = None,
 ) -> None:
     """One halo refresh of the (nb ny nx, hw, ext_w) planes of every tile of
     a (nb, ny, nx) one-card mesh, in place. ``pending`` (one int32) becomes
     1 when a tile of ``grow`` (1-D, nonzero = still growing) grows or a halo
-    bit was new, else 0; ``rounds`` (one int32) is raised by one. With a
-    ``gate`` holding 0 nothing runs: the loop's pending flag, read on the
-    device."""
-    _check(x, grid, geo, grow, gate, pending, rounds)
-    kw = dict(grow=grow, gate=gate, pending=pending, rounds=rounds)
-    if use_plain(x, *kw.values()):
-        halo_exchange_plain(x, grid, geo, **kw)
+    bit was new, else 0."""
+    _check(x, grid, geo, grow, pending)
+    if use_plain(x, grow, pending):
+        halo_exchange_plain(x, grid, geo, grow=grow, pending=pending)
         return
     if grow is not None and grow.dtype != torch.int32:
         grow = grow.to(torch.int32)
-    require_contiguous(x, *(t for t in (gate, pending, rounds) if t is not None))
+    require_contiguous(x, *([pending] if pending is not None else []))
     scratch = torch.empty(_scratch_words(x.shape[0], geo.ext_w), dtype=torch.int32,
                           device=x.device)
-    geo_c = (ctypes.c_int * 5)(geo.e_top, geo.h_loc, geo.e_left, geo.w_loc, geo.ext_h)
-
-    def ptr(t):
-        return t.data_ptr() if t is not None else None
-
     nb, ny, nx = grid
     lib = load()
     lib.check(
         lib.lib.cc_halo_exchange(
-            x.data_ptr(), scratch.data_ptr(), ptr(grow), grow.numel() if grow is not None else 0,
-            grow.stride(0) if grow is not None else 0, ptr(gate), ptr(pending), ptr(rounds),
-            nb, ny, nx, geo.hw, geo.ext_w, geo_c, x.device.index, stream_of(x),
+            x.data_ptr(), scratch.data_ptr(), grow.data_ptr() if grow is not None else None,
+            grow.numel() if grow is not None else 0, grow.stride(0) if grow is not None else 0,
+            pending.data_ptr() if pending is not None else None, nb, ny, nx, geo.hw, geo.ext_w,
+            geo_args(geo), x.device.index, stream_of(x),
         ),
         "halo_exchange",
     )
     count_launch("halo_exchange")
+
+
+def geo_args(geo: PackedGeo) -> ctypes.Array:
+    """The geometry as the C entry points take it: 5 ints (e_top, h_loc,
+    e_left, w_loc, ext_h)."""
+    return (ctypes.c_int * 5)(geo.e_top, geo.h_loc, geo.e_left, geo.w_loc, geo.ext_h)

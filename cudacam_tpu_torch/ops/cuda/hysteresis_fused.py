@@ -20,7 +20,8 @@ Port of the TPU saturate kernel (hysteresis_fused.py:844 ``pallas_call`` in
 ``saturate_packed`` :812 -> ``_sat_kernel`` :742), the local operator of the
 sharded round loop: both phases on the carried packed planes of a batch of
 extended tiles, the round count starting at 0 on each call, as the two round
-kernels with an optional device gate.
+kernels (on a one-card mesh the same round code runs inside the round loop
+kernel, ``parallel/packed_halo.py::sharded_loop``).
 
 Port of the column-split convergence (hysteresis_fused.py:876
 ``converge_packed_split``, no ``pallas_call`` of its own: one
@@ -41,8 +42,8 @@ from cudacam_tpu_torch.ops.cuda._build import (
     count_launch, load, require_contiguous, stream_of, use_plain,
 )
 from cudacam_tpu_torch.ops.cuda.megakernel import (
-    _check_planes, _check_steps, _phase2, converge, converge_unpack, hyst_phase1,
-    hyst_phase1_plain, hyst_phase2_plain, unpack, unpack_plain,
+    _check_planes, _check_steps, _launch_rounds, converge, converge_unpack, hyst_phase1_plain,
+    hyst_phase2_plain, unpack, unpack_plain,
 )
 
 #: Seam halo of a column slice, in columns: the neighbour state a seam round
@@ -298,17 +299,15 @@ def saturate_packed_plain(
     dilate_steps: int = 16,
     scan_after: int = 10,
     max_iters: int = 100,
-    gate: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of :func:`saturate_packed`, on any device:
-    ``bitpack``'s two phases tile by tile (nothing when ``gate`` holds 0)."""
-    if gate is None or int(gate.reshape(())):
-        hyst_phase1_plain(f, p, flags, h, dilate_steps=dilate_steps, scan_after=scan_after,
-                          max_iters=max_iters)
-        if scan_after < max_iters:
-            hyst_phase2_plain(f, p, flags, h, dilate_steps=dilate_steps, max_iters=max_iters)
-        else:
-            flags[:, 1] = flags[:, 0]
+    ``bitpack``'s two phases tile by tile."""
+    hyst_phase1_plain(f, p, flags, h, dilate_steps=dilate_steps, scan_after=scan_after,
+                      max_iters=max_iters)
+    if scan_after < max_iters:
+        hyst_phase2_plain(f, p, flags, h, dilate_steps=dilate_steps, max_iters=max_iters)
+    else:
+        flags[:, 1] = flags[:, 0]
     return f, flags[:, 1, 1]
 
 
@@ -321,21 +320,26 @@ def saturate_packed(
     dilate_steps: int = 16,
     scan_after: int = 10,
     max_iters: int = 100,
-    gate: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Local saturation of (T, ceil(h/32), w) extended-tile planes, in
     place, the round count starting at 0: phase 1, then phase 2 on the
     tiles still growing. Returns ``(f, growing)``, ``growing`` the (T,)
     int32 view ``flags[:, 1, 1]``: the cap stopped a state that was still
-    changing. Two launches on CUDA tensors (``hyst_phase1``,
-    ``hyst_phase2``), the plain ``bitpack`` loops on CPU tensors. With a
-    ``gate`` (one int32 on the planes' device) holding 0, nothing runs: the
-    round loop's pending flag, read on the device."""
+    changing. Two launches on CUDA tensors (the round kernels, counted as
+    ``saturate_phase1`` and ``saturate_phase2``), the plain ``bitpack``
+    loops on CPU tensors."""
     if f.ndim != 3:
         raise ValueError("saturate_packed takes (T, hw, w) planes")
-    hyst_phase1(f, p, flags, h, dilate_steps=dilate_steps, scan_after=scan_after,
-                max_iters=max_iters, gate=gate)
-    _phase2(f, p, flags, h, dilate_steps, scan_after, max_iters, gate)
+    kw = dict(dilate_steps=dilate_steps, scan_after=scan_after, max_iters=max_iters)
+    _check_planes(f, p, h, flags)
+    if use_plain(f, p, flags):
+        return saturate_packed_plain(f, p, flags, h, **kw)
+    _check_steps(dilate_steps)
+    _launch_rounds(1, f, p, flags, h, dilate_steps, scan_after, max_iters, name="saturate_phase1")
+    if scan_after < max_iters:
+        _launch_rounds(2, f, p, flags, h, dilate_steps, max_iters, name="saturate_phase2")
+    else:
+        flags[:, 1] = flags[:, 0]
     return f, flags[:, 1, 1]
 
 

@@ -23,9 +23,7 @@ batch of halo-extended tiles: :func:`mega_export` replaces the export-mode
 megakernel (``canny_mega_export`` :607 -> ``_mega_call`` :569 with
 ``export_only``: ``ff_pack`` over a :class:`Tiling`, then phase 1), and
 :func:`unpack_core` replaces the core unpack (``unpack_core_call`` :689 ->
-``_unpack_core_kernel`` :653, ``pallas_call`` :714). Both round kernels take
-an optional device ``gate``: when it holds 0 they return at once, so the
-sharded round loop launches a bounded chain of rounds with no readback.
+``_unpack_core_kernel`` :653, ``pallas_call`` :714).
 
 Phase 2 is always launched (no host branch, no readback of a flag); it is
 skipped statically only when ``scan_after >= max_iters``, where the cap is
@@ -103,31 +101,20 @@ def _scratch_words(nb: int, h: int, w: int, phase: int) -> int:
     return load().lib.cc_hyst_scratch_words(nb, h, w, phase)
 
 
-def _check_gate(gate: Optional[torch.Tensor]) -> None:
-    if gate is not None and (gate.dtype != torch.int32 or gate.numel() != 1):
-        raise ValueError("gate must be a one-element int32 tensor")
-
-
-def _gate_closed(gate: Optional[torch.Tensor]) -> bool:
-    """The plain versions' reading of the gate (a CPU tensor: no sync)."""
-    return gate is not None and int(gate.reshape(())) == 0
-
-
-def _launch_rounds(phase: int, f, p, flags, gate, h: int, *args) -> None:
-    """One launch of a round kernel. Its count is ``hyst_phase1`` /
-    ``hyst_phase2``, or ``saturate_phase1`` / ``saturate_phase2`` for a gated
-    launch: the sharded round loop's local saturate (K9)."""
-    require_contiguous(f, p, flags, *([gate] if gate is not None else []))
+def _launch_rounds(phase: int, f, p, flags, h: int, *args, name: Optional[str] = None) -> None:
+    """One launch of a round kernel, counted as ``hyst_phase1`` /
+    ``hyst_phase2`` or as ``name`` (the sharded host loop's local saturate,
+    K9, counts its launches as ``saturate_phase1`` / ``saturate_phase2``)."""
+    require_contiguous(f, p, flags)
     nb, w = (f.shape[0] if f.ndim == 3 else 1), f.shape[-1]
     lib = load()
-    name = f"{'hyst' if gate is None else 'saturate'}_phase{phase}"
     # Stream-ordered: the scratch is reusable once the kernel ran.
     scratch = torch.empty(_scratch_words(nb, h, w, phase), dtype=torch.int32, device=f.device)
     entry = lib.lib.cc_hyst_phase1 if phase == 1 else lib.lib.cc_hyst_phase2
+    name = name or f"hyst_phase{phase}"
     lib.check(
-        entry(f.data_ptr(), p.data_ptr(), scratch.data_ptr(), flags.data_ptr(),
-              gate.data_ptr() if gate is not None else None, nb, h, w, *args, f.device.index,
-              stream_of(f)),
+        entry(f.data_ptr(), p.data_ptr(), scratch.data_ptr(), flags.data_ptr(), nb, h, w, *args,
+              f.device.index, stream_of(f)),
         name,
     )
     count_launch(name)
@@ -143,8 +130,8 @@ def hyst_phase1_plain(
     scan_after: int = 10,
     max_iters: int = 100,
 ) -> None:
-    """Plain PyTorch version of :func:`hyst_phase1` (ungated), on any
-    device: ``bitpack``'s phase 1 frame by frame."""
+    """Plain PyTorch version of :func:`hyst_phase1`, on any device:
+    ``bitpack``'s phase 1 frame by frame."""
     for fb, pb, flb in zip(_frames(f, 2), _frames(p, 2), _frames(flags, 2)):
         nf, it, growing = bitpack.converge_phase1(
             fb, pb, h, fb.shape[1], dilate_steps, scan_after, max_iters)
@@ -161,21 +148,17 @@ def hyst_phase1(
     dilate_steps: int = 16,
     scan_after: int = 10,
     max_iters: int = 100,
-    gate: Optional[torch.Tensor] = None,
 ) -> None:
     """Phase-1 rounds on the packed planes of one frame or a batch, in
     place: each frame's plane becomes its phase-1 exit state and its
-    flags[0] = (round count, still growing). With a ``gate`` (one int32 on
-    the planes' device) holding 0, nothing runs."""
+    flags[0] = (round count, still growing)."""
     _check_planes(f, p, h, flags)
-    _check_gate(gate)
-    if use_plain(f, p, flags, gate):
-        if not _gate_closed(gate):
-            hyst_phase1_plain(f, p, flags, h, dilate_steps=dilate_steps, scan_after=scan_after,
-                              max_iters=max_iters)
+    if use_plain(f, p, flags):
+        hyst_phase1_plain(f, p, flags, h, dilate_steps=dilate_steps, scan_after=scan_after,
+                          max_iters=max_iters)
         return
     _check_steps(dilate_steps)
-    _launch_rounds(1, f, p, flags, gate, h, dilate_steps, scan_after, max_iters)
+    _launch_rounds(1, f, p, flags, h, dilate_steps, scan_after, max_iters)
 
 
 def hyst_phase2_plain(
@@ -187,8 +170,8 @@ def hyst_phase2_plain(
     dilate_steps: int = 16,
     max_iters: int = 100,
 ) -> None:
-    """Plain PyTorch version of :func:`hyst_phase2` (ungated), on any
-    device: ``bitpack``'s phase 2 on the frames still growing."""
+    """Plain PyTorch version of :func:`hyst_phase2`, on any device:
+    ``bitpack``'s phase 2 on the frames still growing."""
     for fb, pb, flb in zip(_frames(f, 2), _frames(p, 2), _frames(flags, 2)):
         it0, growing = (int(v) for v in flb[0])
         if growing:
@@ -208,21 +191,18 @@ def hyst_phase2(
     *,
     dilate_steps: int = 16,
     max_iters: int = 100,
-    gate: Optional[torch.Tensor] = None,
 ) -> None:
     """Phase-2 continuation of one frame or a batch, in place: each frame
     whose flags[0] says still growing resumes at its round count with
     dilations + scans while its state changes and the count is below
     ``max_iters``; every frame's flags[1] = its final (round count, still
-    growing). With a ``gate`` holding 0, nothing runs."""
+    growing)."""
     _check_planes(f, p, h, flags)
-    _check_gate(gate)
-    if use_plain(f, p, flags, gate):
-        if not _gate_closed(gate):
-            hyst_phase2_plain(f, p, flags, h, dilate_steps=dilate_steps, max_iters=max_iters)
+    if use_plain(f, p, flags):
+        hyst_phase2_plain(f, p, flags, h, dilate_steps=dilate_steps, max_iters=max_iters)
         return
     _check_steps(dilate_steps)
-    _launch_rounds(2, f, p, flags, gate, h, dilate_steps, max_iters)
+    _launch_rounds(2, f, p, flags, h, dilate_steps, max_iters)
 
 
 def unpack_plain(f: torch.Tensor, h: int, index: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -363,7 +343,9 @@ def mega_export(
 def split_count(h: int, w: int) -> int:
     """``n_split`` of the split continuation for an h x w frame: 2, doubled
     while a slice is over ``SPLIT_SLICE_BYTES`` and the doubled count still
-    divides ``w`` (so the result always divides an even ``w``)."""
+    divides ``w`` (so the result always divides an even ``w``). The JAX
+    package's rule is another (one plane + 256 columns against its 2.4 MB
+    slice budget); ``tests/test_torch_split.py`` lists where the two part."""
     hw = -(-h // 32)
     n = 2
     while w % (2 * n) == 0 and 6 * 4 * hw * (w // n + 128) > SPLIT_SLICE_BYTES:
@@ -377,7 +359,17 @@ def _cont_split(f, p, flags, h: int, dilate_steps: int, max_iters: int) -> torch
     ``converge_packed_split`` (resuming the round budget at the frame's
     phase-1 count, ``scan_after`` 0, ``SPLIT_CHUNK`` internal rounds; gated on
     the frame's growing flag on the device), then ``unpack``, as the kernel
-    route ends. B + 1 launches whatever the cap, no host sync."""
+    route ends. B + 1 launches whatever the cap, no host sync.
+
+    ``n_split`` is :func:`split_count`'s, not the JAX package's rule, and
+    it is part of the bytes when the cap cuts a frame off: a truncated
+    output equals the JAX package's ``cont='split'`` only for frame sizes
+    where the two rules agree (``tests/test_torch_split.py`` lists them:
+    every size the tests and ``chip_smoke.py`` run, 8K and 8640x15360
+    included; they part at 5760x10240, 2 against 4, and 6480x11520, 4
+    against 8). Converged outputs equal it everywhere, and
+    ``converge_packed_split`` with an explicit ``n_split`` stays byte-equal
+    to its JAX counterpart at every size."""
     from cudacam_tpu_torch.ops.cuda.hysteresis_fused import converge_packed_split
 
     w = f.shape[-1]
@@ -388,16 +380,13 @@ def _cont_split(f, p, flags, h: int, dilate_steps: int, max_iters: int) -> torch
     return unpack(f, h)
 
 
-def _phase2(f, p, flags, h: int, dilate_steps: int, scan_after: int, max_iters: int,
-            gate: Optional[torch.Tensor] = None) -> None:
+def _phase2(f, p, flags, h: int, dilate_steps: int, scan_after: int, max_iters: int) -> None:
     """Phase 2 after phase 1 or, when the cap is phase 1, its exit state as
-    final (left as it was when ``gate`` holds 0)."""
+    final."""
     if scan_after < max_iters:
-        hyst_phase2(f, p, flags, h, dilate_steps=dilate_steps, max_iters=max_iters, gate=gate)
-    elif gate is None:
-        flags[..., 1, :] = flags[..., 0, :]
+        hyst_phase2(f, p, flags, h, dilate_steps=dilate_steps, max_iters=max_iters)
     else:
-        flags[..., 1, :] = torch.where(gate.bool(), flags[..., 0, :], flags[..., 1, :])
+        flags[..., 1, :] = flags[..., 0, :]
 
 
 def converge(

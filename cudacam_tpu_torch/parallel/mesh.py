@@ -8,8 +8,9 @@ mesh carries the transport that moves that state:
 * no transport (the main path on one card): every tile of the batch lives
   on one device as the leading axis of one tensor, (b, y, x) order. A
   neighbour hop is an index shift over that axis; on CUDA tensors the
-  packed exchange is one kernel (``ops/cuda/halo.py``) and the convergence
-  flag stays on the device.
+  packed exchange is one kernel (``ops/cuda/halo.py``), the whole round
+  loop another (``parallel/packed_halo.py::sharded_loop``), and the
+  convergence flag stays on the device.
 * :class:`DistTransport`: one process per mesh place, ``torch.distributed``
   underneath (NCCL on CUDA, gloo on the CPU). Strips move with
   ``batch_isend_irecv`` and the flag with ``all_reduce``
@@ -101,20 +102,17 @@ class TileMesh:
 
     # -- the packed exchange -------------------------------------------------
 
-    def exchange(self, x: torch.Tensor, geo: PackedGeo, *, grow=None, gate=None, pending=None,
-                 rounds=None) -> None:
+    def exchange(self, x: torch.Tensor, geo: PackedGeo, *, grow=None, pending=None) -> None:
         """One halo refresh of the local tiles' planes ``x``, in place, with
         the global pending flag (``packed_halo.Exchange``): one kernel on a
         one-card mesh; across processes the plain exchange, the flag
-        all-reduced and read by the host."""
+        all-reduced."""
         if not self.distributed:
             halo_exchange(x, (x.shape[0] // (self.rows * self.cols), self.rows, self.cols), geo,
-                          grow=grow, gate=gate, pending=pending, rounds=rounds)
+                          grow=grow, pending=pending)
             return
         import torch.distributed as dist
 
-        if gate is not None and int(gate) == 0:
-            return
         out, new = exchange_packed(x, geo, self.rows, self.cols, self.shift())
         x.copy_(out)
         if pending is not None:
@@ -124,8 +122,6 @@ class TileMesh:
             flag = flag.to(torch.int32).reshape(1)
             dist.all_reduce(flag, op=dist.ReduceOp.MAX)
             pending.copy_(flag)
-        if rounds is not None:
-            rounds += 1
 
 
 def make_mesh(

@@ -15,7 +15,8 @@ neighbours' exact state), phase 1 to the local fixed point (K8,
 ``ops/cuda/megakernel.py::mega_export``), then at most
 ``cfg.max_hysteresis_iters`` collective rounds of the local saturate (K9,
 ``ops/cuda/hysteresis_fused.py::saturate_packed``, or an injected
-``local_saturate``) and the strip exchange, and the core unpack (K10,
+``local_saturate``) and the strip exchange (``parallel/packed_halo.py``),
+and the core unpack (K10,
 ``unpack_core``), which writes each tile into its place in the output. The
 port has no granule padding, so where the TPU's granule padding is zero
 (ext_h % 8 == 0, ext_w % 128 == 0) an output cut off by the cap equals the
@@ -25,11 +26,11 @@ backends everywhere.
 The route follows the tensors' device: the plain versions on the CPU, the
 kernels on CUDA, with no backend switch and no fallback. On a one-card
 mesh the kernels read each extended tile straight out of the frame batch in
-device memory, and the round loop reads nothing back: it launches every
-round, and each round's kernels read the device pending flag and return at
-once when it is 0. Across processes the tile's pixels and strips move
+device memory, and the round loop is one launch that ends on the device
+(``sharded_loop``): a HYSTER call is six launches whatever the cap, and
+nothing is read back. Across processes the tile's pixels and strips move
 through ``torch.distributed`` and the host reads the all-reduced pending
-flag once per round. The display stages run ``ff_stages`` on each extended
+flag once per round (the host loop, as with an injected local operator). The display stages run ``ff_stages`` on each extended
 tile with its global origin (``local_feed_forward_pallas`` :255) and keep
 the core.
 """
@@ -46,7 +47,7 @@ from cudacam_tpu_torch.ops.cuda.hysteresis_fused import saturate_packed
 from cudacam_tpu_torch.ops.cuda.megakernel import mega_export, unpack_core
 from cudacam_tpu_torch.parallel.mesh import COL_AXIS, ROW_AXIS, TileMesh
 from cudacam_tpu_torch.ops.packed_strips import Shift, make_geo
-from cudacam_tpu_torch.parallel.packed_halo import packed_hysteresis_loop
+from cudacam_tpu_torch.parallel.packed_halo import packed_hysteresis_loop, sharded_loop
 from cudacam_tpu_torch.stages import CannyStage
 
 #: ``(f, p) -> (f, growing)``: an injected local operator on the (T, hw, w)
@@ -145,29 +146,29 @@ class ShardedPipeline:
         return self._display(frames, thresholds)
 
     def _saturate(self, flags: torch.Tensor):
-        """The round loop's local operator: K9 gated by the pending flag, or
-        the injected one, which runs ungated (past convergence it leaves the
-        planes as they are)."""
+        """The host loop's local operator: K9, or the injected one."""
         cfg, g = self.cfg, self.geo
         if self.local_saturate is None:
-            def saturate(f, p, gate):
-                return saturate_packed(f, p, flags, g.ext_h, gate=gate, **hyster_kwargs(cfg))[1]
+            def saturate(f, p):
+                return saturate_packed(f, p, flags, g.ext_h, **hyster_kwargs(cfg))[1]
         else:
-            def saturate(f, p, gate):
+            def saturate(f, p):
                 nf, growing = self.local_saturate(f, p)
                 f.copy_(nf)
                 return torch.as_tensor(growing, device=f.device).reshape(-1)
         return saturate
 
     def _hyster(self, frames: torch.Tensor, thresholds: torch.Tensor) -> torch.Tensor:
-        m, t = self.mesh, self.tiling
+        m, t, cfg = self.mesh, self.tiling, self.cfg
         src = self.extend(frames) if m.distributed else frames.contiguous()
-        f, p, flags = mega_export(src, thresholds, t, **pipeline_kwargs(self.cfg))
-        host_exit = m.distributed or f.device.type == "cpu"
-        self.rounds = packed_hysteresis_loop(
-            f, p, flags[:, 0, 1], self._saturate(flags),
-            lambda x, **kw: m.exchange(x, self.geo, **kw),
-            self.cfg.max_hysteresis_iters, host_exit)
+        f, p, flags = mega_export(src, thresholds, t, **pipeline_kwargs(cfg))
+        if m.distributed or self.local_saturate is not None:
+            self.rounds = packed_hysteresis_loop(
+                f, p, flags[:, 0, 1], self._saturate(flags),
+                lambda x, **kw: m.exchange(x, self.geo, **kw), cfg.max_hysteresis_iters)
+        else:
+            self.rounds = sharded_loop(f, p, flags, (f.shape[0] // t.tiles, t.ny, t.nx), self.geo,
+                                       max_rounds=cfg.max_hysteresis_iters, **hyster_kwargs(cfg))
         out = torch.empty((src.shape[0], t.ny * t.h_loc, t.nx * t.w_loc), dtype=torch.uint8,
                           device=frames.device)
         return unpack_core(f, out, t)

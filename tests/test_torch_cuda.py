@@ -338,6 +338,7 @@ from cudacam_tpu_torch.ops.cuda.megakernel import (  # noqa: E402
     mega_export, mega_export_plain, unpack_core, unpack_core_plain,
 )
 from cudacam_tpu_torch.parallel import build_sharded_pipeline, make_mesh  # noqa: E402
+from cudacam_tpu_torch.parallel.packed_halo import sharded_loop, sharded_loop_plain  # noqa: E402
 
 SHARDED = [((96, 384), (1, 2, 1)), ((200, 320), (1, 2, 2)), ((64, 96), (2, 4, 2)),
            ((37, 53), (1, 1, 1)), ((540, 960), (1, 2, 2))]
@@ -379,15 +380,15 @@ def test_saturate_packed_matches_plain(dev, hw, mesh, scan_after, max_iters):
                               dilate_steps=16, scan_after=2, max_iters=100)
     kw = dict(dilate_steps=16, scan_after=scan_after, max_iters=max_iters)
     ext_h = pipe.geo.ext_h
-    for gate in (None, 1, 0):
-        g = None if gate is None else torch.tensor([gate], dtype=torch.int32, device=dev)
-        fk, flk = f.clone(), flags.clone()
-        fp, flp = f.clone(), flags.clone()
-        _, grow = saturate_packed(fk, p, flk, ext_h, gate=g, **kw)
-        _, grow_p = saturate_packed_plain(fp, p, flp, ext_h, gate=g, **kw)
-        assert torch.equal(fk, fp) and torch.equal(flk, flp) and torch.equal(grow, grow_p)
-        if gate == 0:
-            assert torch.equal(fk, f) and torch.equal(flk, flags)
+    fk, flk = f.clone(), flags.clone()
+    fp, flp = f.clone(), flags.clone()
+    kernels.reset_launch_counts()
+    _, grow = saturate_packed(fk, p, flk, ext_h, **kw)
+    counts = kernels.launch_counts()
+    _, grow_p = saturate_packed_plain(fp, p, flp, ext_h, **kw)
+    assert torch.equal(fk, fp) and torch.equal(flk, flp) and torch.equal(grow, grow_p)
+    assert counts["saturate_phase1"] == 1 and counts["hyst_phase1"] == 0
+    assert counts["saturate_phase2"] == int(scan_after < max_iters)
 
 
 @pytest.mark.parametrize("hw,mesh", SHARDED)
@@ -414,21 +415,17 @@ def test_halo_exchange_matches_plain(dev, hw, mesh):
     x &= torch.randint(-2**31, 2**31 - 1, x.shape, generator=g, dtype=torch.int32)  # sparser
     x = x.to(dev)
     one = lambda v: torch.tensor([v], dtype=torch.int32, device=dev)  # noqa: E731
-    for grow in (None, torch.zeros(x.shape[0], dtype=torch.int32, device=dev)):
-        for gate in (None, 1, 0):
-            kw = [dict(grow=grow, gate=None if gate is None else one(gate), pending=one(5),
-                       rounds=one(3)) for _ in range(2)]
-            xk, xp = x.clone(), x.clone()
-            halo_exchange(xk, mesh, geo, **kw[0])
-            halo_exchange_plain(xp, mesh, geo, **kw[1])
-            assert torch.equal(xk, xp), (grow is None, gate)
-            for name in ("pending", "rounds"):
-                assert torch.equal(kw[0][name], kw[1][name]), name
-            if gate == 0:
-                assert torch.equal(xk, x) and int(kw[0]["rounds"]) == 3
-            else:  # every bit of a second refresh is already there
-                halo_exchange(xk, mesh, geo, pending=kw[0]["pending"])
-                assert torch.equal(xk, xp) and int(kw[0]["pending"]) == 0
+    grown = torch.zeros(x.shape[0], dtype=torch.int32, device=dev)
+    grown[-1] = 1
+    for grow in (None, torch.zeros_like(grown), grown):
+        pk, pp = one(5), one(5)
+        xk, xp = x.clone(), x.clone()
+        halo_exchange(xk, mesh, geo, grow=grow, pending=pk)
+        halo_exchange_plain(xp, mesh, geo, grow=grow, pending=pp)
+        assert torch.equal(xk, xp) and torch.equal(pk, pp), grow
+        # every bit of a second refresh is already there: only growth is pending
+        halo_exchange(xk, mesh, geo, grow=grow, pending=pk)
+        assert torch.equal(xk, xp) and int(pk) == int(grow is not None and bool(grow.any()))
 
 
 @pytest.mark.parametrize("hw,mesh", SHARDED)
@@ -446,9 +443,8 @@ def test_sharded_engine_matches_engine(dev, hw, mesh, channels):
     kernels.reset_launch_counts()
     got = sharded.process(batch)
     counts = kernels.launch_counts()
-    assert counts["ff_pack_export"] == counts["unpack_core"] == 1
-    assert counts["ff_pack"] == counts["unpack"] == 0
-    assert counts["saturate_phase1"] == counts["halo_exchange"] - 2 == cfg.max_hysteresis_iters
+    assert {k: v for k, v in counts.items() if v} == dict(
+        ff_pack_export=1, hyst_phase1=1, halo_exchange=2, sharded_loop=1, unpack_core=1)
     assert torch.equal(got, eng.process(batch))
     plain = ShardedCannyEngine(cfg, make_mesh(*mesh), device="cpu")
     for stage in CannyStage:
@@ -471,6 +467,43 @@ def test_sharded_spiral_cut_off_by_the_cap_matches_plain(dev):
     assert torch.equal(got.cpu(), want) and rounds == int(run.rounds) == 12
     converged = CannyEngine(CannyConfig(height=h, width=w), device="cuda").process(spiral[0])
     assert not torch.equal(got[0], converged)  # the cap cut it off
+
+
+@pytest.mark.parametrize("cap", [100, 400])
+@pytest.mark.parametrize("hw,mesh", [((256, 384), (1, 2, 2)), ((200, 320), (2, 2, 1)),
+                                     ((37, 53), (1, 1, 1)), ((96, 384), (1, 1, 4))])
+def test_sharded_loop_matches_the_host_loop(dev, hw, mesh, cap):
+    """The one-launch round loop against its plain version (the host loop,
+    on the same card) from the export's state: the planes, every tile's
+    flags and the round count, converged and cut off by the budget (the
+    spiral at budget 3); six launches a call whatever the cap."""
+    h, w = hw
+    cfg = CannyConfig(height=h, width=w, max_hysteresis_iters=cap, hysteresis_scan_after=4)
+    pipe = build_sharded_pipeline(cfg, make_mesh(*mesh))
+    frames = _batch(h, w, 2 * mesh[0], dev)
+    kw = dict(dilate_steps=16, scan_after=4, max_iters=cap)
+    for max_rounds in (cap, 3):
+        f, p, flags = mega_export(frames, _thr(10, 40, dev), pipe.tiling, **kw)
+        fp, pp, flp = f.clone(), p.clone(), flags.clone()
+        grid = (2 * mesh[0], mesh[1], mesh[2])
+        rounds = sharded_loop(f, p, flags, grid, pipe.geo, max_rounds=max_rounds, **kw)
+        want = sharded_loop_plain(fp, pp, flp, grid, pipe.geo, max_rounds=max_rounds, **kw)
+        assert int(rounds) == int(want) <= max_rounds
+        assert torch.equal(f, fp) and torch.equal(p, pp) and torch.equal(flags, flp)
+    sharded = ShardedCannyEngine(cfg, make_mesh(*mesh))
+    sharded.process(frames)
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = sharded.process(frames)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert {k: v for k, v in kernels.launch_counts().items() if v} == dict(
+        ff_pack_export=1, hyst_phase1=1, halo_exchange=2, sharded_loop=1, unpack_core=1)
+    plain = ShardedCannyEngine(cfg, make_mesh(*mesh), device="cpu")
+    assert torch.equal(got.cpu(), plain.process(frames.cpu()))
+    assert int(sharded.pipeline().rounds) == int(plain.pipeline().rounds)
 
 
 def test_sharded_no_host_sync(dev):
@@ -549,35 +582,35 @@ def test_converge_packed_split_gate_and_odd_shapes(dev):
 
 
 @pytest.mark.parametrize("h,w", [(64, 512), (270, 480), (37, 54)])
-def test_engine_split_continuation(dev, h, w):
+@pytest.mark.parametrize("cap", [100, 400])
+def test_engine_split_continuation(dev, cap, h, w):
     """continuation='split' equals the default engine wherever the frame
     converges, equals the plain split route when the cap cuts it off, and
     its launch count does not depend on the cap."""
     frames = [make_scene(h, w, seed=1), make_spiral_frame(h, w) if min(h, w) >= 32 else
               make_scene(h, w, seed=2)]
-    for cap in (100, 400):
-        kw = dict(height=h, width=w, hysteresis_scan_after=2, max_hysteresis_iters=cap)
-        base = CannyEngine(CannyConfig(**kw), device="cuda")
-        split = CannyEngine(CannyConfig(continuation="split", **kw), device="cuda")
-        plain = CannyEngine(CannyConfig(continuation="split", **kw), device="cpu")
-        for fr in frames:
-            split.process(fr)
-            kernels.reset_launch_counts()
-            got = split.process(fr)
-            counts = kernels.launch_counts()
-            assert {k: v for k, v in counts.items() if v} == dict(
-                ff_pack=1, hyst_phase1=1, split_converge=1, unpack=1)
-            assert torch.equal(got.cpu(), plain.process(fr))
-            _, flags = canny_mega_pipeline(torch.from_numpy(fr).to(dev), split._thresholds(),
-                                           **_pipeline_kw(split.config), continuation="split")
-            if int(flags[1, 1]) == 0:
-                assert torch.equal(got, base.process(fr))
-        batch = torch.from_numpy(__import__("numpy").stack(frames)).to(dev)
+    kw = dict(height=h, width=w, hysteresis_scan_after=2, max_hysteresis_iters=cap)
+    base = CannyEngine(CannyConfig(**kw), device="cuda")
+    split = CannyEngine(CannyConfig(continuation="split", **kw), device="cuda")
+    plain = CannyEngine(CannyConfig(continuation="split", **kw), device="cpu")
+    for fr in frames:
+        split.process(fr)
         kernels.reset_launch_counts()
-        bout = split.process(batch)
-        assert kernels.launch_counts()["split_converge"] == 2
-        for b, fr in enumerate(frames):
-            assert torch.equal(bout[b], split.process(fr))
+        got = split.process(fr)
+        counts = kernels.launch_counts()
+        assert {k: v for k, v in counts.items() if v} == dict(
+            ff_pack=1, hyst_phase1=1, split_converge=1, unpack=1)
+        assert torch.equal(got.cpu(), plain.process(fr))
+        _, flags = canny_mega_pipeline(torch.from_numpy(fr).to(dev), split._thresholds(),
+                                       **_pipeline_kw(split.config), continuation="split")
+        if int(flags[1, 1]) == 0:
+            assert torch.equal(got, base.process(fr))
+    batch = torch.from_numpy(__import__("numpy").stack(frames)).to(dev)
+    kernels.reset_launch_counts()
+    bout = split.process(batch)
+    assert kernels.launch_counts()["split_converge"] == 2
+    for b, fr in enumerate(frames):
+        assert torch.equal(bout[b], split.process(fr))
 
 
 def _pipeline_kw(cfg):
@@ -682,6 +715,17 @@ def test_profiling_on_the_card(dev, mode):
         assert kernels.launch_counts()["ff_pack"] > 2  # beyond the unprofiled engine's two
         names = [n for n, _, _ in eng.timers.items()]
         assert len(names) == 6 and sum(eng.timers.get_average_time(n) for n in names) > 0.0
+        if mode in ("auto", "device"):
+            # At 1080p every stage's row reads a time (at 72 x 128 a stage's
+            # own buffer is a few ns of the one-pass kernel).
+            big = CannyEngine(CannyConfig(height=1080, width=1920), device="cuda", profiling=True,
+                              timers=TimerManager())
+            big.profiling_mode = mode
+            assert big._profiling_mode_resolved() == "device"
+            big.process(_frame(1080, 1920, dev, seed=2))
+            rows = [n for n, _, _ in big.timers.items()]
+            assert len(rows) == 6 and all(big.timers.get_average_time(n) > 0.0 for n in rows), \
+                big.profiling_table()
     # off again: process launches exactly the main path and reads nothing back
     eng.set_profiling(False)
     eng.process(fr)
@@ -717,3 +761,52 @@ def test_devtime_and_debug_switches_on_the_card(dev, tmp_path):
     with eng.trace(str(tmp_path / "prof")):
         eng.process(fr)
     assert (tmp_path / "prof" / "trace.json").stat().st_size > 0
+
+
+# -- K13, K14: the probes' kernels -------------------------------------------
+
+from cudacam_tpu_torch.probes import hyster_kernel as hk  # noqa: E402
+from cudacam_tpu_torch.probes import i16_swar  # noqa: E402
+
+
+@pytest.mark.parametrize("h,w", [(128, 256), (1, 1), (37, 53), (4320, 7680)])
+def test_probe_packs_and_unpacks_match_plain(dev, h, w):
+    mask = torch.from_numpy(hk.pack_input(h * w % 7, h, w) * 3).to(dev)
+    want = hk.probe_pack_plain(mask)
+    kernels.reset_launch_counts()
+    assert torch.equal(hk.probe_pack(mask), want) and torch.equal(hk.probe_pack_ballot(mask), want)
+    for per_word in (True, False):
+        assert torch.equal(hk.probe_unpack(want, per_word), hk.probe_unpack_plain(want))
+    counts = kernels.launch_counts()
+    assert counts["probe_pack"] == counts["probe_pack_ballot"] == 1
+    assert counts["probe_unpack"] == 2
+
+
+@pytest.mark.parametrize("shape,cap", [((40, 256), 400), ((40, 256), 5), ((1, 1), 400),
+                                       ((135, 7680), 3), ((7, 9), 400)])
+def test_probe_loop_matches_plain(dev, shape, cap):
+    plane = torch.from_numpy(hk.loop_input(*shape)).to(dev)
+    got, flags = hk.probe_loop(plane, cap)
+    want, want_flags = hk.probe_loop_plain(plane, cap)
+    assert torch.equal(got, want) and torch.equal(flags, want_flags)
+    if shape == (40, 256) and cap == 400:
+        assert flags.tolist() == [[326, 0]]
+    limit = hk.probe_loop_max_blocks(dev)
+    for blocks in (1, 33, limit):
+        assert torch.equal(hk.probe_loop(plane, cap, blocks=blocks)[0], want)
+    out, fl = hk.probe_loop(plane, 50, sync_only=True, blocks=limit)
+    assert torch.equal(out, plane) and fl.tolist() == [[50, 0]]
+    with pytest.raises(RuntimeError):
+        hk.probe_loop(plane, 1, blocks=limit + 1)
+    assert [b for b, _ in hk.grid_sync_us(dev, rounds=10, reps=1)][-1] == limit
+
+
+@pytest.mark.parametrize("shape", [(256, 512), (1, 1), (7, 9), (1080, 1920), (3, 513)])
+@pytest.mark.parametrize("body", [1, 2, 3, 4])
+def test_swar_stencil_matches_plain(dev, shape, body):
+    g = torch.Generator().manual_seed(body)
+    x = (torch.randint(0, 255, shape, generator=g, dtype=torch.uint8) if body == 4
+         else torch.randint(-2**15, 2**15, shape, generator=g, dtype=torch.int16)).to(dev)
+    want = i16_swar.swar_stencil_plain(x, body)
+    for swar in (True, False):
+        assert torch.equal(i16_swar.swar_stencil(x, body, swar), want), swar

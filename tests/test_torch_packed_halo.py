@@ -156,11 +156,11 @@ def test_packed_hysteresis_loop_matches_jax(grid, cap, scan_after):
                               **pipeline_kwargs(cfg))
     f0, p0, still = _to_np(f).copy(), _to_np(p).copy(), flags[:, 0, 1].numpy().copy()
 
-    def saturate(ff, pp, gate):
-        return saturate_packed(ff, pp, flags, geo.ext_h, gate=gate, **hyster_kwargs(cfg))[1]
+    def saturate(ff, pp):
+        return saturate_packed(ff, pp, flags, geo.ext_h, **hyster_kwargs(cfg))[1]
 
     rounds = ph.packed_hysteresis_loop(f, p, flags[:, 0, 1].clone(), saturate,
-                                       lambda x, **kw: mesh.exchange(x, geo, **kw), cap, True)
+                                       lambda x, **kw: mesh.exchange(x, geo, **kw), cap)
 
     jgeo = jph.make_geo(geo.h_loc, geo.w_loc, granule=False, ny=ny, nx=nx)
     sat = xla_packed_saturate(jcfg, jgeo)
@@ -174,3 +174,41 @@ def test_packed_hysteresis_loop_matches_jax(grid, cap, scan_after):
                                             _jax_tiles(grow, ny, nx))
     np.testing.assert_array_equal(_to_np(f), _from_jax(out, ny, nx, geo.hw))
     assert 0 < int(rounds) <= cap
+
+
+@pytest.mark.parametrize("cap,scan_after", [(100, 3), (5, 2), (0, 3)])
+@pytest.mark.parametrize("grid", [(2, 2), (4, 1), (1, 1)])
+def test_sharded_loop_matches_jax(grid, cap, scan_after):
+    """The one-card round loop's entry point (on the CPU: its plain version,
+    the host loop with the plain saturate and refresh) from the export's
+    state against the JAX loop under ``shard_map``, its round count against
+    the host loop with the port's saturate and the mesh's refresh."""
+    ny, nx = grid
+    h, w = 64, 128
+    jcfg = JaxConfig(height=h, width=w, max_hysteresis_iters=max(cap, 1),
+                     hysteresis_scan_after=scan_after, hysteresis_inner_steps=4)
+    cfg = config_from_jax(jcfg)
+    mesh = make_mesh(1, ny, nx)
+    geo = build_sharded_pipeline(cfg, mesh).geo
+    frames = torch.from_numpy(make_spiral_frame(h, w))[None]
+    f, p, flags = mega_export(frames, torch.tensor([10, 40], dtype=torch.int32),
+                              build_sharded_pipeline(cfg, mesh).tiling, **pipeline_kwargs(cfg))
+    f0, p0, still = _to_np(f).copy(), _to_np(p).copy(), flags[:, 0, 1].numpy().copy()
+    fh, ph_, flh = f.clone(), p.clone(), flags.clone()
+    rounds = ph.sharded_loop(f, p, flags, (1, ny, nx), geo, max_rounds=cap, **hyster_kwargs(cfg))
+    host = ph.packed_hysteresis_loop(
+        fh, ph_, flh[:, 0, 1].clone(),
+        lambda ff, pp: saturate_packed(ff, pp, flh, geo.ext_h, **hyster_kwargs(cfg))[1],
+        lambda x, **kw: mesh.exchange(x, geo, **kw), cap)
+    assert int(rounds) == int(host) <= cap and torch.equal(f, fh) and torch.equal(flags, flh)
+    jgeo = jph.make_geo(geo.h_loc, geo.w_loc, granule=False, ny=ny, nx=nx)
+    sat = xla_packed_saturate(jcfg, jgeo)
+
+    def loop(ff, pp, grow):
+        out = jph.packed_hysteresis_loop(ff, pp, grow[0, 0] == 1, jgeo, sat, AXES, ny, nx, cap)
+        return out, pp, grow
+
+    grow = np.broadcast_to(still[:, None, None], (ny * nx, geo.hw, geo.ext_w)).astype(np.uint32)
+    out, _, _ = _shard_map(loop, ny, nx, 3)(_jax_tiles(f0, ny, nx), _jax_tiles(p0, ny, nx),
+                                            _jax_tiles(grow, ny, nx))
+    np.testing.assert_array_equal(_to_np(f), _from_jax(out, ny, nx, geo.hw))

@@ -205,3 +205,32 @@ def test_config_continuation_values():
     with pytest.raises(ValueError):
         canny_mega_pipeline(torch.zeros((8, 8), dtype=torch.uint8),
                             torch.tensor([10, 40], dtype=torch.int32), continuation="xla")
+
+
+def _jax_split_count(h: int, w: int) -> int:
+    """The JAX package's ``n_split`` rule, copied from ``_cont_split``
+    (cudacam_tpu/ops/pallas/megakernel.py:944-949): one plane and 256
+    columns a slice against its 2.4 MB budget, doubled while the CURRENT
+    count divides ``w``."""
+    hwp, n_split = -(-h // 32), 2
+    while w % n_split == 0 and hwp * (w // n_split + 256) * 4 > 2_400_000:
+        n_split *= 2
+    return n_split
+
+
+#: The frame sizes the port's tests and chip_smoke.py run the split
+#: continuation at, and the main paths' sizes: the two rules agree on each.
+SPLIT_SIZES = [(64, 512), (270, 480), (37, 54), (96, 384), (64, 128), (720, 1280),
+               (1080, 1920), (2160, 3840), (4320, 7680), (8640, 15360)]
+#: Where they part: a truncated engine output there is not the JAX package's.
+SPLIT_PARTS = [((5760, 10240), 2, 4), ((6480, 11520), 4, 8), ((17280, 30720), 32, 64)]
+
+
+@pytest.mark.parametrize("h,w", SPLIT_SIZES)
+def test_split_count_agrees_with_the_jax_rule_where_the_port_runs(h, w):
+    assert megakernel.split_count(h, w) == _jax_split_count(h, w)
+
+
+@pytest.mark.parametrize("hw,port,jax_n", SPLIT_PARTS)
+def test_split_count_parts_from_the_jax_rule(hw, port, jax_n):
+    assert (megakernel.split_count(*hw), _jax_split_count(*hw)) == (port, jax_n)

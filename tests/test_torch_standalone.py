@@ -48,7 +48,7 @@ def test_every_module_imports_with_jax_and_the_jax_package_blocked():
     assert "cudacam_tpu_torch.parallel.sharded" in names and len(names) > 20
     for new in ("app", "io.ring", "io.metrics", "io.multi", "io.compose", "io.keys", "io.server",
                 "utils.logging", "utils.timer", "utils.devtime", "utils.debug",
-                "ops.cuda.hysteresis"):
+                "ops.cuda.hysteresis", "probes.hyster_kernel", "probes.i16_swar"):
         assert f"cudacam_tpu_torch.{new}" in names
     code = _BLOCKED + (
         "import importlib, numpy as np\n"
@@ -68,6 +68,12 @@ def test_every_module_imports_with_jax_and_the_jax_package_blocked():
         "    assert app.run(3) == 3 and app.ring.latest_np().shape == (24, 32)\n"
         "assert main(['run', '--device', 'cpu', '--source', 'synthetic:24x32', '--frames', '2',\n"
         "             '--continuation', 'split']) == 0\n"
+        "import importlib.util\n"
+        "for tool in ('port_kernel_probe', 'port_i16_probe'):\n"
+        "    spec = importlib.util.spec_from_file_location(tool, f'tools/{tool}.py')\n"
+        "    mod = importlib.util.module_from_spec(spec)\n"
+        "    spec.loader.exec_module(mod)\n"
+        "    assert mod.main(['--device', 'cpu']) == 0\n"
         "assert not [m for m in sys.modules if m.split('.')[0] in ('jax', 'cudacam_tpu')]\n"
         "print('standalone ok')\n"
     )

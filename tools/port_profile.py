@@ -24,8 +24,8 @@ workload (and writing them all to ``--out`` when given):
 * ``sharded``: ``ShardedCannyEngine`` on a one-card mesh under torch.profiler:
   HYSTER on one 8K scene over (1, 4, 2) (five passes) and on the 1080p spiral
   over (1, 2, 2) (two passes), with the device events per frame of each
-  kernel and the median µs of one event, which separates the gated round
-  kernels (returning at once) from the working ones;
+  kernel and the median µs of one event (the round loop is one
+  ``sharded_loop`` event a call);
 * ``split``: ``CannyEngine.process`` at 8K under torch.profiler with
   ``continuation='split'`` (K11) and with the whole-frame continuation (K2):
   the cap-class spiral (two passes) and calm scene 0 (five passes);
