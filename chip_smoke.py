@@ -193,22 +193,20 @@ def chain_ops(kernel_size: int) -> int:
     return 6 + 2 * kernel_size * kernel_size + 1 + 24 + 3 + 10 + 2
 
 
-#: Word operations per packed word: a dilation step (8-neighbour OR with the
-#: carries across words, masked by the candidates) 16; a step of a scan
-#: direction 5; the change test of a round 1.
-DILATE_OPS, SCAN_OPS = 16, 5
+#: Word operations per packed word of a round: a dilation step (8-neighbour
+#: OR with the carries across words, masked by the candidates) 16; the change
+#: test 1. A scan direction counts the work an exact scan needs, whatever
+#: the algorithm: one (g, p) step a word, an AND and an OR, 2; a diagonal
+#: (4-7) adds the one-row shift of the upstream word with its carry across
+#: words, 3; a column (2, 3) adds the in-word fill the kernel runs, five
+#: doubling steps of 5 operations and the carry in, 27.
+DILATE_OPS = 16
+SCAN_OPS = 2 * 2 + 4 * (2 + 3) + 2 * (2 + 27)
 
 
-def round_ops(words: int, h: int, w: int, dilate_steps: int, scans: bool) -> int:
-    """Word operations of one round on ``words`` packed words of an h x w
-    plane."""
-    from cudacam_tpu_torch.ops.bitpack import _doubling_steps
-
-    ops = DILATE_OPS * dilate_steps + 1
-    if scans:
-        ops += SCAN_OPS * 2 * (len(_doubling_steps(w)) + len(_doubling_steps(h))
-                               + 2 * len(_doubling_steps(min(h, w))))
-    return words * ops
+def round_ops(words: int, dilate_steps: int, scans: bool) -> int:
+    """Word operations of one round on ``words`` packed words."""
+    return words * (DILATE_OPS * dilate_steps + 1 + (SCAN_OPS if scans else 0))
 
 
 #: Word operations per packed word of one promotion step of the row sweeps:
@@ -950,8 +948,8 @@ class Smoke:
         taken = int(packed_hysteresis_loop(
             fc, pc, flc[:, 0, 1], counting,
             lambda x, **k2: halo_exchange_plain(x, grid, g, **k2), cfg.max_hysteresis_iters))
-        loop_ops = sum(r1 * round_ops(words, g.ext_h, g.ext_w, ds, False)
-                       + r2 * round_ops(words, g.ext_h, g.ext_w, ds, True) for r1, r2 in sat_rounds)
+        loop_ops = sum(r1 * round_ops(words, ds, False)
+                       + r2 * round_ops(words, ds, True) for r1, r2 in sat_rounds)
         self.set_bound("sharded_loop", 3 * 4 * words * ntile + taken * 2 * 4 * strips,
                        loop_ops + taken * 4 * strips)
         fx = fc
@@ -999,9 +997,9 @@ class Smoke:
         sw = sg.hw * sg.ext_w
         sds = shk["dilate_steps"]
         self.set_bound("saturate_phase1", 3 * 4 * sw * len(r1),
-                       sum(r1) * round_ops(sw, sg.ext_h, sg.ext_w, sds, False))
+                       sum(r1) * round_ops(sw, sds, False))
         self.set_bound("saturate_phase2", 3 * 4 * sw * grew,
-                       sum(r2) * round_ops(sw, sg.ext_h, sg.ext_w, sds, True))
+                       sum(r2) * round_ops(sw, sds, True))
         spiral_loop_ms = self.time_ms(
             lambda s: sharded_loop(*s, sgrid, sg, max_rounds=scfg.max_hysteresis_iters, **shk),
             1, reps=3, setup=lambda: (sf.clone(), spl.clone(), sfl.clone()))
@@ -1168,8 +1166,8 @@ class Smoke:
         words = -(-h // 32) * w
         ds = cfg.hysteresis_inner_steps
         self.set_bound("split_converge", 3 * 4 * words,
-                       2 * (seams * round_ops(sw, h, ws + 2 * SPLIT_HALO, ds, False)
-                            + (spent - seams) * round_ops(sw, h, ws + 2 * SPLIT_HALO, ds, True)))
+                       2 * (seams * round_ops(sw, ds, False)
+                            + (spent - seams) * round_ops(sw, ds, True)))
         print(f"time split_converge: kernel {self.ms['split_converge']!r} ms, plain "
               f"{self.plain_ms['split_converge']!r} ms, bound {self.bound['split_converge'][0]!r} ms "
               f"({self.bound['split_converge'][1]}) (8K spiral from round {int(flags[0, 0])}: "
@@ -1556,12 +1554,19 @@ class Smoke:
         hyst_phase2(fs.clone(), ps, fl2, h, **rounds)
         r1, r2 = int(fl1[0, 0]), int(fl2[1, 0]) - int(fl2[0, 0])
         self.set_bound("ff_pack", 3 * px + 2 * 4 * words, ops_px * px)
-        self.set_bound("hyst_phase1", 3 * 4 * words, r1 * round_ops(words, h, w, 16, False))
-        self.set_bound("hyst_phase2", 3 * 4 * words, r2 * round_ops(words, h, w, 16, True))
+        self.set_bound("hyst_phase1", 3 * 4 * words, r1 * round_ops(words, 16, False))
+        self.set_bound("hyst_phase2", 3 * 4 * words, r2 * round_ops(words, 16, True))
         self.set_bound("unpack", 4 * words + px, 2 * px)
         self.set_bound("ff_stages", 3 * px + 5 * px, ops_px * px)
         self.set_bound("pack_thresh", px + 2 * 4 * words, 4 * px)
         print(f"bound inputs: hyst_phase1 {r1} rounds (scene 0), hyst_phase2 {r2} rounds (spiral)")
+        from cudacam_tpu_torch.ops.cuda.megakernel import round_layout
+
+        for label, (lh, lw), steps, nb in (("1080p", (1080, 1920), 16, 1), ("1080p x8", (1080, 1920), 16, 8),
+                                           ("4K", (2160, 3840), 32, 1), ("8K", (4320, 7680), 16, 1)):
+            for phase in (1, 2):
+                print(f"round layout {label} phase {phase} ({steps} inner steps): "
+                      f"{json.dumps(round_layout(nb, lh, lw, steps, phase))}")
 
         def stream(process, reps):
             return self.time_ms(lambda _: [process(f) for f in frames], 1, reps=reps) / len(frames)
@@ -1588,6 +1593,20 @@ class Smoke:
         for label, (batch_ms, singles_ms) in batches.items():
             print(f"time 1080p x8 batch ({label}): batched {batch_ms!r} ms/frame, "
                   f"8 single-frame calls {singles_ms!r} ms/frame (medians of 7)")
+        # K3's bound: the x8 call with the spiral, its four kernels on the
+        # rounds each frame ran (flags), frames read once and maps written once.
+        from cudacam_tpu_torch.ops.cuda.canny import pipeline_kwargs
+        from cudacam_tpu_torch.ops.cuda.megakernel import canny_mega_pipeline_batched
+
+        _, bfl = canny_mega_pipeline_batched(self.batch, thr, **pipeline_kwargs(cfg))
+        nb = len(self.batch)
+        k3_ops = nb * (ops_px * px + 2 * px) + sum(
+            int(a) * round_ops(words, 16, False) + (int(b) - int(a)) * round_ops(words, 16, True)
+            for a, b in zip(bfl[:, 0, 0].tolist(), bfl[:, 1, 0].tolist()))
+        t_bytes, t_ops = nb * 4 * px / HBM_BYTES_PER_S, k3_ops / OPS_PER_S
+        print(f"bound K3 x8 call (7 scenes + spiral): {max(t_bytes, t_ops) * 1e3!r} ms "
+              f"({'bytes' if t_bytes >= t_ops else 'operations'}) against "
+              f"{batches['7 scenes + spiral'][0] * nb!r} ms a call (rounds {bfl.tolist()})")
         print(f"time 1080p process(frame, THRESH) {stage_ms!r} ms/frame, process_all "
               f"{all_ms!r} ms/frame (8 scenes, medians of 7)")
 

@@ -12,40 +12,71 @@
 // at 0 on each call), over a batch of extended tiles, inside
 // sharded_loop_kernel or as two launches per round, and unpack_core
 // replaces the core unpack (megakernel.py:714 unpack_core_call ->
-// _unpack_core_kernel :653). Both phases execute the round schedule of
+// _unpack_core_kernel :653). Every round executes the round schedule of
 // cudacam_tpu/ops/bitpack.py::_make_ops exactly: the same dilate_steps with
 // bitpack's default carry cadence (every 8th step exact across words) and
 // an exact last step, the same 8 scan directions in the same order, the
-// same round counting. So an output cut off by the max_iters cap is the JAX
-// package's, bit for bit.
+// same round counting and stop test. So an output cut off by the max_iters
+// cap is the JAX package's, bit for bit.
 //
-// Design: one cooperative persistent kernel per phase (route (a)), launched
-// with cudaLaunchCooperativeKernel on a grid sized from the occupancy
-// calculator, with grid.sync() between the steps that read other blocks'
-// words. A 1080p plane is 34 x 1920 words (261 KB): it fits L2 but not one
-// SM's shared memory, and Hopper blocks carry nothing between them, so the
-// state lives in device memory (L2) between barriers. A batch of B frames
-// is one launch per phase: every frame keeps its own planes, round count
-// and stop test, and the work of a round is enumerated over (frame, tile)
-// or (frame, word) of the frames still active.
+// Design: one cooperative persistent kernel per phase, launched with
+// cudaLaunchCooperativeKernel, 512 threads a block. One implementation of a
+// round, round_loop, which every kernel here runs. Each frame's (hw, w)
+// planes are cut into full-height column bands of bw columns, chosen at
+// launch so that the bands of the frames a launch starts on are about as
+// many as the SMs (a multiple of 32 where the launch scans, of 16 for phase
+// 1 alone): phase 1 takes 16 at 1080p (120 bands), 128 for an x8 1080p
+// batch; phase 2 lays out one frame, 32 at 1080p and 4K, 64 at 8K. A band
+// spans every word row, so every vertical neighbourhood stays inside it. A
+// block owns its band for the whole loop and keeps it in shared memory: two
+// FINAL planes (Jacobi steps; the second one holds a scan's propagate
+// words) and the CANDIDATE plane, core and `halo` columns each side, hw x
+// (bw + 2 halo + 1) words each, loaded once and written back when the loop
+// ends (about 166 KB a block at 8K). Only edge columns and summaries cross
+// bands, through L2. Where a launch's bands outnumber its co-resident blocks
+// (more frames still growing in phase 2 than its one-frame layout, or a
+// batch past the card's shared memory), a block takes several bands and
+// each stage loads and stores a band's words around its work; the stages
+// and barriers are the same.
 //
-// * A round's dilate_steps dilations run in shared memory per tile (TR word
-//   rows x TC columns core) with a halo as deep as the steps: dilate_steps
-//   columns and ceil(dilate_steps / 32) word rows. The core of a tile after
-//   the steps is exact; the halo is scratch. One grid barrier per round.
-// * The 8 directional scans propagate across the whole frame, so each
-//   doubling step (out = g | (pp & shifted(g))) is one pass over the planes
-//   followed by a grid barrier, on ping-pong buffers (Jacobi: every step
-//   reads only the previous step's words).
+// * A round's dilate_steps dilations run in shared memory on band + halo,
+//   halo = min(dilate_steps, bw) columns taken from the neighbours' edges as
+//   they published them (two slots of edge planes, by the parity of the
+//   publication), a __syncthreads a step; then the band publishes its own
+//   edges. One grid barrier a round; where the halo that fits is narrower
+//   than the steps, the round runs in segments of halo steps with a barrier
+//   each, the carry cadence counted over the whole round. CANDIDATE is never
+//   reloaded. A round only adds bits, so a band changed iff its core's
+//   popcount grew: no second read of the old plane.
+// * The scans need no doubling across the frame. A direction's result along
+//   a line is the associative scan of (g, p) pairs. Directions 2 and 3
+//   (top->bottom, bottom->top) lie in a band column: each word's own scan,
+//   then the carries across words as a ballot scan of 32 words at a time; no
+//   grid barrier. Directions 0, 1 and the diagonals 4-7 cross bands only at
+//   a band's side edge: the band scans itself with zero carry-in (a warp a
+//   word row, 32 columns in five shuffle steps; on a diagonal the carries
+//   across words as bit vectors over the columns, which reach back at most
+//   bw / 32 word rows), giving its local result L and the propagate product
+//   Q from its entry edge, and publishes its exit column (L, Q), 2 hw words.
+//   After one grid barrier each band folds the summaries upstream of it into
+//   its carry-in column (the composition of two bands shifts by bw image
+//   rows on a diagonal, whole words) and applies G = L | (Q & carry); the
+//   next direction's local scan follows before the next barrier.
+// * Grid barriers a phase-2 round: one per dilation segment (one where the
+//   halo covers the steps: 1080p, 4K at 32 inner steps, 8K) and one per
+//   crossing direction (6): 7 at 1080p, 4K and 8K (90, 100 and 106 passes
+//   of the whole plane through L2, each followed by a barrier, before). A
+//   phase-1 round: one. cc_hyst_layout reports a launch's layout and count.
+// * Bound: latency. Phase 1 by the dilation steps in shared memory (a
+//   __syncthreads each) and the round's barrier; phase 2 besides by the
+//   folds' L2 round trips and the barriers. The words moved and the
+//   operations are a few percent of it (PERF.md §6).
 // * Per-frame state. Each block holds a copy of every frame's (round count,
-//   still growing) in shared memory and updates it after each round's
+//   still growing) in shared memory and updates it after each round's last
 //   barrier from the frame's "changed" slot, so all blocks agree on which
 //   frames are active without another barrier. A frame that stopped is
-//   frozen: no more dilations, no more counted rounds. The round loop runs
-//   while any frame is active.
-// * Phase 1 ping-pongs each frame between its FINAL plane and one scratch
-//   plane by the frame's own round parity, and copies back the frames that
-//   ended on the scratch plane.
+//   frozen: its bands do no more work, its rounds are not counted. The round
+//   loop runs while any frame is active.
 // * The "changed" flags rotate over three slots of B words: a slot is
 //   cleared one round before it is written and two barriers after its last
 //   read, so no reset races a write or a read.
@@ -53,30 +84,29 @@
 //   reads them on the device, works only on frames still growing, and
 //   returns at once when none is, so the host never reads a flag back.
 //   Phase 2 writes flags[b][1] for every frame.
-// * The occupancy query runs once per (phase, device, dilate_steps, B), on
-//   the first launch; later launches reuse the grid.
-//
-// Bound: grid barriers and L2 latency, not bytes or operations: a round moves
-// a few hundred KB per frame through L2 and does ~10 integer ops per word
-// per step.
+// * The planes' rows at and past h are zero, as every pack leaves them: a
+//   band scans a whole column, which equals bitpack's doubling steps (< h)
+//   on such planes.
+// * The layout (occupancy per shared-memory size) is chosen once per
+//   (kernel, device, frames, batch, plane shape, dilate_steps) on the first
+//   launch; later launches reuse it.
 //
 // split_kernel replaces the column-split continuation (hysteresis_fused.py:876
 // converge_packed_split, driven by megakernel.py:921 _cont_split: a host-traced
 // loop of one saturate_packed launch per column slice with XLA pad / slice /
 // concatenate between). Here the whole seam loop is ONE cooperative launch,
 // gated on the frame's growing flag as phase 2 is: the slices are the batch
-// dimension of a scratch copy (n_split, hw, k + ws + k) that the round code
-// above works on unchanged (per-slice round counts and stop tests). A seam
-// round extracts every slice with its k halo columns from the frame's plane
-// (zero outside the frame), runs the saturate schedule on each (one
-// unconditional dilation round, dilation rounds below scan_after, then
-// dilations + scans, while the slice changes and below the inner cap), writes
-// the owned ws columns back, and adds the most rounds any slice took to the
-// budget counter; the loop ends on the device when a seam round changes no
-// owned word or the budget is spent. So a call is one launch whatever the
-// cap, and the host reads nothing back. Bound: as the round kernels, grid
-// barriers; the extract and merge passes move the planes through L2 once a
-// seam round.
+// dimension of a scratch copy (n_split, hw, k + ws + k) that round_loop works
+// on as on any batch (per-slice round counts and stop tests). A seam round
+// extracts every slice with its k halo columns from the frame's plane (zero
+// outside the frame), runs the saturate schedule on each (one unconditional
+// dilation round, dilation rounds below scan_after, then dilations + scans,
+// while the slice changes and below the inner cap), writes the owned ws
+// columns back, and adds the most rounds any slice took to the budget
+// counter; the loop ends on the device when a seam round changes no owned
+// word or the budget is spent. So a call is one launch whatever the cap,
+// and the host reads nothing back. Bound: as the round kernels; the
+// extract and merge passes move the planes through L2 once a seam round.
 //
 // sharded_loop_kernel replaces the collective round loop of the sharded path
 // on one card (cudacam_tpu/parallel/packed_halo.py:256-306: a lax.while_loop
@@ -84,16 +114,18 @@
 // "some tile still growing | some new halo bit"). The whole loop is ONE
 // cooperative launch: a collective round runs both phases' round loops
 // (round_loop, the body the two round kernels launch alone) on every
-// extended tile, the round count from 0, then halo.cuh's refresh, which
-// writes the pending flag; the loop reads it after a grid barrier and runs
-// while it is up and below the round budget, then writes the rounds taken.
-// So a sharded HYSTER call is a constant handful of launches whatever the
-// cap and however soon the tiles converge, and nothing is read back. Bound:
-// grid barriers, as the round kernels; one barrier more per collective round
-// than the separate launches had, and no launch.
+// extended tile, the round count from 0, each writing its bands back, then
+// halo.cuh's refresh on the planes, which writes the pending flag; the loop
+// reads it after a grid barrier and runs while it is up and below the round
+// budget, then writes the rounds taken. So a sharded HYSTER call is a
+// constant handful of launches whatever the cap and however soon the tiles
+// converge, and nothing is read back. Bound: grid barriers, as the round
+// kernels; one barrier more per collective round than the separate launches
+// had, and no launch.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 #include <map>
@@ -107,199 +139,619 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int NT = 256;  // threads per block
-constexpr int TR = 4;    // tile core: packed word rows
-constexpr int TC = 128;  // tile core: columns
-constexpr int CARRY_EVERY = 8;  // bitpack._CARRY_EVERY: every 8th dilation step is exact
-constexpr int MAX_DILATE_STEPS = 256;  // the tile halo (steps columns) fits shared memory
+constexpr int NT = 512;                // threads per block
+constexpr int CARRY_EVERY = 8;         // bitpack._CARRY_EVERY: every 8th dilation step is exact
+constexpr int MAX_DILATE_STEPS = 256;  // bitpack's schedule on the GPU: the wrappers' limit
+constexpr int BAND_UNIT = 32;          // a scanning launch's band widths: multiples of a word's rows
+constexpr int MIN_BAND = 16;           // a launch of dilation rounds only (phase 1): multiples of 16
+constexpr int MAX_SCAN_BAND = 256;     // a scanning band's widest: 8 words of column bits
+constexpr int MAX_SCAN_WORDS = MAX_SCAN_BAND / 32;
+constexpr int N_XDIR = 6;              // scan directions that cross bands: 0, 1, 4, 5, 6, 7
+constexpr int FOLD_BATCH = 8;          // upstream bands a fold loads in one pass
 
 struct Params {
   uint32_t* f;        // (B, hw, w) FINAL planes, updated in place
   const uint32_t* p;  // (B, hw, w) CANDIDATE planes
-  uint32_t* buf[4];   // scratch: B planes each
+  uint32_t* q;        // (B, hw, w) a band's propagate words between barriers, when not resident
+  uint32_t* edge;     // [2 slots][B] (hw, w) planes: the bands' published edge columns
+  uint32_t* summ;     // per band: [N_XDIR][2][hw] the exit column (L, Q) of each local scan
+  int* cnt;           // per band: the popcount of its core
   int* chg;           // [3][B] per-round change flags
-  int* flags;         // (B, 2, 2): phase-1 (it, growing), final (it, growing)
+  int* flags;         // (B, 2, 2): phase-1 (it, growing), final (it, growing); null: not written
   int nb;             // frames in the batch
-  int hw, w, h;       // plane rows, plane columns (= image columns), image rows
+  int hw, w;          // plane rows, plane columns (= image columns)
   long long plane;    // words per plane: hw * w
   int dilate_steps, cap;
-  int halo_r, halo_c;  // tile halo: word rows, columns
+  int scan_from;      // the rounds of a loop from this index on run the scans
+  int bw, halo, rs, nbw;  // band width, halo columns, shared row stride, bands per frame
 };
 
-// Per-frame state, one copy per block in shared memory after the tile.
+// Per-frame state, one copy per block in shared memory after the workspace.
 struct FrameState {
   int* it;    // [B] round count
   int* grow;  // [B] still growing (the last round changed the frame)
-  int* list;  // [B] frames active this round
-  int* n;     // [1] their number
+  int* on;    // [B] active this round
+  int* lay;   // [B] the frames of the band layout (active in the loop's first round)
+  int* n;     // [1] frames active this round
+  int* nl;    // [1] frames in the layout
 };
 
-__device__ __forceinline__ uint32_t ld(const uint32_t* x, int k, int c, int hw, int w) {
-  return (k >= 0 && k < hw && c >= 0 && c < w) ? __ldcg(x + k * w + c) : 0u;
+// The shared workspace of one band: two FINAL planes (Jacobi steps; the
+// second one holds the propagate words Q of a scan), the CANDIDATE plane,
+// hw rows of rs words each (halo, core, halo, one pad word: rs is odd, so a
+// column's words fall in distinct banks); the carry column; five bit
+// vectors over the band's columns a word row (diagonal_scan), or a fold's
+// batch of summary words; two ints.
+struct Ws {
+  uint32_t* x[2];
+  uint32_t* pc;
+  uint32_t* v;
+  uint32_t* bits;
+  int* red;
+};
+
+__host__ __device__ __forceinline__ int ws_words(int hw, int bw, int rs) {
+  const int bits = 5 * ((bw + 31) / 32), batch = 2 * FOLD_BATCH;
+  return 3 * hw * rs + hw + hw * (bits > batch ? bits : batch);
 }
 
-// bitpack._shift_px(x, s) at word (k, c): the packed stream shifted by s
-// image rows, zero fill.
-__device__ __forceinline__ uint32_t shift_px(const uint32_t* x, int k, int c, int s,
-                                             int hw, int w) {
-  if (c < 0 || c >= w) return 0u;
-  if (s > 0) {
-    int q = s >> 5, r = s & 31;
-    uint32_t b = ld(x, k - q, c, hw, w);
-    return r ? (b << r) | (ld(x, k - q - 1, c, hw, w) >> (32 - r)) : b;
+__device__ __forceinline__ Ws workspace(const Params& a, uint32_t* sm) {
+  const int n = a.hw * a.rs;
+  return Ws{{sm, sm + n}, sm + 2 * n, sm + 3 * n, sm + 3 * n + a.hw,
+            reinterpret_cast<int*>(sm + ws_words(a.hw, a.bw, a.rs))};
+}
+
+__device__ __forceinline__ FrameState frame_state(const Params& a, uint32_t* sm) {
+  int* s = reinterpret_cast<int*>(sm + ws_words(a.hw, a.bw, a.rs)) + 2;
+  return FrameState{s, s + a.nb, s + 2 * a.nb, s + 3 * a.nb, s + 4 * a.nb, s + 4 * a.nb + 1};
+}
+
+// Band g of the layout: frame, index in the frame, first column, width. Only
+// a frame's last band is narrower than bw.
+struct Band {
+  int g, b, j, c0, cb;
+};
+
+__device__ __forceinline__ Band band_of(const Params& a, const FrameState& st, int g) {
+  Band d;
+  d.g = g;
+  d.b = st.lay[g / a.nbw];
+  d.j = g % a.nbw;
+  d.c0 = d.j * a.bw;
+  d.cb = min(a.bw, a.w - d.c0);
+  return d;
+}
+
+// Direction DIR of bitpack._make_ops as (dc, dr): downstream is +dc columns
+// and +dr image rows a step; the value s cells upstream of (r, c) is at
+// (r - dr s, c - dc s). 2 and 3 (top->bottom, bottom->top) stay in a band.
+template <int DIR>
+struct Dir {
+  static constexpr int dc = (DIR == 0 || DIR == 4 || DIR == 7) ? 1 : -1;
+  static constexpr int dr = DIR < 2 ? 0 : ((DIR == 4 || DIR == 6) ? 1 : -1);
+  static constexpr int slot = DIR < 2 ? DIR : DIR - 2;  // its summary's index
+};
+
+// The scan stages of a phase-2 round: stage s applies direction
+// scan_order(s) and scans scan_order(s + 1) locally (-1: the round ends).
+__device__ __forceinline__ int scan_order(int s) {
+  switch (s) {
+    case 0: return 0;
+    case 1: return 1;
+    case 2: return 4;
+    case 3: return 5;
+    case 4: return 6;
+    case 5: return 7;
+    default: return -1;
   }
-  s = -s;
-  int q = s >> 5, r = s & 31;
-  uint32_t b = ld(x, k + q, c, hw, w);
-  return r ? (b >> r) | (ld(x, k + q + 1, c, hw, w) << (32 - r)) : b;
 }
 
-// The value s cells upstream of (k, c) along scan direction dir, in the
-// order of bitpack._make_ops: left->right, right->left, top->bottom,
-// bottom->top, down-right, up-left, down-left, up-right.
-__device__ __forceinline__ uint32_t upstream(const uint32_t* x, int k, int c, int dir, int s,
-                                             int hw, int w) {
-  switch (dir) {
-    case 0: return ld(x, k, c - s, hw, w);
-    case 1: return ld(x, k, c + s, hw, w);
-    case 2: return shift_px(x, k, c, s, hw, w);
-    case 3: return shift_px(x, k, c, -s, hw, w);
-    case 4: return shift_px(x, k, c - s, s, hw, w);
-    case 5: return shift_px(x, k, c + s, -s, hw, w);
-    case 6: return shift_px(x, k, c + s, s, hw, w);
-    default: return shift_px(x, k, c - s, -s, hw, w);
-  }
-}
+constexpr int NW = NT / 32;  // warps per block
+constexpr uint32_t FULL = 0xffffffffu;
 
-__device__ __forceinline__ uint32_t row_or(const uint32_t* A, int rr, int cc, int RW) {
-  const uint32_t* row = A + rr * RW;
-  return row[cc] | (cc > 0 ? row[cc - 1] : 0u) | (cc < RW - 1 ? row[cc + 1] : 0u);
-}
+__device__ __forceinline__ int lane_id() { return threadIdx.x & 31; }
+__device__ __forceinline__ int warp_id() { return threadIdx.x >> 5; }
 
-__host__ __device__ inline int tile_words(int dilate_steps) {
-  return 3 * (TR + 2 * ((dilate_steps + 31) / 32)) * (TC + 2 * dilate_steps);
-}
+// The loops over a band's words below run a warp a word row and a lane a
+// column: no division, a column's words in distinct banks (rs is odd).
 
-// One round of dilate_steps dilations on every active frame, tile by tile in
-// shared memory. Phase 1 reads frame b's plane of its round parity and
-// writes the other, and marks chg[slot][b] when a tile changed a word;
-// phase 2 reads f and writes buf[0].
-template <bool PHASE2>
-__device__ void dilate_round(const Params& a, const FrameState& st, int slot, uint32_t* sm) {
-  const int RH = TR + 2 * a.halo_r, RW = TC + 2 * a.halo_c, RN = RH * RW;
-  const int tiles_c = (a.w + TC - 1) / TC;
-  const int n_tiles = ((a.hw + TR - 1) / TR) * tiles_c;
-  const int n_act = *st.n;
-  for (int t = blockIdx.x; t < n_act * n_tiles; t += gridDim.x) {
-    const int b = st.list[t / n_tiles], tt = t - (t / n_tiles) * n_tiles;
-    uint32_t* fb = a.f + b * a.plane;
-    uint32_t* bb = a.buf[0] + b * a.plane;
-    const bool odd = !PHASE2 && (st.it[b] & 1);
-    const uint32_t* src = odd ? bb : fb;
-    uint32_t* dst = odd ? fb : bb;
-    const uint32_t* pb = a.p + b * a.plane;
-    const int k0 = (tt / tiles_c) * TR - a.halo_r;
-    const int c0 = (tt % tiles_c) * TC - a.halo_c;
-    uint32_t* A = sm;
-    uint32_t* B = sm + RN;
-    uint32_t* P = sm + 2 * RN;
-    for (int i = threadIdx.x; i < RN; i += NT) {
-      int rr = i / RW, cc = i - rr * RW;
-      A[i] = ld(src, k0 + rr, c0 + cc, a.hw, a.w);
-      P[i] = ld(pb, k0 + rr, c0 + cc, a.hw, a.w);
+// Shared columns [lo, hi) of X from frame d.b of the (B, hw, w) planes src:
+// shared column cc is frame column c0 - halo + cc, zero outside the frame.
+__device__ void load_cols(const Params& a, uint32_t* X, const uint32_t* src, Band d,
+                          int lo, int hi) {
+  const uint32_t* s = src + d.b * a.plane;
+  const int base = d.c0 - a.halo;
+  for (int k = warp_id(); k < a.hw; k += NW) {
+    const uint32_t* row = s + (long long)k * a.w;
+    for (int cc = lo + lane_id(); cc < hi; cc += 32) {
+      const int c = base + cc;
+      X[k * a.rs + cc] = (c >= 0 && c < a.w) ? __ldcg(row + c) : 0u;
     }
-    __syncthreads();
-    for (int step = 1; step <= a.dilate_steps; ++step) {
-      const bool exact = (step % CARRY_EVERY == 0) || step == a.dilate_steps;
-      for (int i = threadIdx.x; i < RN; i += NT) {
-        int rr = i / RW, cc = i - rr * RW;
-        uint32_t v = row_or(A, rr, cc, RW);
+  }
+}
+
+__device__ __forceinline__ void load_core(const Params& a, uint32_t* X, const uint32_t* src,
+                                          Band d) {
+  load_cols(a, X, src, d, a.halo, a.halo + d.cb);
+}
+
+__device__ void store_core(const Params& a, const uint32_t* X, uint32_t* dst, Band d) {
+  uint32_t* o = dst + d.b * a.plane + d.c0;
+  for (int k = warp_id(); k < a.hw; k += NW)
+    for (int t = lane_id(); t < d.cb; t += 32)
+      o[(long long)k * a.w + t] = X[k * a.rs + a.halo + t];
+}
+
+// The band's first and last `halo` core columns into edge slot `slot`, at
+// their places in the frame's plane there.
+__device__ void publish_edges(const Params& a, const uint32_t* X, Band d, int slot) {
+  uint32_t* e = a.edge + ((long long)slot * a.nb + d.b) * a.plane + d.c0;
+  const int h2 = 2 * a.halo;
+  for (int k = warp_id(); k < a.hw; k += NW)
+    for (int m = lane_id(); m < h2; m += 32) {
+      const int t = m < a.halo ? m : d.cb - h2 + m;  // core column
+      if (t >= 0 && t < d.cb) e[(long long)k * a.w + t] = X[k * a.rs + a.halo + t];
+    }
+}
+
+// The band's halo columns from edge slot `slot`: its neighbours' edges as
+// they published them, zero outside the frame.
+__device__ void refresh_halo(const Params& a, uint32_t* X, Band d, int slot) {
+  const uint32_t* e = a.edge + ((long long)slot * a.nb + d.b) * a.plane;
+  const int h2 = 2 * a.halo, base = d.c0 - a.halo;
+  for (int k = warp_id(); k < a.hw; k += NW)
+    for (int m = lane_id(); m < h2; m += 32) {
+      const int cc = m < a.halo ? m : d.cb + m;  // shared column
+      const int c = base + cc;
+      X[k * a.rs + cc] = (c >= 0 && c < a.w) ? __ldcg(e + (long long)k * a.w + c) : 0u;
+    }
+}
+
+__device__ __forceinline__ uint32_t row_or(const uint32_t* row, int cc, int W) {
+  return row[cc] | (cc > 0 ? row[cc - 1] : 0u) | (cc < W - 1 ? row[cc + 1] : 0u);
+}
+
+// Steps s0 + 1 .. s0 + n of the round's dilate_steps dilations on the band
+// in X[cur] (core and halo; n <= halo), Jacobi between the two planes.
+// Returns the plane that holds the result, whose core is exact. Step i
+// recomputes only the columns the core still depends on after it.
+__device__ int dilate_band(const Params& a, Ws ws, int cur, Band d, int s0, int n) {
+  const int W = d.cb + 2 * a.halo, RS = a.rs, hw = a.hw;
+  for (int i = 1; i <= n; ++i) {
+    const int step = s0 + i;
+    const bool exact = step % CARRY_EVERY == 0 || step == a.dilate_steps;
+    const int m = n - i, lo = a.halo - m, hi = a.halo + d.cb + m;
+    const uint32_t* __restrict__ A = ws.x[cur];
+    const uint32_t* __restrict__ Pc = ws.pc;
+    uint32_t* __restrict__ B = ws.x[cur ^ 1];
+    for (int k = warp_id(); k < hw; k += NW) {
+      const uint32_t* row = A + k * RS;
+      for (int cc = lo + lane_id(); cc < hi; cc += 32) {
+        const uint32_t v = row_or(row, cc, W);
         uint32_t h = v | (v << 1) | (v >> 1);
         if (exact) {  // cross-word carry: bit 31 of the word above, bit 0 below
-          if (rr > 0) h |= row_or(A, rr - 1, cc, RW) >> 31;
-          if (rr < RH - 1) h |= row_or(A, rr + 1, cc, RW) << 31;
+          if (k > 0) h |= row_or(row - RS, cc, W) >> 31;
+          if (k < hw - 1) h |= row_or(row + RS, cc, W) << 31;
         }
-        B[i] = A[i] | (P[i] & h);
-      }
-      __syncthreads();
-      uint32_t* T = A;
-      A = B;
-      B = T;
-    }
-    bool changed = false;
-    for (int i = threadIdx.x; i < TR * TC; i += NT) {
-      int rr = i / TC + a.halo_r, cc = i % TC + a.halo_c;
-      int k = k0 + rr, c = c0 + cc;
-      if (k < a.hw && c < a.w) {
-        uint32_t v = A[rr * RW + cc];
-        if (!PHASE2) changed |= v != __ldcg(src + k * a.w + c);
-        dst[k * a.w + c] = v;
+        B[k * RS + cc] = row[cc] | (Pc[k * RS + cc] & h);
       }
     }
-    // The barrier also frees the shared memory for the next tile.
-    if (__syncthreads_or(changed) && threadIdx.x == 0) atomicOr(&a.chg[slot * a.nb + b], 1);
+    __syncthreads();
+    cur ^= 1;
+  }
+  return cur;
+}
+
+// The popcount of the band's core in X (every thread gets it).
+__device__ int core_popc(const Params& a, Ws ws, const uint32_t* X, Band d) {
+  __syncthreads();
+  if (threadIdx.x == 0) *ws.red = 0;
+  __syncthreads();
+  int c = 0;
+  for (int k = warp_id(); k < a.hw; k += NW)
+    for (int t = lane_id(); t < d.cb; t += 32) c += __popc(X[k * a.rs + a.halo + t]);
+  for (int o = 16; o; o >>= 1) c += __shfl_down_sync(FULL, c, o);
+  if (lane_id() == 0) atomicAdd(ws.red, c);
+  __syncthreads();
+  return *ws.red;
+}
+
+// The round's change test of a band: a round only adds bits, so the band
+// changed iff its core's popcount grew. Marks chg[slot][b].
+__device__ void test_change(const Params& a, Ws ws, const uint32_t* X, Band d,
+                            int slot) {
+  const int c = core_popc(a, ws, X, d);
+  if (threadIdx.x == 0) {
+    volatile int* cnt = a.cnt + d.g;
+    if (c != *cnt) {
+      *cnt = c;
+      atomicOr(&a.chg[slot * a.nb + d.b], 1);
+    }
   }
 }
 
-// A round's result, the planes ``gs`` of every active frame, into f; marks
-// chg[slot][b] when frame b changed.
-__device__ void commit_round(const Params& a, const FrameState& st, int slot,
-                             const uint32_t* gs) {
-  const int n = (int)a.plane;
-  const int n_act = *st.n;
-  const int gtid = blockIdx.x * NT + threadIdx.x;
-  const int gsize = gridDim.x * NT;
-  for (int i = 0; i < n_act; ++i) {
-    const int b = st.list[i];
-    const uint32_t* gb = gs + b * a.plane;
-    uint32_t* fb = a.f + b * a.plane;
-    bool changed = false;
-    for (int e = gtid; e < n; e += gsize) {
-      const uint32_t v = __ldcg(gb + e);
-      changed |= v != __ldcg(fb + e);
-      fb[e] = v;
+// Word k of column cc of X shifted by one image row (down for dr > 0), zero fill.
+__device__ __forceinline__ uint32_t shift1(const uint32_t* X, int k, int cc, int dr, int hw,
+                                           int RS) {
+  const uint32_t x = X[k * RS + cc];
+  if (dr > 0) return (x << 1) | (k > 0 ? X[(k - 1) * RS + cc] >> 31 : 0u);
+  return (x >> 1) | (k < hw - 1 ? X[(k + 1) * RS + cc] << 31 : 0u);
+}
+
+__device__ __forceinline__ uint32_t word_at(const uint32_t* V, int i, int hw) {
+  return (i >= 0 && i < hw) ? V[i] : 0u;
+}
+
+// Word k of the column V (hw words) shifted by s image rows, down for s > 0,
+// zero fill: bitpack._shift_px on one column.
+__device__ __forceinline__ uint32_t vshift(const uint32_t* V, int k, int s, int hw) {
+  if (s > 0) {
+    const int q = s >> 5, r = s & 31;
+    const uint32_t b = word_at(V, k - q, hw);
+    return r ? (b << r) | (word_at(V, k - q - 1, hw) >> (32 - r)) : b;
+  }
+  s = -s;
+  const int q = s >> 5, r = s & 31;
+  const uint32_t b = word_at(V, k + q, hw);
+  return r ? (b >> r) | (word_at(V, k + q + 1, hw) << (32 - r)) : b;
+}
+
+// Bits s .. s + 31 of the bit vector v (nv words), zero outside it.
+__device__ __forceinline__ uint32_t window(const uint32_t* v, int s, int nv) {
+  const int q = s >> 5, r = s & 31;
+  const uint32_t lo = (q >= 0 && q < nv) ? v[q] : 0u;
+  if (!r) return lo;
+  const uint32_t hi = (q + 1 >= 0 && q + 1 < nv) ? v[q + 1] : 0u;
+  return (lo >> r) | (hi << (32 - r));
+}
+
+// v shifted by s image rows along direction DIR's line (down for dr > 0)
+// inside its word: the value s columns upstream, as a word row sees it.
+template <int DIR>
+__device__ __forceinline__ uint32_t along(uint32_t v, int s) {
+  if constexpr (Dir<DIR>::dr > 0) return v << s;
+  if constexpr (Dir<DIR>::dr < 0) return v >> s;
+  return v;
+}
+
+// One warp's inclusive scan over its 32 lanes (consecutive columns from
+// the entry edge) of direction DIR inside one word row: the generates g[0..G)
+// and the propagate q, in five shuffle steps (Kogge-Stone); a value from s
+// lanes upstream moves s rows along the line, inside the word. On return
+// q is the product of the candidates along the line from lane 0.
+template <int DIR, int G>
+__device__ __forceinline__ void warp_scan(uint32_t (&g)[G], uint32_t& q) {
+  const int lane = lane_id();
+#pragma unroll
+  for (int s = 1; s < 32; s <<= 1) {
+    const uint32_t qu = __shfl_up_sync(FULL, q, s);
+#pragma unroll
+    for (int j = 0; j < G; ++j) {
+      const uint32_t gu = __shfl_up_sync(FULL, g[j], s);
+      if (lane >= s) g[j] |= q & along<DIR>(gu, s);
     }
-    if (__syncthreads_or(changed) && threadIdx.x == 0) atomicOr(&a.chg[slot * a.nb + b], 1);
+    if (lane >= s) q &= along<DIR>(qu, s);
   }
 }
 
-// The 8 directional scans on the dilated planes in buf[0] of every active
-// frame, then the result into f; marks chg[slot][b] when frame b changed.
-__device__ void scan_round(const Params& a, const FrameState& st, int slot,
-                           cg::grid_group& grid) {
-  const int n = (int)a.plane;
-  const int n_act = *st.n;
-  const int gtid = blockIdx.x * NT + threadIdx.x;
-  const int gsize = gridDim.x * NT;
-  const uint32_t* gs = a.buf[0];
-  for (int dir = 0; dir < 8; ++dir) {
-    const int extent = dir < 2 ? a.w : (dir < 4 ? a.h : min(a.h, a.w));
-    const uint32_t* ps = a.p;
-    for (int s = 1; s < extent; s *= 2) {
-      const bool last = 2 * s >= extent;
-      uint32_t* gd = gs == a.buf[0] ? a.buf[1] : a.buf[0];
-      uint32_t* pd = ps == a.buf[2] ? a.buf[3] : a.buf[2];
-      for (int i = 0; i < n_act; ++i) {
-        const long long off = st.list[i] * a.plane;
-        const uint32_t* gsb = gs + off;
-        const uint32_t* psb = ps + off;
-        for (int e = gtid; e < n; e += gsize) {
-          const int k = e / a.w, c = e - k * a.w;
-          const uint32_t gv = __ldcg(gsb + e), pv = __ldcg(psb + e);
-          gd[off + e] = gv | (pv & upstream(gsb, k, c, dir, s, a.hw, a.w));
-          if (!last) pd[off + e] = pv & upstream(psb, k, c, dir, s, a.hw, a.w);
+// A diagonal local scan in three passes, t counting columns from the entry
+// edge (tests/test_torch_round_bands.py models it):
+// 1. each word row on its own, a warp a word row and its lanes columns,
+//    32 at a time (warp_scan): L (the lines that stay in the word, carry-in
+//    zero), E (the propagate product from the band's entry edge, staying in
+//    the word) into X and Qp, and D (from an entry at the word's entry bit
+//    at a column >= 1); the exit bit (31 going down, 0 going up) of each as
+//    a bit vector over t (ballots);
+// 2. the carries into the entry bit as bit vectors over t, for G and for
+//    Q: c_k = (l | (d & (c_prev << 31))) << 1 of the word row before; a
+//    carry moves 32 columns a word row, so c_k depends on the nv word rows
+//    before it only, and each word row computes its own;
+// 3. each word row again (D by warp_scan): G = L | (D & c spread over the
+//    word's bits), Q = E | (D & the Q carries spread).
+template <int DIR>
+__device__ void diagonal_scan(const Params& a, Ws ws, uint32_t* __restrict__ X,
+                              uint32_t* __restrict__ Qp, Band d) {
+  constexpr int dc = Dir<DIR>::dc, dr = Dir<DIR>::dr;
+  constexpr uint32_t ENTRY = dr > 0 ? 1u : 0x80000000u;
+  constexpr int EXIT = dr > 0 ? 31 : 0;
+  const int RS = a.rs, hw = a.hw, H = a.halo, cb = d.cb, nv = (cb + 31) >> 5, lane = lane_id();
+  const uint32_t* __restrict__ P = ws.pc;
+  uint32_t* __restrict__ lv = ws.bits;
+  uint32_t* __restrict__ dv = lv + hw * nv;
+  uint32_t* __restrict__ ev = dv + hw * nv;
+  uint32_t* __restrict__ cgv = ev + hw * nv;
+  uint32_t* __restrict__ cqv = cgv + hw * nv;
+  for (int k = warp_id(); k < hw; k += NW) {
+    uint32_t last[3] = {0u, 0u, 0u};  // L, D, E at the previous chunk's last column
+    for (int c = 0; c < nv; ++c) {
+      const int t = c * 32 + lane;
+      const bool in = t < cb;
+      const int i = k * RS + H + (dc > 0 ? t : cb - 1 - t);
+      const uint32_t p = in ? P[i] : 0u;
+      uint32_t g[3] = {in ? X[i] : 0u, t >= 1 ? p & ENTRY : 0u, t == 0 ? p : 0u};
+      if (lane == 0)
+        for (int j = 0; j < 3; ++j) g[j] |= p & along<DIR>(last[j], 1);
+      uint32_t q = p;
+      warp_scan<DIR, 3>(g, q);
+      if (in) {
+        X[i] = g[0];
+        Qp[i] = g[2];
+      }
+      const uint32_t lb = __ballot_sync(FULL, in && ((g[0] >> EXIT) & 1u));
+      const uint32_t db = __ballot_sync(FULL, in && ((g[1] >> EXIT) & 1u));
+      const uint32_t eb = __ballot_sync(FULL, in && ((g[2] >> EXIT) & 1u));
+      if (lane == 0) {
+        lv[k * nv + c] = lb;
+        dv[k * nv + c] = db;
+        ev[k * nv + c] = eb;
+      }
+      for (int j = 0; j < 3; ++j) last[j] = __shfl_sync(FULL, g[j], 31);
+    }
+  }
+  __syncthreads();
+  for (int k = threadIdx.x; k < hw; k += NT) {
+    // A carry moves 32 columns a word row, so what entered nv word rows
+    // back has left the band: start there with carry zero.
+    const int before = dr > 0 ? k : hw - 1 - k, back = before < nv ? before : nv;
+    uint32_t cg[MAX_SCAN_WORDS], cq[MAX_SCAN_WORDS];
+#pragma unroll
+    for (int i = 0; i < MAX_SCAN_WORDS; ++i) cg[i] = cq[i] = 0u;
+    for (int j = back; j >= 1; --j) {
+      const int kp = k - dr * j;  // the word row the carry leaves
+      // u = l | (d & (c << 31)) word by word; the next carry is u << 1.
+      uint32_t ug_prev = 0u, uq_prev = 0u, cg_prev = 0u, cq_prev = 0u;
+#pragma unroll
+      for (int i = 0; i < MAX_SCAN_WORDS; ++i) {
+        if (i < nv) {
+          const int o = kp * nv + i;
+          const uint32_t dd = dv[o];
+          const uint32_t ug = lv[o] | (dd & ((cg[i] << 31) | (cg_prev >> 1)));
+          const uint32_t uq = ev[o] | (dd & ((cq[i] << 31) | (cq_prev >> 1)));
+          cg_prev = cg[i];
+          cq_prev = cq[i];
+          cg[i] = (ug << 1) | (ug_prev >> 31);
+          cq[i] = (uq << 1) | (uq_prev >> 31);
+          ug_prev = ug;
+          uq_prev = uq;
         }
       }
-      grid.sync();
-      gs = gd;
-      ps = pd;
+    }
+#pragma unroll
+    for (int i = 0; i < MAX_SCAN_WORDS; ++i) {
+      if (i < nv) {
+        cgv[k * nv + i] = cg[i];
+        cqv[k * nv + i] = cq[i];
+      }
     }
   }
-  commit_round(a, st, slot, gs);
+  __syncthreads();
+  for (int k = warp_id(); k < hw; k += NW) {
+    uint32_t last = 0u;  // D at the previous chunk's last column
+    for (int c = 0; c < nv; ++c) {
+      const int t = c * 32 + lane;
+      const bool in = t < cb;
+      const int i = k * RS + H + (dc > 0 ? t : cb - 1 - t);
+      const uint32_t p = in ? P[i] : 0u;
+      uint32_t g[1] = {t >= 1 ? p & ENTRY : 0u};
+      if (lane == 0) g[0] |= p & along<DIR>(last, 1);
+      uint32_t q = p;
+      warp_scan<DIR, 1>(g, q);
+      if (in && g[0]) {
+        // Bit b of a word entered at column t - b (down) or t - 31 + b (up).
+        uint32_t wg = window(cgv + k * nv, t - 31, nv), wq = window(cqv + k * nv, t - 31, nv);
+        if (dr > 0) {
+          wg = __brev(wg);
+          wq = __brev(wq);
+        }
+        X[i] |= g[0] & wg;
+        Qp[i] |= g[0] & wq;
+      }
+      last = __shfl_sync(FULL, g[0], 31);
+    }
+  }
+  __syncthreads();
 }
 
-// Lists the frames that run round r (thread 0 only; the caller syncs the
-// block). Every block computes the same list from the same state.
+// The local scan of crossing direction DIR on the band's core, carry-in
+// zero at its entry edge: the result L in X, in place, and the propagate
+// product Q from the entry edge in Qp; then the exit column's (L, Q) into
+// the band's summary. Along a row (0, 1) a warp scans a word row, 32 columns
+// at a time (warp_scan); a diagonal is diagonal_scan.
+template <int DIR>
+__device__ void local_scan(const Params& a, Ws ws, uint32_t* X, uint32_t* Qp, Band d) {
+  constexpr int dc = Dir<DIR>::dc, dr = Dir<DIR>::dr;
+  const int RS = a.rs, hw = a.hw, H = a.halo, cb = d.cb, lane = lane_id();
+  if constexpr (dr != 0) {
+    diagonal_scan<DIR>(a, ws, X, Qp, d);
+  } else {
+    const int nch = (cb + 31) >> 5;
+    for (int k = warp_id(); k < hw; k += NW) {
+      uint32_t gin = 0u, qin = ~0u;  // L and Q at the previous chunk's last column
+      for (int c = 0; c < nch; ++c) {
+        const int t = c * 32 + lane;
+        const bool in = t < cb;
+        const int i = k * RS + H + (dc > 0 ? t : cb - 1 - t);
+        const uint32_t p = in ? ws.pc[i] : 0u;
+        uint32_t g[1] = {in ? X[i] : 0u};
+        if (lane == 0) g[0] |= p & gin;
+        uint32_t q = p;
+        warp_scan<DIR, 1>(g, q);
+        q &= qin;
+        if (in) {
+          X[i] = g[0];
+          Qp[i] = q;
+        }
+        gin = __shfl_sync(FULL, g[0], 31);
+        qin = __shfl_sync(FULL, q, 31);
+      }
+    }
+    __syncthreads();
+  }
+  uint32_t* s = a.summ + ((long long)d.g * N_XDIR + Dir<DIR>::slot) * 2 * hw;
+  const int ce = H + (dc > 0 ? cb - 1 : 0);
+  for (int k = threadIdx.x; k < hw; k += NT) {
+    s[k] = X[k * RS + ce];
+    s[hw + k] = Qp[k * RS + ce];
+  }
+}
+
+// Direction dir's carry into the band from the summaries of the bands
+// upstream of it, then G = L | (Q & carry) on every core word. The carry
+// column V is the result just outside the entry edge; a band composes onto
+// it as V' = L | (Q & V shifted by dr * bw rows), whole words since bw is a
+// multiple of 32, so word k of V folds the chain of words k - dr (m - 1)
+// bw / 32 of the m-th band upstream, nearest first, and stops where the
+// product of the Qs is zero or the chain leaves the frame (mostly within a
+// band or two). A frame's last band, the only narrower one, is never
+// crossed on the way.
+template <int DIR>
+__device__ void fold_apply(const Params& a, Ws ws, uint32_t* X, const uint32_t* Qp,
+                           Band d) {
+  constexpr int dc = Dir<DIR>::dc, dr = Dir<DIR>::dr;
+  const int hw = a.hw, RS = a.rs, H = a.halo, cb = d.cb, lane = lane_id();
+  const int up = dc > 0 ? d.j : a.nbw - 1 - d.j;  // bands upstream
+  if (up == 0) return;  // the frame's border: carry 0
+  const int wq = a.bw / BAND_UNIT;
+  auto summary = [&](int m) {  // the m-th band upstream's summary of direction DIR
+    return a.summ + ((long long)(d.g - dc * m) * N_XDIR + Dir<DIR>::slot) * 2 * hw;
+  };
+  // The nearest FOLD_BATCH bands' words, every load of the block at once.
+  uint32_t* fl = ws.bits;
+  uint32_t* fq = fl + hw * FOLD_BATCH;
+  for (int e = threadIdx.x; e < hw * FOLD_BATCH; e += NT) {
+    const int k = e / FOLD_BATCH, m = e % FOLD_BATCH + 1, kk = k - dr * (m - 1) * wq;
+    uint32_t l = 0u, q = 0u;
+    if (m <= up && kk >= 0 && kk < hw) {
+      l = __ldcg(summary(m) + kk);
+      q = __ldcg(summary(m) + hw + kk);
+    }
+    fl[e] = l;
+    fq[e] = q;
+  }
+  __syncthreads();
+  for (int k = threadIdx.x; k < hw; k += NT) {
+    uint32_t acc_l = 0u, acc_q = ~0u;
+    for (int m = 0; m < FOLD_BATCH; ++m) {
+      acc_l |= acc_q & fl[k * FOLD_BATCH + m];
+      acc_q &= fq[k * FOLD_BATCH + m];
+    }
+    ws.v[k] = acc_l;
+    fl[k * FOLD_BATCH] = acc_q;  // nonzero: the chain goes on
+  }
+  __syncthreads();
+  // The chains that go on past FOLD_BATCH bands: a warp a word, its lanes
+  // loading 32 bands at once and composing them in five shuffle steps.
+  for (int k = warp_id(); up > FOLD_BATCH && k < hw; k += NW) {
+    uint32_t acc_l = ws.v[k], acc_q = fl[k * FOLD_BATCH];
+    for (int m0 = FOLD_BATCH; m0 < up && acc_q; m0 += 32) {
+      const int m = m0 + lane + 1, kk = k - dr * (m - 1) * wq;
+      uint32_t l = 0u, q = 0u;
+      if (m <= up && kk >= 0 && kk < hw) {
+        l = __ldcg(summary(m) + kk);
+        q = __ldcg(summary(m) + hw + kk);
+      }
+      for (int off = 1; off < 32; off <<= 1) {  // lane 0: bands m0 + 1 .. m0 + 32
+        const uint32_t l2 = __shfl_down_sync(FULL, l, off), q2 = __shfl_down_sync(FULL, q, off);
+        l |= q & l2;
+        q &= q2;
+      }
+      acc_l |= acc_q & __shfl_sync(FULL, l, 0);
+      acc_q &= __shfl_sync(FULL, q, 0);
+    }
+    __syncwarp();
+    if (lane == 0) ws.v[k] = acc_l;
+  }
+  __syncthreads();
+  for (int k = warp_id(); k < hw; k += NW)
+    for (int t = lane; t < cb; t += 32) {  // t: columns from the entry edge
+      const int i = k * RS + H + (dc > 0 ? t : cb - 1 - t);
+      const uint32_t c = dr == 0 ? ws.v[k] : vshift(ws.v, k, dr * (t + 1), hw);
+      X[i] |= Qp[i] & c;
+    }
+  __syncthreads();
+}
+
+// The scan functions for a direction known only at run time.
+__device__ void local_scan(const Params& a, Ws ws, uint32_t* X, uint32_t* Qp, Band d, int dir) {
+  switch (dir) {
+    case 0: local_scan<0>(a, ws, X, Qp, d); break;
+    case 1: local_scan<1>(a, ws, X, Qp, d); break;
+    case 4: local_scan<4>(a, ws, X, Qp, d); break;
+    case 5: local_scan<5>(a, ws, X, Qp, d); break;
+    case 6: local_scan<6>(a, ws, X, Qp, d); break;
+    default: local_scan<7>(a, ws, X, Qp, d); break;
+  }
+}
+
+__device__ void fold_apply(const Params& a, Ws ws, uint32_t* X, const uint32_t* Qp, Band d,
+                           int dir) {
+  switch (dir) {
+    case 0: fold_apply<0>(a, ws, X, Qp, d); break;
+    case 1: fold_apply<1>(a, ws, X, Qp, d); break;
+    case 4: fold_apply<4>(a, ws, X, Qp, d); break;
+    case 5: fold_apply<5>(a, ws, X, Qp, d); break;
+    case 6: fold_apply<6>(a, ws, X, Qp, d); break;
+    default: fold_apply<7>(a, ws, X, Qp, d); break;
+  }
+}
+
+// Directions 2 and 3 (top->bottom, then bottom->top) inside the band, which
+// spans every word row. Each word first on its own, in parallel: its scan
+// with carry-in zero (five doubling steps) into X and the propagate product
+// from its entry bit into T. Then the carries across words: bit j of a
+// ballot over 32 consecutive words of a column is word j's exit bit (of L,
+// and of Q), so a warp scans 32 words' carries in five steps on one word,
+// G = L | (Q & carry in). No grid barrier.
+__device__ void vertical_scans(const Params& a, Ws ws, uint32_t* X, uint32_t* T, Band d) {
+  const int hw = a.hw, RS = a.rs, H = a.halo, cb = d.cb, lane = lane_id();
+  for (int down = 1; down >= 0; --down) {
+    for (int k = warp_id(); k < hw; k += NW)
+      for (int t = lane; t < cb; t += 32) {
+        const int i = k * RS + H + t;
+        uint32_t g = X[i], pp = ws.pc[i], q = pp;
+#pragma unroll
+        for (int s = 1; s < 32; s <<= 1) {
+          if (down) {
+            g |= pp & (g << s);
+            q &= (q << s) | ((1u << s) - 1u);
+            pp &= pp << s;
+          } else {
+            g |= pp & (g >> s);
+            q &= (q >> s) | ~(~0u >> s);
+            pp &= pp >> s;
+          }
+        }
+        X[i] = g;
+        T[i] = q;
+      }
+    __syncthreads();
+    const int exit_bit = down ? 31 : 0;
+    for (int t = warp_id(); t < cb; t += NW) {
+      uint32_t cin = 0u;  // the carry into the next 32 words
+      for (int n0 = 0; n0 < hw; n0 += 32) {
+        const int n = n0 + lane;
+        const bool in = n < hw;
+        const int i = (down ? n : hw - 1 - n) * RS + H + t;
+        const uint32_t l = in ? X[i] : 0u, q = in ? T[i] : 0u;
+        uint32_t g = __ballot_sync(FULL, (l >> exit_bit) & 1u);
+        uint32_t p = __ballot_sync(FULL, (q >> exit_bit) & 1u);
+        g |= p & cin;  // bit j: the carry out of word n0 + j
+#pragma unroll
+        for (int s = 1; s < 32; s <<= 1) {
+          g |= p & (g << s);
+          p &= p << s;
+        }
+        const uint32_t into = lane ? (g >> (lane - 1)) & 1u : cin;
+        if (in) X[i] = l | (q & (0u - into));
+        cin = g >> 31;
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// Marks the frames that run round r (thread 0 only; the caller syncs the
+// block). Every block computes the same state.
 template <bool PHASE2>
 __device__ void list_active(const Params& a, const FrameState& st, int r) {
   int n = 0;
@@ -307,21 +759,27 @@ __device__ void list_active(const Params& a, const FrameState& st, int r) {
     // Phase 1 runs its first round unconditionally; phase 2 starts at the
     // phase-1 exit state.
     const bool on = (!PHASE2 && r == 0) || (st.grow[b] && st.it[b] < a.cap);
-    if (on) st.list[n++] = b;
+    st.on[b] = on;
+    n += on;
   }
   *st.n = n;
 }
 
-// One phase's round loop on every frame of a (hyst_kernel's body; each
-// collective round of sharded_loop_kernel runs both). Every block of a
-// cooperative grid calls it with the same arguments, and every block takes
-// the same branches: the per-frame state is a copy per block. Phase 2 reads
-// flags[b][0] through L2, so a caller may run it right after phase 1 in the
-// same launch, with a grid barrier between.
+// One round loop on every frame of a: dilation rounds, and from round
+// a.scan_from on rounds of dilations and the 8 scans (hyst_kernel's body;
+// each collective round of sharded_loop_kernel runs a phase-1 and a phase-2
+// loop, each seam round of split_kernel one loop on its slices). Every block
+// of a cooperative grid calls it with the same arguments and takes the same
+// branches: the per-frame state is a copy per block. PHASE2 starts from
+// flags[b][0] (read through L2, so a caller may run it right after phase 1
+// in the same launch, with a grid barrier between) and writes flags[b][1];
+// phase 1 starts every frame at round 0 and writes flags[b][0]. The planes
+// are read at the start and written back at the end; a caller syncs the
+// grid before it reads them.
 template <bool PHASE2>
 __device__ void round_loop(const Params& a, uint32_t* sm, cg::grid_group& grid) {
-  int* state = reinterpret_cast<int*>(sm + tile_words(a.dilate_steps));
-  const FrameState st{state, state + a.nb, state + 2 * a.nb, state + 3 * a.nb};
+  const FrameState st = frame_state(a, sm);
+  const Ws ws = workspace(a, sm);
   const bool lead = blockIdx.x == 0 && threadIdx.x == 0;
   if (threadIdx.x == 0) {
     for (int b = 0; b < a.nb; ++b) {
@@ -329,6 +787,10 @@ __device__ void round_loop(const Params& a, uint32_t* sm, cg::grid_group& grid) 
       st.grow[b] = PHASE2 ? __ldcg(a.flags + 4 * b + 1) : 1;
     }
     list_active<PHASE2>(a, st, 0);
+    int nl = 0;
+    for (int b = 0; b < a.nb; ++b)
+      if (st.on[b]) st.lay[nl++] = b;
+    *st.nl = nl;
   }
   __syncthreads();
   if (PHASE2 && *st.n == 0) {  // every frame converged in phase 1
@@ -338,25 +800,108 @@ __device__ void round_loop(const Params& a, uint32_t* sm, cg::grid_group& grid) 
     }
     return;
   }
+  // The layout: bw-column bands of the frames active in the first round,
+  // band g on block g mod grid. A block that owns one band keeps it in its
+  // shared memory for the whole loop; with more bands than blocks, each
+  // stage loads a band's words and stores them back (FINAL in f, Q in q).
+  const int bands = *st.nl * a.nbw;
+  const bool resident = bands <= (int)gridDim.x;
+  int cur = 0;  // the FINAL plane of the workspace
+  for (int g = blockIdx.x; g < bands; g += gridDim.x) {
+    const Band d = band_of(a, st, g);
+    if (resident) {  // zero first: the columns outside the frame stay 0
+      for (int i = threadIdx.x; i < 3 * a.hw * a.rs; i += NT) sm[i] = 0u;
+      __syncthreads();
+      load_cols(a, ws.pc, a.p, d, 0, d.cb + 2 * a.halo);
+    }
+    load_core(a, ws.x[0], a.f, d);
+    __syncthreads();
+    publish_edges(a, ws.x[0], d, 0);
+    const int c = core_popc(a, ws, ws.x[0], d);
+    if (threadIdx.x == 0) a.cnt[g] = c;
+  }
+  int ex = 1;  // edge publications so far: the latest is in slot (ex - 1) & 1
   if (lead)
     for (int i = 0; i < 3 * a.nb; ++i) a.chg[i] = 0;
   grid.sync();
 
+  const int nseg = (a.dilate_steps + a.halo - 1) / a.halo;
   for (int r = 0; *st.n > 0; ++r) {
     const int slot = r % 3;
     if (lead)
       for (int b = 0; b < a.nb; ++b) a.chg[((r + 1) % 3) * a.nb + b] = 0;
-    if (PHASE2) {
-      dilate_round<true>(a, st, slot, sm);
+    const bool scan = r >= a.scan_from;
+    // The dilations, in segments of at most `halo` steps: the halo from
+    // the edges last published, the steps, and the edges published again,
+    // or after the last segment of a scan round the local scan of
+    // direction 0. One grid barrier a segment.
+    for (int seg = 0; seg < nseg; ++seg) {
+      const int s0 = seg * a.halo, n = min(a.halo, a.dilate_steps - s0);
+      const bool to_scan = scan && seg == nseg - 1;
+      for (int g = blockIdx.x; g < bands; g += gridDim.x) {
+        const Band d = band_of(a, st, g);
+        if (!st.on[d.b]) continue;
+        if (!resident) {
+          cur = 0;
+          load_cols(a, ws.pc, a.p, d, 0, d.cb + 2 * a.halo);
+          load_core(a, ws.x[0], a.f, d);
+        }
+        refresh_halo(a, ws.x[cur], d, (ex - 1) & 1);
+        __syncthreads();
+        cur = dilate_band(a, ws, cur, d, s0, n);
+        if (to_scan) {
+          local_scan<0>(a, ws, ws.x[cur], ws.x[cur ^ 1], d);
+        } else {
+          if (seg == nseg - 1) test_change(a, ws, ws.x[cur], d, slot);
+          publish_edges(a, ws.x[cur], d, ex & 1);
+        }
+        if (!resident) {
+          __syncthreads();
+          store_core(a, ws.x[cur], a.f, d);
+          if (to_scan) store_core(a, ws.x[cur ^ 1], a.q, d);
+          __syncthreads();
+        }
+      }
+      if (!to_scan) ++ex;
       grid.sync();
-      scan_round(a, st, slot, grid);
-    } else {
-      dilate_round<false>(a, st, slot, sm);
     }
-    grid.sync();
+    // The scans: stage s folds and applies direction scan_order(s) (with
+    // directions 2 and 3 after direction 1), then scans the next crossing
+    // direction locally and publishes its summary; the last stage tests the
+    // change and publishes the edges. One grid barrier a stage.
+    for (int s = 0; scan && s < N_XDIR; ++s) {
+      const int pd = scan_order(s), nd = scan_order(s + 1);
+      for (int g = blockIdx.x; g < bands; g += gridDim.x) {
+        const Band d = band_of(a, st, g);
+        if (!st.on[d.b]) continue;
+        if (!resident) {
+          cur = 0;
+          load_core(a, ws.pc, a.p, d);
+          load_core(a, ws.x[0], a.f, d);
+          load_core(a, ws.x[1], a.q, d);
+          __syncthreads();
+        }
+        fold_apply(a, ws, ws.x[cur], ws.x[cur ^ 1], d, pd);
+        if (pd == 1) vertical_scans(a, ws, ws.x[cur], ws.x[cur ^ 1], d);
+        if (nd >= 0) {
+          local_scan(a, ws, ws.x[cur], ws.x[cur ^ 1], d, nd);
+        } else {
+          test_change(a, ws, ws.x[cur], d, slot);
+          publish_edges(a, ws.x[cur], d, ex & 1);
+        }
+        if (!resident) {
+          __syncthreads();
+          store_core(a, ws.x[cur], a.f, d);
+          if (nd >= 0) store_core(a, ws.x[cur ^ 1], a.q, d);
+          __syncthreads();
+        }
+      }
+      if (nd < 0) ++ex;
+      grid.sync();
+    }
     if (threadIdx.x == 0) {
-      for (int i = 0; i < *st.n; ++i) {
-        const int b = st.list[i];
+      for (int b = 0; b < a.nb; ++b) {
+        if (!st.on[b]) continue;
         st.grow[b] = *(volatile int*)&a.chg[slot * a.nb + b];
         ++st.it[b];
       }
@@ -364,16 +909,8 @@ __device__ void round_loop(const Params& a, uint32_t* sm, cg::grid_group& grid) 
     }
     __syncthreads();
   }
-  if (!PHASE2) {  // frames that ended on the scratch plane: copy it back
-    for (int b = 0; b < a.nb; ++b) {
-      if (!(st.it[b] & 1)) continue;
-      uint32_t* fb = a.f + b * a.plane;
-      const uint32_t* bb = a.buf[0] + b * a.plane;
-      for (int e = blockIdx.x * NT + threadIdx.x; e < a.plane; e += gridDim.x * NT)
-        fb[e] = __ldcg(bb + e);
-    }
-  }
-  if (lead) {
+  if (resident && (int)blockIdx.x < bands) store_core(a, ws.x[cur], a.f, band_of(a, st, blockIdx.x));
+  if (lead && a.flags) {
     for (int b = 0; b < a.nb; ++b) {
       a.flags[4 * b + (PHASE2 ? 2 : 0)] = st.it[b];
       a.flags[4 * b + (PHASE2 ? 3 : 1)] = st.grow[b];
@@ -382,7 +919,7 @@ __device__ void round_loop(const Params& a, uint32_t* sm, cg::grid_group& grid) 
 }
 
 template <bool PHASE2>
-__global__ void __launch_bounds__(NT) hyst_kernel(Params a) {
+__global__ void __launch_bounds__(NT, 1) hyst_kernel(Params a) {
   extern __shared__ uint32_t sm[];
   cg::grid_group grid = cg::this_grid();
   round_loop<PHASE2>(a, sm, grid);
@@ -399,11 +936,12 @@ struct LoopParams {
   int max_rounds;
 };
 
-__global__ void __launch_bounds__(NT) sharded_loop_kernel(Params a, halo::Xchg x, LoopParams l) {
+__global__ void __launch_bounds__(NT, 1) sharded_loop_kernel(Params a, halo::Xchg x, LoopParams l) {
   extern __shared__ uint32_t sm[];
   cg::grid_group grid = cg::this_grid();
   Params a1 = a;
   a1.cap = l.cap1;
+  a1.scan_from = INT_MAX;
   int it = 0;
   // The reference's cond (packed_halo.py:294): the budget is tested before
   // a round. Every thread reads the flag after a grid barrier, through L2.
@@ -411,7 +949,9 @@ __global__ void __launch_bounds__(NT) sharded_loop_kernel(Params a, halo::Xchg x
     // K9 on every tile, its round count from 0: phase 1, then phase 2 on the
     // tiles still growing. Where the cap is phase 1, phase 2 finds no tile
     // below the cap and copies each tile's phase-1 flags as final, as the
-    // host loop does, and only in a round that runs.
+    // host loop does, and only in a round that runs. Each loop writes its
+    // bands back to the planes before the barrier after it, so the refresh
+    // works on the planes.
     round_loop<false>(a1, sm, grid);
     grid.sync();
     round_loop<true>(a, sm, grid);
@@ -431,7 +971,6 @@ struct SplitParams {
   int* fflags;         // (2, 2): row 0 read (round count, growing), row 1 written
   int* mchg;           // [3] "a seam round changed an owned word", rotating
   int fw, ws, k;       // frame columns, owned columns a slice, seam halo columns
-  int cap1;            // inner rounds below it are dilations only
   int budget;          // the total round budget (max_iters)
   int chunked;         // a seam round spends its slowest slice's rounds (else 1)
 };
@@ -448,7 +987,7 @@ __device__ void split_extract(const Params& a, const SplitParams& s, const uint3
   }
 }
 
-__global__ void __launch_bounds__(NT) split_kernel(Params a, SplitParams s) {
+__global__ void __launch_bounds__(NT, 1) split_kernel(Params a, SplitParams s) {
   const bool lead = blockIdx.x == 0 && threadIdx.x == 0;
   int it = s.fflags[0];
   if (s.fflags[1] == 0) {  // every block: the frame converged in phase 1
@@ -459,49 +998,21 @@ __global__ void __launch_bounds__(NT) split_kernel(Params a, SplitParams s) {
     return;
   }
   extern __shared__ uint32_t sm[];
-  int* state = reinterpret_cast<int*>(sm + tile_words(a.dilate_steps));
-  const FrameState st{state, state + a.nb, state + 2 * a.nb, state + 3 * a.nb};
+  const FrameState st = frame_state(a, sm);
   cg::grid_group grid = cg::this_grid();
   split_extract(a, s, s.fp, s.sp);
-  if (lead) {
-    for (int i = 0; i < 3 * a.nb; ++i) a.chg[i] = 0;
+  if (lead)
     for (int i = 0; i < 3; ++i) s.mchg[i] = 0;
-  }
   int changed = 1;
-  int r = 0;  // rounds over all seam rounds: the rotation of the chg slots
   for (int seam = 0; changed && it < s.budget; ++seam) {
     split_extract(a, s, s.ff, a.f);
     if (lead) s.mchg[(seam + 1) % 3] = 0;
-    __syncthreads();  // the previous seam round's reads of the state are done
-    if (threadIdx.x == 0) {
-      for (int i = 0; i < a.nb; ++i) {
-        st.it[i] = 0;
-        st.grow[i] = 1;
-      }
-      list_active<false>(a, st, 0);  // round 0 runs on every slice
-    }
-    __syncthreads();
-    grid.sync();
-    for (int ri = 0; *st.n > 0; ++ri, ++r) {
-      const int slot = r % 3;
-      if (lead)
-        for (int i = 0; i < a.nb; ++i) a.chg[((r + 1) % 3) * a.nb + i] = 0;
-      dilate_round<true>(a, st, slot, sm);
-      grid.sync();
-      // Every active slice is at round ri: the kind of round is uniform.
-      if (ri == 0 || ri < s.cap1) commit_round(a, st, slot, a.buf[0]);
-      else scan_round(a, st, slot, grid);
-      grid.sync();
-      if (threadIdx.x == 0) {
-        for (int i = 0; i < *st.n; ++i) {
-          const int b = st.list[i];
-          st.grow[b] = *(volatile int*)&a.chg[slot * a.nb + b];
-          ++st.it[b];
-        }
-        list_active<true>(a, st, ri + 1);
-      }
-      __syncthreads();
-    }
+    grid.sync();  // the slices are out
+    // Every slice from round 0: one unconditional round, dilation rounds
+    // below a.scan_from, then dilations + scans, while it changes and below
+    // the inner cap.
+    round_loop<false>(a, sm, grid);
+    grid.sync();  // the slices are back in their planes
     int spent = 0;
     for (int i = 0; i < a.nb; ++i) spent = max(spent, st.it[i]);
     // Merge: the owned columns of every slice back into the frame's plane.
@@ -567,105 +1078,176 @@ __global__ void unpack_core_kernel(const uint32_t* __restrict__ f, uint8_t* __re
   }
 }
 
-int scratch_planes(int phase) { return phase == 2 ? 4 : 1; }
 
-// Dynamic shared memory: the tile's A, B and P planes with the halo, then
-// the per-frame state (FrameState: 3 ints per frame and a count).
-size_t smem_bytes(int dilate_steps, int nb) {
-  return ((size_t)tile_words(dilate_steps) + 3 * (size_t)nb + 1) * sizeof(uint32_t);
+// Dynamic shared memory of a block: the band workspace (ws_words), two
+// ints, then the per-frame state (4 ints a frame and 2).
+size_t smem_bytes(int hw, int bw, int halo, int nb) {
+  return ((size_t)ws_words(hw, bw, bw + 2 * halo + 1) + 2 + 4 * (size_t)nb + 2) * sizeof(uint32_t);
 }
 
-// The most blocks of the cooperative kernel ``kern`` that can be co-resident
-// on `device` (the cooperative grid's limit), computed on the first launch
-// for each (kernel, dilate_steps, batch) and cached.
-cudaError_t max_grid(const void* kern, int device, int dilate_steps, int nb, int* out) {
+// The most blocks of the cooperative kernel ``kern`` with ``smem`` bytes of
+// shared memory each that can be co-resident on `device` (the cooperative
+// grid's limit), cached.
+cudaError_t co_resident(const void* kern, int device, size_t smem, int* out) {
   static std::mutex mu;
-  static std::map<std::tuple<const void*, int, int, int>, int> cache;
+  static std::map<std::tuple<const void*, int, size_t>, int> cache;
   std::lock_guard<std::mutex> lock(mu);
-  const auto key = std::make_tuple(kern, device, dilate_steps, nb);
+  const auto key = std::make_tuple(kern, device, smem);
   const auto hit = cache.find(key);
   if (hit != cache.end()) {
     *out = hit->second;
     return cudaSuccess;
   }
-  const size_t bytes = smem_bytes(dilate_steps, nb);
   int optin = 0, per_sm = 0, sms = 0;
   cudaError_t err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (err != cudaSuccess) return err;
-  if (bytes > (size_t)optin) return cudaErrorInvalidValue;  // batch too large for one launch
+  if (smem > (size_t)optin) return cudaErrorInvalidValue;
   err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
   if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, NT, bytes);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, NT, smem);
   if (err != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
   *out = cache[key] = per_sm * sms;
   return cudaSuccess;
 }
 
-// The cooperative grid of a launch over ``scale`` planes of a: it covers
-// their tiles or their words, whichever is more, up to the limit.
-cudaError_t grid_blocks(const void* kern, const Params& a, long long scale, int device,
-                        unsigned* out) {
+// A launch's band layout: the band width, the halo, the shared memory of a
+// block and the co-resident blocks at that size.
+struct Layout {
+  int bw, halo;
+  size_t smem;
+  int limit;
+};
+
+// The band layout of a launch whose first round works on ``frames`` frames
+// of a batch of nb (hw, w) planes: the narrowest multiple of ``unit`` columns
+// whose bands, over those frames, are no more than the SMs and fit the
+// co-resident grid, each with a halo of min(dilate_steps, bw) columns where
+// that fits shared memory (else the largest that does: the round's
+// dilations then run in segments). Failing that, the narrowest whose bands
+// all fit the grid (each block keeps its band resident), else the narrowest
+// that fits at all (blocks take several bands and stream them). A scanning
+// band is at most MAX_SCAN_BAND wide. Cached.
+cudaError_t choose_layout(const void* kern, int device, int frames, int nb, int hw, int w,
+                          int dilate_steps, int unit, Layout* out) {
+  static std::mutex mu;
+  static std::map<std::tuple<const void*, int, int, int, int, int, int, int>, Layout> cache;
+  const auto key = std::make_tuple(kern, device, frames, nb, hw, w, dilate_steps, unit);
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    const auto hit = cache.find(key);
+    if (hit != cache.end()) {
+      *out = hit->second;
+      return cudaSuccess;
+    }
+  }
+  int optin = 0, sms = 0;
+  cudaError_t err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  Layout first{0, 0, 0, 0}, resident{0, 0, 0, 0}, pick{0, 0, 0, 0};
+  const int wmax = (w + unit - 1) / unit * unit;
+  const int wtop = unit == BAND_UNIT && wmax > MAX_SCAN_BAND ? MAX_SCAN_BAND : wmax;
+  for (int bw = unit; bw <= wtop && !pick.bw; bw += unit) {
+    int halo = dilate_steps < bw ? dilate_steps : bw;
+    while (halo > 0 && smem_bytes(hw, bw, halo, nb) > (size_t)optin) --halo;
+    if (halo == 0) break;  // a wider band fits no better
+    Layout l{bw, halo, smem_bytes(hw, bw, halo, nb), 0};
+    err = co_resident(kern, device, l.smem, &l.limit);
+    if (err != cudaSuccess) return err;
+    if (l.limit < 1) break;
+    const long long bands = (long long)frames * ((w + bw - 1) / bw);
+    if (!first.bw) first = l;
+    if (bands <= l.limit && !resident.bw) resident = l;
+    if (bands <= l.limit && bands <= sms) pick = l;
+  }
+  if (!pick.bw) pick = resident.bw ? resident : first;
+  if (!pick.bw) return cudaErrorInvalidValue;  // one word row of a band does not fit
+  std::lock_guard<std::mutex> lock(mu);
+  *out = cache[key] = pick;
+  return cudaSuccess;
+}
+
+// int32 words of the rounds' scratch for nb (h, w) planes: the Q planes, the
+// two edge slots' planes, the bands' summaries and popcounts (at most
+// ceil(w/32) bands a frame), then 3 change flags a frame, last.
+long long rounds_scratch_words(int nb, int h, int w) {
+  const long long hw = (h + 31) / 32, plane = hw * w, bands = (w + MIN_BAND - 1) / MIN_BAND;
+  return (long long)nb * (3 * plane + bands * (2LL * N_XDIR * hw + 1) + 3);
+}
+
+Params make_params(void* f, const void* p, void* scratch, void* flags, int nb, int h, int w,
+                   int dilate_steps, int cap, int scan_from) {
+  Params a;
+  a.nb = nb;
+  a.hw = (h + 31) / 32;
+  a.w = w;
+  a.plane = (long long)a.hw * w;
+  a.f = static_cast<uint32_t*>(f);
+  a.p = static_cast<const uint32_t*>(p);
+  uint32_t* s = static_cast<uint32_t*>(scratch);
+  const long long bands = (long long)nb * ((w + MIN_BAND - 1) / MIN_BAND);
+  a.q = s;
+  a.edge = s + nb * a.plane;
+  a.summ = s + 3 * nb * a.plane;
+  a.cnt = reinterpret_cast<int*>(a.summ + bands * 2 * N_XDIR * a.hw);
+  a.chg = a.cnt + bands;
+  a.flags = static_cast<int*>(flags);
+  a.dilate_steps = dilate_steps;
+  a.cap = cap;
+  a.scan_from = scan_from;
+  a.bw = a.halo = a.rs = a.nbw = 0;
+  return a;
+}
+
+void set_layout(Params& a, const Layout& l) {
+  a.bw = l.bw;
+  a.halo = l.halo;
+  a.rs = l.bw + 2 * l.halo + 1;
+  a.nbw = (a.w + l.bw - 1) / l.bw;
+}
+
+// The layout of a launch of ``kern`` over a whose first round works on
+// ``frames`` frames, and its grid: a block a band, up to the limit.
+cudaError_t plan(const void* kern, Params& a, int frames, int unit, int device, Layout* l,
+                 unsigned* grid) {
   if (a.dilate_steps < 1 || a.dilate_steps > MAX_DILATE_STEPS || a.nb < 1)
     return cudaErrorInvalidValue;
-  int limit = 0;
-  cudaError_t err = max_grid(kern, device, a.dilate_steps, a.nb, &limit);
+  cudaError_t err = choose_layout(kern, device, frames, a.nb, a.hw, a.w, a.dilate_steps, unit, l);
   if (err != cudaSuccess) return err;
-  const long long n_tiles = scale * ((a.hw + TR - 1) / TR) * ((a.w + TC - 1) / TC);
-  const long long n_blocks_words = (scale * a.plane + NT - 1) / NT;
-  long long grid = n_tiles > n_blocks_words ? n_tiles : n_blocks_words;
-  *out = (unsigned)(grid > limit ? limit : grid);
+  set_layout(a, *l);
+  const long long bands = (long long)frames * a.nbw;
+  *grid = (unsigned)(bands < l->limit ? bands : l->limit);
   return cudaSuccess;
 }
 
 template <bool PHASE2>
 cudaError_t launch_rounds(Params a, int device, cudaStream_t stream) {
-  // Phase 1 starts with every frame active: its grid covers the batch's
-  // tiles. Phase 2 works on the escalated frames, rarely more than one, and
-  // a grid barrier costs more the more blocks take part, so its grid covers
-  // one frame (x8 1080p batch with one escalating frame: 1.53 -> 1.24
-  // ms/frame on an H100; with none escalating, unchanged).
+  // Phase 1 starts with every frame active: its layout covers the batch.
+  // Phase 2 works on the escalated frames, rarely more than one, and a grid
+  // barrier costs more the more blocks take part, so its layout covers one
+  // frame; more frames still growing share the blocks, each block then
+  // streaming its bands.
   const void* kern = (const void*)hyst_kernel<PHASE2>;
+  Layout l;
   unsigned grid = 0;
-  cudaError_t err = grid_blocks(kern, a, PHASE2 ? 1 : a.nb, device, &grid);
+  cudaError_t err = plan(kern, a, PHASE2 ? 1 : a.nb, PHASE2 ? BAND_UNIT : MIN_BAND, device, &l, &grid);
   if (err != cudaSuccess) return err;
   void* args[] = {&a};
-  err = cudaLaunchCooperativeKernel(kern, dim3(grid), dim3(NT), args,
-                                    smem_bytes(a.dilate_steps, a.nb), stream);
+  err = cudaLaunchCooperativeKernel(kern, dim3(grid), dim3(NT), args, l.smem, stream);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
-Params make_params(void* f, const void* p, void* scratch, void* flags, int nb, int h, int w,
-                   int dilate_steps, int cap, int phase) {
-  Params a;
-  a.nb = nb;
-  a.hw = (h + 31) / 32;
-  a.w = w;
-  a.h = h;
-  a.plane = (long long)a.hw * w;
-  a.f = static_cast<uint32_t*>(f);
-  a.p = static_cast<const uint32_t*>(p);
-  uint32_t* s = static_cast<uint32_t*>(scratch);
-  const int planes = scratch_planes(phase);
-  for (int i = 0; i < 4; ++i) a.buf[i] = s + (i < planes ? i : 0) * nb * a.plane;
-  a.chg = reinterpret_cast<int*>(s + planes * nb * a.plane);
-  a.flags = static_cast<int*>(flags);
-  a.dilate_steps = dilate_steps;
-  a.cap = cap;
-  a.halo_r = (dilate_steps + 31) / 32;
-  a.halo_c = dilate_steps;
-  return a;
-}
-
 }  // namespace
 
-// int32 words of scratch the phase needs for B frames: its scratch planes +
-// 3 change flags per frame.
+// int32 words of scratch either phase needs for B frames (``phase`` is kept
+// for the callers; both phases take the same).
 extern "C" long long cc_hyst_scratch_words(int nb, int h, int w, int phase) {
-  return (long long)nb * (scratch_planes(phase) * (long long)((h + 31) / 32) * w + 3);
+  (void)phase;
+  return rounds_scratch_words(nb, h, w);
 }
 
 extern "C" int cc_hyst_phase1(void* f, const void* p, void* scratch, void* flags, int nb, int h,
@@ -674,7 +1256,7 @@ extern "C" int cc_hyst_phase1(void* f, const void* p, void* scratch, void* flags
   DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return guard.err;
   int cap = scan_after < max_iters ? scan_after : max_iters;
-  Params a = make_params(f, p, scratch, flags, nb, h, w, dilate_steps, cap, 1);
+  Params a = make_params(f, p, scratch, flags, nb, h, w, dilate_steps, cap, INT_MAX);
   return launch_rounds<false>(a, device, static_cast<cudaStream_t>(stream));
 }
 
@@ -682,8 +1264,31 @@ extern "C" int cc_hyst_phase2(void* f, const void* p, void* scratch, void* flags
                               int w, int dilate_steps, int max_iters, int device, void* stream) {
   DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return guard.err;
-  Params a = make_params(f, p, scratch, flags, nb, h, w, dilate_steps, max_iters, 2);
+  Params a = make_params(f, p, scratch, flags, nb, h, w, dilate_steps, max_iters, 0);
   return launch_rounds<true>(a, device, static_cast<cudaStream_t>(stream));
+}
+
+// The band layout a round kernel's launch takes for nb (h, w) frames
+// (phase 1 or 2): out = (band width, halo columns, blocks, bands of one
+// frame, grid barriers a round: ceil(dilate_steps / halo) segments, plus the
+// 6 crossing scan directions in phase 2).
+extern "C" int cc_hyst_layout(int nb, int h, int w, int dilate_steps, int phase, int device,
+                              int* out) {
+  DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return guard.err;
+  Params a = make_params(nullptr, nullptr, nullptr, nullptr, nb, h, w, dilate_steps, 0, 0);
+  const void* kern = phase == 2 ? (const void*)hyst_kernel<true> : (const void*)hyst_kernel<false>;
+  Layout l;
+  unsigned grid = 0;
+  cudaError_t err = plan(kern, a, phase == 2 ? 1 : nb, phase == 2 ? BAND_UNIT : MIN_BAND, device,
+                         &l, &grid);
+  if (err != cudaSuccess) return err;
+  out[0] = a.bw;
+  out[1] = a.halo;
+  out[2] = (int)grid;
+  out[3] = a.nbw;
+  out[4] = (dilate_steps + a.halo - 1) / a.halo + (phase == 2 ? N_XDIR : 0);
+  return cudaSuccess;
 }
 
 extern "C" int cc_unpack(const void* f, void* out, const void* index, int nb, int h, int w,
@@ -714,10 +1319,11 @@ extern "C" int cc_unpack_core(const void* f, void* out, int tiles, int hwe, int 
 }
 
 // int32 words of scratch the column-split continuation needs: the slices'
-// FINAL and CANDIDATE planes and four scratch planes each, 3 change flags a
-// slice and 3 for the seam rounds.
+// FINAL and CANDIDATE planes, 3 change flags for the seam rounds, then the
+// rounds' scratch over the slices.
 extern "C" long long cc_split_scratch_words(int n_split, int h, int slice_w) {
-  return (long long)n_split * (6 * (long long)((h + 31) / 32) * slice_w + 3) + 3;
+  return 2LL * n_split * ((h + 31) / 32) * slice_w + 3 +
+         rounds_scratch_words(n_split, h, slice_w);
 }
 
 // The column-split continuation of one (ceil(h/32), w) frame: flags row 0
@@ -731,40 +1337,41 @@ extern "C" int cc_split_converge(void* f, const void* p, void* scratch, void* fl
   if (n_split < 1 || w % n_split || max_iters < 1) return cudaErrorInvalidValue;
   const int ws = w / n_split, k = ws < 64 ? ws : 64;
   const int inner = chunk >= 1 ? chunk : max_iters;
+  const int cap1 = scan_after < inner ? scan_after : inner;
   uint32_t* sc = static_cast<uint32_t*>(scratch);
   const long long planes = (long long)n_split * ((h + 31) / 32) * (ws + 2 * k);
-  // The slice batch: its FINAL planes first, then the four scratch planes
-  // and the change flags where make_params puts them, then the CANDIDATEs.
-  Params a = make_params(sc, sc + 5 * planes + 3 * n_split, sc + planes, nullptr, n_split, h,
-                         ws + 2 * k, dilate_steps, inner, 2);
+  // The slice batch: its FINAL planes, its CANDIDATE planes, the seam
+  // rounds' flags, then the rounds' scratch.
+  Params a = make_params(sc, sc + planes, sc + 2 * planes + 3, nullptr, n_split, h, ws + 2 * k,
+                         dilate_steps, inner, cap1 > 1 ? cap1 : 1);
   SplitParams s;
   s.ff = static_cast<uint32_t*>(f);
   s.fp = static_cast<const uint32_t*>(p);
-  s.sp = sc + 5 * planes + 3 * n_split;
-  s.mchg = reinterpret_cast<int*>(s.sp + planes);
+  s.sp = sc + planes;
+  s.mchg = reinterpret_cast<int*>(sc + 2 * planes);
   s.fflags = static_cast<int*>(flags);
   s.fw = w;
   s.ws = ws;
   s.k = k;
-  s.cap1 = scan_after < inner ? scan_after : inner;
   s.budget = max_iters;
   s.chunked = chunk >= 1;
   const void* kern = (const void*)split_kernel;
+  Layout l;
   unsigned grid = 0;
-  cudaError_t err = grid_blocks(kern, a, n_split, device, &grid);
+  cudaError_t err = plan(kern, a, n_split, BAND_UNIT, device, &l, &grid);
   if (err != cudaSuccess) return err;
   void* args[] = {&a, &s};
-  err = cudaLaunchCooperativeKernel(kern, dim3(grid), dim3(NT), args,
-                                    smem_bytes(dilate_steps, n_split), static_cast<cudaStream_t>(stream));
+  err = cudaLaunchCooperativeKernel(kern, dim3(grid), dim3(NT), args, l.smem,
+                                    static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
 // int32 words of scratch the sharded loop needs for T extended tiles of
-// h x w: phase 2's four scratch planes and 3 change flags a tile (phase 1
-// uses the first plane), then the refresh's strips and new-bit word.
+// h x w: the rounds' scratch (its change flags last), then the refresh's
+// strips and new-bit word.
 extern "C" long long cc_sharded_loop_scratch_words(int tiles, int h, int w) {
-  return cc_hyst_scratch_words(tiles, h, w, 2) + halo::scratch_words(tiles, w);
+  return rounds_scratch_words(tiles, h, w) + halo::scratch_words(tiles, w);
 }
 
 // The collective round loop of a one-card (nb, ny, nx) mesh, one launch:
@@ -780,7 +1387,7 @@ extern "C" int cc_sharded_loop(void* f, const void* p, void* scratch, void* flag
   if (guard.err != cudaSuccess) return guard.err;
   if (nb < 1 || ny < 1 || nx < 1 || max_rounds < 0) return cudaErrorInvalidValue;
   const int tiles = nb * ny * nx;
-  Params a = make_params(f, p, scratch, flags, tiles, h, w, dilate_steps, max_iters, 2);
+  Params a = make_params(f, p, scratch, flags, tiles, h, w, dilate_steps, max_iters, 0);
   halo::Xchg x;
   x.x = a.f;
   x.strips = reinterpret_cast<uint32_t*>(a.chg + 3 * tiles);
@@ -804,22 +1411,20 @@ extern "C" int cc_sharded_loop(void* f, const void* p, void* scratch, void* flag
   l.rounds = static_cast<int*>(rounds);
   l.cap1 = scan_after < max_iters ? scan_after : max_iters;
   l.max_rounds = max_rounds;
-  // One grid for the saturate and the refresh: it covers phase 1's tiles of
-  // every extended tile, their words, or the refresh's lanes, whichever is
-  // more, up to this kernel's own co-resident limit (its registers and
-  // shared memory are the union of both steps').
+  // One grid for the saturate and the refresh: a block for each band of
+  // every extended tile, or the refresh's lanes, whichever is more, up to
+  // this kernel's own co-resident limit (its registers and shared memory
+  // are the union of both steps'). Both phases share the layout.
   const void* kern = (const void*)sharded_loop_kernel;
+  Layout lay;
   unsigned grid = 0;
-  cudaError_t err = grid_blocks(kern, a, tiles, device, &grid);
-  if (err != cudaSuccess) return err;
-  int limit = 0;
-  err = max_grid(kern, device, dilate_steps, tiles, &limit);
+  cudaError_t err = plan(kern, a, tiles, BAND_UNIT, device, &lay, &grid);
   if (err != cudaSuccess) return err;
   const long long xgrid = (halo::work_items(x) + NT - 1) / NT;
-  if (xgrid > grid) grid = (unsigned)(xgrid < limit ? xgrid : limit);
+  if (xgrid > grid) grid = (unsigned)(xgrid < lay.limit ? xgrid : lay.limit);
   void* args[] = {&a, &x, &l};
-  err = cudaLaunchCooperativeKernel(kern, dim3(grid), dim3(NT), args,
-                                    smem_bytes(dilate_steps, tiles), static_cast<cudaStream_t>(stream));
+  err = cudaLaunchCooperativeKernel(kern, dim3(grid), dim3(NT), args, lay.smem,
+                                    static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }

@@ -42,6 +42,7 @@ SIGNATURES = {
     "cc_hyst_phase1": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
     "cc_hyst_phase2": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "cc_hyst_scratch_words": (ctypes.c_longlong, [_I, _I, _I, _I]),
+    "cc_hyst_layout": (_I, [_I, _I, _I, _I, _I, _I, _P]),
     "cc_split_converge": (_I, [_P, _P, _P, _P] + [_I] * 8 + [_P]),
     "cc_split_scratch_words": (ctypes.c_longlong, [_I, _I, _I]),
     "cc_hyst_sweeps": (_I, [_P, _P] + [_I] * 6 + [_P]),

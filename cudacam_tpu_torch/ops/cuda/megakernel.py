@@ -45,6 +45,7 @@ mirrors.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import Optional, Tuple
 
@@ -59,7 +60,7 @@ from cudacam_tpu_torch.ops.cuda.feedforward import (
     Tiling, ff_pack, ff_pack_batched, ff_pack_plain, ff_pack_tiles,
 )
 
-_MAX_DILATE_STEPS = 256  # the tile halo (steps columns) must fit shared memory
+_MAX_DILATE_STEPS = 256  # past the halo that fits, a round's dilations run in segments
 
 CONTINUATIONS = ("auto", "kernel", "split")
 #: Internal rounds a slice may take in one seam round of the split form (the
@@ -99,6 +100,18 @@ def _frames(x: torch.Tensor, ndim: int) -> torch.Tensor:
 @functools.lru_cache(maxsize=None)
 def _scratch_words(nb: int, h: int, w: int, phase: int) -> int:
     return load().lib.cc_hyst_scratch_words(nb, h, w, phase)
+
+
+def round_layout(nb: int, h: int, w: int, dilate_steps: int, phase: int,
+                 device: int = 0) -> dict:
+    """The band layout a round kernel's launch takes on a card for nb (h, w)
+    frames: band width, halo columns, blocks, bands of one frame and grid
+    barriers a round (``cc_hyst_layout``)."""
+    out = (ctypes.c_int * 5)()
+    lib = load()
+    lib.check(lib.lib.cc_hyst_layout(nb, h, w, dilate_steps, phase, device,
+                                     ctypes.cast(out, ctypes.c_void_p)), "cc_hyst_layout")
+    return dict(zip(("band_width", "halo", "blocks", "bands", "barriers_per_round"), out))
 
 
 def _launch_rounds(phase: int, f, p, flags, h: int, *args, name: Optional[str] = None) -> None:
@@ -151,7 +164,14 @@ def hyst_phase1(
 ) -> None:
     """Phase-1 rounds on the packed planes of one frame or a batch, in
     place: each frame's plane becomes its phase-1 exit state and its
-    flags[0] = (round count, still growing)."""
+    flags[0] = (round count, still growing).
+
+    On the card one cooperative launch: each frame is cut into full-height
+    column bands (multiples of 16 columns, about one a streaming
+    multiprocessor over the batch), each kept in a block's shared memory
+    for the whole loop with ``dilate_steps`` halo columns; a round is the
+    dilations in shared memory and one grid barrier, and a band changed
+    iff its popcount grew (``csrc/hyst_rounds.cu``)."""
     _check_planes(f, p, h, flags)
     if use_plain(f, p, flags):
         hyst_phase1_plain(f, p, flags, h, dilate_steps=dilate_steps, scan_after=scan_after,
@@ -196,7 +216,16 @@ def hyst_phase2(
     whose flags[0] says still growing resumes at its round count with
     dilations + scans while its state changes and the count is below
     ``max_iters``; every frame's flags[1] = its final (round count, still
-    growing)."""
+    growing).
+
+    On the card one cooperative launch on bands of 32-column multiples laid
+    out for one frame, resident in shared memory: a round is the dilations,
+    then the 8 scans: the vertical ones inside each band, the six that cross
+    bands as a local scan per band, its exit column published, and after a
+    grid barrier the fold of the upstream bands' summaries into its carry-in
+    (7 grid barriers a round at 16 inner steps). With more frames still
+    growing than fit one frame's layout, the blocks stream their bands
+    through shared memory stage by stage."""
     _check_planes(f, p, h, flags)
     if use_plain(f, p, flags):
         hyst_phase2_plain(f, p, flags, h, dilate_steps=dilate_steps, max_iters=max_iters)

@@ -130,9 +130,16 @@ def test_spiral_threshold_map_cap_digests(dev):
         assert hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest() == sha
 
 
-@pytest.mark.parametrize("h,w", SHAPES)
-@pytest.mark.parametrize("dilate_steps,scan_after,max_iters", [(16, 64, 100), (16, 1, 100),
-                                                               (3, 2, 5), (40, 1, 3)])
+#: Shapes at the round kernels' band edges (bands are multiples of 32 columns).
+BAND_EDGE_SHAPES = [(33, 31), (33, 33), (33, 129), (33, 1000), (200, 1000)]
+
+
+@pytest.mark.parametrize("h,w", SHAPES + BAND_EDGE_SHAPES)
+@pytest.mark.parametrize("dilate_steps,scan_after,max_iters", [
+    (16, 64, 100), (16, 1, 100), (3, 2, 5), (40, 1, 3),
+    (1, 1, 100), (8, 2, 100), (9, 1, 60), (32, 2, 40), (256, 1, 4),  # halo and segments
+    (16, 1, 1), (16, 1, 2), (16, 2, 2),  # caps of 1 and 2 rounds
+])
 def test_rounds_match_plain(dev, h, w, dilate_steps, scan_after, max_iters):
     f, p = ff_pack_plain(_frame(h, w, dev, seed=w), _thr(10, 40, dev))
     fk, flags = f.clone(), torch.zeros((2, 2), dtype=torch.int32, device=dev)
@@ -146,11 +153,14 @@ def test_rounds_match_plain(dev, h, w, dilate_steps, scan_after, max_iters):
     assert torch.equal(unpack(fk, h), unpack_plain(f1, h))
 
 
-@pytest.mark.parametrize("h,w,n", [(37, 53, 3), (80, 256, 5), (1, 1, 2), (720, 1280, 4)])
-@pytest.mark.parametrize("scan_after,max_iters", [(10, 100), (1, 100), (2, 5), (4, 4)])
+@pytest.mark.parametrize("h,w,n", [(37, 53, 3), (80, 256, 5), (1, 1, 2), (720, 1280, 4),
+                                   (33, 129, 3), (64, 1000, 4), (33, 31, 6)])
+@pytest.mark.parametrize("scan_after,max_iters", [(10, 100), (1, 100), (2, 5), (4, 4), (1, 1),
+                                                  (1, 2)])
 def test_batched_rounds_match_plain(dev, h, w, n, scan_after, max_iters):
     """Batched round kernels against the plain frame-by-frame loops, on a
-    batch whose frames stop at different rounds (the spiral escalates)."""
+    batch whose frames stop at different rounds (the spiral escalates; at a
+    cap of 1 or 2 rounds every frame stops there)."""
     frames = [_frame(h, w, dev, seed=s) for s in range(n - 1)]
     frames.append(torch.from_numpy(make_spiral_frame(h, w)).to(dev) if min(h, w) >= 8
                   else _frame(h, w, dev, seed=99))
