@@ -436,6 +436,35 @@ class Smoke:
                 print(f"spiral 1080p cap {cap} through {route}: {finals} finals, "
                       f"sha256 {sha[:8]}...{sha[-4:]} (recorded)")
             require(int(iters) == cap, f"K6 spiral cap {cap}: {int(iters)} rounds")
+        self.tall_planes()
+
+    def tall_planes(self) -> None:
+        """Planes taller than one band a block's shared memory holds (476
+        word rows in phase 2, 785 in phase 1): the round kernels cut them
+        into stacked height segments; both phases on the spiral, cut off by
+        the cap, against plain."""
+        torch = self.torch
+        from cudacam_tpu_torch.ops import bitpack
+        from cudacam_tpu_torch.ops.cuda.megakernel import hyst_phase1, hyst_phase2, round_layout
+        from cudacam_tpu_torch.io.sources import make_spiral_thresh
+
+        rounds = dict(dilate_steps=16, max_iters=30)
+        for h, w in ((16000, 1920), (26000, 257)):
+            lay = [round_layout(1, h, w, 16, phase) for phase in (1, 2)]
+            require(lay[1]["segments"] > 1 and (h == 16000 or lay[0]["segments"] > 1),
+                    f"{h}x{w}: layouts {lay}")
+            f, p = bitpack.pack_pair(torch.from_numpy(make_spiral_thresh(h, w)).to(self.dev))
+            fk, flags = f.clone(), torch.zeros((2, 2), dtype=torch.int32, device=self.dev)
+            hyst_phase1(fk, p, flags, h, scan_after=2, **rounds)
+            f1, it, grow = bitpack.converge_phase1(f, p, h, w, scan_after=2, **rounds)
+            self.diff("hyst_phase1", fk, f1)
+            self.diff("hyst_phase1", flags[0].cpu(), torch.tensor([it, int(grow)], dtype=torch.int32))
+            hyst_phase2(fk, p, flags, h, **rounds)
+            f2, it, grow = bitpack.converge_phase2(f1, p, h, w, it, **rounds) if grow else (f1, it, grow)
+            self.diff("hyst_phase2", fk, f2)
+            self.diff("hyst_phase2", flags[1].cpu(), torch.tensor([it, int(grow)], dtype=torch.int32))
+            print(f"kernels == plain on the tall {h}x{w} spiral, flags {flags.tolist()}, "
+                  f"layouts {json.dumps(lay)}")
 
     def batched_vs_single(self) -> None:
         """The batched kernels (one launch for the batch) against the

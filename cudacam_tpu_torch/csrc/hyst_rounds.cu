@@ -39,6 +39,28 @@
 // each stage loads and stores a band's words around its work; the stages
 // and barriers are the same.
 //
+// Height segments. Past the word rows a block's shared memory holds as one
+// band with one halo column (476 where a launch scans, 785 for phase 1
+// alone, in the H100's 227 KB), each band is cut into the fewest stacked
+// height segments that fit, each of MIN_SEG word rows or more: a block then
+// owns a tile (a band of a segment). A tile dilates with ceil(halo / 32)
+// word rows of vertical halo above and below, published and refreshed with
+// its halo columns as one edge ring. Directions 2 and 3 scan a tile with
+// carry-in zero and publish each column's (carry out, every word
+// propagates); after a barrier each tile folds the segments upstream into
+// its carry-in and runs the carries again. A diagonal's tile scans with
+// carry-in zero at its segment edge too and publishes its exit row's
+// (L, Q); after a barrier it carries them down the lines that enter by
+// that edge (fix_diagonal: a line crosses a band in bw <= 32 MIN_SEG rows,
+// so one segment edge at most), which makes its L and Q the full band's;
+// the fold and apply follow as before, the carry column folded over bw / 32
+// rows more each side. Six grid barriers more a phase-2 round; 1080p, 4K
+// and 8K planes never take segments. Each cooperative kernel is compiled
+// with and without this code (SEG) and a launch takes the one its layout
+// needs; without it a tile's row geometry is a compile-time constant, so
+// the one-segment kernels keep the registers they had before segments (at
+// 128 a thread, a few more live values spilled them: PERF.md §6).
+//
 // * A round's dilate_steps dilations run in shared memory on band + halo,
 //   halo = min(dilate_steps, bw) columns taken from the neighbours' edges as
 //   they published them (two slots of edge planes, by the parity of the
@@ -65,8 +87,10 @@
 // * Grid barriers a phase-2 round: one per dilation segment (one where the
 //   halo covers the steps: 1080p, 4K at 32 inner steps, 8K) and one per
 //   crossing direction (6): 7 at 1080p, 4K and 8K (90, 100 and 106 passes
-//   of the whole plane through L2, each followed by a barrier, before). A
-//   phase-1 round: one. cc_hyst_layout reports a launch's layout and count.
+//   of the whole plane through L2, each followed by a barrier, before);
+//   with height segments 6 more (the vertical directions' and the
+//   diagonals' carries across segments): 13. A phase-1 round: one.
+//   cc_hyst_layout reports a launch's layout and count.
 // * Bound: latency. Phase 1 by the dilation steps in shared memory (a
 //   __syncthreads each) and the round's barrier; phase 2 besides by the
 //   folds' L2 round trips and the barriers. The words moved and the
@@ -84,9 +108,10 @@
 //   reads them on the device, works only on frames still growing, and
 //   returns at once when none is, so the host never reads a flag back.
 //   Phase 2 writes flags[b][1] for every frame.
-// * The planes' rows at and past h are zero, as every pack leaves them: a
-//   band scans a whole column, which equals bitpack's doubling steps (< h)
-//   on such planes.
+// * The rounds see the h x w image only: the bits of rows at and past h
+//   are cleared as a plane is loaded, so they come out zero (every pack
+//   leaves them zero; the plain versions clear them the same way). A band
+//   scans a whole column, which equals bitpack's doubling steps (< h).
 // * The layout (occupancy per shared-memory size) is chosen once per
 //   (kernel, device, frames, batch, plane shape, dilate_steps) on the first
 //   launch; later launches reuse it.
@@ -148,23 +173,50 @@ constexpr int MAX_SCAN_BAND = 256;     // a scanning band's widest: 8 words of c
 constexpr int MAX_SCAN_WORDS = MAX_SCAN_BAND / 32;
 constexpr int N_XDIR = 6;              // scan directions that cross bands: 0, 1, 4, 5, 6, 7
 constexpr int FOLD_BATCH = 8;          // upstream bands a fold loads in one pass
+constexpr int MIN_SEG = 64;            // the fewest word rows of a height segment
+constexpr int N_SEAM = 6;              // words a column of a tile's seam record: see Params::seam
 
 struct Params {
   uint32_t* f;        // (B, hw, w) FINAL planes, updated in place
   const uint32_t* p;  // (B, hw, w) CANDIDATE planes
-  uint32_t* q;        // (B, hw, w) a band's propagate words between barriers, when not resident
-  uint32_t* edge;     // [2 slots][B] (hw, w) planes: the bands' published edge columns
+  uint32_t* q;        // (B, hw, w) a tile's propagate words between barriers, when not resident
+  uint32_t* edge;     // [2 slots][B] (hw, w) planes: the tiles' published edge rings
   uint32_t* summ;     // per band: [N_XDIR][2][hw] the exit column (L, Q) of each local scan
-  int* cnt;           // per band: the popcount of its core
+  uint32_t* seam;     // per (layout frame, height segment): [N_SEAM][w] what crosses its exit
+                      // row: directions 2 and 3's (carry out, all propagate), a diagonal's (L, Q)
+  int* cnt;           // per tile: the popcount of its core
   int* chg;           // [3][B] per-round change flags
   int* flags;         // (B, 2, 2): phase-1 (it, growing), final (it, growing); null: not written
   int nb;             // frames in the batch
   int hw, w;          // plane rows, plane columns (= image columns)
+  uint32_t tail;      // the bits of the last plane row that lie above h
   long long plane;    // words per plane: hw * w
   int dilate_steps, cap;
   int scan_from;      // the rounds of a loop from this index on run the scans
   int bw, halo, rs, nbw;  // band width, halo columns, shared row stride, bands per frame
+  int ns, hs, vh, vq;     // height segments, a segment's most rows, the dilation's vertical halo
+                          // rows, the margin rows of a diagonal's carry column
+  int rows, wsw;          // rows of a shared plane (hs + 2 vh), words of the band workspace
 };
+
+// A launch's shared geometry for (hw, w) planes cut into ns height segments
+// of bw-column bands with `halo` halo columns (see Params).
+struct Geom {
+  int hs, vh, vq, rows, rs, words;
+};
+
+__host__ __device__ inline Geom geometry(int hw, int ns, int bw, int halo) {
+  Geom g;
+  g.hs = (hw + ns - 1) / ns;
+  g.vh = ns > 1 ? (halo + 31) / 32 : 0;
+  g.vq = ns > 1 ? (bw + 31) / 32 : 0;
+  g.rows = g.hs + 2 * g.vh;
+  g.rs = bw + 2 * halo + 1;
+  const int vrows = g.hs + 2 * g.vq, bits = g.hs * 5 * ((bw + 31) / 32),
+            fold = vrows * 2 * FOLD_BATCH;
+  g.words = 3 * g.rows * g.rs + vrows + (bits > fold ? bits : fold);
+  return g;
+}
 
 // Per-frame state, one copy per block in shared memory after the workspace.
 struct FrameState {
@@ -176,51 +228,79 @@ struct FrameState {
   int* nl;    // [1] frames in the layout
 };
 
-// The shared workspace of one band: two FINAL planes (Jacobi steps; the
+// The shared workspace of one tile: two FINAL planes (Jacobi steps; the
 // second one holds the propagate words Q of a scan), the CANDIDATE plane,
-// hw rows of rs words each (halo, core, halo, one pad word: rs is odd, so a
-// column's words fall in distinct banks); the carry column; five bit
-// vectors over the band's columns a word row (diagonal_scan), or a fold's
-// batch of summary words; two ints.
+// `rows` rows of rs words each (vertical halo, core, vertical halo; a row is
+// halo, core, halo, one pad word: rs is odd, so a column's words fall in
+// distinct banks); the carry column with its margins; five bit vectors over
+// the band's columns a word row (diagonal_scan), or a fold's batch of
+// summary words; two ints.
 struct Ws {
   uint32_t* x[2];
   uint32_t* pc;
-  uint32_t* v;
+  uint32_t* v;  // row 0 of the tile; rows -vq .. hs + vq - 1 exist
   uint32_t* bits;
   int* red;
 };
 
-__host__ __device__ __forceinline__ int ws_words(int hw, int bw, int rs) {
-  const int bits = 5 * ((bw + 31) / 32), batch = 2 * FOLD_BATCH;
-  return 3 * hw * rs + hw + hw * (bits > batch ? bits : batch);
-}
-
 __device__ __forceinline__ Ws workspace(const Params& a, uint32_t* sm) {
-  const int n = a.hw * a.rs;
-  return Ws{{sm, sm + n}, sm + 2 * n, sm + 3 * n, sm + 3 * n + a.hw,
-            reinterpret_cast<int*>(sm + ws_words(a.hw, a.bw, a.rs))};
+  const int n = a.rows * a.rs;
+  return Ws{{sm, sm + n}, sm + 2 * n, sm + 3 * n + a.vq, sm + 3 * n + a.hs + 2 * a.vq,
+            reinterpret_cast<int*>(sm + a.wsw)};
 }
 
 __device__ __forceinline__ FrameState frame_state(const Params& a, uint32_t* sm) {
-  int* s = reinterpret_cast<int*>(sm + ws_words(a.hw, a.bw, a.rs)) + 2;
+  int* s = reinterpret_cast<int*>(sm + a.wsw) + 2;
   return FrameState{s, s + a.nb, s + 2 * a.nb, s + 3 * a.nb, s + 4 * a.nb, s + 4 * a.nb + 1};
 }
 
-// Band g of the layout: frame, index in the frame, first column, width. Only
-// a frame's last band is narrower than bw.
+// Tile g of the layout: a band of a height segment. Its frame, band index
+// (gb: over the layout's frames; j: in the frame), segment index (s; sg:
+// over the layout's frames), first column and width, first word row and
+// rows; and the launch's segments, vertical halo rows and carry-column
+// margin (Params' ns, vh, vq). Only a frame's last band is narrower than
+// bw; segments differ by a row at most. Compiled without segments (SEG
+// false), the row fields are constants: the one-segment kernels keep no
+// register and do no arithmetic for them.
 struct Band {
-  int g, b, j, c0, cb;
+  int g, gb, sg, b, j, s, c0, cb, k0, hk, ns, vh, vq;
 };
 
+template <bool SEG>
 __device__ __forceinline__ Band band_of(const Params& a, const FrameState& st, int g) {
   Band d;
   d.g = g;
-  d.b = st.lay[g / a.nbw];
-  d.j = g % a.nbw;
+  if constexpr (SEG) {
+    const int per = a.ns * a.nbw, li = g / per, rem = g - li * per;
+    d.s = rem / a.nbw;
+    d.j = rem - d.s * a.nbw;
+    d.b = st.lay[li];
+    d.gb = li * a.nbw + d.j;
+    d.sg = li * a.ns + d.s;
+    d.k0 = (int)((long long)d.s * a.hw / a.ns);
+    d.hk = (int)((long long)(d.s + 1) * a.hw / a.ns) - d.k0;
+    d.ns = a.ns;
+    d.vh = a.vh;
+    d.vq = a.vq;
+  } else {
+    d.s = 0;
+    d.j = g % a.nbw;
+    d.b = st.lay[g / a.nbw];
+    d.gb = g;
+    d.sg = g / a.nbw;
+    d.k0 = 0;
+    d.hk = a.hw;
+    d.ns = 1;
+    d.vh = 0;
+    d.vq = 0;
+  }
   d.c0 = d.j * a.bw;
   d.cb = min(a.bw, a.w - d.c0);
   return d;
 }
+
+// The offset of a tile's core word (0, 0) in a shared plane.
+__device__ __forceinline__ int core0(const Params& a, Band d) { return d.vh * a.rs + a.halo; }
 
 // Direction DIR of bitpack._make_ops as (dc, dr): downstream is +dc columns
 // and +dr image rows a step; the value s cells upstream of (r, c) is at
@@ -232,20 +312,6 @@ struct Dir {
   static constexpr int slot = DIR < 2 ? DIR : DIR - 2;  // its summary's index
 };
 
-// The scan stages of a phase-2 round: stage s applies direction
-// scan_order(s) and scans scan_order(s + 1) locally (-1: the round ends).
-__device__ __forceinline__ int scan_order(int s) {
-  switch (s) {
-    case 0: return 0;
-    case 1: return 1;
-    case 2: return 4;
-    case 3: return 5;
-    case 4: return 6;
-    case 5: return 7;
-    default: return -1;
-  }
-}
-
 constexpr int NW = NT / 32;  // warps per block
 constexpr uint32_t FULL = 0xffffffffu;
 
@@ -255,68 +321,94 @@ __device__ __forceinline__ int warp_id() { return threadIdx.x >> 5; }
 // The loops over a band's words below run a warp a word row and a lane a
 // column: no division, a column's words in distinct banks (rs is odd).
 
-// Shared columns [lo, hi) of X from frame d.b of the (B, hw, w) planes src:
-// shared column cc is frame column c0 - halo + cc, zero outside the frame.
-__device__ void load_cols(const Params& a, uint32_t* X, const uint32_t* src, Band d,
-                          int lo, int hi) {
+// Shared rows [r0, r1) and columns [lo, hi) of X from frame d.b of the
+// (B, hw, w) planes src: shared (i, cc) is plane row k0 - vh + i, frame
+// column c0 - halo + cc, zero outside the frame. The bits of rows at and
+// past h read as zero, so the rounds see the h x w image only.
+__device__ void load_rows(const Params& a, uint32_t* X, const uint32_t* src, Band d, int r0,
+                          int r1, int lo, int hi) {
   const uint32_t* s = src + d.b * a.plane;
   const int base = d.c0 - a.halo;
-  for (int k = warp_id(); k < a.hw; k += NW) {
-    const uint32_t* row = s + (long long)k * a.w;
+  for (int i = r0 + warp_id(); i < r1; i += NW) {
+    const int k = d.k0 - d.vh + i;
+    const bool in = k >= 0 && k < a.hw;
+    const uint32_t m = k == a.hw - 1 ? a.tail : FULL;
+    const uint32_t* row = s + (long long)(in ? k : 0) * a.w;
     for (int cc = lo + lane_id(); cc < hi; cc += 32) {
       const int c = base + cc;
-      X[k * a.rs + cc] = (c >= 0 && c < a.w) ? __ldcg(row + c) : 0u;
+      X[i * a.rs + cc] = (in && c >= 0 && c < a.w) ? __ldcg(row + c) & m : 0u;
     }
   }
 }
 
 __device__ __forceinline__ void load_core(const Params& a, uint32_t* X, const uint32_t* src,
                                           Band d) {
-  load_cols(a, X, src, d, a.halo, a.halo + d.cb);
+  load_rows(a, X, src, d, d.vh, d.vh + d.hk, a.halo, a.halo + d.cb);
+}
+
+// The CANDIDATE words of the tile's core, halo columns and vertical halo.
+__device__ __forceinline__ void load_candidates(const Params& a, Ws ws, Band d) {
+  load_rows(a, ws.pc, a.p, d, 0, d.hk + 2 * d.vh, 0, d.cb + 2 * a.halo);
 }
 
 __device__ void store_core(const Params& a, const uint32_t* X, uint32_t* dst, Band d) {
-  uint32_t* o = dst + d.b * a.plane + d.c0;
-  for (int k = warp_id(); k < a.hw; k += NW)
-    for (int t = lane_id(); t < d.cb; t += 32)
-      o[(long long)k * a.w + t] = X[k * a.rs + a.halo + t];
+  uint32_t* o = dst + d.b * a.plane + (long long)d.k0 * a.w + d.c0;
+  X += core0(a, d);
+  for (int k = warp_id(); k < d.hk; k += NW)
+    for (int t = lane_id(); t < d.cb; t += 32) o[(long long)k * a.w + t] = X[k * a.rs + t];
 }
 
-// The band's first and last `halo` core columns into edge slot `slot`, at
-// their places in the frame's plane there.
+// The tile's edge ring into edge slot `slot`, at its places in the frame's
+// plane there: its first and last `halo` core columns, and with height
+// segments its first and last vh core rows whole.
 __device__ void publish_edges(const Params& a, const uint32_t* X, Band d, int slot) {
-  uint32_t* e = a.edge + ((long long)slot * a.nb + d.b) * a.plane + d.c0;
+  uint32_t* e = a.edge + ((long long)slot * a.nb + d.b) * a.plane + (long long)d.k0 * a.w + d.c0;
   const int h2 = 2 * a.halo;
-  for (int k = warp_id(); k < a.hw; k += NW)
-    for (int m = lane_id(); m < h2; m += 32) {
-      const int t = m < a.halo ? m : d.cb - h2 + m;  // core column
-      if (t >= 0 && t < d.cb) e[(long long)k * a.w + t] = X[k * a.rs + a.halo + t];
+  X += core0(a, d);
+  for (int k = warp_id(); k < d.hk; k += NW) {
+    const uint32_t* row = X + k * a.rs;
+    uint32_t* er = e + (long long)k * a.w;
+    if (k < d.vh || k >= d.hk - d.vh) {
+      for (int t = lane_id(); t < d.cb; t += 32) er[t] = row[t];
+    } else {
+      for (int m = lane_id(); m < h2; m += 32) {
+        const int t = m < a.halo ? m : d.cb - h2 + m;  // core column
+        if (t >= 0 && t < d.cb) er[t] = row[t];
+      }
     }
+  }
 }
 
-// The band's halo columns from edge slot `slot`: its neighbours' edges as
-// they published them, zero outside the frame.
+// The tile's halo from edge slot `slot`: its neighbours' edge rings as they
+// published them (the halo columns of its core rows, and the vertical halo
+// rows whole), zero outside the frame.
 __device__ void refresh_halo(const Params& a, uint32_t* X, Band d, int slot) {
   const uint32_t* e = a.edge + ((long long)slot * a.nb + d.b) * a.plane;
-  const int h2 = 2 * a.halo, base = d.c0 - a.halo;
-  for (int k = warp_id(); k < a.hw; k += NW)
-    for (int m = lane_id(); m < h2; m += 32) {
-      const int cc = m < a.halo ? m : d.cb + m;  // shared column
+  const int h2 = 2 * a.halo, base = d.c0 - a.halo, W = d.cb + h2;
+  for (int i = warp_id(); i < d.hk + 2 * d.vh; i += NW) {
+    const int k = d.k0 - d.vh + i;
+    const bool in = k >= 0 && k < a.hw, whole = i < d.vh || i >= d.vh + d.hk;
+    const uint32_t* er = e + (long long)(in ? k : 0) * a.w;
+    for (int m = lane_id(); m < (whole ? W : h2); m += 32) {
+      const int cc = whole ? m : (m < a.halo ? m : d.cb + m);  // shared column
       const int c = base + cc;
-      X[k * a.rs + cc] = (c >= 0 && c < a.w) ? __ldcg(e + (long long)k * a.w + c) : 0u;
+      X[i * a.rs + cc] = (in && c >= 0 && c < a.w) ? __ldcg(er + c) : 0u;
     }
+  }
 }
 
 __device__ __forceinline__ uint32_t row_or(const uint32_t* row, int cc, int W) {
   return row[cc] | (cc > 0 ? row[cc - 1] : 0u) | (cc < W - 1 ? row[cc + 1] : 0u);
 }
 
-// Steps s0 + 1 .. s0 + n of the round's dilate_steps dilations on the band
-// in X[cur] (core and halo; n <= halo), Jacobi between the two planes.
-// Returns the plane that holds the result, whose core is exact. Step i
+// Steps s0 + 1 .. s0 + n of the round's dilate_steps dilations on the tile
+// in X[cur] (core and halo; n <= halo <= 32 vh where there are height
+// segments), Jacobi between the two planes. Returns the plane that holds
+// the result, whose core is exact: a step moves a bit one pixel at most, so
+// what the zeros past the halo get wrong stays outside the core. Step i
 // recomputes only the columns the core still depends on after it.
 __device__ int dilate_band(const Params& a, Ws ws, int cur, Band d, int s0, int n) {
-  const int W = d.cb + 2 * a.halo, RS = a.rs, hw = a.hw;
+  const int W = d.cb + 2 * a.halo, RS = a.rs, R = d.hk + 2 * d.vh;
   for (int i = 1; i <= n; ++i) {
     const int step = s0 + i;
     const bool exact = step % CARRY_EVERY == 0 || step == a.dilate_steps;
@@ -324,14 +416,14 @@ __device__ int dilate_band(const Params& a, Ws ws, int cur, Band d, int s0, int 
     const uint32_t* __restrict__ A = ws.x[cur];
     const uint32_t* __restrict__ Pc = ws.pc;
     uint32_t* __restrict__ B = ws.x[cur ^ 1];
-    for (int k = warp_id(); k < hw; k += NW) {
+    for (int k = warp_id(); k < R; k += NW) {
       const uint32_t* row = A + k * RS;
       for (int cc = lo + lane_id(); cc < hi; cc += 32) {
         const uint32_t v = row_or(row, cc, W);
         uint32_t h = v | (v << 1) | (v >> 1);
         if (exact) {  // cross-word carry: bit 31 of the word above, bit 0 below
           if (k > 0) h |= row_or(row - RS, cc, W) >> 31;
-          if (k < hw - 1) h |= row_or(row + RS, cc, W) << 31;
+          if (k < R - 1) h |= row_or(row + RS, cc, W) << 31;
         }
         B[k * RS + cc] = row[cc] | (Pc[k * RS + cc] & h);
       }
@@ -342,21 +434,22 @@ __device__ int dilate_band(const Params& a, Ws ws, int cur, Band d, int s0, int 
   return cur;
 }
 
-// The popcount of the band's core in X (every thread gets it).
+// The popcount of the tile's core in X (every thread gets it).
 __device__ int core_popc(const Params& a, Ws ws, const uint32_t* X, Band d) {
   __syncthreads();
   if (threadIdx.x == 0) *ws.red = 0;
   __syncthreads();
   int c = 0;
-  for (int k = warp_id(); k < a.hw; k += NW)
-    for (int t = lane_id(); t < d.cb; t += 32) c += __popc(X[k * a.rs + a.halo + t]);
+  X += core0(a, d);
+  for (int k = warp_id(); k < d.hk; k += NW)
+    for (int t = lane_id(); t < d.cb; t += 32) c += __popc(X[k * a.rs + t]);
   for (int o = 16; o; o >>= 1) c += __shfl_down_sync(FULL, c, o);
   if (lane_id() == 0) atomicAdd(ws.red, c);
   __syncthreads();
   return *ws.red;
 }
 
-// The round's change test of a band: a round only adds bits, so the band
+// The round's change test of a tile: a round only adds bits, so the tile
 // changed iff its core's popcount grew. Marks chg[slot][b].
 __device__ void test_change(const Params& a, Ws ws, const uint32_t* X, Band d,
                             int slot) {
@@ -370,30 +463,22 @@ __device__ void test_change(const Params& a, Ws ws, const uint32_t* X, Band d,
   }
 }
 
-// Word k of column cc of X shifted by one image row (down for dr > 0), zero fill.
-__device__ __forceinline__ uint32_t shift1(const uint32_t* X, int k, int cc, int dr, int hw,
-                                           int RS) {
-  const uint32_t x = X[k * RS + cc];
-  if (dr > 0) return (x << 1) | (k > 0 ? X[(k - 1) * RS + cc] >> 31 : 0u);
-  return (x >> 1) | (k < hw - 1 ? X[(k + 1) * RS + cc] << 31 : 0u);
+__device__ __forceinline__ uint32_t word_at(const uint32_t* V, int i, int lo, int hi) {
+  return (i >= lo && i < hi) ? V[i] : 0u;
 }
 
-__device__ __forceinline__ uint32_t word_at(const uint32_t* V, int i, int hw) {
-  return (i >= 0 && i < hw) ? V[i] : 0u;
-}
-
-// Word k of the column V (hw words) shifted by s image rows, down for s > 0,
-// zero fill: bitpack._shift_px on one column.
-__device__ __forceinline__ uint32_t vshift(const uint32_t* V, int k, int s, int hw) {
+// Word k of the column V (words lo .. hi - 1) shifted by s image rows, down
+// for s > 0, zero fill: bitpack._shift_px on one column.
+__device__ __forceinline__ uint32_t vshift(const uint32_t* V, int k, int s, int lo, int hi) {
   if (s > 0) {
     const int q = s >> 5, r = s & 31;
-    const uint32_t b = word_at(V, k - q, hw);
-    return r ? (b << r) | (word_at(V, k - q - 1, hw) >> (32 - r)) : b;
+    const uint32_t b = word_at(V, k - q, lo, hi);
+    return r ? (b << r) | (word_at(V, k - q - 1, lo, hi) >> (32 - r)) : b;
   }
   s = -s;
   const int q = s >> 5, r = s & 31;
-  const uint32_t b = word_at(V, k + q, hw);
-  return r ? (b >> r) | (word_at(V, k + q + 1, hw) << (32 - r)) : b;
+  const uint32_t b = word_at(V, k + q, lo, hi);
+  return r ? (b >> r) | (word_at(V, k + q + 1, lo, hi) << (32 - r)) : b;
 }
 
 // Bits s .. s + 31 of the bit vector v (nv words), zero outside it.
@@ -454,7 +539,9 @@ __device__ void diagonal_scan(const Params& a, Ws ws, uint32_t* __restrict__ X,
   constexpr int dc = Dir<DIR>::dc, dr = Dir<DIR>::dr;
   constexpr uint32_t ENTRY = dr > 0 ? 1u : 0x80000000u;
   constexpr int EXIT = dr > 0 ? 31 : 0;
-  const int RS = a.rs, hw = a.hw, H = a.halo, cb = d.cb, nv = (cb + 31) >> 5, lane = lane_id();
+  // The tile's core rows as the whole column: what enters through its top
+  // (bottom) edge joins in fix_diagonal.
+  const int RS = a.rs, hw = d.hk, H = core0(a, d), cb = d.cb, nv = (cb + 31) >> 5, lane = lane_id();
   const uint32_t* __restrict__ P = ws.pc;
   uint32_t* __restrict__ lv = ws.bits;
   uint32_t* __restrict__ dv = lv + hw * nv;
@@ -552,17 +639,40 @@ __device__ void diagonal_scan(const Params& a, Ws ws, uint32_t* __restrict__ X,
   __syncthreads();
 }
 
-// The local scan of crossing direction DIR on the band's core, carry-in
-// zero at its entry edge: the result L in X, in place, and the propagate
+// The exit column's (L, Q) of a tile's scan of crossing direction DIR into
+// its band's summary, at the tile's rows.
+template <int DIR>
+__device__ void write_summary(const Params& a, const uint32_t* X, const uint32_t* Qp, Band d) {
+  uint32_t* s = a.summ + ((long long)d.gb * N_XDIR + Dir<DIR>::slot) * 2 * a.hw + d.k0;
+  const int ce = core0(a, d) + (Dir<DIR>::dc > 0 ? d.cb - 1 : 0);
+  for (int k = threadIdx.x; k < d.hk; k += NT) {
+    s[k] = X[k * a.rs + ce];
+    s[a.hw + k] = Qp[k * a.rs + ce];
+  }
+}
+
+// The local scan of crossing direction DIR on the tile's core, carry-in
+// zero at its entry edge (and, on a diagonal, at the edge between height
+// segments it enters by): the result L in X, in place, and the propagate
 // product Q from the entry edge in Qp; then the exit column's (L, Q) into
-// the band's summary. Along a row (0, 1) a warp scans a word row, 32 columns
-// at a time (warp_scan); a diagonal is diagonal_scan.
+// the band's summary, and on a diagonal with height segments the exit row's
+// (L, Q) bits into the segment's seam record. Along a row (0, 1) a warp
+// scans a word row, 32 columns at a time (warp_scan); a diagonal is
+// diagonal_scan.
 template <int DIR>
 __device__ void local_scan(const Params& a, Ws ws, uint32_t* X, uint32_t* Qp, Band d) {
   constexpr int dc = Dir<DIR>::dc, dr = Dir<DIR>::dr;
-  const int RS = a.rs, hw = a.hw, H = a.halo, cb = d.cb, lane = lane_id();
+  const int RS = a.rs, hw = d.hk, H = core0(a, d), cb = d.cb, lane = lane_id();
   if constexpr (dr != 0) {
     diagonal_scan<DIR>(a, ws, X, Qp, d);
+    if (d.ns > 1) {
+      uint32_t* sr = a.seam + (long long)d.sg * N_SEAM * a.w + 4 * a.w + d.c0;
+      const int i0 = H + (dr > 0 ? hw - 1 : 0) * RS, bit = dr > 0 ? 31 : 0;
+      for (int c = threadIdx.x; c < cb; c += NT) {
+        sr[c] = (X[i0 + c] >> bit) & 1u;
+        sr[a.w + c] = (Qp[i0 + c] >> bit) & 1u;
+      }
+    }
   } else {
     const int nch = (cb + 31) >> 5;
     for (int k = warp_id(); k < hw; k += NW) {
@@ -587,15 +697,42 @@ __device__ void local_scan(const Params& a, Ws ws, uint32_t* X, uint32_t* Qp, Ba
     }
     __syncthreads();
   }
-  uint32_t* s = a.summ + ((long long)d.g * N_XDIR + Dir<DIR>::slot) * 2 * hw;
-  const int ce = H + (dc > 0 ? cb - 1 : 0);
-  for (int k = threadIdx.x; k < hw; k += NT) {
-    s[k] = X[k * RS + ce];
-    s[hw + k] = Qp[k * RS + ce];
-  }
+  write_summary<DIR>(a, X, Qp, d);
 }
 
-// Direction dir's carry into the band from the summaries of the bands
+// With height segments, diagonal DIR's lines that enter the tile through
+// its edge with the segment upstream (above going down, below going up):
+// after a grid barrier, the tile takes that segment's exit row (L, Q) as
+// its local scan published it (a line crosses a band in bw <= 32 hk rows,
+// so an exit row's lines all entered by the band's entry column and its
+// bits are the band's) and carries them down each line as far as the
+// candidates reach, a thread a line: L |= the carried L, Q = the carried Q
+// (a line from that edge had none). Then the band's scan is the same as
+// over a full-height band, and the tile writes its summary again.
+template <int DIR>
+__device__ __noinline__ void fix_diagonal(const Params& a, Ws ws, uint32_t* X, uint32_t* Qp, Band d) {
+  constexpr int dc = Dir<DIR>::dc, dr = Dir<DIR>::dr;
+  const int su = d.s - dr;  // the segment upstream
+  if (su < 0 || su >= a.ns) return;
+  const uint32_t* src = a.seam + (long long)(d.sg - dr) * N_SEAM * a.w + 4 * a.w + d.c0;
+  const int RS = a.rs, H = core0(a, d), cb = d.cb, nrow = 32 * d.hk;
+  for (int t0 = threadIdx.x + 1; t0 < cb; t0 += NT) {  // t0: columns from the entry edge
+    const int cp = dc > 0 ? t0 - 1 : cb - t0;             // the column of t0 - 1
+    uint32_t cl = __ldcg(src + cp), cq = __ldcg(src + a.w + cp);
+    for (int i = 0; (cl | cq) && t0 + i < cb && i < nrow; ++i) {
+      const int r = dr > 0 ? i : nrow - 1 - i, c = dc > 0 ? t0 + i : cb - 1 - t0 - i;
+      const int idx = H + (r >> 5) * RS + c;
+      const uint32_t bit = 1u << (r & 31);
+      if (!(ws.pc[idx] & bit)) break;
+      if (cl) atomicOr(&X[idx], bit);  // lines one row apart share a word
+      if (cq) atomicOr(&Qp[idx], bit);
+    }
+  }
+  __syncthreads();
+  write_summary<DIR>(a, X, Qp, d);
+}
+
+// Direction dir's carry into the tile from the summaries of the bands
 // upstream of it, then G = L | (Q & carry) on every core word. The carry
 // column V is the result just outside the entry edge; a band composes onto
 // it as V' = L | (Q & V shifted by dr * bw rows), whole words since bw is a
@@ -603,23 +740,27 @@ __device__ void local_scan(const Params& a, Ws ws, uint32_t* X, uint32_t* Qp, Ba
 // bw / 32 of the m-th band upstream, nearest first, and stops where the
 // product of the Qs is zero or the chain leaves the frame (mostly within a
 // band or two). A frame's last band, the only narrower one, is never
-// crossed on the way.
+// crossed on the way. The summaries hold every plane row, so a tile folds
+// V at its rows and, on a diagonal with height segments, at vq rows more
+// each side, where the lines that entered by the segment upstream began.
 template <int DIR>
 __device__ void fold_apply(const Params& a, Ws ws, uint32_t* X, const uint32_t* Qp,
                            Band d) {
   constexpr int dc = Dir<DIR>::dc, dr = Dir<DIR>::dr;
-  const int hw = a.hw, RS = a.rs, H = a.halo, cb = d.cb, lane = lane_id();
+  const int hw = a.hw, RS = a.rs, H = core0(a, d), cb = d.cb, lane = lane_id();
   const int up = dc > 0 ? d.j : a.nbw - 1 - d.j;  // bands upstream
   if (up == 0) return;  // the frame's border: carry 0
-  const int wq = a.bw / BAND_UNIT;
+  const int wq = a.bw / BAND_UNIT, mg = dr != 0 ? d.vq : 0, nr = d.hk + 2 * mg;
+  const int kb = d.k0 - mg;  // the plane row of V's first row
   auto summary = [&](int m) {  // the m-th band upstream's summary of direction DIR
-    return a.summ + ((long long)(d.g - dc * m) * N_XDIR + Dir<DIR>::slot) * 2 * hw;
+    return a.summ + ((long long)(d.gb - dc * m) * N_XDIR + Dir<DIR>::slot) * 2 * hw;
   };
+  uint32_t* V = ws.v - mg;
   // The nearest FOLD_BATCH bands' words, every load of the block at once.
   uint32_t* fl = ws.bits;
-  uint32_t* fq = fl + hw * FOLD_BATCH;
-  for (int e = threadIdx.x; e < hw * FOLD_BATCH; e += NT) {
-    const int k = e / FOLD_BATCH, m = e % FOLD_BATCH + 1, kk = k - dr * (m - 1) * wq;
+  uint32_t* fq = fl + nr * FOLD_BATCH;
+  for (int e = threadIdx.x; e < nr * FOLD_BATCH; e += NT) {
+    const int k = e / FOLD_BATCH, m = e % FOLD_BATCH + 1, kk = kb + k - dr * (m - 1) * wq;
     uint32_t l = 0u, q = 0u;
     if (m <= up && kk >= 0 && kk < hw) {
       l = __ldcg(summary(m) + kk);
@@ -629,22 +770,22 @@ __device__ void fold_apply(const Params& a, Ws ws, uint32_t* X, const uint32_t* 
     fq[e] = q;
   }
   __syncthreads();
-  for (int k = threadIdx.x; k < hw; k += NT) {
+  for (int k = threadIdx.x; k < nr; k += NT) {
     uint32_t acc_l = 0u, acc_q = ~0u;
     for (int m = 0; m < FOLD_BATCH; ++m) {
       acc_l |= acc_q & fl[k * FOLD_BATCH + m];
       acc_q &= fq[k * FOLD_BATCH + m];
     }
-    ws.v[k] = acc_l;
+    V[k] = acc_l;
     fl[k * FOLD_BATCH] = acc_q;  // nonzero: the chain goes on
   }
   __syncthreads();
   // The chains that go on past FOLD_BATCH bands: a warp a word, its lanes
   // loading 32 bands at once and composing them in five shuffle steps.
-  for (int k = warp_id(); up > FOLD_BATCH && k < hw; k += NW) {
-    uint32_t acc_l = ws.v[k], acc_q = fl[k * FOLD_BATCH];
+  for (int k = warp_id(); up > FOLD_BATCH && k < nr; k += NW) {
+    uint32_t acc_l = V[k], acc_q = fl[k * FOLD_BATCH];
     for (int m0 = FOLD_BATCH; m0 < up && acc_q; m0 += 32) {
-      const int m = m0 + lane + 1, kk = k - dr * (m - 1) * wq;
+      const int m = m0 + lane + 1, kk = kb + k - dr * (m - 1) * wq;
       uint32_t l = 0u, q = 0u;
       if (m <= up && kk >= 0 && kk < hw) {
         l = __ldcg(summary(m) + kk);
@@ -659,20 +800,139 @@ __device__ void fold_apply(const Params& a, Ws ws, uint32_t* X, const uint32_t* 
       acc_q &= __shfl_sync(FULL, q, 0);
     }
     __syncwarp();
-    if (lane == 0) ws.v[k] = acc_l;
+    if (lane == 0) V[k] = acc_l;
   }
   __syncthreads();
-  for (int k = warp_id(); k < hw; k += NW)
+  for (int k = warp_id(); k < d.hk; k += NW)
     for (int t = lane; t < cb; t += 32) {  // t: columns from the entry edge
       const int i = k * RS + H + (dc > 0 ? t : cb - 1 - t);
-      const uint32_t c = dr == 0 ? ws.v[k] : vshift(ws.v, k, dr * (t + 1), hw);
+      const uint32_t c = dr == 0 ? ws.v[k] : vshift(ws.v, k, dr * (t + 1), -mg, d.hk + mg);
       X[i] |= Qp[i] & c;
     }
   __syncthreads();
 }
 
-// The scan functions for a direction known only at run time.
-__device__ void local_scan(const Params& a, Ws ws, uint32_t* X, uint32_t* Qp, Band d, int dir) {
+// One warp's carries along core column t of the tile, down (up) from the
+// carry cin into its first word: each word's G = L | (Q & its carry in),
+// with L and Q the word's own scan from its entry bit (X, T). Bit j of a
+// ballot over 32 consecutive words is word j's exit bit (of L, and of Q),
+// so a warp scans 32 words' carries in five steps on one word. Returns the
+// carry out of the column's last word; *full (where given): every word
+// propagates.
+__device__ uint32_t column_carry(const Params& a, uint32_t* X, const uint32_t* T, Band d, int t,
+                                 bool down, uint32_t cin, bool* full) {
+  const int hw = d.hk, RS = a.rs, H = core0(a, d), lane = lane_id(), exit_bit = down ? 31 : 0;
+  bool all = true;
+  for (int n0 = 0; n0 < hw; n0 += 32) {
+    const int n = n0 + lane, cnt = min(32, hw - n0);
+    const bool in = n < hw;
+    const int i = (down ? n : hw - 1 - n) * RS + H + t;
+    const uint32_t l = in ? X[i] : 0u, q = in ? T[i] : 0u;
+    uint32_t g = __ballot_sync(FULL, (l >> exit_bit) & 1u);
+    uint32_t p = __ballot_sync(FULL, (q >> exit_bit) & 1u);
+    all = all && p == (cnt == 32 ? FULL : (1u << cnt) - 1u);
+    g |= p & cin;  // bit j: the carry out of word n0 + j
+#pragma unroll
+    for (int s = 1; s < 32; s <<= 1) {
+      g |= p & (g << s);
+      p &= p << s;
+    }
+    const uint32_t into = lane ? (g >> (lane - 1)) & 1u : cin;
+    if (in) X[i] = l | (q & (0u - into));
+    cin = (g >> (cnt - 1)) & 1u;
+  }
+  if (full) *full = all;
+  return cin;
+}
+
+// Direction 2 (top->bottom, down) or 3 (bottom->top) on the tile's core,
+// carry-in zero at its entry row. Each word first on its own, in parallel:
+// its scan with carry-in zero (five doubling steps) into X and the
+// propagate product from its entry bit into T; then the carries across
+// words (column_carry). With one segment the tile spans every word row and
+// this is the direction's result: no grid barrier. With height segments
+// the tile also writes each column's (carry out, every word propagates) to
+// its segment's seam record, and vertical_apply finishes after a barrier.
+__device__ void vertical_scan(const Params& a, Ws ws, uint32_t* X, uint32_t* T, Band d,
+                              bool down) {
+  const int hw = d.hk, RS = a.rs, H = core0(a, d), cb = d.cb, lane = lane_id();
+  for (int k = warp_id(); k < hw; k += NW)
+    for (int t = lane; t < cb; t += 32) {
+      const int i = k * RS + H + t;
+      uint32_t g = X[i], pp = ws.pc[i], q = pp;
+#pragma unroll
+      for (int s = 1; s < 32; s <<= 1) {
+        if (down) {
+          g |= pp & (g << s);
+          q &= (q << s) | ((1u << s) - 1u);
+          pp &= pp << s;
+        } else {
+          g |= pp & (g >> s);
+          q &= (q >> s) | ~(~0u >> s);
+          pp &= pp >> s;
+        }
+      }
+      X[i] = g;
+      T[i] = q;
+    }
+  __syncthreads();
+  uint32_t* sr = a.seam + (long long)d.sg * N_SEAM * a.w + (down ? 0 : 2) * a.w + d.c0;
+  for (int t = warp_id(); t < cb; t += NW) {
+    bool full;
+    const uint32_t out = column_carry(a, X, T, d, t, down, 0u, &full);
+    if (d.ns > 1 && lane == 0) {
+      sr[t] = out;
+      sr[a.w + t] = full;
+    }
+  }
+  __syncthreads();
+}
+
+// Directions 2 and 3 in turn on a tile that spans every word row (one
+// segment): each whole, with no grid barrier.
+__device__ void vertical_scans(const Params& a, Ws ws, uint32_t* X, uint32_t* T, Band d) {
+  for (int down = 1; down >= 0; --down) vertical_scan(a, ws, X, T, d, down);
+}
+
+// With height segments, direction 2 or 3's carry into each core column from
+// the seam records of the segments upstream (nearest first, while every
+// word of the ones between propagates), then the carries down (up) the
+// column again from it: as G = L | (Q & carry) word by word, a second pass
+// from the tile's local result gives the scan's bits.
+__device__ __noinline__ void vertical_apply(const Params& a, uint32_t* X, const uint32_t* T,
+                                           Band d, bool down) {
+  const int dr = down ? 1 : -1, lane = lane_id();
+  const uint32_t* base = a.seam + (long long)(d.sg - d.s) * N_SEAM * a.w + (down ? 0 : 2) * a.w + d.c0;
+  for (int t = warp_id(); t < d.cb; t += NW) {
+    uint32_t cin = 0u;
+    if (lane == 0) {
+      uint32_t acc_q = 1u;
+      for (int s = d.s - dr; s >= 0 && s < a.ns && acc_q; s -= dr) {
+        const uint32_t* r = base + (long long)s * N_SEAM * a.w + t;
+        cin |= acc_q & __ldcg(r);
+        acc_q &= __ldcg(r + a.w);
+      }
+    }
+    cin = __shfl_sync(FULL, cin, 0);
+    if (cin) column_carry(a, X, T, d, t, down, cin, nullptr);
+  }
+  __syncthreads();
+}
+
+// The scan functions for a direction known only at run time: the local
+// scan, and what finishes a direction after a grid barrier (a crossing
+// direction's fold and apply, a vertical one's carry across segments, or a
+// diagonal's fix-up across segments). The two that run only with height
+// segments stay out of line.
+template <bool SEG>
+__device__ void local_scan_dir(const Params& a, Ws ws, uint32_t* X, uint32_t* Qp, Band d,
+                               int dir) {
+  if constexpr (SEG) {
+    if (dir == 2 || dir == 3) {
+      vertical_scan(a, ws, X, Qp, d, dir == 2);
+      return;
+    }
+  }
   switch (dir) {
     case 0: local_scan<0>(a, ws, X, Qp, d); break;
     case 1: local_scan<1>(a, ws, X, Qp, d); break;
@@ -683,8 +943,24 @@ __device__ void local_scan(const Params& a, Ws ws, uint32_t* X, uint32_t* Qp, Ba
   }
 }
 
-__device__ void fold_apply(const Params& a, Ws ws, uint32_t* X, const uint32_t* Qp, Band d,
-                           int dir) {
+template <bool SEG>
+__device__ void finish_dir(const Params& a, Ws ws, uint32_t* X, uint32_t* Qp, Band d, int dir,
+                           bool fix) {
+  if constexpr (SEG) {
+    if (dir == 2 || dir == 3) {
+      vertical_apply(a, X, Qp, d, dir == 2);
+      return;
+    }
+    if (fix) {
+      switch (dir) {
+        case 4: fix_diagonal<4>(a, ws, X, Qp, d); break;
+        case 5: fix_diagonal<5>(a, ws, X, Qp, d); break;
+        case 6: fix_diagonal<6>(a, ws, X, Qp, d); break;
+        default: fix_diagonal<7>(a, ws, X, Qp, d); break;
+      }
+      return;
+    }
+  }
   switch (dir) {
     case 0: fold_apply<0>(a, ws, X, Qp, d); break;
     case 1: fold_apply<1>(a, ws, X, Qp, d); break;
@@ -695,58 +971,20 @@ __device__ void fold_apply(const Params& a, Ws ws, uint32_t* X, const uint32_t* 
   }
 }
 
-// Directions 2 and 3 (top->bottom, then bottom->top) inside the band, which
-// spans every word row. Each word first on its own, in parallel: its scan
-// with carry-in zero (five doubling steps) into X and the propagate product
-// from its entry bit into T. Then the carries across words: bit j of a
-// ballot over 32 consecutive words of a column is word j's exit bit (of L,
-// and of Q), so a warp scans 32 words' carries in five steps on one word,
-// G = L | (Q & carry in). No grid barrier.
-__device__ void vertical_scans(const Params& a, Ws ws, uint32_t* X, uint32_t* T, Band d) {
-  const int hw = a.hw, RS = a.rs, H = a.halo, cb = d.cb, lane = lane_id();
-  for (int down = 1; down >= 0; --down) {
-    for (int k = warp_id(); k < hw; k += NW)
-      for (int t = lane; t < cb; t += 32) {
-        const int i = k * RS + H + t;
-        uint32_t g = X[i], pp = ws.pc[i], q = pp;
-#pragma unroll
-        for (int s = 1; s < 32; s <<= 1) {
-          if (down) {
-            g |= pp & (g << s);
-            q &= (q << s) | ((1u << s) - 1u);
-            pp &= pp << s;
-          } else {
-            g |= pp & (g >> s);
-            q &= (q >> s) | ~(~0u >> s);
-            pp &= pp >> s;
-          }
-        }
-        X[i] = g;
-        T[i] = q;
-      }
-    __syncthreads();
-    const int exit_bit = down ? 31 : 0;
-    for (int t = warp_id(); t < cb; t += NW) {
-      uint32_t cin = 0u;  // the carry into the next 32 words
-      for (int n0 = 0; n0 < hw; n0 += 32) {
-        const int n = n0 + lane;
-        const bool in = n < hw;
-        const int i = (down ? n : hw - 1 - n) * RS + H + t;
-        const uint32_t l = in ? X[i] : 0u, q = in ? T[i] : 0u;
-        uint32_t g = __ballot_sync(FULL, (l >> exit_bit) & 1u);
-        uint32_t p = __ballot_sync(FULL, (q >> exit_bit) & 1u);
-        g |= p & cin;  // bit j: the carry out of word n0 + j
-#pragma unroll
-        for (int s = 1; s < 32; s <<= 1) {
-          g |= p & (g << s);
-          p &= p << s;
-        }
-        const uint32_t into = lane ? (g >> (lane - 1)) & 1u : cin;
-        if (in) X[i] = l | (q & (0u - into));
-        cin = g >> 31;
-      }
-    }
-    __syncthreads();
+// The scan stages of a phase-2 round, one grid barrier after each: stage s
+// finishes direction *dir (*fix: a diagonal's fix-up across segments, which
+// its fold and apply follow in the next stage), then runs the local scans
+// that follow. With one segment, 6 stages: 0, 1 (then 2 and 3 in full), 4,
+// 5, 6, 7. With height segments, 12: 0, 1, 2, 3, then fix-up and apply of
+// each of 4, 5, 6, 7. SEG: the launch's layout has height segments.
+template <bool SEG>
+__device__ __forceinline__ void scan_stage(int s, int* dir, bool* fix) {
+  if constexpr (!SEG) {
+    *dir = s < 2 ? s : s + 2;
+    *fix = false;
+  } else {
+    *dir = s < 4 ? s : 4 + (s - 4) / 2;
+    *fix = s >= 4 && (s - 4) % 2 == 0;
   }
 }
 
@@ -775,8 +1013,10 @@ __device__ void list_active(const Params& a, const FrameState& st, int r) {
 // in the same launch, with a grid barrier between) and writes flags[b][1];
 // phase 1 starts every frame at round 0 and writes flags[b][0]. The planes
 // are read at the start and written back at the end; a caller syncs the
-// grid before it reads them.
-template <bool PHASE2>
+// grid before it reads them. SEG: compiled for layouts with height
+// segments (a launch takes the kernel its layout needs), so the code that
+// carries across segments is not in the one-segment kernels.
+template <bool PHASE2, bool SEG>
 __device__ void round_loop(const Params& a, uint32_t* sm, cg::grid_group& grid) {
   const FrameState st = frame_state(a, sm);
   const Ws ws = workspace(a, sm);
@@ -800,19 +1040,20 @@ __device__ void round_loop(const Params& a, uint32_t* sm, cg::grid_group& grid) 
     }
     return;
   }
-  // The layout: bw-column bands of the frames active in the first round,
-  // band g on block g mod grid. A block that owns one band keeps it in its
-  // shared memory for the whole loop; with more bands than blocks, each
-  // stage loads a band's words and stores them back (FINAL in f, Q in q).
-  const int bands = *st.nl * a.nbw;
+  // The layout: tiles (bw-column bands of ns height segments) of the
+  // frames active in the first round, tile g on block g mod grid. A block
+  // that owns one tile keeps it in its shared memory for the whole loop;
+  // with more tiles than blocks, each stage loads a tile's words and stores
+  // them back (FINAL in f, Q in q).
+  const int bands = *st.nl * a.nbw * (SEG ? a.ns : 1);
   const bool resident = bands <= (int)gridDim.x;
   int cur = 0;  // the FINAL plane of the workspace
   for (int g = blockIdx.x; g < bands; g += gridDim.x) {
-    const Band d = band_of(a, st, g);
+    const Band d = band_of<SEG>(a, st, g);
     if (resident) {  // zero first: the columns outside the frame stay 0
-      for (int i = threadIdx.x; i < 3 * a.hw * a.rs; i += NT) sm[i] = 0u;
+      for (int i = threadIdx.x; i < 3 * a.rows * a.rs; i += NT) sm[i] = 0u;
       __syncthreads();
-      load_cols(a, ws.pc, a.p, d, 0, d.cb + 2 * a.halo);
+      load_candidates(a, ws, d);
     }
     load_core(a, ws.x[0], a.f, d);
     __syncthreads();
@@ -839,11 +1080,11 @@ __device__ void round_loop(const Params& a, uint32_t* sm, cg::grid_group& grid) 
       const int s0 = seg * a.halo, n = min(a.halo, a.dilate_steps - s0);
       const bool to_scan = scan && seg == nseg - 1;
       for (int g = blockIdx.x; g < bands; g += gridDim.x) {
-        const Band d = band_of(a, st, g);
+        const Band d = band_of<SEG>(a, st, g);
         if (!st.on[d.b]) continue;
         if (!resident) {
           cur = 0;
-          load_cols(a, ws.pc, a.p, d, 0, d.cb + 2 * a.halo);
+          load_candidates(a, ws, d);
           load_core(a, ws.x[0], a.f, d);
         }
         refresh_halo(a, ws.x[cur], d, (ex - 1) & 1);
@@ -865,14 +1106,17 @@ __device__ void round_loop(const Params& a, uint32_t* sm, cg::grid_group& grid) 
       if (!to_scan) ++ex;
       grid.sync();
     }
-    // The scans: stage s folds and applies direction scan_order(s) (with
-    // directions 2 and 3 after direction 1), then scans the next crossing
-    // direction locally and publishes its summary; the last stage tests the
-    // change and publishes the edges. One grid barrier a stage.
-    for (int s = 0; scan && s < N_XDIR; ++s) {
-      const int pd = scan_order(s), nd = scan_order(s + 1);
+    // The scans (scan_stage): stage s finishes a direction, then runs the
+    // local scans up to the next one that needs a barrier, publishing their
+    // summaries; the last stage tests the change and publishes the edges.
+    constexpr int nst = SEG ? 12 : 6;
+    for (int s = 0; scan && s < nst; ++s) {
+      int pd;
+      bool fix;
+      scan_stage<SEG>(s, &pd, &fix);
+      const bool ends = s == nst - 1;
       for (int g = blockIdx.x; g < bands; g += gridDim.x) {
-        const Band d = band_of(a, st, g);
+        const Band d = band_of<SEG>(a, st, g);
         if (!st.on[d.b]) continue;
         if (!resident) {
           cur = 0;
@@ -881,22 +1125,23 @@ __device__ void round_loop(const Params& a, uint32_t* sm, cg::grid_group& grid) 
           load_core(a, ws.x[1], a.q, d);
           __syncthreads();
         }
-        fold_apply(a, ws, ws.x[cur], ws.x[cur ^ 1], d, pd);
-        if (pd == 1) vertical_scans(a, ws, ws.x[cur], ws.x[cur ^ 1], d);
-        if (nd >= 0) {
-          local_scan(a, ws, ws.x[cur], ws.x[cur ^ 1], d, nd);
-        } else {
+        finish_dir<SEG>(a, ws, ws.x[cur], ws.x[cur ^ 1], d, pd, fix);
+        if (!SEG && pd == 1) vertical_scans(a, ws, ws.x[cur], ws.x[cur ^ 1], d);  // whole
+        const int nd = !SEG && pd == 1 ? 4 : pd + 1;
+        if (ends) {
           test_change(a, ws, ws.x[cur], d, slot);
           publish_edges(a, ws.x[cur], d, ex & 1);
+        } else if (!fix) {
+          local_scan_dir<SEG>(a, ws, ws.x[cur], ws.x[cur ^ 1], d, nd);
         }
         if (!resident) {
           __syncthreads();
           store_core(a, ws.x[cur], a.f, d);
-          if (nd >= 0) store_core(a, ws.x[cur ^ 1], a.q, d);
+          if (!ends) store_core(a, ws.x[cur ^ 1], a.q, d);
           __syncthreads();
         }
       }
-      if (nd < 0) ++ex;
+      if (s == nst - 1) ++ex;
       grid.sync();
     }
     if (threadIdx.x == 0) {
@@ -909,7 +1154,8 @@ __device__ void round_loop(const Params& a, uint32_t* sm, cg::grid_group& grid) 
     }
     __syncthreads();
   }
-  if (resident && (int)blockIdx.x < bands) store_core(a, ws.x[cur], a.f, band_of(a, st, blockIdx.x));
+  if (resident && (int)blockIdx.x < bands)
+    store_core(a, ws.x[cur], a.f, band_of<SEG>(a, st, blockIdx.x));
   if (lead && a.flags) {
     for (int b = 0; b < a.nb; ++b) {
       a.flags[4 * b + (PHASE2 ? 2 : 0)] = st.it[b];
@@ -918,11 +1164,11 @@ __device__ void round_loop(const Params& a, uint32_t* sm, cg::grid_group& grid) 
   }
 }
 
-template <bool PHASE2>
+template <bool PHASE2, bool SEG>
 __global__ void __launch_bounds__(NT, 1) hyst_kernel(Params a) {
   extern __shared__ uint32_t sm[];
   cg::grid_group grid = cg::this_grid();
-  round_loop<PHASE2>(a, sm, grid);
+  round_loop<PHASE2, SEG>(a, sm, grid);
 }
 
 // The collective round loop of a one-card sharded batch of extended tiles
@@ -936,6 +1182,7 @@ struct LoopParams {
   int max_rounds;
 };
 
+template <bool SEG>
 __global__ void __launch_bounds__(NT, 1) sharded_loop_kernel(Params a, halo::Xchg x, LoopParams l) {
   extern __shared__ uint32_t sm[];
   cg::grid_group grid = cg::this_grid();
@@ -952,9 +1199,9 @@ __global__ void __launch_bounds__(NT, 1) sharded_loop_kernel(Params a, halo::Xch
     // host loop does, and only in a round that runs. Each loop writes its
     // bands back to the planes before the barrier after it, so the refresh
     // works on the planes.
-    round_loop<false>(a1, sm, grid);
+    round_loop<false, SEG>(a1, sm, grid);
     grid.sync();
-    round_loop<true>(a, sm, grid);
+    round_loop<true, SEG>(a, sm, grid);
     grid.sync();
     halo::exchange_body(x, grid);  // clears newbit first, ends on a barrier
     grid.sync();                   // *pending is written
@@ -987,6 +1234,7 @@ __device__ void split_extract(const Params& a, const SplitParams& s, const uint3
   }
 }
 
+template <bool SEG>
 __global__ void __launch_bounds__(NT, 1) split_kernel(Params a, SplitParams s) {
   const bool lead = blockIdx.x == 0 && threadIdx.x == 0;
   int it = s.fflags[0];
@@ -1011,7 +1259,7 @@ __global__ void __launch_bounds__(NT, 1) split_kernel(Params a, SplitParams s) {
     // Every slice from round 0: one unconditional round, dilation rounds
     // below a.scan_from, then dilations + scans, while it changes and below
     // the inner cap.
-    round_loop<false>(a, sm, grid);
+    round_loop<false, SEG>(a, sm, grid);
     grid.sync();  // the slices are back in their planes
     int spent = 0;
     for (int i = 0; i < a.nb; ++i) spent = max(spent, st.it[i]);
@@ -1079,10 +1327,10 @@ __global__ void unpack_core_kernel(const uint32_t* __restrict__ f, uint8_t* __re
 }
 
 
-// Dynamic shared memory of a block: the band workspace (ws_words), two
+// Dynamic shared memory of a block: the tile workspace (geometry), two
 // ints, then the per-frame state (4 ints a frame and 2).
-size_t smem_bytes(int hw, int bw, int halo, int nb) {
-  return ((size_t)ws_words(hw, bw, bw + 2 * halo + 1) + 2 + 4 * (size_t)nb + 2) * sizeof(uint32_t);
+size_t smem_bytes(int hw, int ns, int bw, int halo, int nb) {
+  return ((size_t)geometry(hw, ns, bw, halo).words + 2 + 4 * (size_t)nb + 2) * sizeof(uint32_t);
 }
 
 // The most blocks of the cooperative kernel ``kern`` with ``smem`` bytes of
@@ -1112,28 +1360,39 @@ cudaError_t co_resident(const void* kern, int device, size_t smem, int* out) {
   return cudaSuccess;
 }
 
-// A launch's band layout: the band width, the halo, the shared memory of a
-// block and the co-resident blocks at that size.
+// A launch's band layout: the band width, the halo, the height segments,
+// the shared memory of a block and the co-resident blocks at that size.
 struct Layout {
-  int bw, halo;
+  int bw, halo, ns;
   size_t smem;
   int limit;
 };
 
+// A cooperative kernel compiled without and with height segments: a launch
+// takes the one its layout needs.
+struct Kern {
+  const void* one;
+  const void* seg;
+  const void* pick(int ns) const { return ns > 1 ? seg : one; }
+};
+
 // The band layout of a launch whose first round works on ``frames`` frames
 // of a batch of nb (hw, w) planes: the narrowest multiple of ``unit`` columns
-// whose bands, over those frames, are no more than the SMs and fit the
-// co-resident grid, each with a halo of min(dilate_steps, bw) columns where
-// that fits shared memory (else the largest that does: the round's
-// dilations then run in segments). Failing that, the narrowest whose bands
-// all fit the grid (each block keeps its band resident), else the narrowest
-// that fits at all (blocks take several bands and stream them). A scanning
-// band is at most MAX_SCAN_BAND wide. Cached.
-cudaError_t choose_layout(const void* kern, int device, int frames, int nb, int hw, int w,
+// whose tiles, over those frames, are no more than the SMs and fit the
+// co-resident grid. A band spans every word row where a block's shared
+// memory holds it with one halo column, else it is cut into the fewest
+// height segments that fit (each of MIN_SEG word rows at least); then its
+// halo is min(dilate_steps, bw) columns where that fits (else the largest
+// that does: the round's dilations then run in segments of steps). Failing
+// that, the narrowest whose tiles all fit the grid (each block keeps its
+// tile resident), else the narrowest that fits at all (blocks take several
+// tiles and stream them). A scanning band is at most MAX_SCAN_BAND wide.
+// Cached.
+cudaError_t choose_layout(const Kern& kern, int device, int frames, int nb, int hw, int w,
                           int dilate_steps, int unit, Layout* out) {
   static std::mutex mu;
   static std::map<std::tuple<const void*, int, int, int, int, int, int, int>, Layout> cache;
-  const auto key = std::make_tuple(kern, device, frames, nb, hw, w, dilate_steps, unit);
+  const auto key = std::make_tuple(kern.one, device, frames, nb, hw, w, dilate_steps, unit);
   {
     std::lock_guard<std::mutex> lock(mu);
     const auto hit = cache.find(key);
@@ -1147,35 +1406,43 @@ cudaError_t choose_layout(const void* kern, int device, int frames, int nb, int 
   if (err != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return err;
-  Layout first{0, 0, 0, 0}, resident{0, 0, 0, 0}, pick{0, 0, 0, 0};
+  Layout first{0, 0, 0, 0, 0}, resident{0, 0, 0, 0, 0}, pick{0, 0, 0, 0, 0};
   const int wmax = (w + unit - 1) / unit * unit;
   const int wtop = unit == BAND_UNIT && wmax > MAX_SCAN_BAND ? MAX_SCAN_BAND : wmax;
   for (int bw = unit; bw <= wtop && !pick.bw; bw += unit) {
+    int ns = 1;
+    while (smem_bytes(hw, ns, bw, 1, nb) > (size_t)optin && hw / (ns + 1) >= MIN_SEG) ++ns;
+    if (smem_bytes(hw, ns, bw, 1, nb) > (size_t)optin) break;  // a wider band fits no better
     int halo = dilate_steps < bw ? dilate_steps : bw;
-    while (halo > 0 && smem_bytes(hw, bw, halo, nb) > (size_t)optin) --halo;
-    if (halo == 0) break;  // a wider band fits no better
-    Layout l{bw, halo, smem_bytes(hw, bw, halo, nb), 0};
-    err = co_resident(kern, device, l.smem, &l.limit);
+    while (smem_bytes(hw, ns, bw, halo, nb) > (size_t)optin) --halo;
+    Layout l{bw, halo, ns, smem_bytes(hw, ns, bw, halo, nb), 0};
+    err = co_resident(kern.pick(ns), device, l.smem, &l.limit);
     if (err != cudaSuccess) return err;
     if (l.limit < 1) break;
-    const long long bands = (long long)frames * ((w + bw - 1) / bw);
+    const long long bands = (long long)frames * ((w + bw - 1) / bw) * ns;
     if (!first.bw) first = l;
     if (bands <= l.limit && !resident.bw) resident = l;
     if (bands <= l.limit && bands <= sms) pick = l;
   }
   if (!pick.bw) pick = resident.bw ? resident : first;
-  if (!pick.bw) return cudaErrorInvalidValue;  // one word row of a band does not fit
+  if (!pick.bw) return cudaErrorInvalidValue;  // a MIN_SEG-row tile does not fit
   std::lock_guard<std::mutex> lock(mu);
   *out = cache[key] = pick;
   return cudaSuccess;
 }
 
+// The most height segments of (hw, w) planes (choose_layout keeps every
+// segment MIN_SEG word rows or more).
+long long max_segments(long long hw) { return hw / MIN_SEG > 1 ? hw / MIN_SEG : 1; }
+
 // int32 words of the rounds' scratch for nb (h, w) planes: the Q planes, the
-// two edge slots' planes, the bands' summaries and popcounts (at most
-// ceil(w/32) bands a frame), then 3 change flags a frame, last.
+// two edge slots' planes, the bands' summaries (at most ceil(w/16) bands a
+// frame), the segments' seam records, the tiles' popcounts, then 3 change
+// flags a frame, last.
 long long rounds_scratch_words(int nb, int h, int w) {
   const long long hw = (h + 31) / 32, plane = hw * w, bands = (w + MIN_BAND - 1) / MIN_BAND;
-  return (long long)nb * (3 * plane + bands * (2LL * N_XDIR * hw + 1) + 3);
+  const long long ns = max_segments(hw);
+  return (long long)nb * (3 * plane + bands * (2LL * N_XDIR * hw + ns) + ns * N_SEAM * w + 3);
 }
 
 Params make_params(void* f, const void* p, void* scratch, void* flags, int nb, int h, int w,
@@ -1184,41 +1451,50 @@ Params make_params(void* f, const void* p, void* scratch, void* flags, int nb, i
   a.nb = nb;
   a.hw = (h + 31) / 32;
   a.w = w;
+  a.tail = h % 32 ? (1u << (h % 32)) - 1u : 0xffffffffu;
   a.plane = (long long)a.hw * w;
   a.f = static_cast<uint32_t*>(f);
   a.p = static_cast<const uint32_t*>(p);
   uint32_t* s = static_cast<uint32_t*>(scratch);
-  const long long bands = (long long)nb * ((w + MIN_BAND - 1) / MIN_BAND);
+  const long long bands = (long long)nb * ((w + MIN_BAND - 1) / MIN_BAND), ns = max_segments(a.hw);
   a.q = s;
   a.edge = s + nb * a.plane;
   a.summ = s + 3 * nb * a.plane;
-  a.cnt = reinterpret_cast<int*>(a.summ + bands * 2 * N_XDIR * a.hw);
-  a.chg = a.cnt + bands;
+  a.seam = a.summ + bands * 2 * N_XDIR * a.hw;
+  a.cnt = reinterpret_cast<int*>(a.seam + nb * ns * N_SEAM * w);
+  a.chg = a.cnt + bands * ns;
   a.flags = static_cast<int*>(flags);
   a.dilate_steps = dilate_steps;
   a.cap = cap;
   a.scan_from = scan_from;
-  a.bw = a.halo = a.rs = a.nbw = 0;
+  a.bw = a.halo = a.rs = a.nbw = a.ns = a.hs = a.vh = a.vq = a.rows = a.wsw = 0;
   return a;
 }
 
 void set_layout(Params& a, const Layout& l) {
+  const Geom g = geometry(a.hw, l.ns, l.bw, l.halo);
   a.bw = l.bw;
   a.halo = l.halo;
-  a.rs = l.bw + 2 * l.halo + 1;
+  a.ns = l.ns;
+  a.rs = g.rs;
   a.nbw = (a.w + l.bw - 1) / l.bw;
+  a.hs = g.hs;
+  a.vh = g.vh;
+  a.vq = g.vq;
+  a.rows = g.rows;
+  a.wsw = g.words;
 }
 
 // The layout of a launch of ``kern`` over a whose first round works on
 // ``frames`` frames, and its grid: a block a band, up to the limit.
-cudaError_t plan(const void* kern, Params& a, int frames, int unit, int device, Layout* l,
+cudaError_t plan(const Kern& kern, Params& a, int frames, int unit, int device, Layout* l,
                  unsigned* grid) {
   if (a.dilate_steps < 1 || a.dilate_steps > MAX_DILATE_STEPS || a.nb < 1)
     return cudaErrorInvalidValue;
   cudaError_t err = choose_layout(kern, device, frames, a.nb, a.hw, a.w, a.dilate_steps, unit, l);
   if (err != cudaSuccess) return err;
   set_layout(a, *l);
-  const long long bands = (long long)frames * a.nbw;
+  const long long bands = (long long)frames * a.nbw * a.ns;
   *grid = (unsigned)(bands < l->limit ? bands : l->limit);
   return cudaSuccess;
 }
@@ -1230,13 +1506,13 @@ cudaError_t launch_rounds(Params a, int device, cudaStream_t stream) {
   // barrier costs more the more blocks take part, so its layout covers one
   // frame; more frames still growing share the blocks, each block then
   // streaming its bands.
-  const void* kern = (const void*)hyst_kernel<PHASE2>;
+  const Kern kern{(const void*)hyst_kernel<PHASE2, false>, (const void*)hyst_kernel<PHASE2, true>};
   Layout l;
   unsigned grid = 0;
   cudaError_t err = plan(kern, a, PHASE2 ? 1 : a.nb, PHASE2 ? BAND_UNIT : MIN_BAND, device, &l, &grid);
   if (err != cudaSuccess) return err;
   void* args[] = {&a};
-  err = cudaLaunchCooperativeKernel(kern, dim3(grid), dim3(NT), args, l.smem, stream);
+  err = cudaLaunchCooperativeKernel(kern.pick(l.ns), dim3(grid), dim3(NT), args, l.smem, stream);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -1270,14 +1546,17 @@ extern "C" int cc_hyst_phase2(void* f, const void* p, void* scratch, void* flags
 
 // The band layout a round kernel's launch takes for nb (h, w) frames
 // (phase 1 or 2): out = (band width, halo columns, blocks, bands of one
-// frame, grid barriers a round: ceil(dilate_steps / halo) segments, plus the
-// 6 crossing scan directions in phase 2).
+// frame, grid barriers a round: ceil(dilate_steps / halo) segments of steps,
+// plus in phase 2 the scan stages (6, or 12 with height segments), height
+// segments).
 extern "C" int cc_hyst_layout(int nb, int h, int w, int dilate_steps, int phase, int device,
                               int* out) {
   DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return guard.err;
   Params a = make_params(nullptr, nullptr, nullptr, nullptr, nb, h, w, dilate_steps, 0, 0);
-  const void* kern = phase == 2 ? (const void*)hyst_kernel<true> : (const void*)hyst_kernel<false>;
+  const Kern kern = phase == 2
+                        ? Kern{(const void*)hyst_kernel<true, false>, (const void*)hyst_kernel<true, true>}
+                        : Kern{(const void*)hyst_kernel<false, false>, (const void*)hyst_kernel<false, true>};
   Layout l;
   unsigned grid = 0;
   cudaError_t err = plan(kern, a, phase == 2 ? 1 : nb, phase == 2 ? BAND_UNIT : MIN_BAND, device,
@@ -1287,7 +1566,8 @@ extern "C" int cc_hyst_layout(int nb, int h, int w, int dilate_steps, int phase,
   out[1] = a.halo;
   out[2] = (int)grid;
   out[3] = a.nbw;
-  out[4] = (dilate_steps + a.halo - 1) / a.halo + (phase == 2 ? N_XDIR : 0);
+  out[4] = (dilate_steps + a.halo - 1) / a.halo + (phase == 2 ? (a.ns > 1 ? 12 : 6) : 0);
+  out[5] = a.ns;
   return cudaSuccess;
 }
 
@@ -1355,13 +1635,13 @@ extern "C" int cc_split_converge(void* f, const void* p, void* scratch, void* fl
   s.k = k;
   s.budget = max_iters;
   s.chunked = chunk >= 1;
-  const void* kern = (const void*)split_kernel;
+  const Kern kern{(const void*)split_kernel<false>, (const void*)split_kernel<true>};
   Layout l;
   unsigned grid = 0;
   cudaError_t err = plan(kern, a, n_split, BAND_UNIT, device, &l, &grid);
   if (err != cudaSuccess) return err;
   void* args[] = {&a, &s};
-  err = cudaLaunchCooperativeKernel(kern, dim3(grid), dim3(NT), args, l.smem,
+  err = cudaLaunchCooperativeKernel(kern.pick(l.ns), dim3(grid), dim3(NT), args, l.smem,
                                     static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
@@ -1415,7 +1695,7 @@ extern "C" int cc_sharded_loop(void* f, const void* p, void* scratch, void* flag
   // every extended tile, or the refresh's lanes, whichever is more, up to
   // this kernel's own co-resident limit (its registers and shared memory
   // are the union of both steps'). Both phases share the layout.
-  const void* kern = (const void*)sharded_loop_kernel;
+  const Kern kern{(const void*)sharded_loop_kernel<false>, (const void*)sharded_loop_kernel<true>};
   Layout lay;
   unsigned grid = 0;
   cudaError_t err = plan(kern, a, tiles, BAND_UNIT, device, &lay, &grid);
@@ -1423,7 +1703,7 @@ extern "C" int cc_sharded_loop(void* f, const void* p, void* scratch, void* flag
   const long long xgrid = (halo::work_items(x) + NT - 1) / NT;
   if (xgrid > grid) grid = (unsigned)(xgrid < lay.limit ? xgrid : lay.limit);
   void* args[] = {&a, &x, &l};
-  err = cudaLaunchCooperativeKernel(kern, dim3(grid), dim3(NT), args, lay.smem,
+  err = cudaLaunchCooperativeKernel(kern.pick(lay.ns), dim3(grid), dim3(NT), args, lay.smem,
                                     static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return err;
   return cudaGetLastError();

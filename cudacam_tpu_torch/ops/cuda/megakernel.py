@@ -76,7 +76,10 @@ SPLIT_SLICE_BYTES = 25_000_000
 
 def _check_planes(f: torch.Tensor, p: torch.Tensor, h: int, flags=None) -> None:
     """Planes are (hw, w) for one frame or (B, hw, w) for a batch, with
-    flags (2, 2) or (B, 2, 2) to match."""
+    flags (2, 2) or (B, 2, 2) to match, hw = ceil(h / 32). The round
+    kernels work on the h x w image only: the bits of rows at and past h in
+    the last word row read as zero and come out zero, on both routes (every
+    pack leaves them zero)."""
     if f.dtype != torch.int32 or p.dtype != torch.int32 or f.ndim not in (2, 3):
         raise ValueError("packed planes must be (hw, w) or (B, hw, w) int32 tensors")
     if f.shape != p.shape or f.shape[-2] != -(-h // 32) or f.numel() == 0:
@@ -89,6 +92,18 @@ def _check_planes(f: torch.Tensor, p: torch.Tensor, h: int, flags=None) -> None:
 def _check_steps(dilate_steps: int) -> None:
     if not 1 <= dilate_steps <= _MAX_DILATE_STEPS:
         raise ValueError(f"dilate_steps must be in [1, {_MAX_DILATE_STEPS}] on the GPU")
+
+
+def _clear_past_h(fb: torch.Tensor, pb: torch.Tensor, h: int) -> torch.Tensor:
+    """Clears the bits of rows at and past h in one frame's FINAL plane, in
+    place, and returns its CANDIDATE plane with them cleared (a copy where
+    there are such rows): the round kernels' view of the planes."""
+    if h % 32:
+        keep = (1 << (h % 32)) - 1
+        fb[-1] &= keep
+        pb = pb.clone()
+        pb[-1] &= keep
+    return pb
 
 
 def _frames(x: torch.Tensor, ndim: int) -> torch.Tensor:
@@ -105,13 +120,14 @@ def _scratch_words(nb: int, h: int, w: int, phase: int) -> int:
 def round_layout(nb: int, h: int, w: int, dilate_steps: int, phase: int,
                  device: int = 0) -> dict:
     """The band layout a round kernel's launch takes on a card for nb (h, w)
-    frames: band width, halo columns, blocks, bands of one frame and grid
-    barriers a round (``cc_hyst_layout``)."""
-    out = (ctypes.c_int * 5)()
+    frames: band width, halo columns, blocks, bands of one frame, grid
+    barriers a round and height segments (``cc_hyst_layout``)."""
+    out = (ctypes.c_int * 6)()
     lib = load()
     lib.check(lib.lib.cc_hyst_layout(nb, h, w, dilate_steps, phase, device,
                                      ctypes.cast(out, ctypes.c_void_p)), "cc_hyst_layout")
-    return dict(zip(("band_width", "halo", "blocks", "bands", "barriers_per_round"), out))
+    return dict(zip(("band_width", "halo", "blocks", "bands", "barriers_per_round",
+                     "segments"), out))
 
 
 def _launch_rounds(phase: int, f, p, flags, h: int, *args, name: Optional[str] = None) -> None:
@@ -144,8 +160,9 @@ def hyst_phase1_plain(
     max_iters: int = 100,
 ) -> None:
     """Plain PyTorch version of :func:`hyst_phase1`, on any device:
-    ``bitpack``'s phase 1 frame by frame."""
+    ``bitpack``'s phase 1 frame by frame, on the h x w image."""
     for fb, pb, flb in zip(_frames(f, 2), _frames(p, 2), _frames(flags, 2)):
+        pb = _clear_past_h(fb, pb, h)
         nf, it, growing = bitpack.converge_phase1(
             fb, pb, h, fb.shape[1], dilate_steps, scan_after, max_iters)
         fb.copy_(nf)
@@ -166,12 +183,16 @@ def hyst_phase1(
     place: each frame's plane becomes its phase-1 exit state and its
     flags[0] = (round count, still growing).
 
-    On the card one cooperative launch: each frame is cut into full-height
-    column bands (multiples of 16 columns, about one a streaming
-    multiprocessor over the batch), each kept in a block's shared memory
-    for the whole loop with ``dilate_steps`` halo columns; a round is the
-    dilations in shared memory and one grid barrier, and a band changed
-    iff its popcount grew (``csrc/hyst_rounds.cu``)."""
+    On the card one cooperative launch: each frame is cut into column
+    bands (multiples of 16 columns, about one a streaming multiprocessor
+    over the batch) that span every word row, or, past the rows a block's
+    shared memory holds (785 word rows), into tiles of stacked height
+    segments; each tile is kept in a block's shared memory for the whole
+    loop with ``dilate_steps`` halo columns (and the rows they reach above
+    and below); a round is the dilations in shared memory and one grid
+    barrier, and a tile changed iff its popcount grew
+    (``csrc/hyst_rounds.cu``). Rows at and past h are cleared
+    (:func:`_check_planes`)."""
     _check_planes(f, p, h, flags)
     if use_plain(f, p, flags):
         hyst_phase1_plain(f, p, flags, h, dilate_steps=dilate_steps, scan_after=scan_after,
@@ -191,10 +212,12 @@ def hyst_phase2_plain(
     max_iters: int = 100,
 ) -> None:
     """Plain PyTorch version of :func:`hyst_phase2`, on any device:
-    ``bitpack``'s phase 2 on the frames still growing."""
+    ``bitpack``'s phase 2 on the frames still growing and below the cap, on
+    the h x w image."""
     for fb, pb, flb in zip(_frames(f, 2), _frames(p, 2), _frames(flags, 2)):
         it0, growing = (int(v) for v in flb[0])
-        if growing:
+        if growing and it0 < max_iters:
+            pb = _clear_past_h(fb, pb, h)
             nf, it, still = bitpack.converge_phase2(
                 fb, pb, h, fb.shape[1], it0, dilate_steps, max_iters)
             fb.copy_(nf)
@@ -223,9 +246,12 @@ def hyst_phase2(
     then the 8 scans: the vertical ones inside each band, the six that cross
     bands as a local scan per band, its exit column published, and after a
     grid barrier the fold of the upstream bands' summaries into its carry-in
-    (7 grid barriers a round at 16 inner steps). With more frames still
-    growing than fit one frame's layout, the blocks stream their bands
-    through shared memory stage by stage."""
+    (7 grid barriers a round at 16 inner steps). Past 476 word rows a band
+    is cut into stacked height segments: the vertical directions and the
+    diagonals then also carry across segments, a grid barrier each (13 a
+    round). With more frames still growing than fit one frame's layout, the
+    blocks stream their tiles through shared memory stage by stage. Rows at
+    and past h are cleared (:func:`_check_planes`)."""
     _check_planes(f, p, h, flags)
     if use_plain(f, p, flags):
         hyst_phase2_plain(f, p, flags, h, dilate_steps=dilate_steps, max_iters=max_iters)

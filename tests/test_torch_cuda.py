@@ -132,9 +132,12 @@ def test_spiral_threshold_map_cap_digests(dev):
 
 #: Shapes at the round kernels' band edges (bands are multiples of 32 columns).
 BAND_EDGE_SHAPES = [(33, 31), (33, 33), (33, 129), (33, 1000), (200, 1000)]
+#: Planes past the word rows one band in a block's shared memory holds (476
+#: in phase 2, 785 in phase 1): stacked height segments.
+TALL_SHAPES = [(16000, 33), (26000, 129)]
 
 
-@pytest.mark.parametrize("h,w", SHAPES + BAND_EDGE_SHAPES)
+@pytest.mark.parametrize("h,w", SHAPES + BAND_EDGE_SHAPES + TALL_SHAPES)
 @pytest.mark.parametrize("dilate_steps,scan_after,max_iters", [
     (16, 64, 100), (16, 1, 100), (3, 2, 5), (40, 1, 3),
     (1, 1, 100), (8, 2, 100), (9, 1, 60), (32, 2, 40), (256, 1, 4),  # halo and segments
@@ -154,7 +157,8 @@ def test_rounds_match_plain(dev, h, w, dilate_steps, scan_after, max_iters):
 
 
 @pytest.mark.parametrize("h,w,n", [(37, 53, 3), (80, 256, 5), (1, 1, 2), (720, 1280, 4),
-                                   (33, 129, 3), (64, 1000, 4), (33, 31, 6)])
+                                   (33, 129, 3), (64, 1000, 4), (33, 31, 6),
+                                   (16000, 64, 2), (26000, 33, 3)])
 @pytest.mark.parametrize("scan_after,max_iters", [(10, 100), (1, 100), (2, 5), (4, 4), (1, 1),
                                                   (1, 2)])
 def test_batched_rounds_match_plain(dev, h, w, n, scan_after, max_iters):

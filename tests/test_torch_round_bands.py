@@ -12,11 +12,23 @@ dr * bw rows)); and applies G = L | (Q & V shifted along the direction).
 Directions 2 and 3 stay inside a band: an in-word scan of each word and the
 carry across words. The dilations run per band on the band and ``halo``
 columns each side taken from the round-start state, in segments of at most
-``halo`` steps, and a band changed iff its core's popcount grew. The model
-below is that algorithm, step for step, on NumPy words; the tests hold it
-to ``bitpack._make_ops`` of the port and of the JAX package (and to each
-package's ``_scan_dir`` direction by direction) on seeded random planes and
-the spiral.
+``halo`` steps, and a band changed iff its core's popcount grew.
+
+Where a band does not fit a block's shared memory it is cut into ``ns``
+stacked height segments (tiles). A tile dilates with ``ceil(halo / 32)``
+word rows of vertical halo; directions 2 and 3 scan it with carry-in zero,
+publish each column's (carry out, every word propagates), and after a
+barrier fold the segments upstream into a carry-in and run the carries
+again; a diagonal's tile publishes its exit row's (L, Q) bits, and after a
+barrier carries them down the lines that enter it by that edge (the
+fix-up), which makes its L and Q the full band's, so the fold and apply
+follow unchanged (its carry column over ``bw / 32`` rows more each side).
+The kernels clear the bits of rows at and past h when they load a plane.
+
+The model below is that algorithm, step for step, on NumPy words; the tests
+hold it to ``bitpack._make_ops`` of the port and of the JAX package (and to
+each package's ``_scan_dir`` direction by direction) on seeded random planes
+and the spiral.
 
 Tolerance: 0. Every value is a packed word or a round count.
 """
@@ -81,6 +93,20 @@ def vshift(v: np.ndarray, s: int) -> np.ndarray:
 def bands_of(w: int, bw: int):
     """(first column, width) of each band; only the last is narrower."""
     return [(c0, min(bw, w - c0)) for c0 in range(0, w, bw)]
+
+
+def segments_of(hw: int, ns: int):
+    """(first word row, rows) of each height segment, within a row of each
+    other: the kernel's ``band_of``."""
+    return [(s * hw // ns, (s + 1) * hw // ns - s * hw // ns) for s in range(ns)]
+
+
+def clear_past_h(x, h):
+    """The bits of rows at and past h cleared, as the kernels load a plane."""
+    x = x.copy()
+    if h % 32:
+        x[-1] &= U32((1 << (h % 32)) - 1)
+    return x
 
 
 def local_scan(g, p, dc, dr):
@@ -197,25 +223,116 @@ def apply_carry(L, Q, v, dc, dr):
     return G
 
 
-def crossing_scan(g, p, bw, direction):
-    """A crossing direction over the whole plane: local scans, summaries,
-    fold, apply."""
+def fix_diagonal(L, Q, p, upstream, dc, dr):
+    """A tile's lines that enter by its edge with the segment upstream (above
+    going down, below going up), in place: ``upstream`` is that segment's
+    exit row as (L, Q) bits by column; each line takes the bits at the
+    column before its entry and carries them while the candidates reach."""
+    hk, cb = L.shape
+    nrow = 32 * hk
+    ul, uq = upstream
+    for t0 in range(1, cb):
+        cp = t0 - 1 if dc > 0 else cb - t0
+        cl, cq = int(ul[cp]), int(uq[cp])
+        i = 0
+        while (cl or cq) and t0 + i < cb and i < nrow:
+            r = i if dr > 0 else nrow - 1 - i
+            c = t0 + i if dc > 0 else cb - 1 - t0 - i
+            bit = U32(1 << (r & 31))
+            if not p[r >> 5, c] & bit:
+                break
+            if cl:
+                L[r >> 5, c] |= bit
+            if cq:
+                Q[r >> 5, c] |= bit
+            i += 1
+
+
+def crossing_scan(g, p, bw, direction, ns=1):
+    """A crossing direction over the whole plane: local scans on each tile,
+    the exit rows and the fix-up across segments (a diagonal with ns > 1),
+    summaries, fold, apply."""
     dc, dr = CROSSING[direction]
-    bands = bands_of(g.shape[1], bw)
-    local = [local_scan(g[:, c0:c0 + cb], p[:, c0:c0 + cb], dc, dr) for c0, cb in bands]
-    summ = [(L[:, -1 if dc > 0 else 0], Q[:, -1 if dc > 0 else 0]) for L, Q in local]
+    bands, segs = bands_of(g.shape[1], bw), segments_of(g.shape[0], ns)
+    assert ns == 1 or all(32 * hk >= bw for _, hk in segs)  # a line crosses one segment edge
+    local = {}
+    for s, (k0, hk) in enumerate(segs):
+        for j, (c0, cb) in enumerate(bands):
+            local[s, j] = local_scan(g[k0:k0 + hk, c0:c0 + cb], p[k0:k0 + hk, c0:c0 + cb], dc, dr)
+    if dr and ns > 1:
+        ex = -1 if dr > 0 else 0
+        exit_rows = {key: ((L[ex] >> U32(31 if dr > 0 else 0)) & U32(1),
+                           (Q[ex] >> U32(31 if dr > 0 else 0)) & U32(1))
+                     for key, (L, Q) in local.items()}
+        for (s, j), (L, Q) in local.items():
+            if 0 <= s - dr < ns:
+                k0, hk = segs[s]
+                c0, cb = bands[j]
+                fix_diagonal(L, Q, p[k0:k0 + hk, c0:c0 + cb], exit_rows[s - dr, j], dc, dr)
+    col = -1 if dc > 0 else 0
+    summ = [(np.concatenate([local[s, j][0][:, col] for s in range(ns)]),
+             np.concatenate([local[s, j][1][:, col] for s in range(ns)]))
+            for j in range(len(bands))]
     out = np.empty_like(g)
-    for j, ((c0, cb), (L, Q)) in enumerate(zip(bands, local)):
-        out[:, c0:c0 + cb] = apply_carry(L, Q, fold(summ, j, dc, dr, bw), dc, dr)
+    mg = bw // 32 if dr and ns > 1 else 0
+    for j, (c0, cb) in enumerate(bands):
+        v = fold(summ, j, dc, dr, bw)
+        for s, (k0, hk) in enumerate(segs):
+            # The tile's carry column: its rows, and mg more each side.
+            vt = np.zeros_like(v)
+            lo, hi = max(0, k0 - mg), k0 + hk + mg
+            vt[lo:hi] = v[lo:hi]
+            L, Q = local[s, j]
+            pad = np.zeros((g.shape[0], cb), U32)
+            pad[k0:k0 + hk], qpad = L, np.zeros_like(pad)
+            qpad[k0:k0 + hk] = Q
+            out[k0:k0 + hk, c0:c0 + cb] = apply_carry(pad, qpad, vt, dc, dr)[k0:k0 + hk]
     return out
 
 
-def vertical_scan(g, p, direction):
-    """Direction 2 (top->bottom) or 3 (bottom->top) inside a band: each word
-    on its own (five doubling steps, carry-in zero) gives L and the
-    propagate product Q from its entry bit; then word by word down (up) a
-    column, G = L | (Q & carry), the carry out its exit bit."""
+def column_carries(L, Q, cin, down):
+    """Word by word down (up) each column from the carry ``cin`` (bool by
+    column) into the first word: G = L | (Q & carry), the carry out its exit
+    bit. Returns G and the carry out of the last word."""
+    out = L.copy()
+    for k in (range(L.shape[0]) if down else range(L.shape[0] - 1, -1, -1)):
+        out[k] = L[k] | (Q[k] & np.where(cin, ONES, U32(0)))
+        cin = ((out[k] >> U32(31 if down else 0)) & U32(1)).astype(bool)
+    return out, cin
+
+
+def vertical_scan(g, p, direction, ns=1):
+    """Direction 2 (top->bottom) or 3 (bottom->top): each tile scans its
+    words with carry-in zero (``word_scan``, then the carries), publishes each
+    column's (carry out, every word propagates); each tile then folds the
+    segments upstream into its carry-in and runs the carries again from its
+    local result."""
     down = direction == 2
+    segs = segments_of(g.shape[0], ns)
+    local = []
+    for k0, hk in segs:
+        L, Q = word_scan(g[k0:k0 + hk], p[k0:k0 + hk], down)
+        G, cout = column_carries(L, Q, np.zeros(g.shape[1], bool), down)
+        full = (((Q >> U32(31 if down else 0)) & U32(1)) == 1).all(axis=0)
+        local.append((G, Q, cout, full))
+    out = np.empty_like(g)
+    dr = 1 if down else -1
+    for s, (k0, hk) in enumerate(segs):
+        G, Q, _, _ = local[s]
+        cin, acc_q = np.zeros(g.shape[1], bool), np.ones(g.shape[1], bool)
+        u = s - dr
+        while 0 <= u < ns:
+            cin |= acc_q & local[u][2]
+            acc_q &= local[u][3]
+            u -= dr
+        out[k0:k0 + hk] = column_carries(G, Q, cin, down)[0]
+    return out
+
+
+def word_scan(g, p, down):
+    """Each word's own scan of direction 2 (``down``) or 3 with carry-in zero
+    (five doubling steps): L, and the propagate product Q from its entry
+    bit."""
     L, Q, pp = g.copy(), p.copy(), p.copy()
     for s in (1, 2, 4, 8, 16):
         if down:
@@ -226,23 +343,18 @@ def vertical_scan(g, p, direction):
             L |= pp & _shr(L, s)
             Q &= _shr(Q, s) | U32(0xFFFFFFFF ^ (0xFFFFFFFF >> s))
             pp &= _shr(pp, s)
-    out = L.copy()
-    cin = np.zeros(g.shape[1], bool)
-    for k in (range(g.shape[0]) if down else range(g.shape[0] - 1, -1, -1)):
-        out[k] = L[k] | (Q[k] & np.where(cin, ONES, U32(0)))
-        cin = ((out[k] >> U32(31 if down else 0)) & U32(1)).astype(bool)
-    return out
+    return L, Q
 
 
-def scan_dir(g, p, bw, direction):
+def scan_dir(g, p, bw, direction, ns=1):
     if direction in (2, 3):
-        return vertical_scan(g, p, direction)
-    return crossing_scan(g, p, bw, direction)
+        return vertical_scan(g, p, direction, ns)
+    return crossing_scan(g, p, bw, direction, ns)
 
 
-def band_scans(g, p, bw):
+def band_scans(g, p, bw, ns=1):
     for d in range(8):
-        g = scan_dir(g, p, bw, d)
+        g = scan_dir(g, p, bw, d, ns)
     return g
 
 
@@ -266,25 +378,29 @@ def dilate_region(a, p, steps, s0, total):
     return a
 
 
-def band_dilates(f, p, bw, halo, dilate_steps):
-    """A round's dilations band by band, in segments of at most ``halo``
-    steps: each band on its columns and ``halo`` more each side from the
-    segment-start plane (zero outside the frame); its core is exact. Returns
-    the plane and whether some band's popcount grew."""
+def band_dilates(f, p, bw, halo, dilate_steps, ns=1):
+    """A round's dilations tile by tile, in segments of at most ``halo``
+    steps: each tile on its columns and ``halo`` more each side, and with
+    height segments on its rows and ``ceil(halo / 32)`` more above and below,
+    from the segment-start plane (zero outside the frame); its core is
+    exact. Returns the plane and whether some tile's popcount grew."""
     hw, w = f.shape
+    vh = -(-halo // 32) if ns > 1 else 0
+    tiles = [(k0, hk, c0, cb) for k0, hk in segments_of(hw, ns) for c0, cb in bands_of(w, bw)]
     cur = f
     for s0 in range(0, dilate_steps, halo):
         n = min(halo, dilate_steps - s0)
-        pad_f = np.zeros((hw, w + 2 * halo), U32)
+        pad_f = np.zeros((hw + 2 * vh, w + 2 * halo), U32)
         pad_p = np.zeros_like(pad_f)
-        pad_f[:, halo:halo + w], pad_p[:, halo:halo + w] = cur, p
+        pad_f[vh:vh + hw, halo:halo + w], pad_p[vh:vh + hw, halo:halo + w] = cur, p
         nxt = np.empty_like(cur)
-        for c0, cb in bands_of(w, bw):
-            region = dilate_region(pad_f[:, c0:c0 + cb + 2 * halo], pad_p[:, c0:c0 + cb + 2 * halo],
-                                   n, s0, dilate_steps)
-            nxt[:, c0:c0 + cb] = region[:, halo:halo + cb]
+        for k0, hk, c0, cb in tiles:
+            rows, cols = slice(k0, k0 + hk + 2 * vh), slice(c0, c0 + cb + 2 * halo)
+            region = dilate_region(pad_f[rows, cols], pad_p[rows, cols], n, s0, dilate_steps)
+            nxt[k0:k0 + hk, c0:c0 + cb] = region[vh:vh + hk, halo:halo + cb]
         cur = nxt
-    grew = any(_popc(cur[:, c0:c0 + cb]) != _popc(f[:, c0:c0 + cb]) for c0, cb in bands_of(w, bw))
+    grew = any(_popc(cur[k0:k0 + hk, c0:c0 + cb]) != _popc(f[k0:k0 + hk, c0:c0 + cb])
+               for k0, hk, c0, cb in tiles)
     return cur, grew
 
 
@@ -292,19 +408,21 @@ def _popc(x):
     return int(np.unpackbits(x.view(np.uint8)).sum())
 
 
-def band_converge(f, p, h, bw, halo, dilate_steps, scan_after, max_iters):
+def band_converge(f, p, h, bw, halo, dilate_steps, scan_after, max_iters, ns=1):
     """Both phases' round loops on the band model (bitpack.converge_packed's
-    round counting and stop test): (plane, rounds, still growing)."""
+    round counting and stop test) on the planes as the kernels load them:
+    (plane, rounds, still growing)."""
+    f, p = clear_past_h(f, h), clear_past_h(p, h)
     cap = min(scan_after, max_iters)
     it, grew = 0, True
     while True:
-        f, grew = band_dilates(f, p, bw, halo, dilate_steps)
+        f, grew = band_dilates(f, p, bw, halo, dilate_steps, ns)
         it += 1
         if not (grew and it < cap):
             break
     while grew and it < max_iters:
-        nf, _ = band_dilates(f, p, bw, halo, dilate_steps)
-        nf = band_scans(nf, p, bw)
+        nf, _ = band_dilates(f, p, bw, halo, dilate_steps, ns)
+        nf = band_scans(nf, p, bw, ns)
         grew, f, it = _popc(nf) != _popc(f), nf, it + 1
     return f, it, grew
 
@@ -368,10 +486,18 @@ def _pack(mask):
 def planes(h, w, kind, seed=0):
     """(F, P) packed planes of an h x w map, rows past h zero as every pack
     leaves them: ``random`` is a seeded map dense in candidates (long runs
-    across bands), ``spiral`` the spiral threshold map (one chain)."""
+    across bands), ``spiral`` the spiral threshold map (one chain), ``lines``
+    long candidate diagonals both ways with a few seeded FINAL pixels on
+    them (a seed's line crosses band and segment edges with nothing else to
+    carry it)."""
     if kind == "spiral":
         t = make_spiral_thresh(h, w)
         return _pack(t == 255), _pack(t == 128)
+    if kind == "lines":
+        r, c = np.mgrid[:h, :w]
+        cand = ((r - c) % 7 == 0) | ((r + c) % 11 == 0)
+        seed = cand & (np.random.default_rng(seed + 7 * h + w).random((h, w)) < 0.004)
+        return _pack(seed), _pack(cand & ~seed)
     u = np.random.default_rng(seed + 1000 * h + w).random((h, w))
     return _pack(u < 0.04), _pack((u >= 0.04) & (u < 0.75))
 
@@ -437,3 +563,96 @@ def test_band_rounds_match_converge_packed(h, w, bw, max_iters):
         dilate_steps=16, scan_after=2, max_iters=max_iters)
     assert np.array_equal(got, _np(tbp.to_words(want)))
     assert (it, grew) == (wit, bool(wgrew))
+
+
+#: (h, w, height segments): every segment 32 hk >= 96 rows, so a diagonal line
+#: of the widest band below crosses one segment edge at most, as the kernel's
+#: MIN_SEG-row segments guarantee for its widest band.
+SEGMENTED = [(200, 130, 2), (300, 130, 3), (300, 53, 2), (289, 97, 3)]
+
+
+@pytest.mark.parametrize("h,w,ns", SEGMENTED)
+@pytest.mark.parametrize("bw", BANDS)
+@pytest.mark.parametrize("kind", ["random", "lines"])
+def test_segmented_directions_match_both_packages(h, w, ns, bw, kind):
+    """With stacked height segments every direction on its own, from a
+    dilated state, still equals each package's doubling scan."""
+    f, p = planes(h, w, kind)
+    g = band_dilates(f, p, bw, 4, 4, ns)[0] if kind == "random" else f
+    for d in range(8):
+        want = port_scan_dir(g, p, h, d)
+        assert np.array_equal(scan_dir(g, p, bw, d, ns), want), d
+        assert np.array_equal(jax_scan_dir(g, p, h, d), want), d
+
+
+@pytest.mark.parametrize("h,w,ns", SEGMENTED)
+@pytest.mark.parametrize("bw", BANDS)
+@pytest.mark.parametrize("kind", ["random", "spiral", "lines"])
+def test_segmented_scans_match_make_ops(h, w, ns, bw, kind):
+    f, p = planes(h, w, kind)
+    g = band_dilates(f, p, bw, 16, 16, ns)[0]
+    got = band_scans(g, p, bw, ns)
+    assert np.array_equal(got, port_scans(g, p, h))
+    assert np.array_equal(got, jax_scans(g, p, h))
+
+
+@pytest.mark.parametrize("h,w,ns", SEGMENTED)
+@pytest.mark.parametrize("bw", (16,) + BANDS)
+@pytest.mark.parametrize("steps,halo", [(1, 1), (16, 16), (40, 32), (40, 40), (70, 64)])
+def test_segmented_dilates_match_make_ops(h, w, ns, bw, steps, halo):
+    """Tiles with a vertical halo of ceil(halo / 32) word rows (two where the
+    halo passes 32 columns) dilate as the whole plane does."""
+    f, p = planes(h, w, "random", seed=steps)
+    halo = min(halo, bw)
+    got, grew = band_dilates(f, p, bw, halo, steps, ns)
+    dil, _ = _port_ops(h, w, steps)
+    want = _np(dil(_torch(f), _torch(p)))
+    jdil, _ = jbp._make_ops(h, w, steps)
+    assert np.array_equal(got, want)
+    assert np.array_equal(np.asarray(jdil(jnp.asarray(f), jnp.asarray(p))).astype(U32), want)
+    assert grew == bool((want != f).any())
+
+
+@pytest.mark.parametrize("h,w,ns,bw", [(300, 130, 3, 32), (200, 97, 2, 64)])
+@pytest.mark.parametrize("max_iters", [1, 2, 30])
+def test_segmented_rounds_match_converge_packed(h, w, ns, bw, max_iters):
+    """Whole round loops on the spiral over stacked segments equal the
+    port's converge_packed, cut off by the cap included."""
+    f, p = planes(h, w, "spiral")
+    got, it, grew = band_converge(f, p, h, bw, 16, 16, 2, max_iters, ns)
+    want, wit, wgrew = tbp.converge_packed(
+        tbp.from_words(_torch(f)), tbp.from_words(_torch(p)), h, w,
+        dilate_steps=16, scan_after=2, max_iters=max_iters)
+    assert np.array_equal(got, _np(tbp.to_words(want)))
+    assert (it, grew) == (wit, bool(wgrew))
+
+
+def _junk_past_h(x, h, seed):
+    """x with random bits in the rows at and past h of its last word row."""
+    x = x.copy()
+    junk = np.random.default_rng(seed).integers(0, 2**32, x.shape[1], dtype=np.uint64).astype(U32)
+    x[-1] |= junk & ~U32((1 << (h % 32)) - 1)
+    return x
+
+
+@pytest.mark.parametrize("h,w,ns", [(70, 53, 1), (33, 130, 1), (300, 97, 3)])
+def test_rows_past_h_are_not_read(h, w, ns):
+    """Bits in the rows at and past h (which every pack leaves zero) change
+    nothing: the band model, as the kernels load planes, and the plain
+    round wrappers both work on the h x w image and leave those rows zero."""
+    from cudacam_tpu_torch.ops.cuda import megakernel as mk
+
+    f, p = planes(h, w, "spiral")
+    fj, pj = _junk_past_h(f, h, 1), _junk_past_h(p, h, 2)
+    assert (fj != f).any() and (pj != p).any()
+    want, wit, wgrew = tbp.converge_packed(
+        tbp.from_words(_torch(f)), tbp.from_words(_torch(p)), h, w,
+        dilate_steps=16, scan_after=2, max_iters=40)
+    got, it, grew = band_converge(fj, pj, h, 32, 16, 16, 2, 40, ns)
+    assert np.array_equal(got, _np(tbp.to_words(want))) and (it, grew) == (wit, bool(wgrew))
+    ft, pt = tbp.from_words(_torch(fj)), tbp.from_words(_torch(pj))
+    p_before, flags = pt.clone(), torch.zeros((2, 2), dtype=torch.int32)
+    mk.hyst_phase1(ft, pt, flags, h, dilate_steps=16, scan_after=2, max_iters=40)
+    mk.hyst_phase2(ft, pt, flags, h, dilate_steps=16, max_iters=40)
+    assert torch.equal(ft, want) and flags[1].tolist() == [wit, int(wgrew)]
+    assert torch.equal(pt, p_before)  # the CANDIDATE planes are not written

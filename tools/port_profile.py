@@ -3,10 +3,14 @@
 
 Run from the root of a checkout, on a host with a CUDA device and nvcc:
 
-    python3 tools/port_profile.py [--out FILE]
+    python3 tools/port_profile.py [--out FILE] [--parts P,...] [--root DIR] [--label NAME]
 
-Six parts (``--parts``, default all), each printing one JSON line per
-workload (and writing them all to ``--out`` when given):
+``--root`` profiles the ``cudacam_tpu_torch`` of DIR instead of this
+checkout's (another commit, unpacked with ``git archive``), so one call on
+the card can time two versions in turns on the same inputs (A, B, B, A;
+``--label`` names the rows). Seven parts (``--parts``; by default all but
+``rounds``), each printing one JSON line per workload (and writing them all
+to ``--out`` when given):
 
 * ``trace``: ``CannyEngine(device='cuda')`` under torch.profiler: ``process``
   on the 1080p 8-scene stream (``make_scene`` seeds 0-7, five passes), on the
@@ -32,7 +36,19 @@ workload (and writing them all to ``--out`` when given):
 * ``app``: ``CannyApp`` at 1080p BGR under torch.profiler, 64 frames of a
   looped sequence of the eight scenes: host frames through the pinned
   staging buffers (the uploads show as ``Memcpy HtoD``) and
-  ``preload_device_loop(8)``.
+  ``preload_device_loop(8)``;
+* ``rounds``: CUDA-event ms (median of the windows) of the hysteresis round
+  kernels and the paths that run them, each with a sha256 of its output so
+  two versions' outputs can be compared: ``hyst_phase1`` on 1080p scene 0
+  (scan_after 64, 16 inner steps, cap 100) and ``hyst_phase2`` on the 1080p
+  spiral threshold map from round 12 to the cap (PERF.md's K1 and K2 rows),
+  and on the 16000 x 1920 spiral (height segments) from round 2 to a cap of
+  30;
+  ``CannyEngine.process`` on the 1080p 8-scene stream, the x8 batch of
+  seven scenes and the spiral, and the spiral frame at 1080p, 4K and 8K;
+  ``threshold_sweep`` with K=16 pairs at 1080p, 4K and 8K; the sharded
+  1080p spiral over (1, 2, 2) (``sharded_loop``); the 8K spiral with
+  ``continuation='split'`` (K11).
 
 Imports no jax and nothing of the JAX package: the frame generators are the
 port's own (``cudacam_tpu_torch.io.sources``).
@@ -40,13 +56,23 @@ port's own (``cudacam_tpu_torch.io.sources``).
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import statistics
+import subprocess
 import sys
 import time
 from pathlib import Path
 
-sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+def _root() -> Path:
+    """The checkout whose package is profiled: ``--root``, else this one."""
+    ap = argparse.ArgumentParser(add_help=False)
+    ap.add_argument("--root", type=Path, default=Path(__file__).resolve().parents[1])
+    return ap.parse_known_args()[0].root.resolve()
+
+
+sys.path.insert(0, str(_root()))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -54,16 +80,19 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from cudacam_tpu_torch.app import CannyApp  # noqa: E402
 from cudacam_tpu_torch.io.sources import (  # noqa: E402
-    SequenceSource, make_scene, make_spiral_frame,
+    SequenceSource, make_scene, make_spiral_frame, make_spiral_thresh,
 )
 from cudacam_tpu_torch import CannyConfig, CannyStage  # noqa: E402
 from cudacam_tpu_torch.engine import CannyEngine, ShardedCannyEngine  # noqa: E402
-from cudacam_tpu_torch.ops import torch_ops  # noqa: E402
+from cudacam_tpu_torch.ops import bitpack, torch_ops  # noqa: E402
 from cudacam_tpu_torch.ops.cuda.canny import pipeline_kwargs  # noqa: E402
-from cudacam_tpu_torch.ops.cuda.megakernel import canny_mega_pipeline  # noqa: E402
+from cudacam_tpu_torch.ops.cuda.feedforward import ff_pack  # noqa: E402
+from cudacam_tpu_torch.ops.cuda.megakernel import (  # noqa: E402
+    canny_mega_pipeline, hyst_phase1, hyst_phase2,
+)
 from cudacam_tpu_torch.parallel import make_mesh  # noqa: E402
 
-KERNELS = ("ff_pack_kernel", "hyst_kernel<false>", "hyst_kernel<true>", "unpack_kernel",
+KERNELS = ("ff_pack_kernel", "hyst_kernel<false", "hyst_kernel<true", "unpack_kernel",
            "ff_stages_kernel", "pack_thresh_kernel", "sweep_pack_kernel", "unpack_core_kernel",
            "exchange_kernel", "split_kernel", "sweeps_kernel")
 
@@ -190,13 +219,109 @@ def app() -> list:
     return rows
 
 
-PARTS = ("trace", "sizes", "sweeps", "sharded", "split", "app")
+def ms_per_state(fn, n: int, setup, reps: int = 5) -> float:
+    """Median over ``reps`` windows of the CUDA-event ms of ``fn(state)``,
+    ``n`` calls a window, each on a fresh ``setup()`` state made before it."""
+    fn(setup())
+    per = []
+    for _ in range(reps):
+        states = [setup() for _ in range(n)]
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        for st in states:
+            fn(st)
+        b.record()
+        torch.cuda.synchronize()
+        per.append(a.elapsed_time(b) / n)
+    return statistics.median(per)
+
+
+def rounds(label: str) -> list:
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True).stdout.strip().splitlines()[0]
+    rows = []
+
+    def emit(name, ms, out, **extra):
+        sha = hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()[:16]
+        rows.append(dict(workload=name, label=label, ms=ms, sha=sha, card=card, **extra))
+
+    def frame(make, h, w, **kw):
+        return torch.from_numpy(make(h, w, **kw)).cuda()
+
+    h, w = 1080, 1920
+    cfg = CannyConfig(height=h, width=w)
+    eng = CannyEngine(cfg, device="cuda")
+    thr = eng._thresholds()
+    kw = dict(dilate_steps=16, max_iters=100)
+    zeros = lambda: torch.zeros((2, 2), dtype=torch.int32, device="cuda")  # noqa: E731
+    f0, p0 = ff_pack(frame(make_scene, h, w, seed=0), thr)
+    out, fl = f0.clone(), zeros()
+    hyst_phase1(out, p0, fl, h, scan_after=64, **kw)
+    ms = ms_per_state(lambda s: hyst_phase1(s[0], p0, s[1], h, scan_after=64, **kw), 50,
+                      lambda: (f0.clone(), zeros()))
+    emit("hyst_phase1 1080p scene 0", ms, out, rounds=fl[0].tolist())
+    fs, ps = bitpack.pack_pair(frame(make_spiral_thresh, h, w))
+    fl = zeros()
+    hyst_phase1(fs, ps, fl, h, scan_after=12, **kw)
+    out, fl2 = fs.clone(), fl.clone()
+    hyst_phase2(out, ps, fl2, h, **kw)
+    ms = ms_per_state(lambda s: hyst_phase2(s[0], ps, s[1], h, **kw), 3,
+                      lambda: (fs.clone(), fl.clone()))
+    emit("hyst_phase2 1080p spiral, round 12 to the cap", ms, out, rounds=fl2.tolist())
+    # A plane past the rows one band holds: stacked height segments.
+    ht, tk = 16000, dict(dilate_steps=16, max_iters=30)
+    ft, pt = bitpack.pack_pair(frame(make_spiral_thresh, ht, w))
+    fl = zeros()
+    hyst_phase1(ft, pt, fl, ht, scan_after=2, **tk)
+    out, fl2 = ft.clone(), fl.clone()
+    name = f"hyst_phase2 {ht}x{w} spiral, round 2 to a cap of 30"
+    try:
+        hyst_phase2(out, pt, fl2, ht, **tk)
+    except RuntimeError as e:  # a version that refuses such planes
+        rows.append(dict(workload=name, label=label, error=str(e), card=card))
+    else:
+        ms = ms_per_state(lambda s: hyst_phase2(s[0], pt, s[1], ht, **tk), 1,
+                          lambda: (ft.clone(), fl.clone()), reps=3)
+        emit(name, ms, out, rounds=fl2.tolist())
+
+    scenes =[frame(make_scene, h, w, seed=s) for s in range(8)]
+    spiral = frame(make_spiral_frame, h, w)
+    emit("process 1080p 8-scene stream (ms/frame)",
+         ms_per_call(lambda: [eng.process(x) for x in scenes], reps=7) / 8,
+         torch.stack([eng.process(x) for x in scenes]))
+    batch = torch.stack(scenes[:7] + [spiral])
+    emit("process 1080p x8 batch, 7 scenes + spiral (ms/frame)",
+         ms_per_call(lambda: eng.process(batch), reps=7) / 8, eng.process(batch))
+    lows, highs = np.linspace(5, 60, 16).astype(np.int32), np.linspace(20, 180, 16).astype(np.int32)
+    for name, (hh, ww) in (("1080p", (h, w)), ("4K", (2160, 3840)), ("8K", (4320, 7680))):
+        e = eng if hh == h else CannyEngine(CannyConfig(height=hh, width=ww), device="cuda")
+        x = spiral if hh == h else frame(make_spiral_frame, hh, ww)
+        emit(f"process {name} spiral frame", ms_per_call(lambda: e.process(x), reps=3), e.process(x))
+        x = scenes[0] if hh == h else frame(make_scene, hh, ww, seed=0)
+        emit(f"threshold_sweep {name} K=16", ms_per_call(lambda: e.threshold_sweep(x, lows, highs),
+                                                         reps=3),
+             e.threshold_sweep(x, lows, highs)[0])
+    sh = ShardedCannyEngine(cfg, make_mesh(1, 2, 2))
+    emit("sharded process 1080p spiral (1, 2, 2)", ms_per_call(lambda: sh.process(spiral[None]),
+                                                               reps=3),
+         sh.process(spiral[None]))
+    e8 = CannyEngine(CannyConfig(height=4320, width=7680, continuation="split"), device="cuda")
+    x8 = frame(make_spiral_frame, 4320, 7680)
+    emit("process 8K spiral, continuation='split'", ms_per_call(lambda: e8.process(x8), reps=3),
+         e8.process(x8))
+    return rows
+
+
+PARTS = ("trace", "sizes", "sweeps", "sharded", "split", "app", "rounds")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", type=Path, help="also write the JSON lines here")
-    ap.add_argument("--parts", default=",".join(PARTS), help=f"comma-separated of {PARTS}")
+    ap.add_argument("--parts", default=",".join(PARTS[:-1]), help=f"comma-separated of {PARTS}")
+    ap.add_argument("--root", type=Path, help="profile the package of this checkout")
+    ap.add_argument("--label", default="this checkout", help="the rounds part's label")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("port_profile: needs a CUDA device", file=sys.stderr)
@@ -224,6 +349,8 @@ def main() -> int:
         rows += split()
     if "app" in parts:
         rows += app()
+    if "rounds" in parts:
+        rows += rounds(args.label)
     lines = [json.dumps(r) for r in rows]
     print("\n".join(lines))
     if args.out:
