@@ -9,13 +9,17 @@ Phases, each printing its lines before the last:
 
 1. environment probe and the card's name and power limit (nvidia-smi);
 2. build of the kernels in ``cudacam_tpu_torch/csrc`` with nvcc (sm_90a, one
-   nvcc per source, all at once);
+   nvcc per source, all at once), with nvcc's registers, stack and spill
+   bytes of ``ff_pack``'s and ``unpack``'s kernels;
 3. every kernel against its plain PyTorch version on the card, at the main
-   paths' shapes (1080p, 720p) and at 37x53 and 1x1: ``ff_pack``, the round
-   kernels and ``unpack``; ``ff_stages`` for the all-stages set, each stage
+   paths' shapes (1080p, 720p), at 37x53 and 1x1 and at the alignment
+   classes of ``ff_pack``'s loads and ``unpack``'s row runs (33x1919,
+   64x1921, 17x16; both load routes, TMA and cp.async, must be taken):
+   ``ff_pack``, the round kernels and ``unpack`` (also indexed, at odd
+   widths and heights); ``ff_stages`` for the all-stages set, each stage
    alone and NMSQ; ``pack_thresh`` in both modes; the batched kernels
-   against the single-frame ones (8 x 1080p with the escalating spiral, and
-   3 x 37x53). Then the 1080p spiral cut off at the 100-round cap against
+   against the single-frame ones (8 x 1080p with the escalating spiral,
+   3 x 37x53 and 3 x 33x1919, each also as a view one frame in). Then the 1080p spiral cut off at the 100-round cap against
    its recorded digest, through the round kernels and through the
    two-kernel hysteresis (K6), and at the 400-round cap through K6.
    Tolerance 0: every output is integer, and the contract is byte equality;
@@ -48,7 +52,8 @@ Phases, each printing its lines before the last:
    with the plain saturate and refresh, and ``unpack_core`` (K10), each
    against its plain version at each mesh's own tile shapes: 1080p (1, 2, 2)
    (scene + spiral, BGR and mono), 8K (1, 4, 2), 4K x4 (2, 2, 1) and 1080p
-   (1, 1, 1); then, counts set to 0 just before each and read just after
+   (1, 1, 1); the export pack alone at tile pitches that are not 16-byte
+   aligned (66x1918 over (1, 2, 2), 64x1936 over (1, 1, 2)); then, counts set to 0 just before each and read just after
    (six launches a call at caps 100 and 400), HYSTER on one 8K scene over
    (1, 4, 2) and on four 4K scenes over (2, 2, 1) equal to
    ``CannyEngine.process``, on 1080p over (1, 1, 1) equal to it too, the
@@ -60,7 +65,8 @@ Phases, each printing its lines before the last:
 7. the steady-state hot paths under ``torch.cuda.set_sync_debug_mode("error")``;
 8. CUDA-event timings of each kernel, kernel against plain, with its bound
    (the larger of its bytes over HBM bandwidth and its 32-bit operations
-   over the card's peak, counted from this run's inputs and rounds), and of
+   over the card's peak, counted from this run's inputs and rounds; ``ff_pack``
+   also on the 8-scene rotation, where the frame is not still in L2), and of
    the streams: single frames, the x8 batch, THRESH and ``process_all``; of
    the K=16 sweeps at 1080p, 4K and 8K (plain at 1080p and 4K, and at 8K
    for K=2), seeded against cold tails at 1080p; of K8, K10, the exchange
@@ -238,6 +244,27 @@ def plain_sweep(frame, lows, highs, cfg):
     return sweep_fused_plain(kg, sweep_bounds(lows, highs, cfg), **hyster_kwargs(cfg))
 
 
+def kernel_reports(log: str, names):
+    """(kernel entry, {registers, stack, spill_stores, spill_loads}) from
+    nvcc's ``-Xptxas -v`` report, for each compiled entry whose mangled name
+    holds one of ``names`` (each template instance apart)."""
+    import re
+
+    lines = log.splitlines()
+    for i, line in enumerate(lines):
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if not m or not any(n in m.group(1) for n in names):
+            continue
+        rep = {}
+        for nxt in lines[i + 1:i + 4]:
+            if g := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                              r"(\d+) bytes spill loads", nxt):
+                rep.update(stack=int(g[1]), spill_stores=int(g[2]), spill_loads=int(g[3]))
+            if g := re.search(r"Used (\d+) registers", nxt):
+                rep["registers"] = int(g[1])
+        yield m.group(1), rep
+
+
 class SmokeFailure(RuntimeError):
     pass
 
@@ -352,12 +379,14 @@ class Smoke:
         for line in lib.compiler_log.splitlines():
             if "Used" in line or "Compiling entry" in line:
                 print("  ptxas:", line.split("info    :")[-1].strip())
+        for name, rep in kernel_reports(lib.compiler_log, ("ff_pack_kernel", "unpack_kernel")):
+            print(f"nvcc report {name}: {json.dumps(rep)}")
 
     def phase_kernels(self) -> None:
         torch = self.torch
         from cudacam_tpu_torch.ops import bitpack
         from cudacam_tpu_torch.ops.cuda.feedforward import (
-            FF_STAGES, NMSQ, ff_pack, ff_pack_plain, ff_stages, ff_stages_plain,
+            FF_STAGES, NMSQ, ff_pack, ff_pack_plain, ff_stages, ff_stages_plain, load_route,
         )
         from cudacam_tpu_torch.ops.cuda.hysteresis_fused import (
             hysteresis_fused, pack_thresh, pack_thresh_plain,
@@ -375,11 +404,19 @@ class Smoke:
             ((720, 1280), dict(kernel_size=7, parity="opencv")),
             ((37, 53), dict()),
             ((1, 1), dict()),
+            # Alignment classes of ff_pack's loads: rows of 5757 / 5763 /
+            # 48 bytes (cp.async chunks for the BGR frames; mono rows of 16
+            # bytes take TMA).
+            ((33, 1919), dict()),
+            ((64, 1921), dict(kernel_size=3, norm="l1")),
+            ((17, 16), dict(kernel_size=7, parity="opencv")),
         ]
         stage_sets = [FF_STAGES, (NMSQ,)] + [(s,) for s in FF_STAGES]
+        routes = {}
         for (h, w), kw in cases:
             frame = torch.from_numpy(make_scene(h, w, seed=h + w)).to(self.dev)
             for fr in (frame, frame[..., 1].contiguous()):  # BGR and mono
+                routes.setdefault(load_route(fr), []).append(f"{h}x{w}{'' if fr.ndim == 3 else ' mono'}")
                 f, p = ff_pack(fr, thr, **kw)
                 f_ref, p_ref = ff_pack_plain(fr, thr, **kw)
                 self.diff("ff_pack", f, f_ref)
@@ -411,6 +448,17 @@ class Smoke:
                 self.diff("hyst_phase2", flags[1].cpu(), torch.tensor([it, int(grow)], dtype=torch.int32))
                 self.diff("unpack", unpack(fk, h), unpack_plain(f2, h))
             print(f"kernels == plain at {h}x{w} {kw or 'defaults'}")
+        require(set(routes) == {"tma", "cp.async"}, f"ff_pack load routes {routes}")
+        print(f"ff_pack load routes taken: {json.dumps(routes)}")
+        # Unpack at odd widths and heights: heads and tails of the row runs.
+        for h, w, n in ((33, 1919, 3), (17, 16, 2), (1, 70, 1), (64, 1921, 2), (31, 1, 1)):
+            fw = torch.randint(-2**31, 2**31 - 1, (n, -(-h // 32), w), dtype=torch.int32,
+                               device=self.dev)
+            index = torch.randperm(n, device=self.dev).to(torch.int32)
+            self.diff("unpack", unpack(fw, h), unpack_plain(fw, h))
+            self.diff("unpack", unpack(fw, h, index), unpack_plain(fw, h, index))
+            self.diff("unpack", unpack(fw[-1], h), unpack_plain(fw[-1], h))
+        print("unpack == plain at 33x1919 x3, 17x16 x2, 1x70, 64x1921 x2, 31x1, indexed too")
 
         self.batched_vs_single()
 
@@ -478,17 +526,18 @@ class Smoke:
 
         thr = torch.tensor([10, 40], dtype=torch.int32, device=self.dev)
         rounds = dict(dilate_steps=16, max_iters=100)
-        for h, w, n, sa in ((1080, 1920, 8, 12), (37, 53, 3, 2)):
+        for h, w, n, sa in ((1080, 1920, 8, 12), (37, 53, 3, 2), (33, 1919, 3, 2)):
             frames = [make_scene(h, w, seed=s) for s in range(n - 1)] + [make_spiral_frame(h, w)]
             batch = torch.from_numpy(np.stack(frames)).to(self.dev)
-            for x in (batch, batch[..., 0].contiguous()):
+            # The last: frames 1.. of the batch, a view whose base is one frame in.
+            for x in (batch, batch[..., 0].contiguous(), batch[1:]):
                 f, p = ff_pack_batched(x, thr)
                 f_packed = f.clone()
-                flags = torch.zeros((n, 2, 2), dtype=torch.int32, device=self.dev)
+                flags = torch.zeros((len(x), 2, 2), dtype=torch.int32, device=self.dev)
                 hyst_phase1(f, p, flags, h, scan_after=sa, **rounds)
                 hyst_phase2(f, p, flags, h, **rounds)
                 edges = unpack(f, h)
-                for b in range(n):
+                for b in range(len(x)):
                     f1, p1 = ff_pack(x[b], thr)
                     self.diff("ff_pack", f_packed[b], f1)
                     self.diff("ff_pack", p[b], p1)
@@ -500,8 +549,8 @@ class Smoke:
                     self.diff("hyst_phase2", flags[b], fl1)
                     self.diff("unpack", edges[b], unpack(f1, h))
             grown = [int(v) for v in flags[:, 0, 1].tolist()]
-            print(f"batched == single-frame kernels at {n} x {h}x{w}, BGR and mono "
-                  f"(growing at scan_after {sa}: {grown})")
+            print(f"batched == single-frame kernels at {n} x {h}x{w}, BGR, mono and frames "
+                  f"1.. (growing at scan_after {sa}, frames 1..: {grown})")
 
     def phase_sweep(self) -> None:
         torch = self.torch
@@ -788,6 +837,25 @@ class Smoke:
         self.check_tiles("1080p (1, 2, 2), scene + spiral, BGR", sh, batch, loop_rounds=3)
         self.check_tiles("1080p (1, 2, 2), scene + spiral, mono, scan_after 2", sh,
                          batch[..., 1].contiguous(), loop_rounds=3, scan_after=2)
+
+        # Export tilings whose tile pitch is not 16-byte aligned: 959 BGR
+        # columns of a 1918-pixel frame (cp.async chunks), 968 of a
+        # 1936-pixel frame (TMA at unaligned tile origins); a batch view one
+        # frame in.
+        from cudacam_tpu_torch.ops.cuda.feedforward import ff_pack_plain, ff_pack_tiles
+        from cudacam_tpu_torch.parallel import build_sharded_pipeline
+
+        thr = torch.tensor([10, 40], dtype=torch.int32, device=dev)
+        for (hh, ww), mesh in (((66, 1918), (1, 2, 2)), ((64, 1936), (1, 1, 2))):
+            t = build_sharded_pipeline(CannyConfig(height=hh, width=ww), make_mesh(*mesh)).tiling
+            fr = torch.from_numpy(np.stack([make_scene(hh, ww, seed=s) for s in range(3)])).to(dev)
+            for x in (fr, fr[..., 1].contiguous(), fr[1:]):
+                f, p = ff_pack_tiles(x, thr, t)
+                planes = [ff_pack_plain(y, thr, tiling=t) for y in x]
+                self.diff("ff_pack_export", f, torch.cat([a for a, _ in planes]))
+                self.diff("ff_pack_export", p, torch.cat([b for _, b in planes]))
+            print(f"ff_pack_export == plain at {hh}x{ww} over {mesh} (tiles of "
+                  f"{t.ext_h}x{t.ext_w} from column pitch {t.w_loc}), BGR, mono, a view")
 
         main = dict(ff_pack_export=1, hyst_phase1=1, halo_exchange=2, sharded_loop=1,
                     unpack_core=1, saturate_phase1=0, saturate_phase2=0, ff_pack=0, unpack=0)
@@ -1540,6 +1608,8 @@ class Smoke:
 
         self.ms["ff_pack"] = self.time_ms(lambda _: ff_pack(frame, thr), 50)
         self.plain_ms["ff_pack"] = self.time_ms(lambda _: ff_pack_plain(frame, thr), 5)
+        # The 8-scene rotation: a frame is not still in L2 from the call before.
+        rotation_ms = self.time_ms(lambda _: [ff_pack(x, thr) for x in frames], 6) / len(frames)
         self.ms["hyst_phase1"] = self.time_ms(
             lambda s: hyst_phase1(s[0], p0, s[1], h, scan_after=64, **rounds), 50,
             setup=lambda: (f0.clone(), flags0()))
@@ -1612,6 +1682,8 @@ class Smoke:
         all_ms = stream(eng.process_all, 7)
         for name in self.ms:
             print(f"time {name}: kernel {self.ms[name]!r} ms, plain {self.plain_ms[name]!r} ms (1080p)")
+        print(f"time ff_pack on the 8-scene rotation: {rotation_ms!r} ms a frame (scene 0 "
+              f"again and again: {self.ms['ff_pack']!r})")
         print(f"time hyst_phase2 on a converged frame (returns at once): {noop_ms!r} ms")
         print(f"time ff_stages THRESH alone: kernel {thresh_ms!r} ms, plain {thresh_plain_ms!r} ms")
         print(f"time K6 whole (pack_thresh + rounds + unpack) on scene 0's threshold map "

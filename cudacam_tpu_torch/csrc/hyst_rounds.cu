@@ -1290,16 +1290,81 @@ __global__ void __launch_bounds__(NT, 1) split_kernel(Params a, SplitParams s) {
 // out[index[b]] when an index is given (the sweep's original pair order: the
 // TPU sweep kernel's prefetch-indexed output block), else to out[b]. An index
 // outside [0, B) writes nothing.
-__global__ void unpack_kernel(const uint32_t* __restrict__ f, uint8_t* __restrict__ out,
-                              const int* __restrict__ index, int nb, int h, int w) {
-  const int n = h * w;
+//
+// Bound: the output bytes (2 MB a 1080p frame, 0.6 us at HBM rate). Design:
+// a block takes 32 / UNPACK_NRH image rows of one word row, UNPACK_SEG
+// columns of them (block x = (word row, row part, segment)): it stages
+// the segment's words (and the 16 after it) in shared memory with coalesced
+// loads, padded a word every 32 so that a lane's run of 32 words reads
+// without bank conflicts. Lane l of each warp owns the 32 columns from
+// 32 l, each warp UNPACK_ROWS image rows: per row the thread gathers the
+// row's bit of its 48 words into one 64-bit mask (own 32, the next 16) and
+// writes the 16-byte aligned runs of output bytes that start in its
+// columns, each as one vector store (bits expanded to 0 / 255 four at a
+// time). The row's first bytes before its first 16-byte boundary (the
+// head) go byte by byte from the thread of column 0, and so do the bytes
+// of a last run that passes the row's end (the tail). No division per byte;
+// rows at or past h are not written.
+constexpr int UNPACK_SEG = 1024;   // columns a block
+constexpr int UNPACK_ROWS = 2;     // image rows a warp
+constexpr int UNPACK_NT = 256;     // threads a block
+constexpr int UNPACK_NRH = 32 / (UNPACK_NT / 32 * UNPACK_ROWS);  // blocks a word row's rows take
+constexpr int UNPACK_STAGED = UNPACK_SEG + 16;
+
+__device__ __forceinline__ uint32_t expand_nibble(uint32_t n) {  // 4 bits -> 4 bytes 0 / 255
+  return ((n * 0x00204081u) & 0x01010101u) * 0xffu;
+}
+
+__global__ void __launch_bounds__(UNPACK_NT) unpack_kernel(
+    const uint32_t* __restrict__ f, uint8_t* __restrict__ out, const int* __restrict__ index,
+    int nb, int h, int w, int nseg) {
+  __shared__ uint32_t st[UNPACK_STAGED + UNPACK_STAGED / 32 + 1];
   const int to = index ? index[blockIdx.y] : (int)blockIdx.y;
   if (to < 0 || to >= nb) return;
-  const uint32_t* fb = f + (size_t)blockIdx.y * ((h + 31) / 32) * w;
-  uint8_t* ob = out + (size_t)to * n;
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x) {
-    const int r = i / w, c = i - r * w;
-    ob[i] = ((fb[(r >> 5) * w + c] >> (r & 31)) & 1u) ? 255 : 0;
+  const int kr = blockIdx.x / nseg, c0 = (blockIdx.x - kr * nseg) * UNPACK_SEG;
+  const int k = kr / UNPACK_NRH, rpart = kr - k * UNPACK_NRH;
+  const int hw = (h + 31) / 32;
+  const uint32_t* fr = f + ((size_t)blockIdx.y * hw + k) * w;
+  for (int q = threadIdx.x; q < UNPACK_STAGED; q += UNPACK_NT)
+    st[q + (q >> 5)] = c0 + q < w ? __ldg(fr + c0 + q) : 0u;
+  __syncthreads();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int cg = c0 + 32 * lane;  // the thread's first column
+  if (cg >= w) return;
+  uint32_t wd[48];
+#pragma unroll
+  for (int i = 0; i < 48; ++i) {
+    const int q = 32 * lane + i;
+    wd[i] = st[q + (q >> 5)];
+  }
+  uint8_t* ob = out + (size_t)to * h * w;
+#pragma unroll
+  for (int jj = 0; jj < UNPACK_ROWS; ++jj) {
+    const int j = (rpart * (UNPACK_NT / 32) + warp) * UNPACK_ROWS + jj;
+    const int r = 32 * k + j;
+    if (r >= h) break;
+    uint32_t lo = 0, hi = 0;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) lo |= ((wd[i] >> j) & 1u) << i;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) hi |= ((wd[32 + i] >> j) & 1u) << i;
+    uint8_t* row = ob + (size_t)r * w;
+    const int d = (16 - (int)(reinterpret_cast<uintptr_t>(row) & 15)) & 15;  // first aligned column
+    if (cg == 0)
+      for (int c = 0; c < d && c < w; ++c) row[c] = ((lo >> c) & 1u) ? 255 : 0;
+#pragma unroll
+    for (int o = d; o < d + 32; o += 16) {
+      const int c = cg + o;
+      if (c >= w) break;
+      const uint32_t bits = __funnelshift_r(lo, hi, o) & 0xffffu;
+      if (c + 16 <= w) {
+        *reinterpret_cast<uint4*>(row + c) =
+            make_uint4(expand_nibble(bits & 15u), expand_nibble((bits >> 4) & 15u),
+                       expand_nibble((bits >> 8) & 15u), expand_nibble(bits >> 12));
+      } else {
+        for (int i = 0; c + i < w; ++i) row[c + i] = ((bits >> i) & 1u) ? 255 : 0;
+      }
+    }
   }
 }
 
@@ -1576,11 +1641,12 @@ extern "C" int cc_unpack(const void* f, void* out, const void* index, int nb, in
   DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return guard.err;
   if (nb < 1 || nb > 65535) return cudaErrorInvalidValue;  // grid.y
-  const long long blocks = ((long long)h * w + 255) / 256;
-  const dim3 grid((unsigned)(blocks < (1 << 30) ? blocks : (1 << 30)), nb);
-  unpack_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+  const int nseg = (w + UNPACK_SEG - 1) / UNPACK_SEG;
+  const long long blocks = (long long)((h + 31) / 32) * UNPACK_NRH * nseg;
+  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
+  unpack_kernel<<<dim3((unsigned)blocks, nb), UNPACK_NT, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(f), static_cast<uint8_t*>(out),
-      static_cast<const int*>(index), nb, h, w);
+      static_cast<const int*>(index), nb, h, w, nseg);
   return cudaGetLastError();
 }
 

@@ -29,7 +29,8 @@
 //   probe_unpack       (hw, w) words -> (32 hw, w) u8 of 0 / 255 (TPU probe E):
 //                      one thread per word writing its 32 bytes (a warp
 //                      writes 32 neighbouring bytes of each row), or one
-//                      thread per byte (as unpack and unpack_core).
+//                      thread per byte (as unpack_core, and unpack before
+//                      its row runs).
 //
 // Bound: the probes' planes are small (a 40 x 256 plane is 40 KB); the loop
 // is bound by its grid barriers, the packs and unpacks by their bytes.

@@ -1,6 +1,9 @@
-// The feed-forward stencil chain on one tile, shared by ff_pack (frame ->
-// packed planes) and ff_stages (frame -> display buffers), so the stage math
-// exists once.
+// The per-pixel math of the feed-forward stencil chain, shared by ff_pack
+// (frame -> packed planes) and ff_stages (frame -> display buffers), so the
+// stage math exists once: the taps and their row / column forms (Gauss),
+// the class bounds, the display magnitude and the NMS decision (nms_keep).
+// ff_stages stages its tiles with stage_tile() below; ff_pack walks columns
+// of its own pieces (ff_pack.cu).
 //
 // Replaces the chain of the TPU kernels (cudacam_tpu/ops/pallas/
 // feedforward.py: _stage_chain :435, _valid_mask_i32 :318, _gaussian_rolled
@@ -213,6 +216,32 @@ struct Pixel {
   bool keep;
 };
 
+// The NMS decision of a pixel with Sobel sums (sx, sy) and comparable
+// magnitude gc, from the magnitudes of its eight neighbours (n: the row
+// above, s: the row below, w / e: the columns left / right): Q15 sectors,
+// ties kept. ff_stages (pixel_at) and ff_pack both decide here.
+__device__ __forceinline__ bool nms_keep(int sx, int sy, int gnw, int gn, int gne, int gw,
+                                         int gc, int ge, int gsw, int gs, int gse) {
+  const int v = abs(sx) << 15;
+  const int wm = abs(sy);
+  const int fu = sx >= 0 ? sy : -sy;
+  int q, r;
+  if (v < wm * TG22) {
+    q = gs;
+    r = gn;
+  } else if (v >= wm * TG67) {
+    q = ge;
+    r = gw;
+  } else if (fu > 0) {
+    q = gsw;
+    r = gne;
+  } else {
+    q = gnw;
+    r = gse;
+  }
+  return q <= gc && r <= gc;
+}
+
 __device__ __forceinline__ Pixel pixel_at(const Tile& t, int i, int j) {
   Pixel px;
   const Sobel sb = sobel_at(t, i, j);
@@ -220,25 +249,55 @@ __device__ __forceinline__ Pixel pixel_at(const Tile& t, int i, int j) {
   px.sy = sb.sy;
   const int gr = i + 1, gc = j + 1;
   px.g = t.gmag[gr][gc];
-  const int v = abs(px.sx) << 15;
-  const int wm = abs(px.sy);
-  const int fu = px.sx >= 0 ? px.sy : -px.sy;
-  int q, r;
-  if (v < wm * TG22) {
-    q = t.gmag[gr + 1][gc];
-    r = t.gmag[gr - 1][gc];
-  } else if (v >= wm * TG67) {
-    q = t.gmag[gr][gc + 1];
-    r = t.gmag[gr][gc - 1];
-  } else if (fu > 0) {
-    q = t.gmag[gr + 1][gc - 1];
-    r = t.gmag[gr - 1][gc + 1];
-  } else {
-    q = t.gmag[gr - 1][gc - 1];
-    r = t.gmag[gr + 1][gc + 1];
-  }
-  px.keep = q <= px.g && r <= px.g;
+  px.keep = nms_keep(px.sx, px.sy, t.gmag[gr - 1][gc - 1], t.gmag[gr - 1][gc],
+                     t.gmag[gr - 1][gc + 1], t.gmag[gr][gc - 1], px.g, t.gmag[gr][gc + 1],
+                     t.gmag[gr + 1][gc - 1], t.gmag[gr + 1][gc], t.gmag[gr + 1][gc + 1]);
   return px;
 }
+
+// The Gaussian of a sliding window, exactly the 2-D taps above before the
+// one floor division (tests/test_torch_ff_pack_tiles.py holds each form to
+// the taps). Sizes 3 and 7 are outer products of [1, 2, 1] and
+// [1, 6, 15, 20, 15, 6, 1]: a row sum (kHN = 1 value a row), then the same
+// taps down the column. Size 5 is not separable, but its rows are three
+// symmetric row filters, r0 = [2, 4, 5, 4, 2], r1 = [4, 9, 12, 9, 4] and
+// r2 = [5, 12, 15, 12, 5], in the order r0 r1 r2 r1 r0: each mono row gives
+// the three (kHN = 3), from two pair sums and its centre, and a blur row is
+// r0(y-2) + r1(y-1) + r2(y) + r1(y+1) + r0(y+2).
+template <int KS>
+struct Gauss {
+  static constexpr int kHN = KS == 5 ? 3 : 1;
+  static constexpr int kSum = KS == 3 ? 16 : (KS == 5 ? 159 : 4096);
+
+  // The row sums of the mono row m at columns c - KS/2 .. c + KS/2 (m[0] is
+  // the leftmost tap).
+  __device__ __forceinline__ static void row(const uint8_t* m, int* h) {
+    if (KS == 3) {
+      h[0] = m[0] + 2 * m[1] + m[2];
+    } else if (KS == 5) {
+      const int ae = m[0] + m[4], bd = m[1] + m[3], c = m[2];
+      h[0] = 2 * ae + 4 * bd + 5 * c;
+      h[1] = 4 * ae + 9 * bd + 12 * c;
+      h[2] = 5 * ae + 12 * bd + 15 * c;
+    } else {
+      h[0] = (m[0] + m[6]) + 6 * (m[1] + m[5]) + 15 * (m[2] + m[4]) + 20 * m[3];
+    }
+  }
+
+  // The blur of the centre row from the row sums of the KS rows of its
+  // window, oldest first: floor(sum / kSum) (the sum is >= 0).
+  __device__ __forceinline__ static int column(int (*w)[kHN]) {
+    int acc;
+    if (KS == 3) {
+      acc = w[0][0] + 2 * w[1][0] + w[2][0];
+    } else if (KS == 5) {
+      acc = (w[0][0] + w[4][0]) + (w[1][1] + w[3][1]) + w[2][2];
+    } else {
+      acc = (w[0][0] + w[6][0]) + 6 * (w[1][0] + w[5][0]) + 15 * (w[2][0] + w[4][0]) +
+            20 * w[3][0];
+    }
+    return (int)((unsigned)acc / (unsigned)kSum);
+  }
+};
 
 }  // namespace

@@ -192,6 +192,21 @@ def _ff_pack(frames: torch.Tensor, thresholds: torch.Tensor, kw: dict, tiling: T
     return f, p
 
 
+def load_route(frames: torch.Tensor, batched: bool = False) -> str:
+    """The load path ``ff_pack`` takes on the card for an (H, W[, 3]) frame,
+    or a (B, H, W[, 3]) batch with ``batched``: ``"tma"`` (one tensor-map
+    copy a piece; base and row pitch 16-byte aligned) or ``"cp.async"``
+    (16-byte chunks row by row). Both run inside the one kernel; neither is
+    a fallback."""
+    _check_frames(frames, batched)
+    if frames.device.type != "cuda":
+        raise ValueError("the load route is the card's: frames must lie on a CUDA device")
+    lead = 1 if batched else 0
+    channels = 3 if frames.ndim - lead == 3 else 1
+    return ("tma" if load().lib.cc_ff_pack_route(frames.data_ptr(), frames.shape[lead + 1],
+                                                  channels) else "cp.async")
+
+
 def ff_pack(
     frame: torch.Tensor,
     thresholds: torch.Tensor,

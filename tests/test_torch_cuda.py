@@ -21,6 +21,7 @@ from cudacam_tpu_torch.engine import CannyEngine
 from cudacam_tpu_torch.ops import bitpack, cuda as kernels, torch_ops
 from cudacam_tpu_torch.ops.cuda.feedforward import (
     FF_STAGES, NMSQ, ff_pack, ff_pack_batched, ff_pack_plain, ff_stages, ff_stages_plain,
+    load_route,
 )
 from cudacam_tpu_torch.ops.cuda.canny import sweep_bounds
 from cudacam_tpu_torch.ops.cuda.hysteresis_fused import (
@@ -35,6 +36,9 @@ from cudacam_tpu_torch.ops.cuda.megakernel import (
 pytestmark = pytest.mark.cuda
 
 SHAPES = [(80, 256), (37, 53), (1, 1), (2, 5), (720, 1280)]
+#: Alignment classes of ff_pack's loads and unpack's row runs: BGR rows of
+#: 5757 and 5763 bytes (cp.async chunks), 48 and 5760 (TMA).
+ALIGN_SHAPES = [(33, 1919), (64, 1921), (17, 16), (1080, 1920)]
 CONFIGS = [{}, dict(kernel_size=3, norm="l1"), dict(kernel_size=7, parity="opencv", grad_coeff=2)]
 MAIN_PATH = ("ff_pack", "hyst_phase1", "hyst_phase2", "unpack")
 
@@ -57,7 +61,7 @@ def _thr(lo, hi, dev):
     return torch.tensor([lo, hi], dtype=torch.int32, device=dev)
 
 
-@pytest.mark.parametrize("h,w", SHAPES)
+@pytest.mark.parametrize("h,w", SHAPES + ALIGN_SHAPES)
 @pytest.mark.parametrize("kw", CONFIGS)
 def test_ff_pack_matches_plain(dev, h, w, kw):
     fr = _frame(h, w, dev, seed=h)
@@ -65,6 +69,35 @@ def test_ff_pack_matches_plain(dev, h, w, kw):
         thr = _thr(lo, hi, dev)
         for x in (fr, fr[..., 2].contiguous()):
             got, want = ff_pack(x, thr, **kw), ff_pack_plain(x, thr, **kw)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("h,w", [(37, 53)] + ALIGN_SHAPES)
+@pytest.mark.parametrize("kw", CONFIGS)
+def test_ff_pack_batched_matches_plain(dev, h, w, kw):
+    batch = torch.stack([_frame(h, w, dev, seed=s) for s in range(3)])
+    thr = _thr(10, 40, dev)
+    for x in (batch, batch[..., 0].contiguous(), batch[1:]):  # the last: base one frame in
+        got = ff_pack_batched(x, thr, **kw)
+        for i in range(len(x)):
+            want = ff_pack_plain(x[i], thr, **kw)
+            assert torch.equal(got[0][i], want[0]) and torch.equal(got[1][i], want[1])
+
+
+#: Both load paths of ff_pack, by name: (route, shape, channels).
+ROUTES = [("tma", (1080, 1920), 3), ("tma", (17, 16), 1), ("tma", (33, 64), 3),
+          ("cp.async", (33, 1919), 3), ("cp.async", (64, 1921), 1), ("cp.async", (37, 53), 3)]
+
+
+@pytest.mark.parametrize("route,hw,channels", ROUTES,
+                         ids=[f"{r}-{h}x{w}-{'bgr' if c == 3 else 'mono'}" for r, (h, w), c in ROUTES])
+def test_ff_pack_load_paths(dev, route, hw, channels):
+    fr = _frame(*hw, dev, seed=hw[1])
+    x = fr if channels == 3 else fr[..., 1].contiguous()
+    assert load_route(x) == route
+    for kw in CONFIGS:
+        for lo, hi in [(10, 40), (0, 0)]:
+            got, want = ff_pack(x, _thr(lo, hi, dev), **kw), ff_pack_plain(x, _thr(lo, hi, dev), **kw)
             assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
@@ -276,7 +309,8 @@ def test_sweep_pack_matches_plain(dev, h, w):
             assert torch.equal(f, fp) and torch.equal(p, pp), (monotone, slot)
 
 
-@pytest.mark.parametrize("h,w,n", [(37, 53, 3), (80, 256, 6), (1, 1, 2), (720, 1280, 16)])
+@pytest.mark.parametrize("h,w,n", [(37, 53, 3), (80, 256, 6), (1, 1, 2), (720, 1280, 16),
+                                   (33, 1919, 3), (64, 1921, 2), (17, 16, 2), (1080, 1920, 4)])
 def test_unpack_to_index_matches_plain(dev, h, w, n):
     g = torch.Generator().manual_seed(n)
     f = torch.randint(-2**31, 2**31 - 1, (n, -(-h // 32), w), generator=g,
@@ -371,14 +405,19 @@ def _tiles(h, w, mesh, **kw):
     return build_sharded_pipeline(CannyConfig(height=h, width=w, **kw), make_mesh(*mesh))
 
 
-@pytest.mark.parametrize("hw,mesh", SHARDED)
+#: Export tilings whose tile pitch is not 16-byte aligned: 959 BGR columns
+#: of a 1918-pixel frame, 968 of a 1936-pixel (aligned) frame.
+UNALIGNED_TILES = [((66, 1918), (1, 2, 2)), ((64, 1936), (1, 1, 2))]
+
+
+@pytest.mark.parametrize("hw,mesh", SHARDED + UNALIGNED_TILES)
 @pytest.mark.parametrize("kw", CONFIGS)
 def test_mega_export_matches_plain(dev, hw, mesh, kw):
     h, w = hw
     t = _tiles(h, w, mesh, **kw).tiling
     batch, thr = _batch(h, w, 2, dev), _thr(10, 40, dev)
     rounds = dict(dilate_steps=16, scan_after=3, max_iters=100)
-    for x in (batch, batch[..., 1].contiguous()):
+    for x in (batch, batch[..., 1].contiguous(), batch[1:]):  # the last: base one frame in
         got = mega_export(x, thr, t, **kw, **rounds)
         want = mega_export_plain(x, thr, t, **kw, **rounds)
         for g, e in zip(got, want):

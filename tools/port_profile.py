@@ -8,9 +8,9 @@ Run from the root of a checkout, on a host with a CUDA device and nvcc:
 ``--root`` profiles the ``cudacam_tpu_torch`` of DIR instead of this
 checkout's (another commit, unpacked with ``git archive``), so one call on
 the card can time two versions in turns on the same inputs (A, B, B, A;
-``--label`` names the rows). Seven parts (``--parts``; by default all but
-``rounds``), each printing one JSON line per workload (and writing them all
-to ``--out`` when given):
+``--label`` names the rows). Eight parts (``--parts``; by default all but
+``rounds`` and ``ff``), each printing one JSON line per workload (and
+writing them all to ``--out`` when given):
 
 * ``trace``: ``CannyEngine(device='cuda')`` under torch.profiler: ``process``
   on the 1080p 8-scene stream (``make_scene`` seeds 0-7, five passes), on the
@@ -49,6 +49,17 @@ to ``--out`` when given):
   ``threshold_sweep`` with K=16 pairs at 1080p, 4K and 8K; the sharded
   1080p spiral over (1, 2, 2) (``sharded_loop``); the 8K spiral with
   ``continuation='split'`` (K11).
+
+* ``ff``: the feed-forward pack and the unpack, each row with the
+  profiler's device µs a call (the kernel's own events), the CUDA-event ms a
+  call (back-to-back calls through the Python wrapper: for a small kernel
+  this is the host's enqueue rate), and a sha256 of the output, so two
+  versions can be compared: ``ff_pack`` at 1080p on scene 0 again and again
+  (the frame stays in L2), on the 8-scene rotation, on the x8 batch of the
+  eight scenes (per frame), at 4K and at 8K; ``ff_pack_export`` on an 8K
+  scene over (1, 4, 2); ``unpack`` of scene 0's planes at 1080p, of the x8
+  batch's (per frame) and at 8K; the indexed unpack of a K=16 sweep
+  (sixteen seeded random planes, a permutation) at 1080p, 4K and 8K.
 
 Imports no jax and nothing of the JAX package: the frame generators are the
 port's own (``cudacam_tpu_torch.io.sources``).
@@ -237,9 +248,13 @@ def ms_per_state(fn, n: int, setup, reps: int = 5) -> float:
     return statistics.median(per)
 
 
-def rounds(label: str) -> list:
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+def _card() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip().splitlines()[0]
+
+
+def rounds(label: str) -> list:
+    card = _card()
     rows = []
 
     def emit(name, ms, out, **extra):
@@ -313,15 +328,79 @@ def rounds(label: str) -> list:
     return rows
 
 
-PARTS = ("trace", "sizes", "sweeps", "sharded", "split", "app", "rounds")
+def device_us(fn, kernel: str, calls: int) -> float:
+    """Profiler device µs a call of ``fn`` in the events of ``kernel``."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events() if e.device_type.name == "CUDA" and kernel in e.name]
+    return sum(e.time_range.elapsed_us() for e in ev) / calls
+
+
+def ff(label: str) -> list:
+    from cudacam_tpu_torch.ops.cuda.feedforward import ff_pack_batched, ff_pack_tiles
+    from cudacam_tpu_torch.ops.cuda.megakernel import unpack
+
+    card = _card()
+    rows = []
+
+    def emit(name, fn, kernel, out, calls, per=1):
+        ms = ms_per_call(lambda: [fn() for _ in range(calls)]) / calls / per
+        us = device_us(fn, kernel, calls) / per
+        sha = hashlib.sha256(b"".join(o.cpu().numpy().tobytes() for o in out)).hexdigest()[:16]
+        rows.append(dict(workload=name, label=label, device_us=us, event_ms=ms, sha=sha,
+                         card=card))
+
+    thr = torch.tensor([10, 40], dtype=torch.int32, device="cuda")
+    scenes = [torch.from_numpy(make_scene(1080, 1920, seed=s)).cuda() for s in range(8)]
+    batch = torch.stack(scenes)
+    emit("ff_pack 1080p scene 0", lambda: ff_pack(scenes[0], thr), "ff_pack_kernel",
+         ff_pack(scenes[0], thr), 50)
+    it = iter(range(1 << 30))
+    emit("ff_pack 1080p 8-scene rotation", lambda: ff_pack(scenes[next(it) % 8], thr),
+         "ff_pack_kernel", [x for s in scenes for x in ff_pack(s, thr)], 48)
+    emit("ff_pack 1080p x8 batch (per frame)", lambda: ff_pack_batched(batch, thr),
+         "ff_pack_kernel", ff_pack_batched(batch, thr), 10, per=8)
+    for name, (h, w) in (("4K", (2160, 3840)), ("8K", (4320, 7680))):
+        x = torch.from_numpy(make_scene(h, w, seed=0)).cuda()
+        emit(f"ff_pack {name} scene 0", lambda: ff_pack(x, thr), "ff_pack_kernel",
+             ff_pack(x, thr), 20)
+    eng8 = ShardedCannyEngine(CannyConfig(height=4320, width=7680), make_mesh(1, 4, 2))
+    t8 = eng8.pipeline().tiling
+    x8 = torch.from_numpy(make_scene(4320, 7680, seed=0)).cuda()[None]
+    emit("ff_pack_export 8K (1, 4, 2)", lambda: ff_pack_tiles(x8, thr, t8), "ff_pack_kernel",
+         ff_pack_tiles(x8, thr, t8), 20)
+    f0, _ = ff_pack(scenes[0], thr)
+    emit("unpack 1080p scene 0", lambda: unpack(f0, 1080), "unpack_kernel", [unpack(f0, 1080)], 50)
+    fb, _ = ff_pack_batched(batch, thr)
+    emit("unpack 1080p x8 batch (per frame)", lambda: unpack(fb, 1080), "unpack_kernel",
+         [unpack(fb, 1080)], 20, per=8)
+    f8, _ = ff_pack(x8[0], thr)
+    emit("unpack 8K scene 0", lambda: unpack(f8, 4320), "unpack_kernel", [unpack(f8, 4320)], 20)
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    for name, (h, w) in (("1080p", (1080, 1920)), ("4K", (2160, 3840)), ("8K", (4320, 7680))):
+        fk = torch.randint(-2**31, 2**31 - 1, (16, -(-h // 32), w), dtype=torch.int32,
+                           device="cuda", generator=gen)
+        index = torch.randperm(16, device="cuda", generator=gen).to(torch.int32)
+        emit(f"indexed unpack, K=16 sweep {name}", lambda: unpack(fk, h, index), "unpack_kernel",
+             [unpack(fk, h, index)], 5)
+        del fk
+        torch.cuda.empty_cache()
+    return rows
+
+
+PARTS = ("trace", "sizes", "sweeps", "sharded", "split", "app", "rounds", "ff")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", type=Path, help="also write the JSON lines here")
-    ap.add_argument("--parts", default=",".join(PARTS[:-1]), help=f"comma-separated of {PARTS}")
+    ap.add_argument("--parts", default=",".join(PARTS[:-2]), help=f"comma-separated of {PARTS}")
     ap.add_argument("--root", type=Path, help="profile the package of this checkout")
-    ap.add_argument("--label", default="this checkout", help="the rounds part's label")
+    ap.add_argument("--label", default="this checkout", help="the rounds and ff parts' label")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("port_profile: needs a CUDA device", file=sys.stderr)
@@ -351,6 +430,8 @@ def main() -> int:
         rows += app()
     if "rounds" in parts:
         rows += rounds(args.label)
+    if "ff" in parts:
+        rows += ff(args.label)
     lines = [json.dumps(r) for r in rows]
     print("\n".join(lines))
     if args.out:
