@@ -10,7 +10,8 @@ Phases, each printing its lines before the last:
 1. environment probe and the card's name and power limit (nvidia-smi);
 2. build of the kernels in ``cudacam_tpu_torch/csrc`` with nvcc (sm_90a, one
    nvcc per source, all at once), with nvcc's registers, stack and spill
-   bytes of ``ff_pack``'s and ``unpack``'s kernels;
+   bytes of ``ff_pack``'s, the unpacks' and the sweep's pack and seed
+   kernels;
 3. every kernel against its plain PyTorch version on the card, at the main
    paths' shapes (1080p, 720p), at 37x53 and 1x1 and at the alignment
    classes of ``ff_pack``'s loads and ``unpack``'s row runs (33x1919,
@@ -24,7 +25,10 @@ Phases, each printing its lines before the last:
    two-kernel hysteresis (K6), and at the 400-round cap through K6.
    Tolerance 0: every output is integer, and the contract is byte equality;
 4. the threshold sweep's kernels (K5) against their plain versions:
-   ``sweep_pack`` slot by slot and the indexed ``unpack`` at 1080p K=16;
+   ``sweep_pack_all`` (every slot from one read of keep*g), ``sweep_seed``
+   slot by slot at 1080p K=16, 37x53, 33x1919 (rows that are not 16-byte
+   aligned) and 8K K=2, with the pack's load route, and the indexed
+   ``unpack`` at 1080p K=16;
    whole sweeps (``sweep_fused`` against ``sweep_fused_plain``), both seed
    modes, at 1080p K=16 with ``benchmark.py``'s ``linspace`` pairs, at 720p
    in three configs and at 37x53 with shuffled pairs (negative lows, an
@@ -40,7 +44,8 @@ Phases, each printing its lines before the last:
    display stage (equal to the plain path); ``process_all`` (equal to the
    plain ``torch_ops.canny_all_stages``: integers exactly, grad and slope
    within 1e-6 relative); a threshold change changes the output and builds
-   nothing; ``threshold_sweep`` at 1080p K=16 (50 launches; equal to the
+   nothing; ``threshold_sweep`` at 1080p K=16 (50 launches, 3K + 2: one
+   ``sweep_pack_all``, 15 seeds, 32 round kernels; equal to the
    plain cold sweep ``torch_ops.threshold_sweep``, edge counts falling as
    the thresholds rise). The CPU tests hold the plain path to the NumPy
    oracle and the JAX package;
@@ -49,7 +54,8 @@ Phases, each printing its lines before the last:
    (``halo_exchange``), the host loop's round kernels (K9, ``saturate_packed``)
    step by step through the first collective rounds, the one-launch round
    loop (``sharded_loop``) from the export's state against the host loop
-   with the plain saturate and refresh, and ``unpack_core`` (K10), each
+   with the plain saturate and refresh, and ``unpack_core`` (K10, with the
+   heads and tails its row runs take), each
    against its plain version at each mesh's own tile shapes: 1080p (1, 2, 2)
    (scene + spiral, BGR and mono), 8K (1, 4, 2), 4K x4 (2, 2, 1) and 1080p
    (1, 1, 1); the export pack alone at tile pitches that are not 16-byte
@@ -144,7 +150,8 @@ REPLACES = {
     "unpack": f"{_MEGA}:569, {_MEGA}:1109, {_FUSED}, {_SWEEP}",
     "ff_stages": "cudacam_tpu/ops/pallas/feedforward.py:810",
     "pack_thresh": _FUSED,
-    "sweep_pack": _SWEEP,
+    "sweep_pack_all": _SWEEP,
+    "sweep_seed": _SWEEP,
     "ff_pack_export": _EXPORT,
     "saturate_phase1": _SAT,
     "saturate_phase2": _SAT,
@@ -166,14 +173,15 @@ SOURCES = {
     "ff_pack": f"{_CSRC}/ff_pack.cu",
     "hyst_phase1": f"{_CSRC}/hyst_rounds.cu",
     "hyst_phase2": f"{_CSRC}/hyst_rounds.cu",
-    "unpack": f"{_CSRC}/hyst_rounds.cu",
+    "unpack": f"{_CSRC}/unpack.cu",
     "ff_stages": f"{_CSRC}/ff_stages.cu",
     "pack_thresh": f"{_CSRC}/pack.cu",
-    "sweep_pack": f"{_CSRC}/sweep.cu",
+    "sweep_pack_all": f"{_CSRC}/sweep.cu",
+    "sweep_seed": f"{_CSRC}/sweep.cu",
     "ff_pack_export": f"{_CSRC}/ff_pack.cu",
     "saturate_phase1": f"{_CSRC}/hyst_rounds.cu",
     "saturate_phase2": f"{_CSRC}/hyst_rounds.cu",
-    "unpack_core": f"{_CSRC}/hyst_rounds.cu",
+    "unpack_core": f"{_CSRC}/unpack.cu",
     "halo_exchange": f"{_CSRC}/halo.cu",
     "sharded_loop": f"{_CSRC}/hyst_rounds.cu",
     "split_converge": f"{_CSRC}/hyst_rounds.cu",
@@ -218,6 +226,19 @@ def round_ops(words: int, dilate_steps: int, scans: bool) -> int:
 #: Word operations per packed word of one promotion step of the row sweeps:
 #: three neighbour words ORed, two shifts, two carries, the mask and the test.
 SWEEP_STEP_OPS = 12
+
+
+def core_runs(out, t) -> str:
+    """The store route of ``unpack_core`` into the (B, oh, ow) maps ``out``:
+    each core row is 16-byte runs, with a head where its first byte is off a
+    16-byte boundary and a tail where its end is."""
+    b, oh, ow = out.shape
+    starts = [out.data_ptr() + (f * oh + r) * ow + j * t.w_loc
+              for f in range(b) for r in range(oh) for j in range(t.nx)]
+    heads = sum(a % 16 != 0 for a in starts)
+    tails = sum((a + t.w_loc) % 16 != 0 for a in starts)
+    return (f"route: {len(starts)} core rows of {t.w_loc} bytes in 16-byte vector runs, "
+            f"{heads} with a head, {tails} with a tail")
 
 
 def sweep_pairs():
@@ -379,7 +400,9 @@ class Smoke:
         for line in lib.compiler_log.splitlines():
             if "Used" in line or "Compiling entry" in line:
                 print("  ptxas:", line.split("info    :")[-1].strip())
-        for name, rep in kernel_reports(lib.compiler_log, ("ff_pack_kernel", "unpack_kernel")):
+        for name, rep in kernel_reports(lib.compiler_log, (
+                "ff_pack_kernel", "unpack_kernel", "unpack_core_kernel", "sweep_pack_all_kernel",
+                "sweep_seed_kernel")):
             print(f"nvcc report {name}: {json.dumps(rep)}")
 
     def phase_kernels(self) -> None:
@@ -558,7 +581,7 @@ class Smoke:
         from cudacam_tpu_torch.ops.cuda.canny import ff_kwargs, hyster_kwargs, sweep_bounds
         from cudacam_tpu_torch.ops.cuda.feedforward import NMSQ, ff_stages
         from cudacam_tpu_torch.ops.cuda.hysteresis_fused import (
-            sweep_fused, sweep_fused_plain, sweep_pack, sweep_pack_plain,
+            sweep_fused, sweep_fused_plain,
         )
         from cudacam_tpu_torch.ops.cuda.megakernel import unpack, unpack_plain
         from cudacam_tpu_torch.io.sources import make_scene, make_spiral_thresh
@@ -585,17 +608,24 @@ class Smoke:
             for rkw in rounds:
                 for seed in (True, False):
                     got = sweep_fused(kg, bounds, monotone_seed=seed, **rkw)
-                    self.diff("sweep_pack", got, sweep_fused_plain(kg, bounds, monotone_seed=seed, **rkw))
+                    self.sweep_diff(got, sweep_fused_plain(kg, bounds, monotone_seed=seed, **rkw),
+                                    seed)
                     finals[(rkw["scan_after"], rkw["max_iters"], seed)] = (
                         (got == 255).sum((1, 2)).tolist())
             print(f"sweep_fused == plain at {h}x{w} {kw or 'defaults'}, K={len(lows)}, both seed "
                   f"modes; finals per pair: {finals}")
+            if h in (1080, 37, 4320):
+                self.sweep_packs(kg, bounds)
             if h == 1080:
-                self.sweep_slots(kg, bounds, sweep_pack, sweep_pack_plain)
                 f = torch.randint(-2**31, 2**31 - 1, (16, -(-h // 32), w), dtype=torch.int32,
                                   device=self.dev)
                 index = torch.randperm(16, device=self.dev).to(torch.int32)
                 self.diff("unpack", unpack(f, h, index), unpack_plain(f, h, index))
+
+        # Rows of 1919 int32 values: no row but the first starts 16-byte aligned.
+        self.sweep_packs(torch.randint(-100, 3000, (33, 1919), dtype=torch.int32, device=self.dev),
+                         torch.tensor([900, 2000, 900, 2000, -4, 2500, 100, 400, 0, 0],
+                                      dtype=torch.int32, device=self.dev))
 
         # The spiral cut off by the cap: the JAX package's finals per pair.
         t = torch.from_numpy(make_spiral_thresh(64, 128)).to(self.dev)
@@ -605,27 +635,47 @@ class Smoke:
             rkw = dict(max_iters=max_iters, scan_after=scan_after, dilate_steps=1)
             for seed, finals in zip((True, False), want):
                 got = sweep_fused(kg, bounds, monotone_seed=seed, **rkw)
-                self.diff("sweep_pack", got, sweep_fused_plain(kg, bounds, monotone_seed=seed, **rkw))
+                self.sweep_diff(got, sweep_fused_plain(kg, bounds, monotone_seed=seed, **rkw), seed)
                 n = (got == 255).sum((1, 2)).tolist()
                 require(n == finals, f"spiral sweep {rkw} seed {seed}: finals {n}, want {finals}")
         print(f"spiral 64x128 sweep cut off by the cap == JAX finals {SPIRAL_SWEEP_FINALS}")
 
-    def sweep_slots(self, kg, bounds, sweep_pack, sweep_pack_plain) -> None:
-        """``sweep_pack`` slot by slot on the same prior planes, both seed
-        modes."""
+    def sweep_diff(self, got, want, seeded: bool) -> None:
+        """A whole sweep against its plain version: the pack's, and with
+        the monotone seed also the seed step's."""
+        self.diff("sweep_pack_all", got, want)
+        if seeded:
+            self.diff("sweep_seed", got, want)
+
+    def sweep_packs(self, kg, bounds) -> None:
+        """``sweep_pack_all`` (one launch for every slot) over planes that
+        held other words, and ``sweep_seed`` slot by slot on the same prior
+        planes, each against its plain version; with the pack's load
+        route."""
         torch = self.torch
+        from cudacam_tpu_torch.ops.cuda.hysteresis_fused import (
+            sweep_pack_all, sweep_pack_all_plain, sweep_seed, sweep_seed_plain,
+        )
+
         k, (h, w) = bounds.numel() // 2, kg.shape
         shape = (k, -(-h // 32), w)
-        for monotone in (True, False):
-            f0 = torch.randint(-2**31, 2**31 - 1, shape, dtype=torch.int32, device=self.dev)
-            p0 = torch.randint(-2**31, 2**31 - 1, shape, dtype=torch.int32, device=self.dev)
-            for slot in range(k):
-                f, p, fp, pp = f0.clone(), p0.clone(), f0.clone(), p0.clone()
-                sweep_pack(kg, bounds, slot, f, p, monotone)
-                sweep_pack_plain(kg, bounds, slot, fp, pp, monotone)
-                self.diff("sweep_pack", f, fp)
-                self.diff("sweep_pack", p, pp)
-        print(f"sweep_pack == plain slot by slot at {h}x{w}, K={k}, both seed modes")
+        f0 = torch.randint(-2**31, 2**31 - 1, shape, dtype=torch.int32, device=self.dev)
+        p0 = torch.randint(-2**31, 2**31 - 1, shape, dtype=torch.int32, device=self.dev)
+        f, p, fp, pp = f0.clone(), p0.clone(), f0.clone(), p0.clone()
+        sweep_pack_all(kg, bounds, f, p)
+        sweep_pack_all_plain(kg, bounds, fp, pp)
+        self.diff("sweep_pack_all", f, fp)
+        self.diff("sweep_pack_all", p, pp)
+        for slot in range(1, k):
+            f, fp = f0.clone(), f0.clone()
+            sweep_seed(bounds, slot, f)
+            sweep_seed_plain(bounds, slot, fp)
+            self.diff("sweep_seed", f, fp)
+        print(f"sweep_pack_all == plain at {h}x{w}, K={k} (route: one launch of "
+              f"{-(-w // 256)} x {shape[1]} blocks, a thread per column of a word row, 32 "
+              f"4-byte loads a thread, 128 contiguous bytes a warp a row, rows "
+              f"{'' if (4 * w) % 16 == 0 else 'not '}16-byte aligned; keep*g read once); "
+              f"sweep_seed == plain at slots 1..{k - 1}")
 
     def phase_engine(self) -> None:
         torch = self.torch
@@ -714,8 +764,8 @@ class Smoke:
         k = len(lows)
         maps, counts = self.path(
             "threshold_sweep, 1080p K=16", lambda: eng.threshold_sweep(frames[0], lows, highs),
-            dict(ff_pack=0, pack_thresh=0, ff_stages=1, sweep_pack=k, hyst_phase1=k,
-                 hyst_phase2=k, unpack=1))
+            dict(ff_pack=0, pack_thresh=0, ff_stages=1, sweep_pack_all=1, sweep_seed=k - 1,
+                 hyst_phase1=k, hyst_phase2=k, unpack=1))
         require(maps.shape == (k, 1080, 1920) and maps.dtype == torch.uint8
                 and counts.shape == (k,) and counts.dtype == torch.int32,
                 f"sweep result {tuple(maps.shape)} {maps.dtype}, {tuple(counts.shape)} {counts.dtype}")
@@ -805,7 +855,30 @@ class Smoke:
         self.diff("unpack_core", unpack_core(fk, out, t), want)
         print(f"{label}: ff_pack_export, hyst_phase1, halo_exchange, saturate_phase1/2 over "
               f"{taken} collective rounds, sharded_loop over {int(rk)} rounds (budget {budget}) "
-              f"and unpack_core == plain at its {t.ny}x{t.nx} tiles of {g.ext_h}x{g.ext_w}")
+              f"and unpack_core == plain at its {t.ny}x{t.nx} tiles of {g.ext_h}x{g.ext_w} "
+              f"({core_runs(out, t)})")
+
+    def unpack_core_offsets(self) -> None:
+        """``unpack_core`` against its plain version on cores at bit offsets
+        e_top % 32 of 1, 31 and 33, lane offsets, and widths and pitches that
+        are not multiples of 16 (a head and a tail at every column split)."""
+        torch = self.torch
+        from cudacam_tpu_torch.ops.cuda.feedforward import Tiling
+        from cudacam_tpu_torch.ops.cuda.megakernel import unpack_core, unpack_core_plain
+
+        for ny, nx, h_loc, w_loc, e_top, e_left in ((2, 3, 45, 37, 1, 5), (2, 3, 45, 37, 31, 64),
+                                                    (3, 2, 33, 17, 33, 17),
+                                                    (4, 2, 1080, 3839, 31, 63)):
+            t = Tiling(ny, nx, h_loc, w_loc, e_top, e_left, e_top + h_loc + 3, e_left + w_loc + 5,
+                       (ny * h_loc, nx * w_loc))
+            f = torch.randint(-2**31, 2**31 - 1, (2 * t.tiles, -(-t.ext_h // 32), t.ext_w),
+                              dtype=torch.int32, device=self.dev)
+            out = torch.full((2, ny * h_loc, nx * w_loc), 7, dtype=torch.uint8, device=self.dev)
+            want = unpack_core_plain(f, out.clone(), t)
+            require(not (want == 7).any(), "unpack_core_plain left a byte unwritten")
+            self.diff("unpack_core", unpack_core(f, out, t), want)
+            print(f"unpack_core == plain at cores of {h_loc}x{w_loc} from bit {e_top}, lane "
+                  f"{e_left}, {ny}x{nx} a frame ({core_runs(out, t)})")
 
     def phase_sharded(self) -> None:
         """The tile-sharded path on a one-card mesh: for each mesh, every
@@ -856,6 +929,8 @@ class Smoke:
                 self.diff("ff_pack_export", p, torch.cat([b for _, b in planes]))
             print(f"ff_pack_export == plain at {hh}x{ww} over {mesh} (tiles of "
                   f"{t.ext_h}x{t.ext_w} from column pitch {t.w_loc}), BGR, mono, a view")
+
+        self.unpack_core_offsets()
 
         main = dict(ff_pack_export=1, hyst_phase1=1, halo_exchange=2, sharded_loop=1,
                     unpack_core=1, saturate_phase1=0, saturate_phase2=0, ff_pack=0, unpack=0)
@@ -1712,16 +1787,19 @@ class Smoke:
               f"{all_ms!r} ms/frame (8 scenes, medians of 7)")
 
     def phase_sweep_timing(self) -> None:
-        """``sweep_pack`` alone, seeded against cold tails, and the K=16
-        sweeps through the engine at 1080p, 4K and 8K against the plain
-        sweep (at 8K for K=2, the first and last pair)."""
+        """``sweep_pack_all`` (every slot of a K=16 sweep) and ``sweep_seed``
+        alone, the pack step of a sweep (one pack and K - 1 seeds) beside its
+        bound, seeded against cold tails, and the K=16 sweeps through the
+        engine at 1080p, 4K and 8K against the plain sweep (at 8K for K=2,
+        the first and last pair)."""
         torch = self.torch
         from cudacam_tpu_torch import CannyConfig
         from cudacam_tpu_torch.engine import CannyEngine
         from cudacam_tpu_torch.ops.cuda.canny import hyster_kwargs, sweep_bounds
         from cudacam_tpu_torch.ops.cuda.feedforward import NMSQ, ff_stages
         from cudacam_tpu_torch.ops.cuda.hysteresis_fused import (
-            sweep_fused, sweep_pack, sweep_pack_plain,
+            sweep_fused, sweep_order, sweep_pack_all, sweep_pack_all_plain, sweep_seed,
+            sweep_seed_plain,
         )
         from cudacam_tpu_torch.io.sources import make_scene
 
@@ -1731,15 +1809,30 @@ class Smoke:
         cfg, frame = self.cfg, self.frames[0]
         (kg,) = ff_stages(frame, None, (NMSQ,))
         bounds = sweep_bounds(*dev_pairs(slice(None)), cfg)
+        sorted_b = bounds.view(k, 2)[sweep_order(bounds).long()].reshape(-1)
         fk = torch.zeros((k, -(-1080 // 32), 1920), dtype=torch.int32, device=self.dev)
         pk = torch.zeros_like(fk)
-        self.ms["sweep_pack"] = self.time_ms(lambda _: sweep_pack(kg, bounds, 1, fk, pk), 50)
-        self.plain_ms["sweep_pack"] = self.time_ms(
-            lambda _: sweep_pack_plain(kg, bounds, 1, fk, pk), 20)
         px, words = 1080 * 1920, -(-1080 // 32) * 1920
-        self.set_bound("sweep_pack", 4 * px + 3 * 4 * words, 4 * px)  # kg, seed plane, planes
-        print(f"time sweep_pack: kernel {self.ms['sweep_pack']!r} ms, plain "
-              f"{self.plain_ms['sweep_pack']!r} ms (1080p, one seeded slot)")
+        self.ms["sweep_pack_all"] = self.time_ms(lambda _: sweep_pack_all(kg, sorted_b, fk, pk), 50)
+        self.plain_ms["sweep_pack_all"] = self.time_ms(
+            lambda _: sweep_pack_all_plain(kg, sorted_b, fk, pk), 5)
+        self.set_bound("sweep_pack_all", 4 * px + 2 * k * 4 * words, 2 * k * px)  # kg, 2K planes
+        self.ms["sweep_seed"] = self.time_ms(lambda _: sweep_seed(sorted_b, 1, fk), 50)
+        self.plain_ms["sweep_seed"] = self.time_ms(lambda _: sweep_seed_plain(sorted_b, 1, fk), 20)
+        pairs = sorted_b.clamp_min(0).view(k, 2).tolist()
+        seeded = sum(a[0] >= b[0] and a[1] >= b[1] for a, b in zip(pairs, pairs[1:]))
+        require(seeded > 0 and pairs[0][0] >= pairs[1][0] and pairs[0][1] >= pairs[1][1],
+                f"the sweep's slot 1 is not seeded: {pairs}")
+        self.set_bound("sweep_seed", 3 * 4 * words, words)  # two planes read, one written
+        step_ms = self.time_ms(lambda _: (sweep_pack_all(kg, sorted_b, fk, pk), [
+            sweep_seed(sorted_b, i, fk) for i in range(1, k)]), 20)
+        step_bound = (4 * px + 2 * k * 4 * words + seeded * 4 * words) / HBM_BYTES_PER_S * 1e3
+        print(f"time sweep_pack_all: kernel {self.ms['sweep_pack_all']!r} ms, plain "
+              f"{self.plain_ms['sweep_pack_all']!r} ms (1080p, K={k}); sweep_seed: kernel "
+              f"{self.ms['sweep_seed']!r} ms, plain {self.plain_ms['sweep_seed']!r} ms (slot 1, "
+              f"seeded); the pack step of a K={k} sweep (1 pack + {k - 1} seeds): {step_ms!r} ms "
+              f"against its bound {step_bound!r} ms (bytes: keep*g once, {2 * k} planes written, "
+              f"{seeded} seed planes read)")
         tails = {seed: self.time_ms(
             lambda _: sweep_fused(kg, bounds, monotone_seed=seed, **hyster_kwargs(cfg)), 5, reps=7)
             for seed in (True, False)}
@@ -1760,7 +1853,7 @@ class Smoke:
             sub, sub_np = dev_pairs(plain_sel), (lows[plain_sel], highs[plain_sel])
             plain = plain_sweep(fr, *sub, cfg_s)
             got = eng.threshold_sweep(fr, *sub_np)[0]
-            self.diff("sweep_pack", got, plain)
+            self.sweep_diff(got, plain, True)
             plain_ms = self.time_ms(lambda _: plain_sweep(fr, *sub, cfg_s), 1,
                                     reps=3 if h == 1080 else 1)
             kp = len(plain)

@@ -1,23 +1,22 @@
-// Hysteresis rounds on a batch of packed planes, and the unpack to edge maps.
+// Hysteresis rounds on a batch of packed planes.
 //
 // Replaces the back half of the TPU megakernel (cudacam_tpu/ops/pallas/
-// megakernel.py: _phase1_finalize, _unpack_out; per frame of a batch in
-// _kernel_batched), its phase-2 continuation (_cont_kernel / _cont_call),
-// and the convergence and unpack of the fused hysteresis kernel and of the
-// threshold-sweep kernel (hysteresis_fused.py: _kernel, _sweep_kernel; the
-// sweep runs both phases once per pair). On a sharded frame they are also
-// the export megakernel's in-kernel phase 1 (megakernel.py:607 via :569) and
-// the local saturate of the collective round loop (hysteresis_fused.py:844
-// saturate_packed -> _sat_kernel :742: both phases, the round count starting
-// at 0 on each call), over a batch of extended tiles, inside
-// sharded_loop_kernel or as two launches per round, and unpack_core
-// replaces the core unpack (megakernel.py:714 unpack_core_call ->
-// _unpack_core_kernel :653). Every round executes the round schedule of
-// cudacam_tpu/ops/bitpack.py::_make_ops exactly: the same dilate_steps with
-// bitpack's default carry cadence (every 8th step exact across words) and
-// an exact last step, the same 8 scan directions in the same order, the
-// same round counting and stop test. So an output cut off by the max_iters
-// cap is the JAX package's, bit for bit.
+// megakernel.py: _phase1_finalize; per frame of a batch in _kernel_batched),
+// its phase-2 continuation (_cont_kernel / _cont_call), and the convergence
+// of the fused hysteresis kernel and of the threshold-sweep kernel
+// (hysteresis_fused.py: _kernel, _sweep_kernel; the sweep runs both phases
+// once per pair). On a sharded frame they are also the export megakernel's
+// in-kernel phase 1 (megakernel.py:607 via :569) and the local saturate of
+// the collective round loop (hysteresis_fused.py:844 saturate_packed ->
+// _sat_kernel :742: both phases, the round count starting at 0 on each
+// call), over a batch of extended tiles, inside sharded_loop_kernel or as two
+// launches per round. The unpacks to edge maps (the megakernel's _unpack_out
+// and the core unpack) are unpack.cu's. Every round executes the round
+// schedule of cudacam_tpu/ops/bitpack.py::_make_ops exactly: the same
+// dilate_steps with bitpack's default carry cadence (every 8th step exact
+// across words) and an exact last step, the same 8 scan directions in the
+// same order, the same round counting and stop test. So an output cut off by
+// the max_iters cap is the JAX package's, bit for bit.
 //
 // Design: one cooperative persistent kernel per phase, launched with
 // cudaLaunchCooperativeKernel, 512 threads a block. One implementation of a
@@ -1286,112 +1285,6 @@ __global__ void __launch_bounds__(NT, 1) split_kernel(Params a, SplitParams s) {
   }
 }
 
-// Frame blockIdx.y of the batch: every byte of its edge map written once, to
-// out[index[b]] when an index is given (the sweep's original pair order: the
-// TPU sweep kernel's prefetch-indexed output block), else to out[b]. An index
-// outside [0, B) writes nothing.
-//
-// Bound: the output bytes (2 MB a 1080p frame, 0.6 us at HBM rate). Design:
-// a block takes 32 / UNPACK_NRH image rows of one word row, UNPACK_SEG
-// columns of them (block x = (word row, row part, segment)): it stages
-// the segment's words (and the 16 after it) in shared memory with coalesced
-// loads, padded a word every 32 so that a lane's run of 32 words reads
-// without bank conflicts. Lane l of each warp owns the 32 columns from
-// 32 l, each warp UNPACK_ROWS image rows: per row the thread gathers the
-// row's bit of its 48 words into one 64-bit mask (own 32, the next 16) and
-// writes the 16-byte aligned runs of output bytes that start in its
-// columns, each as one vector store (bits expanded to 0 / 255 four at a
-// time). The row's first bytes before its first 16-byte boundary (the
-// head) go byte by byte from the thread of column 0, and so do the bytes
-// of a last run that passes the row's end (the tail). No division per byte;
-// rows at or past h are not written.
-constexpr int UNPACK_SEG = 1024;   // columns a block
-constexpr int UNPACK_ROWS = 2;     // image rows a warp
-constexpr int UNPACK_NT = 256;     // threads a block
-constexpr int UNPACK_NRH = 32 / (UNPACK_NT / 32 * UNPACK_ROWS);  // blocks a word row's rows take
-constexpr int UNPACK_STAGED = UNPACK_SEG + 16;
-
-__device__ __forceinline__ uint32_t expand_nibble(uint32_t n) {  // 4 bits -> 4 bytes 0 / 255
-  return ((n * 0x00204081u) & 0x01010101u) * 0xffu;
-}
-
-__global__ void __launch_bounds__(UNPACK_NT) unpack_kernel(
-    const uint32_t* __restrict__ f, uint8_t* __restrict__ out, const int* __restrict__ index,
-    int nb, int h, int w, int nseg) {
-  __shared__ uint32_t st[UNPACK_STAGED + UNPACK_STAGED / 32 + 1];
-  const int to = index ? index[blockIdx.y] : (int)blockIdx.y;
-  if (to < 0 || to >= nb) return;
-  const int kr = blockIdx.x / nseg, c0 = (blockIdx.x - kr * nseg) * UNPACK_SEG;
-  const int k = kr / UNPACK_NRH, rpart = kr - k * UNPACK_NRH;
-  const int hw = (h + 31) / 32;
-  const uint32_t* fr = f + ((size_t)blockIdx.y * hw + k) * w;
-  for (int q = threadIdx.x; q < UNPACK_STAGED; q += UNPACK_NT)
-    st[q + (q >> 5)] = c0 + q < w ? __ldg(fr + c0 + q) : 0u;
-  __syncthreads();
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int cg = c0 + 32 * lane;  // the thread's first column
-  if (cg >= w) return;
-  uint32_t wd[48];
-#pragma unroll
-  for (int i = 0; i < 48; ++i) {
-    const int q = 32 * lane + i;
-    wd[i] = st[q + (q >> 5)];
-  }
-  uint8_t* ob = out + (size_t)to * h * w;
-#pragma unroll
-  for (int jj = 0; jj < UNPACK_ROWS; ++jj) {
-    const int j = (rpart * (UNPACK_NT / 32) + warp) * UNPACK_ROWS + jj;
-    const int r = 32 * k + j;
-    if (r >= h) break;
-    uint32_t lo = 0, hi = 0;
-#pragma unroll
-    for (int i = 0; i < 32; ++i) lo |= ((wd[i] >> j) & 1u) << i;
-#pragma unroll
-    for (int i = 0; i < 16; ++i) hi |= ((wd[32 + i] >> j) & 1u) << i;
-    uint8_t* row = ob + (size_t)r * w;
-    const int d = (16 - (int)(reinterpret_cast<uintptr_t>(row) & 15)) & 15;  // first aligned column
-    if (cg == 0)
-      for (int c = 0; c < d && c < w; ++c) row[c] = ((lo >> c) & 1u) ? 255 : 0;
-#pragma unroll
-    for (int o = d; o < d + 32; o += 16) {
-      const int c = cg + o;
-      if (c >= w) break;
-      const uint32_t bits = __funnelshift_r(lo, hi, o) & 0xffffu;
-      if (c + 16 <= w) {
-        *reinterpret_cast<uint4*>(row + c) =
-            make_uint4(expand_nibble(bits & 15u), expand_nibble((bits >> 4) & 15u),
-                       expand_nibble((bits >> 8) & 15u), expand_nibble(bits >> 12));
-      } else {
-        for (int i = 0; c + i < w; ++i) row[c + i] = ((bits >> i) & 1u) ? 255 : 0;
-      }
-    }
-  }
-}
-
-// The owned cores of a batch of extended tiles' FINAL planes, (T, hwe, ew)
-// words, into their places in the edge maps: tile t = (b, i, j) over an
-// nty x ntx grid per frame; its core is the h_loc x w_loc pixels from row
-// e_top, lane e_left of its plane, and lands at out[b][i h_loc + r][j w_loc
-// + c] of the (B, oh, ow) maps. Each byte of a core is written once, so a
-// sharded frame needs no gather after it; aligning the core is a bit and
-// lane offset in the word index. Bound: the output bytes (33 MB for an 8K
-// frame, ~10 us at HBM rate); one byte per thread, simple first.
-__global__ void unpack_core_kernel(const uint32_t* __restrict__ f, uint8_t* __restrict__ out,
-                                   int hwe, int ew, int e_top, int e_left, int h_loc, int w_loc,
-                                   int nty, int ntx, int oh, int ow) {
-  const int t = blockIdx.y;
-  const int b = t / (nty * ntx), i = (t / ntx) % nty, j = t % ntx;
-  const uint32_t* ft = f + (size_t)t * hwe * ew + e_left;
-  uint8_t* ob = out + ((size_t)b * oh + (size_t)i * h_loc) * ow + (size_t)j * w_loc;
-  const int n = h_loc * w_loc;
-  for (int k = blockIdx.x * blockDim.x + threadIdx.x; k < n; k += gridDim.x * blockDim.x) {
-    const int r = k / w_loc, c = k - r * w_loc;
-    const int er = e_top + r;
-    ob[(size_t)r * ow + c] = ((ft[(size_t)(er >> 5) * ew + c] >> (er & 31)) & 1u) ? 255 : 0;
-  }
-}
-
-
 // Dynamic shared memory of a block: the tile workspace (geometry), two
 // ints, then the per-frame state (4 ints a frame and 2).
 size_t smem_bytes(int hw, int ns, int bw, int halo, int nb) {
@@ -1634,34 +1527,6 @@ extern "C" int cc_hyst_layout(int nb, int h, int w, int dilate_steps, int phase,
   out[4] = (dilate_steps + a.halo - 1) / a.halo + (phase == 2 ? (a.ns > 1 ? 12 : 6) : 0);
   out[5] = a.ns;
   return cudaSuccess;
-}
-
-extern "C" int cc_unpack(const void* f, void* out, const void* index, int nb, int h, int w,
-                         int device, void* stream) {
-  DeviceGuard guard(device);
-  if (guard.err != cudaSuccess) return guard.err;
-  if (nb < 1 || nb > 65535) return cudaErrorInvalidValue;  // grid.y
-  const int nseg = (w + UNPACK_SEG - 1) / UNPACK_SEG;
-  const long long blocks = (long long)((h + 31) / 32) * UNPACK_NRH * nseg;
-  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
-  unpack_kernel<<<dim3((unsigned)blocks, nb), UNPACK_NT, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(f), static_cast<uint8_t*>(out),
-      static_cast<const int*>(index), nb, h, w, nseg);
-  return cudaGetLastError();
-}
-
-extern "C" int cc_unpack_core(const void* f, void* out, int tiles, int hwe, int ew, int e_top,
-                              int e_left, int h_loc, int w_loc, int nty, int ntx, int oh, int ow,
-                              int device, void* stream) {
-  DeviceGuard guard(device);
-  if (guard.err != cudaSuccess) return guard.err;
-  if (tiles < 1 || tiles > 65535) return cudaErrorInvalidValue;  // grid.y
-  const long long blocks = ((long long)h_loc * w_loc + 255) / 256;
-  const dim3 grid((unsigned)(blocks < (1 << 30) ? blocks : (1 << 30)), tiles);
-  unpack_core_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(f), static_cast<uint8_t*>(out), hwe, ew, e_top, e_left, h_loc,
-      w_loc, nty, ntx, oh, ow);
-  return cudaGetLastError();
 }
 
 // int32 words of scratch the column-split continuation needs: the slices'

@@ -3,7 +3,8 @@
 // Replaces the pack of the TPU fused hysteresis kernel (cudacam_tpu/ops/
 // pallas/hysteresis_fused.py:365/:373 pallas_call: _fused_call :310 ->
 // _kernel :168, its i == 0 pack loop); the kernel's two convergence phases
-// and its unpack are hyst_rounds.cu's kernels, run after this one. Two
+// are hyst_rounds.cu's kernels and its unpack is unpack.cu's, run after this
+// one. Two
 // input modes, as on the TPU:
 //
 //   u8    (H, W) threshold map: FINAL = (v == 255), CANDIDATE = (v == 128);
@@ -31,13 +32,13 @@ __global__ void __launch_bounds__(PACK_NT) pack_thresh_kernel(
   if (NMSQ) {
     const int* kg = static_cast<const int*>(src);
     const int lo = max(bounds[0], 0), hi = max(bounds[1], 0);
-    pack_tile([=](size_t at) { return kg_class(kg[at], lo, hi); }, f, p, nullptr, H, W);
+    pack_tile([=](size_t at) { return kg_class(kg[at], lo, hi); }, f, p, H, W);
   } else {
     const uint8_t* map = static_cast<const uint8_t*>(src);
     pack_tile([=](size_t at) {
       const int u = map[at];
       return u == 255 ? 2 : (u == 128 ? 1 : 0);
-    }, f, p, nullptr, H, W);
+    }, f, p, H, W);
   }
 }
 

@@ -1,5 +1,6 @@
-// The packing tile shared by pack.cu (pack_thresh) and sweep.cu (sweep_pack):
-// per-pixel classes -> packed FINAL / CANDIDATE words.
+// The packing tile of pack.cu (pack_thresh): per-pixel classes -> packed
+// FINAL / CANDIDATE words. (The threshold sweep's pack, sweep.cu, walks
+// columns instead.)
 //
 // One block of 256 threads per 32-row x PACK_TW-column tile (blockIdx.y =
 // word row, blockIdx.x = column tile). The tile's classes are staged in
@@ -15,12 +16,10 @@ constexpr int PACK_TW = 128;  // tile columns
 constexpr int PACK_NT = 256;  // threads per block
 
 // classify(at) gives the class of the pixel at row-major offset `at`: 0 none,
-// 1 candidate, 2 final. Writes words [blockIdx.y, c] of f and p; when `seed`
-// is not null, f's word is ORed with seed's word at the same place.
+// 1 candidate, 2 final. Writes words [blockIdx.y, c] of f and p.
 template <class Classify>
 __device__ __forceinline__ void pack_tile(Classify classify, uint32_t* __restrict__ f,
-                                          uint32_t* __restrict__ p,
-                                          const uint32_t* __restrict__ seed, int H, int W) {
+                                          uint32_t* __restrict__ p, int H, int W) {
   __shared__ int cls[32][PACK_TW + 1];  // +1: lane j reads row j without bank conflicts
   const int k = blockIdx.y, r0 = k * 32, c0 = blockIdx.x * PACK_TW;
   for (int i = threadIdx.x; i < 32 * PACK_TW; i += blockDim.x) {
@@ -37,7 +36,7 @@ __device__ __forceinline__ void pack_tile(Classify classify, uint32_t* __restric
     const int x = c0 + c;
     if (lane == 0 && x < W) {
       const size_t at = (size_t)k * W + x;
-      f[at] = seed ? fw | seed[at] : fw;
+      f[at] = fw;
       p[at] = pw;
     }
   }

@@ -11,10 +11,12 @@ no readback. It serves ``process_all``'s edge map; the nmsq mode takes the
 int32 ``keep * g`` plane and two bounds instead of a u8 map.
 
 Port of the TPU sweep kernel (hysteresis_fused.py:729 ``pallas_call`` in
-``sweep_fused`` :644 -> ``_sweep_kernel`` :478): the K grid steps of its one
-launch become, per pair in sorted order, ``sweep_pack`` (``csrc/sweep.cu``)
-and the two round kernels, then one unpack that writes each map at its
-original index. Pairs, round counts and seeds stay on the device.
+``sweep_fused`` :644 -> ``_sweep_kernel`` :478): its one launch over a
+resident ``keep * g`` plane becomes ``sweep_pack_all`` (``csrc/sweep.cu``:
+every sorted pair's planes from one read of the plane), then per pair in
+sorted order ``sweep_seed`` (the monotone warm start) and the two round
+kernels, then one unpack that writes each map at its original index. Pairs,
+round counts and seeds stay on the device.
 
 Port of the TPU saturate kernel (hysteresis_fused.py:844 ``pallas_call`` in
 ``saturate_packed`` :812 -> ``_sat_kernel`` :742), the local operator of the
@@ -148,13 +150,18 @@ def hysteresis_fused_nmsq(
     return out
 
 
+def _check_bounds(bounds: torch.Tensor) -> int:
+    """Validates a sweep's (2K,) bounds; returns K."""
+    if bounds.dtype != torch.int32 or bounds.ndim != 1 or bounds.numel() % 2:
+        raise ValueError("bounds must be a (2K,) int32 tensor [lo_0, hi_0, lo_1, hi_1, ...]")
+    return bounds.numel() // 2
+
+
 def _check_sweep(kg: torch.Tensor, bounds: torch.Tensor) -> int:
     """Validates a sweep's kg plane and (2K,) bounds; returns K."""
     if kg.dtype != torch.int32 or kg.ndim != 2 or kg.numel() == 0:
         raise ValueError(f"expected a (H, W) int32 keep*g plane, got {tuple(kg.shape)} {kg.dtype}")
-    if bounds.dtype != torch.int32 or bounds.ndim != 1 or bounds.numel() % 2:
-        raise ValueError("bounds must be a (2K,) int32 tensor [lo_0, hi_0, lo_1, hi_1, ...]")
-    return bounds.numel() // 2
+    return _check_bounds(bounds)
 
 
 def sweep_order(bounds: torch.Tensor) -> torch.Tensor:
@@ -174,44 +181,65 @@ def _sweep_check_planes(kg: torch.Tensor, f: torch.Tensor, p: torch.Tensor, k: i
         raise ValueError(f"planes must be {want} int32 tensors, got {tuple(f.shape)}/{tuple(p.shape)}")
 
 
-def sweep_pack_plain(
-    kg: torch.Tensor, bounds: torch.Tensor, slot: int, f: torch.Tensor, p: torch.Tensor,
-    monotone: bool = True,
-) -> None:
-    """Plain PyTorch version of :func:`sweep_pack`, on any device."""
-    fw, pw = pack_thresh_plain(kg, bounds[2 * slot: 2 * slot + 2])
-    if monotone and slot > 0:
-        lo, hi = bounds[2 * slot: 2 * slot + 2].clamp_min(0)
-        plo, phi = bounds[2 * slot - 2: 2 * slot].clamp_min(0)
-        fw = torch.where((plo >= lo) & (phi >= hi), fw | f[slot - 1], fw)
-    f[slot], p[slot] = fw, pw
+def sweep_pack_all_plain(kg: torch.Tensor, bounds: torch.Tensor, f: torch.Tensor,
+                         p: torch.Tensor) -> None:
+    """Plain PyTorch version of :func:`sweep_pack_all`, on any device."""
+    for s in range(bounds.numel() // 2):
+        f[s], p[s] = pack_thresh_plain(kg, bounds[2 * s: 2 * s + 2])
 
 
-def sweep_pack(
-    kg: torch.Tensor, bounds: torch.Tensor, slot: int, f: torch.Tensor, p: torch.Tensor,
-    monotone: bool = True,
-) -> None:
-    """Packs slot ``slot`` of a sweep in place: its FINAL (kg > hi) and
-    CANDIDATE (lo < kg <= hi) words into ``f[slot]`` and ``p[slot]`` of the
-    (K, ceil(H/32), W) int32 planes, for the pair ``bounds[2 slot : 2 slot
-    + 2]`` clamped at 0. With ``monotone``, when slot - 1's pair dominates
-    (both bounds >=, decided on the device), ``f[slot]`` is ORed with
-    ``f[slot - 1]`` as it stands: the monotone warm start."""
+def sweep_pack_all(kg: torch.Tensor, bounds: torch.Tensor, f: torch.Tensor,
+                   p: torch.Tensor) -> None:
+    """Packs every slot of a sweep in place, from one read of ``kg``: slot
+    s's FINAL (kg > hi) and CANDIDATE (lo < kg <= hi) words into ``f[s]``
+    and ``p[s]`` of the (K, ceil(H/32), W) int32 planes, for the pair
+    ``bounds[2 s : 2 s + 2]`` clamped at 0. No seed: see :func:`sweep_seed`."""
     k = _check_sweep(kg, bounds)
     _sweep_check_planes(kg, f, p, k)
-    if not 0 <= slot < k:
-        raise ValueError(f"slot {slot} is not in [0, {k})")
     if use_plain(kg, bounds, f, p):
-        return sweep_pack_plain(kg, bounds, slot, f, p, monotone)
+        return sweep_pack_all_plain(kg, bounds, f, p)
     require_contiguous(kg, bounds, f, p)
     h, w = kg.shape
     lib = load()
     lib.check(
-        lib.lib.cc_sweep_pack(kg.data_ptr(), bounds.data_ptr(), f.data_ptr(), p.data_ptr(), slot,
-                              h, w, int(monotone), kg.device.index, stream_of(kg)),
-        "sweep_pack",
+        lib.lib.cc_sweep_pack_all(kg.data_ptr(), bounds.data_ptr(), f.data_ptr(), p.data_ptr(), k,
+                                  h, w, kg.device.index, stream_of(kg)),
+        "sweep_pack_all",
     )
-    count_launch("sweep_pack")
+    count_launch("sweep_pack_all")
+
+
+def _check_seed(bounds: torch.Tensor, slot: int, f: torch.Tensor) -> None:
+    k = _check_bounds(bounds)
+    if f.dtype != torch.int32 or f.ndim != 3 or f.shape[0] != k:
+        raise ValueError(f"planes must be a ({k}, hw, w) int32 tensor, got {tuple(f.shape)}")
+    if not 1 <= slot < k:
+        raise ValueError(f"slot {slot} is not in [1, {k})")
+
+
+def sweep_seed_plain(bounds: torch.Tensor, slot: int, f: torch.Tensor) -> None:
+    """Plain PyTorch version of :func:`sweep_seed`, on any device."""
+    lo, hi = bounds[2 * slot: 2 * slot + 2].clamp_min(0)
+    plo, phi = bounds[2 * slot - 2: 2 * slot].clamp_min(0)
+    f[slot] = torch.where((plo >= lo) & (phi >= hi), f[slot] | f[slot - 1], f[slot])
+
+
+def sweep_seed(bounds: torch.Tensor, slot: int, f: torch.Tensor) -> None:
+    """The monotone warm start of slot ``slot`` >= 1, in place: when slot -
+    1's pair dominates slot ``slot``'s (both bounds, clamped at 0, >=;
+    decided on the device), ``f[slot]`` is ORed with ``f[slot - 1]`` as it
+    stands; else nothing changes."""
+    _check_seed(bounds, slot, f)
+    if use_plain(bounds, f):
+        return sweep_seed_plain(bounds, slot, f)
+    require_contiguous(bounds, f)
+    lib = load()
+    lib.check(
+        lib.lib.cc_sweep_seed(bounds.data_ptr(), f.data_ptr(), slot, f.shape[1], f.shape[2],
+                              f.device.index, stream_of(f)),
+        "sweep_seed",
+    )
+    count_launch("sweep_seed")
 
 
 def sweep_fused_plain(
@@ -244,18 +272,22 @@ def sweep_fused_plain(
 
 
 def _sweep_launches(kg, bounds, k, max_iters, dilate_steps, scan_after, monotone_seed):
-    """The kernels' sequence: per sorted slot, ``sweep_pack`` and both
-    phases on the slot's planes, in stream order (a slot's seed is the
-    previous slot's plane after its last round); then one unpack to the
-    original indices. On CPU tensors every step takes its plain version."""
+    """The kernels' sequence: ``sweep_pack_all`` (every sorted slot's
+    planes from one read of ``kg``), then per sorted slot ``sweep_seed``
+    (from the second slot on, with ``monotone_seed``) and both phases on the
+    slot's planes, in stream order (a slot's seed is the previous slot's
+    plane after its last round); then one unpack to the original indices.
+    On CPU tensors every step takes its plain version."""
     h, w = kg.shape
     order = sweep_order(bounds) if monotone_seed else None
     sorted_b = bounds.view(k, 2)[order.long()].reshape(-1) if monotone_seed else bounds
     f = torch.empty((k, -(-h // 32), w), dtype=torch.int32, device=kg.device)
     p = torch.empty_like(f)
     flags = torch.empty((k, 2, 2), dtype=torch.int32, device=kg.device)
+    sweep_pack_all(kg, sorted_b, f, p)
     for i in range(k):
-        sweep_pack(kg, sorted_b, i, f, p, monotone_seed)
+        if monotone_seed and i:
+            sweep_seed(sorted_b, i, f)
         converge(f[i], p[i], flags[i], h, dilate_steps=dilate_steps, scan_after=scan_after,
                  max_iters=max_iters)
     return unpack(f, h, order)

@@ -12,6 +12,8 @@ ops on both sides, so they are equal too.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import pytest
 import torch
 
@@ -26,7 +28,7 @@ from cudacam_tpu_torch.ops.cuda.feedforward import (
 from cudacam_tpu_torch.ops.cuda.canny import sweep_bounds
 from cudacam_tpu_torch.ops.cuda.hysteresis_fused import (
     hysteresis_fused, hysteresis_fused_nmsq, pack_thresh, pack_thresh_plain, sweep_fused,
-    sweep_fused_plain, sweep_pack, sweep_pack_plain,
+    sweep_fused_plain, sweep_pack_all, sweep_pack_all_plain, sweep_seed, sweep_seed_plain,
 )
 from cudacam_tpu_torch.ops.cuda.megakernel import (
     canny_mega_pipeline, canny_mega_pipeline_batched, hyst_phase1, hyst_phase2, unpack,
@@ -290,23 +292,30 @@ def _kg(h, w, dev, seed=0, **kw):
     return kg
 
 
-@pytest.mark.parametrize("h,w", SHAPES)
+@pytest.mark.parametrize("h,w", SHAPES + [(33, 1919), (4320, 7680)])
 def test_sweep_pack_matches_plain(dev, h, w):
-    """Each slot, seeded or not, from the same prior planes; the pairs hold
-    negatives, a duplicate and a pair that does not dominate the next."""
+    """Every slot's planes from one ``sweep_pack_all`` launch over planes
+    that held other words; then each slot's seed from the same prior
+    planes. The pairs hold negatives, a duplicate and a pair that does not
+    dominate the next; the values negatives and ones past every bound."""
     g = torch.Generator().manual_seed(h + w)
-    kg = torch.randint(0, 3000, (h, w), generator=g, dtype=torch.int32).to(dev)
+    kg = torch.randint(-100, 3000, (h, w), generator=g, dtype=torch.int32).to(dev)
     bounds = torch.tensor([900, 2000, 900, 2000, -4, 2500, 100, 400, 0, 0],
                           dtype=torch.int32, device=dev)
     shape = (5, -(-h // 32), w)
-    for monotone in (True, False):
-        f0 = torch.randint(-2**31, 2**31 - 1, shape, generator=g, dtype=torch.int32).to(dev)
-        p0 = torch.randint(-2**31, 2**31 - 1, shape, generator=g, dtype=torch.int32).to(dev)
-        for slot in range(5):
-            f, p, fp, pp = f0.clone(), p0.clone(), f0.clone(), p0.clone()
-            sweep_pack(kg, bounds, slot, f, p, monotone)
-            sweep_pack_plain(kg, bounds, slot, fp, pp, monotone)
-            assert torch.equal(f, fp) and torch.equal(p, pp), (monotone, slot)
+    f0 = torch.randint(-2**31, 2**31 - 1, shape, generator=g, dtype=torch.int32).to(dev)
+    p0 = torch.randint(-2**31, 2**31 - 1, shape, generator=g, dtype=torch.int32).to(dev)
+    f, p, fp, pp = f0.clone(), p0.clone(), f0.clone(), p0.clone()
+    kernels.reset_launch_counts()
+    sweep_pack_all(kg, bounds, f, p)
+    assert kernels.launch_counts()["sweep_pack_all"] == 1
+    sweep_pack_all_plain(kg, bounds, fp, pp)
+    assert torch.equal(f, fp) and torch.equal(p, pp)
+    for slot in range(1, 5):
+        f, fp = f0.clone(), f0.clone()
+        sweep_seed(bounds, slot, f)
+        sweep_seed_plain(bounds, slot, fp)
+        assert torch.equal(f, fp), slot
 
 
 @pytest.mark.parametrize("h,w,n", [(37, 53, 3), (80, 256, 6), (1, 1, 2), (720, 1280, 16),
@@ -361,7 +370,8 @@ def test_engine_threshold_sweep_matches_plain(dev, parity):
     kernels.reset_launch_counts()
     maps, counts = eng.threshold_sweep(fr, lows, highs)
     assert kernels.launch_counts() == dict(dict.fromkeys(kernels.KERNELS, 0), ff_stages=1,
-                                           sweep_pack=5, hyst_phase1=5, hyst_phase2=5, unpack=1)
+                                           sweep_pack_all=1, sweep_seed=4, hyst_phase1=5,
+                                           hyst_phase2=5, unpack=1)  # 3K + 2
     want, want_counts = torch_ops.threshold_sweep(fr, torch.tensor(lows), torch.tensor(highs), cfg)
     assert torch.equal(maps, want) and torch.equal(counts, want_counts)
     torch.cuda.synchronize()
@@ -444,7 +454,13 @@ def test_saturate_packed_matches_plain(dev, hw, mesh, scan_after, max_iters):
     assert counts["saturate_phase2"] == int(scan_after < max_iters)
 
 
-@pytest.mark.parametrize("hw,mesh", SHARDED)
+#: Meshes whose tiles put e_top % 32 != 0 (16, 8, 12, 24) and odd core
+#: widths (53, 37), and the 8K (1, 4, 2) tiles of the main sharded path.
+ODD_CORES = [((64, 96), (1, 8, 1)), ((48, 106), (1, 4, 2)), ((40, 74), (1, 5, 2)),
+             ((96, 74), (2, 4, 2)), ((120, 106), (1, 3, 2)), ((4320, 7680), (1, 4, 2))]
+
+
+@pytest.mark.parametrize("hw,mesh", SHARDED + ODD_CORES)
 def test_unpack_core_matches_plain(dev, hw, mesh):
     h, w = hw
     t = _tiles(h, w, mesh).tiling
@@ -455,6 +471,12 @@ def test_unpack_core_matches_plain(dev, hw, mesh):
     out = torch.full((2, h, w), 7, dtype=torch.uint8, device=dev)
     want = unpack_core_plain(f, out.clone(), t)
     assert torch.equal(unpack_core(f, out, t), want) and not (want == 7).any()
+    tt = dataclasses.replace(t, e_top=t.e_top + 1, e_left=t.e_left + 1, ext_h=t.ext_h + 1,
+                             ext_w=t.ext_w + 1)  # one bit and one lane further in
+    f2 = torch.randint(-2**31, 2**31 - 1, (n, -(-tt.ext_h // 32), tt.ext_w), generator=g,
+                       dtype=torch.int32).to(dev)
+    want = unpack_core_plain(f2, out.clone(), tt)
+    assert torch.equal(unpack_core(f2, out, tt), want)
 
 
 @pytest.mark.parametrize("hw,mesh", SHARDED + [((64, 96), (1, 8, 1)), ((64, 96), (1, 2, 4))])

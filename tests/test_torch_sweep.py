@@ -94,15 +94,25 @@ def test_duplicates_keep_ascending_index(spiral_kg, bounds, finals):
     assert order.tolist() == np.lexsort((-b[:, 1], -b[:, 0])).tolist()
 
 
-def test_sweep_launch_sequence_on_the_cpu(spiral_kg):
+def test_sweep_launch_sequence_on_the_cpu(spiral_kg, monkeypatch):
     """The kernels' launch sequence, every step on its plain version here,
-    equals the plain sweep; so does the indexed unpack its plain form."""
+    equals the plain sweep: one ``sweep_pack_all``, then per slot its seed
+    (from the second slot on, seeded only) and its rounds; so does the
+    indexed unpack its plain form."""
     kg = torch.from_numpy(spiral_kg)
     bounds = torch.tensor([0, 2, 1, 2, 1, 2, 2, 3], dtype=torch.int32)
     kw = dict(max_iters=6, dilate_steps=1, scan_after=2)
     for seed in (True, False):
+        calls = []
+        for name in ("sweep_pack_all", "sweep_seed", "converge"):
+            fn = getattr(thf, name)
+            monkeypatch.setattr(thf, name, lambda *a, _fn=fn, _n=name, **k: (
+                calls.append(_n), _fn(*a, **k))[1])
         got = thf._sweep_launches(kg, bounds, 4, monotone_seed=seed, **kw)
+        monkeypatch.undo()
         assert torch.equal(got, thf.sweep_fused_plain(kg, bounds, monotone_seed=seed, **kw))
+        step = ["sweep_seed", "converge"] if seed else ["converge"]
+        assert calls == ["sweep_pack_all", "converge"] + step * 3
     f = torch.from_numpy(np.random.default_rng(1).integers(-2**31, 2**31 - 1, (3, 2, 53),
                                                            dtype=np.int32))
     index = torch.tensor([2, 0, 1], dtype=torch.int32)
@@ -113,21 +123,33 @@ def test_sweep_launch_sequence_on_the_cpu(spiral_kg):
 
 
 def test_sweep_pack_seeds_only_from_a_dominating_pair():
+    """Every slot's planes from ``sweep_pack_all``, unseeded; then
+    ``sweep_seed`` ORs a slot's FINAL plane with the one before only where
+    that pair dominates: (200, 250) vs (100, 260) does not, (100, 260) vs
+    (-7 -> 0, 150) does."""
     rng = np.random.default_rng(2)
     kg = torch.from_numpy(rng.integers(0, 300, (40, 70), dtype=np.int32))
     bounds = torch.tensor([200, 250, 100, 260, -7, 150], dtype=torch.int32)
     f = torch.from_numpy(rng.integers(-2**31, 2**31 - 1, (3, 2, 70), dtype=np.int32))
     p = torch.zeros_like(f)
-    for slot, seeded in ((0, False), (1, False), (2, True)):  # (200, 250) vs (100, 260): no
-        g = f.clone()
-        thf.sweep_pack(kg, bounds, slot, g, p)
+    thf.sweep_pack_all(kg, bounds, f, p)
+    for slot in range(3):
         lo, hi = max(int(bounds[2 * slot]), 0), int(bounds[2 * slot + 1])
-        final = thf.bitpack.unpack_mask(g[slot], 40)
+        assert torch.equal(thf.bitpack.unpack_mask(f[slot], 40), kg > hi)
+        assert torch.equal(thf.bitpack.unpack_mask(p[slot], 40), (kg > lo) & (kg <= hi))
+    prior = torch.from_numpy(rng.integers(-2**31, 2**31 - 1, (2, 70), dtype=np.int32))
+    for slot, seeded in ((1, False), (2, True)):
+        g = f.clone()
+        g[slot - 1] = prior
+        thf.sweep_seed(bounds, slot, g)
+        hi = int(bounds[2 * slot + 1])
         expect = kg > hi
         if seeded:
-            expect |= thf.bitpack.unpack_mask(f[slot - 1], 40)
-        assert torch.equal(final, expect)
-        assert torch.equal(thf.bitpack.unpack_mask(p[slot], 40), (kg > lo) & (kg <= hi))
+            expect |= thf.bitpack.unpack_mask(prior, 40)
+        assert torch.equal(thf.bitpack.unpack_mask(g[slot], 40), expect)
+        assert torch.equal(g[slot - 1], prior) and torch.equal(g[:slot - 1], f[:slot - 1])
+    with pytest.raises(ValueError):
+        thf.sweep_seed(bounds, 0, f)  # slot 0 has no slot before it
 
 
 @pytest.fixture(scope="module")

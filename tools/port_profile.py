@@ -8,9 +8,9 @@ Run from the root of a checkout, on a host with a CUDA device and nvcc:
 ``--root`` profiles the ``cudacam_tpu_torch`` of DIR instead of this
 checkout's (another commit, unpacked with ``git archive``), so one call on
 the card can time two versions in turns on the same inputs (A, B, B, A;
-``--label`` names the rows). Eight parts (``--parts``; by default all but
-``rounds`` and ``ff``), each printing one JSON line per workload (and
-writing them all to ``--out`` when given):
+``--label`` names the rows). Nine parts (``--parts``; by default all but
+``rounds``, ``ff`` and ``packs``), each printing one JSON line per workload
+(and writing them all to ``--out`` when given):
 
 * ``trace``: ``CannyEngine(device='cuda')`` under torch.profiler: ``process``
   on the 1080p 8-scene stream (``make_scene`` seeds 0-7, five passes), on the
@@ -49,6 +49,15 @@ writing them all to ``--out`` when given):
   ``threshold_sweep`` with K=16 pairs at 1080p, 4K and 8K; the sharded
   1080p spiral over (1, 2, 2) (``sharded_loop``); the 8K spiral with
   ``continuation='split'`` (K11).
+
+* ``packs``: the core unpack and the threshold sweep's pack step, each row
+  with the profiler's device µs of the whole call and of its step (the
+  kernels named in ``step_kernels``, whatever a version runs for them:
+  ``unpack_core``; ``sweep_pack`` per pair, or ``sweep_pack_all`` and
+  ``sweep_seed``), the step's launches a call and its bytes bound, the
+  CUDA-event ms a call and a sha256 of the output: ``unpack_core`` of seeded random planes at 8K
+  (1, 4, 2); ``ShardedCannyEngine.process`` of 8K scene 0 over (1, 4, 2);
+  ``threshold_sweep`` with K=16 pairs on scene 0 at 1080p, 4K and 8K.
 
 * ``ff``: the feed-forward pack and the unpack, each row with the
   profiler's device µs a call (the kernel's own events), the CUDA-event ms a
@@ -104,8 +113,8 @@ from cudacam_tpu_torch.ops.cuda.megakernel import (  # noqa: E402
 from cudacam_tpu_torch.parallel import make_mesh  # noqa: E402
 
 KERNELS = ("ff_pack_kernel", "hyst_kernel<false", "hyst_kernel<true", "unpack_kernel",
-           "ff_stages_kernel", "pack_thresh_kernel", "sweep_pack_kernel", "unpack_core_kernel",
-           "exchange_kernel", "split_kernel", "sweeps_kernel")
+           "ff_stages_kernel", "pack_thresh_kernel", "sweep_pack_all_kernel", "sweep_seed_kernel",
+           "unpack_core_kernel", "exchange_kernel", "split_kernel", "sweeps_kernel")
 
 
 def _busy_us(intervals) -> float:
@@ -328,16 +337,22 @@ def rounds(label: str) -> list:
     return rows
 
 
-def device_us(fn, kernel: str, calls: int) -> float:
-    """Profiler device µs a call of ``fn`` in the events of ``kernel``."""
+def device_events(fn, calls: int) -> list:
+    """(kernel name, device µs) of every device event of ``calls`` calls of
+    ``fn`` under the profiler, after one untraced call."""
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    ev = [e for e in prof.events() if e.device_type.name == "CUDA" and kernel in e.name]
-    return sum(e.time_range.elapsed_us() for e in ev) / calls
+    return [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+            if e.device_type.name == "CUDA"]
+
+
+def device_us(fn, kernel: str, calls: int) -> float:
+    """Profiler device µs a call of ``fn`` in the events of ``kernel``."""
+    return sum(us for name, us in device_events(fn, calls) if kernel in name) / calls
 
 
 def ff(label: str) -> list:
@@ -392,15 +407,95 @@ def ff(label: str) -> list:
     return rows
 
 
-PARTS = ("trace", "sizes", "sweeps", "sharded", "split", "app", "rounds", "ff")
+HBM_BYTES_PER_US = 3.35e6  # the H100 SXM's 3.35 TB/s
+
+
+def unpack_core_bound_us(t, frames: int = 1) -> float:
+    """The bytes bound of ``unpack_core``: the cores' words read once and
+    the maps written once (as ``chip_smoke.py`` counts them)."""
+    core_words = t.tiles * ((t.e_top + t.h_loc + 31) // 32 - t.e_top // 32) * t.w_loc
+    return frames * (4 * core_words + t.tiles * t.h_loc * t.w_loc) / HBM_BYTES_PER_US
+
+
+def sweep_step_bound_us(h: int, w: int, lows, highs) -> float:
+    """The bytes bound of a sweep's pack step: the keep*g plane read once,
+    the 2K planes written once, and the planes of the slots the sweep seeds
+    (a pair dominated by the one before it in the sorted order) read once."""
+    from cudacam_tpu_torch.ops.cuda.canny import sweep_bounds
+
+    b = sweep_bounds(torch.as_tensor(lows, dtype=torch.int32),
+                     torch.as_tensor(highs, dtype=torch.int32), CannyConfig(height=h, width=w))
+    pairs = sorted((max(lo, 0), max(hi, 0)) for lo, hi in b.view(-1, 2).tolist())[::-1]
+    seeded = sum(a[0] >= c[0] and a[1] >= c[1] for a, c in zip(pairs, pairs[1:]))
+    plane = 4 * -(-h // 32) * w
+    return (4 * h * w + (2 * len(pairs) + seeded) * plane) / HBM_BYTES_PER_US
+
+
+def packs(label: str) -> list:
+    """The core unpack and the sweep's pack step (whatever kernels a
+    version runs for them), with sha256s of the outputs."""
+    from cudacam_tpu_torch.ops.cuda.megakernel import unpack_core
+
+    card = _card()
+    rows = []
+
+    def emit(name, events, calls, ms, out, step=(), bound=None):
+        """``step``: name parts of the kernels whose device µs are summed
+        as the row's step (all of the call's kernels are summed too)."""
+        sha = hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()[:16]
+        by = {}
+        for n, us in events:
+            if any(k in n for k in step):
+                key = n.split("(")[-2].split("::")[-1] if "(" in n else n  # the kernel's name
+                by.setdefault(key, []).append(us)
+        rows.append(dict(
+            workload=name, label=label, card=card, event_ms=ms, sha=sha,
+            device_us=sum(us for _, us in events) / calls,
+            step_us=sum(sum(v) for v in by.values()) / calls,
+            step_launches=sum(len(v) for v in by.values()) / calls,
+            step_us_by_kernel={k: sum(v) / calls for k, v in by.items()},
+            step_launches_by_kernel={k: len(v) / calls for k, v in by.items()},
+            step_bound_us=bound))
+
+    eng8 = ShardedCannyEngine(CannyConfig(height=4320, width=7680), make_mesh(1, 4, 2))
+    t8 = eng8.pipeline().tiling
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    f8 = torch.randint(-2**31, 2**31 - 1, (t8.tiles, -(-t8.ext_h // 32), t8.ext_w),
+                       dtype=torch.int32, device="cuda", generator=gen)
+    out8 = torch.empty((1, 4320, 7680), dtype=torch.uint8, device="cuda")
+    run = lambda: unpack_core(f8, out8, t8)  # noqa: E731
+    emit("unpack_core 8K (1, 4, 2), seeded random planes", device_events(run, 20), 20,
+         ms_per_call(lambda: [run() for _ in range(20)]) / 20, run(), ("unpack_core",),
+         unpack_core_bound_us(t8))
+    x8 = torch.from_numpy(make_scene(4320, 7680, seed=0)).cuda()[None]
+    frame_run = lambda: eng8.process(x8)  # noqa: E731
+    emit("sharded HYSTER 8K (1, 4, 2), scene 0 (a frame)", device_events(frame_run, 5), 5,
+         ms_per_call(lambda: [frame_run() for _ in range(5)]) / 5, frame_run(), ("unpack_core",),
+         unpack_core_bound_us(t8))
+    lows, highs = np.linspace(5, 60, 16).astype(np.int32), np.linspace(20, 180, 16).astype(np.int32)
+    for name, (h, w) in (("1080p", (1080, 1920)), ("4K", (2160, 3840)), ("8K", (4320, 7680))):
+        e = CannyEngine(CannyConfig(height=h, width=w), device="cuda")
+        x = torch.from_numpy(make_scene(h, w, seed=0)).cuda()
+        sweep = lambda: e.threshold_sweep(x, lows, highs)[0]  # noqa: E731
+        n = 5 if h < 4000 else 2
+        emit(f"threshold_sweep {name} K=16, scene 0 (a sweep; step: the pack and seeds)",
+             device_events(sweep, n), n, ms_per_call(sweep, reps=3), sweep(),
+             ("sweep_pack", "sweep_seed"), sweep_step_bound_us(h, w, lows, highs))
+        del e, x
+        torch.cuda.empty_cache()
+    return rows
+
+
+PARTS = ("trace", "sizes", "sweeps", "sharded", "split", "app", "rounds", "ff", "packs")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", type=Path, help="also write the JSON lines here")
-    ap.add_argument("--parts", default=",".join(PARTS[:-2]), help=f"comma-separated of {PARTS}")
+    ap.add_argument("--parts", default=",".join(PARTS[:-3]), help=f"comma-separated of {PARTS}")
     ap.add_argument("--root", type=Path, help="profile the package of this checkout")
-    ap.add_argument("--label", default="this checkout", help="the rounds and ff parts' label")
+    ap.add_argument("--label", default="this checkout",
+                    help="the rounds, ff and packs parts' label")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("port_profile: needs a CUDA device", file=sys.stderr)
@@ -432,6 +527,8 @@ def main() -> int:
         rows += rounds(args.label)
     if "ff" in parts:
         rows += ff(args.label)
+    if "packs" in parts:
+        rows += packs(args.label)
     lines = [json.dumps(r) for r in rows]
     print("\n".join(lines))
     if args.out:
