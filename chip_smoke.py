@@ -10,15 +10,20 @@ Phases, each printing its lines before the last:
 1. environment probe and the card's name and power limit (nvidia-smi);
 2. build of the kernels in ``cudacam_tpu_torch/csrc`` with nvcc (sm_90a, one
    nvcc per source, all at once), with nvcc's registers, stack and spill
-   bytes of ``ff_pack``'s, the unpacks' and the sweep's pack and seed
-   kernels;
+   bytes of ``ff_pack``'s, ``ff_stages``', ``pack_thresh``', the unpacks'
+   and the sweep's pack and seed kernels;
 3. every kernel against its plain PyTorch version on the card, at the main
    paths' shapes (1080p, 720p), at 37x53 and 1x1 and at the alignment
    classes of ``ff_pack``'s loads and ``unpack``'s row runs (33x1919,
    64x1921, 17x16; both load routes, TMA and cp.async, must be taken):
    ``ff_pack``, the round kernels and ``unpack`` (also indexed, at odd
    widths and heights); ``ff_stages`` for the all-stages set, each stage
-   alone and NMSQ; ``pack_thresh`` in both modes; the batched kernels
+   alone and NMSQ, and at 1080p over four configs (kernel sizes 3 / 5 / 7,
+   L1 and L2, both parities), gray, the low threshold -3, both load routes
+   (1080x1918 BGR and a base one byte off a 16-byte boundary take
+   cp.async), three tiles at a global origin and x4 batches in one launch
+   against each frame's solo call; ``pack_thresh`` in both modes on each;
+   the batched kernels
    against the single-frame ones (8 x 1080p with the escalating spiral,
    3 x 37x53 and 3 x 33x1919, each also as a view one frame in). Then the 1080p spiral cut off at the 100-round cap against
    its recorded digest, through the round kernels and through the
@@ -41,7 +46,9 @@ Phases, each printing its lines before the last:
    1080p scenes and the spiral (byte-equal to the plain path on the card);
    ``process`` on an 8 x 1080p batch with exactly one escalating frame (four
    launches, equal to eight single-frame calls); ``process`` to every
-   display stage (equal to the plain path); ``process_all`` (equal to the
+   display stage (equal to the plain path), and to THRESH on an 8 x 1080p
+   batch (one ``ff_stages`` launch, equal to eight single calls);
+   ``process_all`` (equal to the
    plain ``torch_ops.canny_all_stages``: integers exactly, grad and slope
    within 1e-6 relative); a threshold change changes the output and builds
    nothing; ``threshold_sweep`` at 1080p K=16 (50 launches, 3K + 2: one
@@ -72,7 +79,9 @@ Phases, each printing its lines before the last:
 8. CUDA-event timings of each kernel, kernel against plain, with its bound
    (the larger of its bytes over HBM bandwidth and its 32-bit operations
    over the card's peak, counted from this run's inputs and rounds; ``ff_pack``
-   also on the 8-scene rotation, where the frame is not still in L2), and of
+   also on the 8-scene rotation, where the frame is not still in L2;
+   ``ff_stages`` with five outputs, four (gray), THRESH alone, GRADIENT
+   alone and NMSQ, ``pack_thresh`` in both modes, each with its own bound), and of
    the streams: single frames, the x8 batch, THRESH and ``process_all``; of
    the K=16 sweeps at 1080p, 4K and 8K (plain at 1080p and 4K, and at 8K
    for K=2), seeded against cold tails at 1080p; of K8, K10, the exchange
@@ -401,8 +410,8 @@ class Smoke:
             if "Used" in line or "Compiling entry" in line:
                 print("  ptxas:", line.split("info    :")[-1].strip())
         for name, rep in kernel_reports(lib.compiler_log, (
-                "ff_pack_kernel", "unpack_kernel", "unpack_core_kernel", "sweep_pack_all_kernel",
-                "sweep_seed_kernel")):
+                "ff_pack_kernel", "ff_stages_kernel", "pack_thresh_kernel", "unpack_kernel",
+                "unpack_core_kernel", "sweep_pack_all_kernel", "sweep_seed_kernel")):
             print(f"nvcc report {name}: {json.dumps(rep)}")
 
     def phase_kernels(self) -> None:
@@ -473,6 +482,7 @@ class Smoke:
             print(f"kernels == plain at {h}x{w} {kw or 'defaults'}")
         require(set(routes) == {"tma", "cp.async"}, f"ff_pack load routes {routes}")
         print(f"ff_pack load routes taken: {json.dumps(routes)}")
+        self.stage_walk()
         # Unpack at odd widths and heights: heads and tails of the row runs.
         for h, w, n in ((33, 1919, 3), (17, 16, 2), (1, 70, 1), (64, 1921, 2), (31, 1, 1)):
             fw = torch.randint(-2**31, 2**31 - 1, (n, -(-h // 32), w), dtype=torch.int32,
@@ -508,6 +518,77 @@ class Smoke:
                       f"sha256 {sha[:8]}...{sha[-4:]} (recorded)")
             require(int(iters) == cap, f"K6 spiral cap {cap}: {int(iters)} rounds")
         self.tall_planes()
+
+    def stage_walk(self) -> None:
+        """``ff_stages`` and ``pack_thresh`` at 1080p over the card tests'
+        spread: both load routes (BGR 1080x1918 and a copy of the 1080p
+        frame whose base is one byte past a 16-byte boundary take cp.async),
+        kernel sizes 3 / 5 / 7, L1 and L2, both parities, gray, the low
+        threshold -3; tiles at a global origin of the 1080p image; a batch
+        of four frames in one launch against each frame's solo call."""
+        torch = self.torch
+        from cudacam_tpu_torch import CannyStage
+        from cudacam_tpu_torch.ops.cuda.feedforward import (
+            FF_STAGES, NMSQ, ff_stages, ff_stages_batched, ff_stages_plain, load_route,
+        )
+        from cudacam_tpu_torch.ops.cuda.hysteresis_fused import pack_thresh, pack_thresh_plain
+        from cudacam_tpu_torch.io.sources import make_scene
+
+        def unaligned(x):
+            buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+            out = buf[1:].view(x.shape)
+            out.copy_(x)
+            return out
+
+        def same(name, got, want):
+            for g, e in zip(got, want):
+                self.diff(name, g, e)
+
+        frame = torch.from_numpy(make_scene(1080, 1920, seed=3)).to(self.dev)
+        inputs = [frame, frame[..., 1].contiguous(), unaligned(frame),
+                  torch.from_numpy(make_scene(1080, 1918, seed=4)).to(self.dev)]
+        configs = [dict(), dict(kernel_size=3, norm="l1"),
+                   dict(kernel_size=7, parity="opencv", grad_coeff=2),
+                   dict(kernel_size=5, norm="l1", parity="opencv")]
+        sets = [FF_STAGES, (NMSQ,), (CannyStage.GRADIENT,), (CannyStage.MONO,)]
+        routes = {}
+        for x in inputs:
+            routes.setdefault(load_route(x), []).append(f"{tuple(x.shape)}")
+            for kw in configs:
+                for lo, hi in ((10, 40), (-3, 300)):
+                    thr = torch.tensor([lo, hi], dtype=torch.int32, device=self.dev)
+                    for stages in sets:
+                        same("ff_stages", ff_stages(x, thr, stages, **kw),
+                             ff_stages_plain(x, thr, stages, **kw))
+                    (tmap,) = ff_stages(x, thr, (CannyStage.THRESH,), **kw)
+                    (kg,) = ff_stages(x, None, (NMSQ,), **kw)
+                    same("pack_thresh", pack_thresh(tmap), pack_thresh_plain(tmap))
+                    same("pack_thresh", pack_thresh(unaligned(tmap)), pack_thresh_plain(tmap))
+                    same("pack_thresh", pack_thresh(kg, thr * thr), pack_thresh_plain(kg, thr * thr))
+        require(set(routes) == {"tma", "cp.async"}, f"ff_stages load routes {routes}")
+        thr = torch.tensor([10, 40], dtype=torch.int32, device=self.dev)
+        for (oy, ox), (th, tw) in (((-4, -4), (548, 968)), ((536, 956), (548, 968)),
+                                   ((-4, 1000), (300, 925))):
+            tile = torch.zeros((th, tw, 3), dtype=torch.uint8, device=self.dev)
+            y0, x0 = max(oy, 0), max(ox, 0)
+            y1, x1 = min(oy + th, 1080), min(ox + tw, 1920)
+            tile[y0 - oy:y1 - oy, x0 - ox:x1 - ox] = frame[y0:y1, x0:x1]
+            for x in (tile, tile[..., 0].contiguous(), unaligned(tile)):
+                for stages in (FF_STAGES, (NMSQ,), (CannyStage.GRADIENT,)):
+                    geo = dict(origin=(oy, ox), image_size=(1080, 1920))
+                    same("ff_stages", ff_stages(x, thr, stages, **geo),
+                         ff_stages_plain(x, thr, stages, **geo))
+        batch = torch.stack([torch.from_numpy(make_scene(1080, 1920, seed=s)).to(self.dev)
+                             for s in range(4)])
+        for x in (batch, batch[..., 2].contiguous(), batch[1:]):
+            for stages in (FF_STAGES, (NMSQ,)):
+                got = ff_stages_batched(x, thr, stages)
+                for b in range(len(x)):
+                    same("ff_stages", [g[b] for g in got], ff_stages(x[b], thr, stages))
+                    same("ff_stages", [g[b] for g in got], ff_stages_plain(x[b], thr, stages))
+        print(f"ff_stages == plain at 1080p over 4 configs, lo 10 and -3, on both load routes "
+              f"({json.dumps(routes)}), at three tiles of a global origin, and x4 batches (one "
+              f"launch) == each frame's solo call; pack_thresh == plain in both modes on each")
 
     def tall_planes(self) -> None:
         """Planes taller than one band a block's shared memory holds (476
@@ -731,6 +812,15 @@ class Smoke:
                 plain = torch_ops.canny_to_stage(frames[seed], thr[0], thr[1], cfg, s)
                 require(torch.equal(g, plain), f"stage {s.name} seed {seed} differs from plain")
         print("every display stage == plain path, seeds 0 and 1")
+
+        tbatch = torch.stack(frames[:8])
+        tout = self.path("process THRESH, 8 x 1080p batch",
+                         lambda: eng.process(tbatch, CannyStage.THRESH), {"ff_stages": 1})
+        for i in range(8):
+            require(torch.equal(tout[i], souts[-1] if i == 0 else
+                                eng.process(tbatch[i], CannyStage.THRESH)),
+                    f"THRESH batch frame {i} differs from its single-frame process")
+        print("process THRESH on an 8 x 1080p batch: one ff_stages launch, == 8 single calls")
 
         allk = self.path("process_all", lambda: eng.process_all(frames[-1]),
                          dict(ff_stages=1, pack_thresh=1, hyst_phase1=1, hyst_phase2=1, unpack=1))
@@ -1663,7 +1753,7 @@ class Smoke:
         from cudacam_tpu_torch.ops import bitpack, torch_ops
         from cudacam_tpu_torch.ops.cuda.canny import hyster_kwargs
         from cudacam_tpu_torch.ops.cuda.feedforward import (
-            FF_STAGES, ff_pack, ff_pack_plain, ff_stages, ff_stages_plain,
+            FF_STAGES, NMSQ, ff_pack, ff_pack_plain, ff_stages, ff_stages_plain,
         )
         from cudacam_tpu_torch.ops.cuda.hysteresis_fused import (
             hysteresis_fused, pack_thresh, pack_thresh_plain,
@@ -1708,10 +1798,31 @@ class Smoke:
         self.ms["ff_stages"] = self.time_ms(lambda _: ff_stages(frame, thr, FF_STAGES), 50)
         self.plain_ms["ff_stages"] = self.time_ms(
             lambda _: ff_stages_plain(frame, thr, FF_STAGES), 5)
-        th = (CannyStage.THRESH,)
-        thresh_ms = self.time_ms(lambda _: ff_stages(frame, thr, th), 50)
-        thresh_plain_ms = self.time_ms(lambda _: ff_stages_plain(frame, thr, th), 5)
+        # Every other timed mode of the two kernels, each with its own bound:
+        # (label, kernel call, plain call, bytes, operations).
+        gray = frame[..., 1].contiguous()
+        th, gr = (CannyStage.THRESH,), (CannyStage.GRADIENT,)
         (tmap,) = ff_stages(frame, thr, th)
+        (kg,) = ff_stages(frame, None, (NMSQ,))
+        kb = thr * thr
+        px, words = h * w, -(-h // 32) * w
+        ks = cfg.kernel_size
+        ops_sobel = 6 + 2 * ks * ks + 1 + 24  # mono, the Gaussian, the Sobel sums
+        modes = [
+            ("ff_stages four outputs, gray", lambda: ff_stages(gray, thr, FF_STAGES[1:]),
+             lambda: ff_stages_plain(gray, thr, FF_STAGES[1:]), px + 4 * px, chain_ops(ks) * px),
+            ("ff_stages THRESH alone", lambda: ff_stages(frame, thr, th),
+             lambda: ff_stages_plain(frame, thr, th), 3 * px + px, chain_ops(ks) * px),
+            ("ff_stages GRADIENT alone", lambda: ff_stages(frame, thr, gr),
+             lambda: ff_stages_plain(frame, thr, gr), 3 * px + px, (ops_sobel + 12) * px),
+            ("ff_stages NMSQ", lambda: ff_stages(frame, None, (NMSQ,)),
+             lambda: ff_stages_plain(frame, None, (NMSQ,)), 3 * px + 4 * px,
+             (chain_ops(ks) - 2) * px),
+            ("pack_thresh nmsq", lambda: pack_thresh(kg, kb), lambda: pack_thresh_plain(kg, kb),
+             4 * px + 2 * 4 * words, 4 * px),
+        ]
+        mode_times = [(label, self.time_ms(lambda _: run(), 50), self.time_ms(lambda _: plain(), 5),
+                       nbytes, ops) for label, run, plain, nbytes, ops in modes]
         self.ms["pack_thresh"] = self.time_ms(lambda _: pack_thresh(tmap), 50)
         self.plain_ms["pack_thresh"] = self.time_ms(lambda _: pack_thresh_plain(tmap), 20)
         k6_kw = hyster_kwargs(cfg)
@@ -1720,7 +1831,6 @@ class Smoke:
 
         # Bounds of the timed calls, from these inputs: 1080p, the rounds each
         # call ran (flags), bytes read once and written once.
-        px, words = h * w, -(-h // 32) * w
         ops_px = chain_ops(cfg.kernel_size)
         fl1 = flags0()
         hyst_phase1(f0.clone(), p0, fl1, h, scan_after=64, **rounds)
@@ -1760,7 +1870,11 @@ class Smoke:
         print(f"time ff_pack on the 8-scene rotation: {rotation_ms!r} ms a frame (scene 0 "
               f"again and again: {self.ms['ff_pack']!r})")
         print(f"time hyst_phase2 on a converged frame (returns at once): {noop_ms!r} ms")
-        print(f"time ff_stages THRESH alone: kernel {thresh_ms!r} ms, plain {thresh_plain_ms!r} ms")
+        for label, ms, plain, nbytes, ops in mode_times:
+            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / OPS_PER_S
+            print(f"time {label}: kernel {ms!r} ms, plain {plain!r} ms, bound "
+                  f"{max(t_bytes, t_ops) * 1e3!r} ms ({'bytes' if t_bytes >= t_ops else 'operations'}) "
+                  f"(1080p)")
         print(f"time K6 whole (pack_thresh + rounds + unpack) on scene 0's threshold map "
               f"({k6_kw}): "
               f"kernels {k6_ms!r} ms, plain {k6_plain_ms!r} ms")

@@ -25,330 +25,37 @@
 // (chip_smoke.py counts them: 3 us at 1080p, 52 us over the eight extended
 // tiles of an 8K frame on a (1, 4, 2) mesh).
 //
-// Design for Hopper.
-// * Work items are 64-row x 56-column pieces ("pieces") of an extended
-//   tile, two packed word rows each. A persistent grid of whole waves
-//   (blocks a SM x SMs, from the occupancy calculator) walks them in order
-//   (piece, then frame tile), so no partial wave trails the launch.
-// * A block stages a piece's source window (the piece + its halo, 72 x 64
-//   pixels at kernel size 5) in shared memory with an asynchronous copy
-//   (a TMA box must start 16-byte aligned: another start raises an illegal
-//   instruction on the H100):
-//   where the frame's base and row pitch are 16-byte aligned, one TMA load
-//   (cp.async.bulk.tensor over a (frames, rows, words) tensor map; its
-//   out-of-bounds zero fill is the zero of a pixel outside the source),
-//   else 16-byte cp.async chunks row by row (the route: cc_ff_pack_route).
-//   The next piece's copy is issued as soon as the current window became
-//   mono, so it lands while the block walks the current piece.
-// * Mono is converted once a pixel into a uint8 plane; blur, the Sobel
-//   sums and the magnitudes live in registers only.
-// * Each thread walks one column of one word row of the piece (two row
-//   groups of warps, 32 rows + the halo each, so a walk is short) with
-//   vertical sliding windows, fully unrolled: the Gaussian's row sums
-//   (Gauss<KS>, separable for 3 and 7, three row filters for 5), then the
-//   blur; the horizontal
-//   neighbours' blur and magnitude come from the warp's lanes by shuffles,
-//   so the Sobel sums and the magnitude are computed once a pixel. Lanes 0,
-//   1, 30, 31 only feed their neighbours: a warp packs 28 columns.
-// * A thread holds a whole packed word of its column (32 rows), so the
-//   pack is a shift-or per row and one coalesced store a word; thresholds
-//   come from a device int32[2] (lo, hi), so a threshold change rebuilds
-//   nothing.
+// Design for Hopper: the pieces, window loads and column walk of
+// ff_walk.cuh (64 x 56 pieces on a persistent grid; a TMA box or 16-byte
+// cp.async chunks a window, the route: cc_ff_pack_route; one thread a
+// column of a word row, sliding windows in registers, lane shuffles for the
+// horizontal neighbours). Its sink holds a whole packed word of its column
+// (32 rows), so the pack is a shift-or per row and one coalesced store a
+// word; thresholds come from a device int32[2] (lo, hi), so a threshold
+// change rebuilds nothing.
 
-#include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the runtime
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <stdio.h>
 
-#include <mutex>
-
 #include "device_guard.cuh"
-#include "stage_chain.cuh"
+#include "ff_walk.cuh"
 
 namespace {
 
-struct PackGeo {
-  Source src;         // source frames (SB of them) and the global image
-  int nty, ntx;       // tiles per source frame
-  int oy, ox;         // global coords of tile (0, 0)'s core
-  int h_loc, w_loc;   // core size: the tile pitch
-  int e_top, e_left;  // extension above / left of the core
-  int EH, EW;         // extended tile; its planes are ceil(EH / 32) x EW words
-  int ring_r, ring_c; // pollution ring zeroed at the extended tile's edges
-};
-
-constexpr int PH = 64;             // piece rows: two packed word rows
-constexpr int NWARP = 2;           // warps side by side (a row group's)
-constexpr int LANES_OUT = 28;      // columns a warp packs: lanes 2..29
-constexpr int PW = NWARP * LANES_OUT;  // piece columns
-constexpr int NRG = PH / 32;       // row groups: each walks one word row
-constexpr int NTHR = NRG * NWARP * 32;
-
-// The staged window of a piece for kernel size KS and C channels: MR rows
-// (the piece + R halo rows each side), MW pixels a row (the 32 lanes of
-// each warp, KS/2 more each side), its bytes in rows of SP (room for a
-// 16-byte misalignment, a multiple of 16: TMA box rows and cp.async chunks),
-// the mono plane in rows of MWP.
-template <int KS, int C>
-struct Win {
-  static constexpr int K2 = KS / 2;
-  static constexpr int R = K2 + 2;
-  static constexpr int MR = PH + 2 * R;
-  static constexpr int MW = PW + 4 + 2 * K2;
-  static constexpr int SP = (C * MW + 15 + 15) / 16 * 16;
-  static constexpr int MWP = (MW + 15) / 16 * 16;
-  static constexpr int STAGE = MR * SP;
-  static constexpr int SMEM = 128 + STAGE + MR * MWP + 16;  // + alignment, the mbarrier
-};
-
-// A piece: frame tile z (frame b, tile (ti, tj)), rows r0.. and columns
-// c0.. of its extended tile, whose pixel (0, 0) lies at global (ey, ex).
-struct Piece {
-  int b, z, r0, c0, ey, ex;
-};
-
-__device__ __forceinline__ Piece piece_at(int t, const PackGeo& g, int nstrip, int ncb) {
-  Piece p;
-  const int per_z = nstrip * ncb;
-  p.z = t / per_z;
-  const int rem = t - p.z * per_z;
-  const int strip = rem / ncb;
-  p.r0 = strip * PH;
-  p.c0 = (rem - strip * ncb) * PW;
-  const int per_frame = g.nty * g.ntx;
-  p.b = p.z / per_frame;
-  const int ti = (p.z / g.ntx) % g.nty, tj = p.z % g.ntx;
-  p.ey = g.oy + ti * g.h_loc - g.e_top;
-  p.ex = g.ox + tj * g.w_loc - g.e_left;
-  return p;
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-
-// Source-local coordinates of the window's pixel (0, 0).
-template <int KS>
-__device__ __forceinline__ void window_origin(const Piece& p, const Source& s, int* ly0, int* lx0) {
-  *ly0 = p.ey + p.r0 - Win<KS, 1>::R - s.sy;
-  *lx0 = p.ex + p.c0 - 2 - KS / 2 - s.sx;
-}
-
-// Issue the asynchronous copy of piece p's window into `stage`.
-template <int KS, bool GRAY, bool TMA>
-__device__ __forceinline__ void issue_window(const uint8_t* __restrict__ frames, const CUtensorMap* tmap,
-                                             const Piece& p, const Source& s, uint8_t* stage,
-                                             uint32_t bar) {
-  constexpr int C = GRAY ? 1 : 3;
-  using W = Win<KS, C>;
-  int ly0, lx0;
-  window_origin<KS>(p, s, &ly0, &lx0);
-  if (TMA) {
-    if (threadIdx.x == 0) {
-      // The window from the 16-byte boundary at or left of its first byte:
-      // a box must start 16-byte aligned (on the H100 another start raises
-      // an illegal instruction), and the row pitch is a multiple of 16.
-      const int cw = ((C * lx0) & ~15) / 4;
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-                   "r"(W::STAGE)
-                   : "memory");
-      asm volatile(
-          "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-          "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(stage)),
-          "l"(reinterpret_cast<uint64_t>(tmap)), "r"(bar), "r"(cw), "r"(ly0), "r"(p.b)
-          : "memory");
-    }
-  } else {
-    // 16-byte chunks from the aligned address at or before each row's first
-    // pixel; only chunks that hold bytes of the row are copied (they lie in
-    // the row's allocation), the rest of the window is masked at conversion.
-    const long long pitch = (long long)C * s.SW;
-    const uint8_t* fb = frames + (size_t)p.b * s.SH * pitch;
-    constexpr int NCH = W::SP / 16;
-    for (int i = threadIdx.x; i < W::MR * NCH; i += NTHR) {
-      const int r = i / NCH, q = i - r * NCH;
-      const int ly = ly0 + r;
-      if (ly < 0 || ly >= s.SH) continue;
-      const uintptr_t row = reinterpret_cast<uintptr_t>(fb) + (uintptr_t)(ly * pitch);
-      const uintptr_t chunk = ((row + (intptr_t)lx0 * C) & ~(uintptr_t)15) + 16 * (uintptr_t)q;
-      if (chunk + 16 <= row || chunk >= row + (uintptr_t)pitch) continue;
-      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                       smem_addr(stage + r * W::SP + 16 * q)),
-                   "l"(chunk)
-                   : "memory");
-    }
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-  }
-}
-
-template <int KS, bool GRAY, bool TMA>
-__device__ __forceinline__ void wait_window(uint32_t bar, uint32_t parity) {
-  if (TMA)
-    mbar_wait(bar, parity);
-  else
-    asm volatile("cp.async.wait_all;\n" ::: "memory");
-  __syncthreads();
-}
-
-// The staged window -> the mono plane: zero outside the image and outside
-// the source.
-template <int KS, bool GRAY, bool TMA>
-__device__ __forceinline__ void to_mono(const uint8_t* __restrict__ frames, const Piece& p,
-                                        const Source& s, const uint8_t* stage, uint8_t* mono) {
-  constexpr int C = GRAY ? 1 : 3;
-  using W = Win<KS, C>;
-  int ly0, lx0;
-  window_origin<KS>(p, s, &ly0, &lx0);
-  const int gy0 = ly0 + s.sy, gx0 = lx0 + s.sx;
-  const long long pitch = (long long)C * s.SW;
-  const uint8_t* fb = frames + (size_t)p.b * s.SH * pitch;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int r = warp; r < W::MR; r += NTHR / 32) {
-    const int gy = gy0 + r, ly = ly0 + r;
-    const bool row_in = gy >= 0 && gy < s.IH && ly >= 0 && ly < s.SH;
-    int off = (C * lx0) & 15;
-    if (!TMA && row_in)
-      off = (int)((reinterpret_cast<uintptr_t>(fb) + (uintptr_t)(ly * pitch) + (intptr_t)lx0 * C) & 15);
-    const uint8_t* srow = stage + r * W::SP + off;
-    for (int j = lane; j < W::MW; j += 32) {
-      const int gx = gx0 + j, lx = lx0 + j;
-      int v = 0;
-      if (row_in && gx >= 0 && gx < s.IW && lx >= 0 && lx < s.SW) {
-        if (GRAY) {
-          v = srow[j];
-        } else {
-          const uint8_t* px = srow + 3 * j;
-          v = (px[0] * 7 + px[1] * 38 + px[2] * 19) >> 6;
-        }
-      }
-      mono[r * W::MWP + j] = (uint8_t)v;
-    }
-  }
-}
-
-// One thread's column of one word row of a piece (row group rg: piece rows
-// 32 rg .. 32 rg + 31), walked down the window's rows. Step i makes blur
-// row yb = 32 rg - 2 + i from the Gaussian's window, from step 2 on the
-// Sobel sums and magnitude of row yb - 1, from step 4 on the NMS and class
-// of row yb - 2. The stages are peeled and the 32 full steps unrolled, so
-// the windows shift by renaming registers and every row index is a
-// constant.
-template <int KS, int C>
-struct Walk {
-  using W = Win<KS, C>;
-  using G = Gauss<KS>;
-  const uint8_t* mcol;   // the leftmost tap of this column in the mono plane
-  uint64_t valid;        // bit i: blur row ybase - 2 + i lies in the image (and the column)
-  int ybase;             // this row group's first piece row
-  bool l2;
+// The sink of the pack: a kept pixel's class bits, one word of 32 rows (the
+// walk calls it for kept pixels only: kEager false).
+struct PackSink {
+  static constexpr bool kNms = true, kEager = false;
   int lo_c, hi_c;
-  int hw[KS][G::kHN];    // the Gaussian's row sums, oldest first
-  int d0 = 0, d1 = 0, s0 = 0, s1 = 0;  // Sobel row terms of the two rows before
-  int gl0 = 0, gc0 = 0, gr0 = 0, gl1 = 0, gc1 = 0, gr1 = 0;  // magnitudes, rows n-1, n
-  int sxp = 0, syp = 0;  // Sobel sums of row n
-  uint32_t fw = 0, pw = 0, row_mask = 0;  // rows of the word whose class counts
-
-  __device__ __forceinline__ void row_sums(int m, int* h) const {
-    G::row(mcol + m * W::MWP, h);
-  }
-
-  template <int STAGE>  // 0: blur; 1: + Sobel and magnitude; 2: + NMS and class
-  __device__ __forceinline__ void step(int i) {
-#pragma unroll
-    for (int r = 0; r + 1 < KS; ++r)
-#pragma unroll
-      for (int k = 0; k < G::kHN; ++k) hw[r][k] = hw[r + 1][k];
-    // The window's mono rows run from mcol's row (tile row ybase - R): the
-    // one that completes blur row yb's Gaussian is i + KS - 1.
-    row_sums(i + KS - 1, hw[KS - 1]);
-    const int blur = ((valid >> i) & 1u) ? G::column(hw) : 0;
-    const int bl = __shfl_up_sync(0xffffffffu, blur, 1);
-    const int br = __shfl_down_sync(0xffffffffu, blur, 1);
-    const int d2 = br - bl, s2 = bl + 2 * blur + br;
-    if (STAGE >= 1) {
-      const int sx = d0 + 2 * d1 + d2, sy = s0 - s2;
-      const int gm = ((valid >> (i - 1)) & 1u) ? (l2 ? sx * sx + sy * sy : abs(sx) + abs(sy)) : 0;
-      const int gl = __shfl_up_sync(0xffffffffu, gm, 1);
-      const int gr = __shfl_down_sync(0xffffffffu, gm, 1);
-      if (STAGE == 2) {
-        const int bit = i - 4;  // row yn = ybase + bit
-        if (((row_mask >> bit) & 1u) &&
-            nms_keep(sxp, syp, gl0, gc0, gr0, gl1, gc1, gr1, gl, gm, gr)) {
-          fw |= (uint32_t)(gc1 > hi_c) << bit;
-          pw |= (uint32_t)(gc1 <= hi_c && gc1 > lo_c) << bit;
-        }
-      }
-      gl0 = gl1; gc0 = gc1; gr0 = gr1;
-      gl1 = gl; gc1 = gm; gr1 = gr;
-      sxp = sx; syp = sy;
-    }
-    d0 = d1; d1 = d2;
-    s0 = s1; s1 = s2;
+  uint32_t fw = 0, pw = 0;
+  __device__ __forceinline__ void blur(int, int) {}
+  __device__ __forceinline__ void sobel(int, int, int, bool) {}
+  __device__ __forceinline__ void nms(int bit, bool, int g) {  // kept pixels only
+    fw |= (uint32_t)(g > hi_c) << bit;
+    pw |= (uint32_t)(g <= hi_c && g > lo_c) << bit;
   }
 };
-
-template <int KS, int C>
-__device__ __forceinline__ void walk(const uint8_t* mono, const Piece& p, const PackGeo& g,
-                                     int lo_c, int hi_c, bool l2, uint32_t* fplane,
-                                     uint32_t* pplane) {
-  using W = Win<KS, C>;
-  const int wid = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int warp = wid % NWARP, rg = wid / NWARP;
-  const int xe = p.c0 - 2 + warp * LANES_OUT + lane;  // extended-tile column
-  const int gx = p.ex + xe;
-  const Source& s = g.src;
-  Walk<KS, C> w;
-  w.ybase = rg * 32;
-  // Rows of this group's window: mono rows from 32 rg (tile row 32 rg - R).
-  w.mcol = mono + (size_t)w.ybase * W::MWP + warp * LANES_OUT + lane;
-  const bool col_in = gx >= 0 && gx < s.IW;
-  w.valid = 0;
-  if (col_in) {
-    const int gy = p.ey + p.r0 + w.ybase - 2;  // global row of step 0's blur row
-    for (int i = 0; i < 36; ++i)
-      if (gy + i >= 0 && gy + i < s.IH) w.valid |= 1ull << i;
-  }
-  w.l2 = l2;
-  w.lo_c = lo_c;
-  w.hi_c = hi_c;
-  const bool out_lane = lane >= 2 && lane < 30 && xe < g.EW;
-  // The rows whose class counts: inside the extended tile, off the ring, in
-  // the image; the column likewise.
-  if (out_lane && xe >= g.ring_c && xe < g.EW - g.ring_c && col_in) {
-    for (int b = 0; b < 32; ++b) {
-      const int ye = p.r0 + w.ybase + b;
-      if (ye < g.EH && ye >= g.ring_r && ye < g.EH - g.ring_r && p.ey + ye >= 0 && p.ey + ye < s.IH)
-        w.row_mask |= 1u << b;
-    }
-  }
-#pragma unroll
-  for (int r = 0; r + 1 < KS; ++r) w.row_sums(r, w.hw[r + 1]);
-  w.template step<0>(0);
-  w.template step<0>(1);
-  w.template step<1>(2);
-  w.template step<1>(3);
-#pragma unroll
-  for (int i = 4; i < 36; ++i) w.template step<2>(i);
-  const int k = (p.r0 + w.ybase) >> 5;
-  if (out_lane && k < (g.EH + 31) / 32) {
-    fplane[(size_t)k * g.EW + xe] = w.fw;
-    pplane[(size_t)k * g.EW + xe] = w.pw;
-  }
-}
 
 template <int KS, bool GRAY, bool TMA>
 __global__ void __launch_bounds__(NTHR) ff_pack_kernel(
@@ -357,127 +64,21 @@ __global__ void __launch_bounds__(NTHR) ff_pack_kernel(
     int grad_coeff, bool l2, bool ref_parity, int nstrip, int ncb, int npieces,
     const __grid_constant__ CUtensorMap tmap) {
   constexpr int C = GRAY ? 1 : 3;
-  using W = Win<KS, C>;
-  extern __shared__ __align__(128) uint8_t smem_raw[];
-  // TMA writes to 128-byte aligned shared memory.
-  uint8_t* smem = smem_raw + ((128 - (smem_addr(smem_raw) & 127)) & 127);
-  uint8_t* stage = smem;
-  uint8_t* mono = smem + W::STAGE;
-  uint64_t* barp = reinterpret_cast<uint64_t*>(smem + W::STAGE + W::MR * W::MWP);
-  const uint32_t bar = smem_addr(barp);
-  if (TMA && threadIdx.x == 0) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-
   int lo_c, hi_c;
   class_bounds(thr[0], thr[1], grad_coeff, l2, ref_parity, &lo_c, &hi_c);
   const size_t plane = (size_t)((g.EH + 31) / 32) * g.EW;
-  int t = blockIdx.x;
-  if (t < npieces)
-    issue_window<KS, GRAY, TMA>(frames, &tmap, piece_at(t, g, nstrip, ncb), g.src, stage, bar);
-  for (uint32_t parity = 0; t < npieces; parity ^= 1) {
-    const Piece p = piece_at(t, g, nstrip, ncb);
-    wait_window<KS, GRAY, TMA>(bar, parity);
-    to_mono<KS, GRAY, TMA>(frames, p, g.src, stage, mono);
-    __syncthreads();  // mono is whole; the stage is free for the next window
-    const int tn = t + gridDim.x;
-    if (tn < npieces)
-      issue_window<KS, GRAY, TMA>(frames, &tmap, piece_at(tn, g, nstrip, ncb), g.src, stage, bar);
-    walk<KS, C>(mono, p, g, lo_c, hi_c, l2, fplanes + p.z * plane, pplanes + p.z * plane);
-    __syncthreads();  // every column walked before mono is overwritten
-    t = tn;
-  }
-}
-
-// cuTensorMapEncodeTiled, found through the CUDA runtime (the
-// library links no libcuda).
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-cudaError_t encoder(EncodeTiled* out) {
-  static std::once_flag once;
-  static EncodeTiled fn = nullptr;
-  static cudaError_t err = cudaSuccess;
-  std::call_once(once, [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (err == cudaSuccess && (q != cudaDriverEntryPointSuccess || !p)) err = cudaErrorSymbolNotFound;
-    fn = reinterpret_cast<EncodeTiled>(p);
+  piece_loop<KS, GRAY, TMA>(frames, g, nstrip, ncb, npieces, &tmap,
+                            [&](const Piece& p, const uint8_t* mono) {
+    Walk<KS, C> w;
+    w.begin(mono, p, g, l2);
+    PackSink sink{lo_c, hi_c};
+    w.template run<2>(sink);
+    const int k = (p.r0 + w.ybase) >> 5;
+    if (w.out_lane && k < (g.EH + 31) / 32) {
+      fplanes[p.z * plane + (size_t)k * g.EW + w.xe] = sink.fw;
+      pplanes[p.z * plane + (size_t)k * g.EW + w.xe] = sink.pw;
+    }
   });
-  *out = fn;
-  return err;
-}
-
-// Codes past this report a failed cuTensorMapEncodeTiled (the CUresult
-// added), apart from the runtime's own codes.
-constexpr int kEncodeError = 100000;
-
-bool tma_route(const void* frames, int SW, int channels) {
-  return reinterpret_cast<uintptr_t>(frames) % 16 == 0 && ((long long)channels * SW) % 16 == 0;
-}
-
-template <int KS, bool GRAY, bool TMA>
-cudaError_t launch_route(const uint8_t* fr, const int* thr, uint32_t* f, uint32_t* p, int SB,
-                         const PackGeo& g, int grad_coeff, bool l2, bool ref_parity, int device,
-                         cudaStream_t stream, int* code) {
-  constexpr int C = GRAY ? 1 : 3;
-  using W = Win<KS, C>;
-  auto kern = ff_pack_kernel<KS, GRAY, TMA>;
-  // Blocks a SM, per device, from the occupancy calculator.
-  static std::mutex mu;
-  static int per_sm[64] = {0};
-  static int sms[64] = {0};
-  if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
-  {
-    std::lock_guard<std::mutex> lock(mu);
-    if (!per_sm[device]) {
-      cudaError_t e = cudaDeviceGetAttribute(&sms[device], cudaDevAttrMultiProcessorCount, device);
-      if (e == cudaSuccess && W::SMEM > 48 * 1024)
-        e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, W::SMEM);
-      if (e == cudaSuccess)
-        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm[device], kern, NTHR, W::SMEM);
-      if (e != cudaSuccess) return e;
-      if (per_sm[device] < 1) return cudaErrorInvalidConfiguration;
-    }
-  }
-  const int nstrip = (g.EH + PH - 1) / PH, ncb = (g.EW + PW - 1) / PW;
-  const long long pieces = (long long)SB * g.nty * g.ntx * nstrip * ncb;
-  if (pieces > 0x7fffffff) return cudaErrorInvalidValue;
-  CUtensorMap map = {};
-  if (TMA) {
-    EncodeTiled encode;
-    cudaError_t e = encoder(&encode);
-    if (e != cudaSuccess) return e;
-    // The frames as (SB, SH, C SW / 4) 32-bit words; a box is the window's
-    // MR rows of SP bytes of one frame. Out-of-bounds words read 0.
-    const cuuint64_t dims[3] = {(cuuint64_t)C * g.src.SW / 4, (cuuint64_t)g.src.SH, (cuuint64_t)SB};
-    const cuuint64_t strides[2] = {(cuuint64_t)C * g.src.SW,
-                                   (cuuint64_t)C * g.src.SW * g.src.SH};
-    const cuuint32_t box[3] = {W::SP / 4, W::MR, 1};
-    const cuuint32_t estr[3] = {1, 1, 1};
-    const CUresult r = encode(&map, CU_TENSOR_MAP_DATA_TYPE_UINT32, 3, const_cast<uint8_t*>(fr),
-                              dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                              CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-    if (r != CUDA_SUCCESS) {
-      *code = kEncodeError + (int)r;
-      return cudaSuccess;
-    }
-  }
-  const int grid = (int)(pieces < (long long)per_sm[device] * sms[device]
-                             ? pieces : (long long)per_sm[device] * sms[device]);
-  kern<<<grid, NTHR, W::SMEM, stream>>>(fr, thr, f, p, g, grad_coeff, l2, ref_parity, nstrip,
-                                        ncb, (int)pieces, map);
-  return cudaGetLastError();
 }
 
 template <int KS>
@@ -488,16 +89,14 @@ int launch(const void* frames, const void* thr, void* f, void* p, int SB, const 
   auto t = static_cast<const int*>(thr);
   auto fp = static_cast<uint32_t*>(f);
   auto pp = static_cast<uint32_t*>(p);
-  const bool tma = tma_route(frames, g.src.SW, channels);
-  int code = 0;
-  cudaError_t e;
-  if (channels == 1)
-    e = tma ? launch_route<KS, true, true>(fr, t, fp, pp, SB, g, grad_coeff, l2, ref_parity, device, stream, &code)
-            : launch_route<KS, true, false>(fr, t, fp, pp, SB, g, grad_coeff, l2, ref_parity, device, stream, &code);
-  else
-    e = tma ? launch_route<KS, false, true>(fr, t, fp, pp, SB, g, grad_coeff, l2, ref_parity, device, stream, &code)
-            : launch_route<KS, false, false>(fr, t, fp, pp, SB, g, grad_coeff, l2, ref_parity, device, stream, &code);
-  return code ? code : (int)e;
+  return with_route(frames, g.src.SW, channels, [&](auto gray, auto tma, int* code) {
+    constexpr bool GRAY = decltype(gray)::value, TMA = decltype(tma)::value;
+    constexpr int C = GRAY ? 1 : 3;
+    static GridCache cache;
+    return launch_pieces<KS, C, TMA>(cache, ff_pack_kernel<KS, GRAY, TMA>, Win<KS, C>::SMEM, fr,
+                                     SB, g, device, stream, code, t, fp, pp, g, grad_coeff, l2,
+                                     ref_parity);
+  });
 }
 
 }  // namespace

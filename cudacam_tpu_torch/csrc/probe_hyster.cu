@@ -11,8 +11,8 @@
 //                      row k = row 32k + r != 0 (TPU probe A). A 32-row x
 //                      PROBE_TW-column tile staged in shared memory from
 //                      coalesced loads, then transposed: thread c builds its
-//                      column's word from 32 shared bytes (the staging of
-//                      pack_tile.cuh, without its ballot).
+//                      column's word from 32 shared bytes (the packs of
+//                      pack_walk.cuh hold a column in registers instead).
 //   probe_pack_ballot  the same pack by a loop over word rows with no shared
 //                      memory (TPU probe A'): lane r of a warp holds row 32k + r
 //                      of one column, and __ballot_sync is the word.

@@ -18,17 +18,15 @@
 // sweep_pack_all: slot s classifies the int32 keep * g plane against
 // bounds[2s], bounds[2s+1] clamped at 0: FINAL = kg > hi, CANDIDATE =
 // lo < kg <= hi; bit j of word [k, c] is pixel [32k + j, c]; pixels past H
-// are class 0. Design: a column walk. Thread (k, c) loads the 32 values of
-// column c in word row k (each load 128 contiguous bytes a warp), clamps
-// them at 0 once, then for every slot (the bounds staged in shared memory,
-// clamped, SWEEP_CHUNK pairs at a time) builds both words in registers and
-// stores them, coalesced across the warp. A value and a bound both lie in
-// [0, 2^31), so the sign of bound - value is "value > bound" with no
-// overflow, and one funnel shift appends it to a word: 4 integer
-// instructions a pixel and pair (two subtractions, two shifts) and one
-// and-not a word. No shared-memory tile, no ballot, no division. 16-byte
-// loads would cut the 32 loads of a column, 1/(4K + 1) of its instructions,
-// and need 4 columns (128 values) a thread: not taken.
+// are class 0. Design: the column walk of pack_walk.cuh (pack_thresh runs
+// it too). Thread (k, c) loads the 32 values of column c in word row k (each
+// load 128 contiguous bytes a warp), clamps them at 0 once, then for every
+// slot (the bounds staged in shared memory, clamped, SWEEP_CHUNK pairs at a
+// time) builds both words in registers and stores them, coalesced across
+// the warp: 4 integer instructions a pixel and pair (two subtractions, two
+// funnel shifts) and one and-not a word. 16-byte loads would cut the 32
+// loads of a column, 1/(4K + 1) of its instructions, and need 4 columns (128
+// values) a thread: not taken.
 //
 // Bound: one read of the kg plane and one write of the 2K planes (1080p,
 // K = 16: 8.3 + 8.4 MB, 5.0 us at HBM rate); the walk's instructions (64 a
@@ -46,6 +44,7 @@
 #include <stdint.h>
 
 #include "device_guard.cuh"
+#include "pack_walk.cuh"
 
 namespace {
 
@@ -61,11 +60,7 @@ __global__ void __launch_bounds__(SWEEP_NT) sweep_pack_all_kernel(
   const bool live = c < W;
   const size_t plane = (size_t)((H + 31) / 32) * W, at = (size_t)kr * W + c;
   int v[32];
-#pragma unroll
-  for (int j = 0; j < 32; ++j) {
-    const int y = 32 * kr + j;
-    v[j] = live && y < H ? max(__ldg(kg + (size_t)y * W + c), 0) : 0;
-  }
+  load_column([=](int y) { return max(__ldg(kg + (size_t)y * W + c), 0); }, kr, H, live, v);
   for (int s0 = 0; s0 < k; s0 += SWEEP_CHUNK) {
     const int n = min(SWEEP_CHUNK, k - s0);
     __syncthreads();  // every thread is done with the chunk before
@@ -74,16 +69,11 @@ __global__ void __launch_bounds__(SWEEP_NT) sweep_pack_all_kernel(
     __syncthreads();
     if (!live) continue;
     for (int i = 0; i < n; ++i) {
-      const int lo = sb[i].x, hi = sb[i].y;
-      uint32_t fw = 0, gw = 0;  // kg > hi, kg > lo
-#pragma unroll
-      for (int j = 31; j >= 0; --j) {  // row 31 first: it ends at bit 31
-        fw = __funnelshift_l((uint32_t)(hi - v[j]), fw, 1);
-        gw = __funnelshift_l((uint32_t)(lo - v[j]), gw, 1);
-      }
+      uint32_t fw, pw;
+      pack_words(v, sb[i].x, sb[i].y, &fw, &pw);
       const size_t o = (size_t)(s0 + i) * plane + at;
       f[o] = fw;
-      p[o] = gw & ~fw;
+      p[o] = pw;
     }
   }
 }

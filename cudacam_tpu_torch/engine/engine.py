@@ -47,7 +47,7 @@ from cudacam_tpu_torch.stages import CANNY_STAGE_NAMES, CannyStage
 from cudacam_tpu_torch.ops import bitpack, torch_ops
 from cudacam_tpu_torch.ops.cuda import canny
 from cudacam_tpu_torch.ops.cuda._build import load
-from cudacam_tpu_torch.ops.cuda.feedforward import ff_stages
+from cudacam_tpu_torch.ops.cuda.feedforward import ff_stages_batched
 from cudacam_tpu_torch.utils.devtime import device_time_ms_per_call, event_time_ms_per_call
 from cudacam_tpu_torch.utils.logging import get_logger
 from cudacam_tpu_torch.utils.timer import TimerManager
@@ -327,14 +327,14 @@ class CannyEngine(ThresholdControls):
     def _sample_program(self, arr, batched: bool, stage: CannyStage, thr) -> Callable[[], object]:
         """The program whose time ends stage ``stage`` in the ``device``
         mode: HYSTER's own; for a display stage the one-pass feed-forward
-        kernel (``ff_stages``, K7) writing every buffer MONO..``stage``,
-        frame by frame as the display stages run a batch."""
+        kernel (``ff_stages``, K7) writing every buffer MONO..``stage``, one
+        launch for the frame or the batch, as the display stages run it."""
         if stage == CannyStage.HYSTER:
             return lambda: self._to_stage(arr, batched, stage, thr)
         stages = tuple(s for s in CannyStage if s <= stage)
         frames = arr if batched else arr.unsqueeze(0)
         kw = canny.ff_kwargs(self._cfg)
-        return lambda: [ff_stages(f, thr, stages, **kw) for f in frames]
+        return lambda: ff_stages_batched(frames, thr, stages, **kw)
 
     def _sample_ms(self, run: Callable[[], object]) -> float:
         """One device-mode sample of ``run``: kernel busy ms per call over 20

@@ -7,8 +7,8 @@ fallback. The same calls take the plain versions on CPU tensors.
 * HYSTER: the kernel pipeline of ``ops/cuda/megakernel.py``; a batch is one
   launch of each of its four kernels.
 * MONO..THRESH: one pass of the feed-forward kernel ``ff_stages`` (MONO of a
-  gray frame is the frame itself). A batch loops over its frames, as the
-  JAX package maps over them.
+  gray frame is the frame itself); a batch is one launch for its frames
+  (the JAX package maps over them).
 * All stages (``process_all``): one ``ff_stages`` pass emits every display
   buffer, the float inspection planes are plain torch ops on its blur (as
   they are XLA ops in the JAX package), and the edge map comes from the
@@ -30,7 +30,9 @@ import torch
 from cudacam_tpu_torch.config import CannyConfig
 from cudacam_tpu_torch.stages import FINAL_EDGE, CannyStage
 from cudacam_tpu_torch.ops import torch_ops
-from cudacam_tpu_torch.ops.cuda.feedforward import FF_STAGES, NMSQ, ff_stages
+from cudacam_tpu_torch.ops.cuda.feedforward import (
+    FF_STAGES, NMSQ, ff_stages, ff_stages_batched,
+)
 from cudacam_tpu_torch.ops.cuda.hysteresis_fused import hysteresis_fused, sweep_fused
 from cudacam_tpu_torch.ops.cuda.megakernel import (
     canny_mega_pipeline, canny_mega_pipeline_batched,
@@ -82,11 +84,14 @@ def canny_to_stage_batched(
     final_stage: CannyStage,
 ) -> torch.Tensor:
     """:func:`canny_to_stage` on a (B, H, W[, 3]) batch -> (B, H, W)."""
-    if CannyStage(final_stage) == CannyStage.HYSTER:
+    final_stage = CannyStage(final_stage)
+    if final_stage == CannyStage.HYSTER:
         edges, _ = canny_mega_pipeline_batched(frames, thresholds, **pipeline_kwargs(cfg),
                                                continuation=cfg.continuation)
         return edges
-    return torch.stack([canny_to_stage(f, thresholds, cfg, final_stage) for f in frames])
+    if final_stage == CannyStage.MONO and frames.ndim == 3:
+        return frames  # gray frames are their own mono
+    return ff_stages_batched(frames, thresholds, (final_stage,), **ff_kwargs(cfg))[0]
 
 
 def canny_all_stages(

@@ -11,9 +11,10 @@ feed-forward kernel (cudacam_tpu/ops/pallas/feedforward.py:810, entries
 ``feed_forward_to_stage`` :604, ``feed_forward_all_stages`` :651 and
 ``feed_forward_nmsq`` :693; with ``origin`` / ``image_size`` on the tiles of
 a sharded frame, as ``parallel/sharded.py::local_feed_forward_pallas`` :255
-passes them). Both run the one stencil chain of ``csrc/stage_chain.cuh``. A
-CPU tensor takes the plain version; a CUDA tensor launches the kernel or
-raises.
+passes them; a batch of whole frames in one launch, ``ff_stages_batched``).
+Both walk the pieces of ``csrc/ff_walk.cuh`` with the one stencil chain of
+``csrc/stage_chain.cuh``. A CPU tensor takes the plain version; a CUDA
+tensor launches the kernel or raises.
 """
 from __future__ import annotations
 
@@ -292,6 +293,35 @@ def _check_origin(origin, image_size) -> None:
         raise ValueError("origin and image_size go together")
 
 
+def _chain_plain(frame, thresholds, stages, kw, valid) -> dict:
+    """``torch_ops``' stage buffers of ``frame``, masked to ``valid`` (a
+    bool plane, or None for a whole frame)."""
+    cfg = CannyConfig(height=frame.shape[0], width=frame.shape[1], **kw)
+    norm = kw["norm"]
+
+    def mask(x):
+        return x if valid is None else torch.where(valid, x, torch.zeros_like(x))
+
+    out = {CannyStage.MONO: mask(torch_ops.rgb2mono(frame))}
+    if set(stages) - {CannyStage.MONO}:
+        out[CannyStage.GAUSSIAN] = mask(
+            torch_ops.gaussian_blur(out[CannyStage.MONO], kw["kernel_size"]))
+    if set(stages) - {CannyStage.MONO, CannyStage.GAUSSIAN}:
+        sx, sy = (mask(v) for v in torch_ops.sobel_sums(out[CannyStage.GAUSSIAN]))
+        coeff = torch_ops.display_coeff(cfg)
+        if CannyStage.GRADIENT in stages:
+            out[CannyStage.GRADIENT] = mask(torch_ops.nms_magnitude_u8(sx, sy, coeff, norm))
+        if CannyStage.NMS in stages:
+            out[CannyStage.NMS] = mask(torch_ops.non_max_suppression(sx, sy, coeff, norm))
+        if CannyStage.THRESH in stages:
+            out[CannyStage.THRESH] = mask(torch_ops.compute_threshold_map(
+                sx, sy, thresholds[0], thresholds[1], cfg))
+        if NMSQ in stages:
+            out[NMSQ] = mask(torch_ops.nms_keep_mask(sx, sy, norm)
+                             * torch_ops.comparable_magnitude(sx, sy, norm))
+    return out
+
+
 def ff_stages_plain(
     frame: torch.Tensor,
     thresholds: Optional[torch.Tensor],
@@ -308,36 +338,57 @@ def ff_stages_plain(
     buffers), on any device. With ``origin`` the frame is a window at that
     global position of an ``image_size`` image: mono, blur and the Sobel
     sums are masked to the image (sharded.py ``local_feed_forward`` :323),
-    and GRADIENT, NMS, THRESH and NMSQ are 0 outside it."""
+    and GRADIENT, NMS, THRESH and NMSQ are 0 outside it; the chain runs on
+    the window padded with zero pixels as deep as the stencils reach, so at
+    the window's edges inside the image the blur and the magnitudes beyond
+    them come from those zeros, as in the JAX kernel's slab."""
     stages = _check_stages(stages, thresholds)
     _check_origin(origin, image_size)
-    cfg = CannyConfig(height=frame.shape[0], width=frame.shape[1], kernel_size=kernel_size,
-                      grad_coeff=grad_coeff, norm=norm, parity=parity)
-    valid = None
-    if origin is not None:
-        valid = _valid(origin, tuple(frame.shape[:2]), image_size, frame.device)
+    kw = dict(kernel_size=kernel_size, grad_coeff=grad_coeff, norm=norm, parity=parity)
+    if origin is None:
+        out = _chain_plain(frame, thresholds, stages, kw, None)
+        return tuple(out[s] for s in stages)
+    r = kernel_size // 2 + 2  # mono rows and columns the stencils reach
+    h, w = frame.shape[:2]
+    padded = _window(frame, -r, -r, h + 2 * r, w + 2 * r)
+    valid = _valid((origin[0] - r, origin[1] - r), (h + 2 * r, w + 2 * r), image_size,
+                   frame.device)
+    out = _chain_plain(padded, thresholds, stages, kw, valid)
+    return tuple(out[s][r:r + h, r:r + w].contiguous() for s in stages)
 
-    def mask(x):
-        return x if valid is None else torch.where(valid, x, torch.zeros_like(x))
 
-    out = {CannyStage.MONO: mask(torch_ops.rgb2mono(frame))}
-    if set(stages) - {CannyStage.MONO}:
-        out[CannyStage.GAUSSIAN] = mask(
-            torch_ops.gaussian_blur(out[CannyStage.MONO], kernel_size))
-    if set(stages) - {CannyStage.MONO, CannyStage.GAUSSIAN}:
-        sx, sy = (mask(v) for v in torch_ops.sobel_sums(out[CannyStage.GAUSSIAN]))
-        coeff = torch_ops.display_coeff(cfg)
-        if CannyStage.GRADIENT in stages:
-            out[CannyStage.GRADIENT] = mask(torch_ops.nms_magnitude_u8(sx, sy, coeff, norm))
-        if CannyStage.NMS in stages:
-            out[CannyStage.NMS] = mask(torch_ops.non_max_suppression(sx, sy, coeff, norm))
-        if CannyStage.THRESH in stages:
-            out[CannyStage.THRESH] = mask(torch_ops.compute_threshold_map(
-                sx, sy, thresholds[0], thresholds[1], cfg))
-        if NMSQ in stages:
-            out[NMSQ] = mask(torch_ops.nms_keep_mask(sx, sy, norm)
-                             * torch_ops.comparable_magnitude(sx, sy, norm))
-    return tuple(out[s] for s in stages)
+def _ff_stages(frames, batched, thresholds, stages, kw, origin, image_size):
+    """One launch for an (H, W[, 3]) frame, or a (B, H, W[, 3]) batch with
+    ``batched`` -> each of ``stages``' (H, W) or (B, H, W) buffers."""
+    require_contiguous(frames, *([thresholds] if thresholds is not None else []))
+    lead = 1 if batched else 0
+    b = frames.shape[0] if batched else 1
+    h, w = frames.shape[lead:lead + 2]
+    oy, ox = origin if origin is not None else (0, 0)
+    ih, iw = image_size if image_size is not None else (h, w)
+    shape = frames.shape[:lead + 2]
+    outs = {
+        s: torch.empty(shape, dtype=torch.int32 if s == NMSQ else torch.uint8,
+                       device=frames.device)
+        for s in stages
+    }
+
+    def ptr(s):
+        return outs[s].data_ptr() if s in outs else None
+
+    lib = load()
+    lib.check(
+        lib.lib.cc_ff_stages(
+            frames.data_ptr(), thresholds.data_ptr() if thresholds is not None else None,
+            *(ptr(s) for s in FF_STAGES), ptr(NMSQ), b, h, w, oy, ox, ih, iw,
+            1 if frames.ndim == lead + 2 else 3,
+            kw["kernel_size"], kw["grad_coeff"], int(kw["norm"] == "l2"),
+            int(kw["parity"] == "reference"), frames.device.index, stream_of(frames),
+        ),
+        "ff_stages",
+    )
+    count_launch("ff_stages")
+    return tuple(outs[s] for s in stages)
 
 
 def ff_stages(
@@ -367,29 +418,26 @@ def ff_stages(
     if use_plain(frame, thresholds):
         return ff_stages_plain(frame, thresholds, stages, origin=origin, image_size=image_size,
                                **kw)
-    require_contiguous(frame, *([thresholds] if thresholds is not None else []))
-    h, w = frame.shape[:2]
-    oy, ox = origin if origin is not None else (0, 0)
-    ih, iw = image_size if image_size is not None else (h, w)
-    outs = {
-        s: torch.empty((h, w), dtype=torch.int32 if s == NMSQ else torch.uint8,
-                       device=frame.device)
-        for s in stages
-    }
+    return _ff_stages(frame, False, thresholds, stages, kw, origin, image_size)
 
-    def ptr(s):
-        return outs[s].data_ptr() if s in outs else None
 
-    lib = load()
-    lib.check(
-        lib.lib.cc_ff_stages(
-            frame.data_ptr(), thresholds.data_ptr() if thresholds is not None else None,
-            *(ptr(s) for s in FF_STAGES), ptr(NMSQ), h, w, oy, ox, ih, iw,
-            1 if frame.ndim == 2 else 3,
-            kernel_size, grad_coeff, int(norm == "l2"), int(parity == "reference"),
-            frame.device.index, stream_of(frame),
-        ),
-        "ff_stages",
-    )
-    count_launch("ff_stages")
-    return tuple(outs[s] for s in stages)
+def ff_stages_batched(
+    frames: torch.Tensor,
+    thresholds: Optional[torch.Tensor],
+    stages: Sequence[Stage],
+    *,
+    kernel_size: int = 5,
+    grad_coeff: int = 4,
+    norm: str = "l2",
+    parity: str = "reference",
+) -> Tuple[torch.Tensor, ...]:
+    """:func:`ff_stages` on a (B, H, W, 3) or (B, H, W) uint8 batch: each of
+    ``stages``' (B, H, W) buffers, one launch for the batch. The plain
+    version is :func:`ff_stages_plain` frame by frame."""
+    _check_frames(frames, batched=True)
+    stages = _check_stages(stages, thresholds)
+    kw = dict(kernel_size=kernel_size, grad_coeff=grad_coeff, norm=norm, parity=parity)
+    if use_plain(frames, thresholds):
+        per_frame = [ff_stages_plain(f, thresholds, stages, **kw) for f in frames]
+        return tuple(torch.stack(bufs) for bufs in zip(*per_frame))
+    return _ff_stages(frames, True, thresholds, stages, kw, None, None)

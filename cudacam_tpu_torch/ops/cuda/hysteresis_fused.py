@@ -5,7 +5,8 @@ Port of the TPU fused hysteresis kernel (cudacam_tpu/ops/pallas/
 hysteresis_fused.py:365/:373 ``pallas_call``: ``_fused_call`` :310 ->
 ``_kernel`` :168; entries ``hysteresis_fused`` :386 and
 ``hysteresis_fused_nmsq`` :435). The one TPU launch (pack, both phases,
-unpack) becomes ``pack_thresh`` (``csrc/pack.cu``) followed by the round
+unpack) becomes ``pack_thresh`` (``csrc/pack.cu``: a column walk, the one
+``sweep_pack_all`` runs, ``csrc/pack_walk.cuh``) followed by the round
 kernels and the unpack of ``ops/cuda/megakernel.py``, all on the device with
 no readback. It serves ``process_all``'s edge map; the nmsq mode takes the
 int32 ``keep * g`` plane and two bounds instead of a u8 map.

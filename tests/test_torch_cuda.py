@@ -22,8 +22,8 @@ from cudacam_tpu_torch import CannyConfig, CannyStage
 from cudacam_tpu_torch.engine import CannyEngine
 from cudacam_tpu_torch.ops import bitpack, cuda as kernels, torch_ops
 from cudacam_tpu_torch.ops.cuda.feedforward import (
-    FF_STAGES, NMSQ, ff_pack, ff_pack_batched, ff_pack_plain, ff_stages, ff_stages_plain,
-    load_route,
+    FF_STAGES, NMSQ, ff_pack, ff_pack_batched, ff_pack_plain, ff_stages, ff_stages_batched,
+    ff_stages_plain, load_route,
 )
 from cudacam_tpu_torch.ops.cuda.canny import sweep_bounds
 from cudacam_tpu_torch.ops.cuda.hysteresis_fused import (
@@ -127,6 +127,92 @@ def test_pack_thresh_matches_plain(dev, h, w):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     kg = torch.randint(0, 3000, (h, w), generator=g, dtype=torch.int32).to(dev)
     for lo, hi in [(100, 900), (-5, 400), (-9, -1), (0, 0)]:
+        b = _thr(lo, hi, dev)
+        got, want = pack_thresh(kg, b), pack_thresh_plain(kg, b)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+#: The stage walk's cases: kernel sizes 3 / 5 / 7, L1 and L2, both parities.
+STAGE_CONFIGS = CONFIGS + [dict(kernel_size=5, norm="l1", parity="opencv"),
+                           dict(kernel_size=3, parity="opencv", grad_coeff=8)]
+#: 1 x 1, a narrow frame, odd widths, 1080p, and BGR rows of 5754 bytes
+#: (W = 1918: the cp.async route).
+STAGE_SHAPES = [(1, 1), (33, 5), (270, 481), (1080, 1920), (66, 1918)]
+
+
+def _unaligned(x: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``x`` whose base lies one byte past an aligned
+    allocation (the cp.async route)."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+def _stages_equal(x, thr, kw, sets=None, **geo):
+    for stages in sets or [FF_STAGES, FF_STAGES[1:], (NMSQ,)] + [(s,) for s in FF_STAGES]:
+        got = ff_stages(x, thr, stages, **kw, **geo)
+        want = ff_stages_plain(x, thr, stages, **kw, **geo)
+        for s, g, e in zip(stages, got, want):
+            assert g.dtype == e.dtype and torch.equal(g, e), (s, tuple(x.shape), kw, geo)
+
+
+@pytest.mark.parametrize("h,w", STAGE_SHAPES)
+@pytest.mark.parametrize("kw", STAGE_CONFIGS)
+def test_ff_stages_walk_matches_plain(dev, h, w, kw):
+    """Every stage set on both load routes: BGR and gray, and a copy whose
+    base is off a 16-byte boundary; the low threshold -3 (keep-gated)."""
+    fr = _frame(h, w, dev, seed=h + w)
+    for lo, hi in [(10, 40), (-3, 300)]:
+        thr = _thr(lo, hi, dev)
+        for x in (fr, fr[..., 1].contiguous(), _unaligned(fr)):
+            _stages_equal(x, thr, kw)
+    assert load_route(_unaligned(fr)) == "cp.async"
+
+
+@pytest.mark.parametrize("kw", STAGE_CONFIGS)
+def test_ff_stages_origin_tiles_match_plain(dev, kw):
+    """Tiles whose pixel (0, 0) lies at a global origin of a larger image
+    (the sharded display route): zero padding pinned to the image, every
+    output 0 outside it."""
+    fr = _frame(150, 260, dev, seed=5)
+    thr = _thr(10, 40, dev)
+    for origin, image in [((-4, -6), (140, 250)), ((70, 120), (200, 300)), ((0, 0), (150, 260)),
+                          ((-3, 200), (100, 240))]:
+        for x in (fr, fr[..., 2].contiguous(), _unaligned(fr)):
+            _stages_equal(x, thr, kw, [FF_STAGES, (NMSQ,), (CannyStage.GRADIENT,)],
+                          origin=origin, image_size=image)
+
+
+@pytest.mark.parametrize("h,w,n", [(37, 53, 3), (270, 481, 2), (1080, 1920, 4), (66, 1918, 2)])
+def test_ff_stages_batched_matches_single(dev, h, w, n):
+    """One launch for the batch; each frame equals its solo call and the
+    plain version, byte for byte."""
+    batch = torch.stack([_frame(h, w, dev, seed=s) for s in range(n)])
+    thr = _thr(10, 40, dev)
+    for x in (batch, batch[..., 0].contiguous(), batch[1:]):
+        for stages in (FF_STAGES, (NMSQ,), (CannyStage.GRADIENT,), (CannyStage.MONO,)):
+            kernels.reset_launch_counts()
+            got = ff_stages_batched(x, thr, stages)
+            assert kernels.launch_counts()["ff_stages"] == 1
+            for i in range(len(x)):
+                solo = ff_stages(x[i], thr, stages)
+                want = ff_stages_plain(x[i], thr, stages)
+                for g, o, e in zip(got, solo, want):
+                    assert torch.equal(g[i], o) and torch.equal(g[i], e)
+
+
+@pytest.mark.parametrize("h,w", [(1, 1), (33, 5), (96, 70), (270, 481), (1080, 1920)])
+def test_pack_thresh_walk_matches_plain(dev, h, w):
+    """Both modes of the column walk, rows past H included; the int32 ends."""
+    g = torch.Generator().manual_seed(h + w)
+    levels = torch.tensor([0, 128, 255, 127, 129, 254, 1], dtype=torch.uint8)
+    t = levels[torch.randint(0, 7, (h, w), generator=g)].to(dev)
+    for x in (t, _unaligned(t)):
+        got, want = pack_thresh(x), pack_thresh_plain(x)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    kg = torch.randint(-2**31, 2**31 - 1, (h, w), generator=g, dtype=torch.int32).to(dev)
+    for lo, hi in [(100, 900), (-5, 400), (-9, -1), (0, 0), (-2**31, 2**31 - 1), (2**31 - 2, 0)]:
         b = _thr(lo, hi, dev)
         got, want = pack_thresh(kg, b), pack_thresh_plain(kg, b)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
@@ -265,7 +351,9 @@ def test_every_stage_and_process_all_match_plain(dev, channels):
         assert got[k].dtype == want[k].dtype and torch.equal(got[k], want[k]), k
     batch = torch.stack([fr, torch.flip(fr, (0,)).contiguous()])
     for stage in (CannyStage.NMS, CannyStage.HYSTER):
+        kernels.reset_launch_counts()
         out = eng.process(batch, stage)
+        assert kernels.launch_counts()["ff_stages"] == (stage == CannyStage.NMS)  # one a batch
         assert all(torch.equal(out[i], eng.process(batch[i], stage)) for i in range(2))
 
 

@@ -1,5 +1,5 @@
-"""The piece walk of the ``ff_pack`` kernel (``csrc/ff_pack.cu``) as a NumPy
-model, against ``ff_pack_plain``.
+"""The piece walk of the ``ff_pack`` kernel (``csrc/ff_pack.cu`` on the
+pieces of ``csrc/ff_walk.cuh``) as a NumPy model, against ``ff_pack_plain``.
 
 The kernel cuts each extended tile into pieces of ``PH`` rows x ``PW``
 columns (``NWARP`` warps of 28 packed columns; lanes 0, 1, 30 and 31 only
@@ -48,7 +48,7 @@ from cudacam_tpu_torch.parallel import build_sharded_pipeline, make_mesh
 
 torch.set_num_threads(2)
 
-_SRC = Path(__file__).resolve().parents[1] / "cudacam_tpu_torch" / "csrc" / "ff_pack.cu"
+_SRC = Path(__file__).resolve().parents[1] / "cudacam_tpu_torch" / "csrc" / "ff_walk.cuh"
 
 
 def _const(name: str) -> int:
@@ -159,11 +159,12 @@ def pieces_in_order(z, eh, ew, grid):
     return np.asarray(taken, np.int64)
 
 
-def model_ff_pack(frames, thr, t: Tiling, route, *, kernel_size=5, grad_coeff=4, norm="l2",
-                  parity="reference", base=0, grid=7):
-    """(SB, SH, SW[, 3]) uint8 frames -> (SB ny nx, ceil(EH/32), EW) int32
-    planes, by the kernel's pieces. ``base`` is the frames' address modulo
-    a 512-byte allocation (the cp.async chunks' alignment)."""
+def model_windows(frames, t: Tiling, route, *, kernel_size=5, base=0, grid=7):
+    """The pieces of a launch in the order the blocks reach them, and each
+    piece's staged window made mono: (SB, SH, SW[, 3]) uint8 frames ->
+    a dict of the pieces' z, r0, c0, ey, ex (P,) and mono (P, MR, MW).
+    ``base`` is the frames' address modulo a 512-byte allocation (the
+    cp.async chunks' alignment)."""
     ks, k2 = kernel_size, kernel_size // 2
     r_h = k2 + 2
     mr, mw = PH + 2 * r_h, PW + 4 + 2 * k2
@@ -229,6 +230,20 @@ def model_ff_pack(frames, thr, t: Tiling, route, *, kernel_size=5, grad_coeff=4,
     mono = take(0) if c == 1 else (take(0) * 7 + take(1) * 38 + take(2) * 19) >> 6
     mono = np.where(inside, mono, 0)
     assert mono.max(initial=0) <= 255  # the kernel keeps mono in bytes
+    return dict(z=z, r0=r0, c0=c0, ey=ey, ex=ex, mono=mono, z_n=z_n)
+
+
+def model_ff_pack(frames, thr, t: Tiling, route, *, kernel_size=5, grad_coeff=4, norm="l2",
+                  parity="reference", base=0, grid=7):
+    """(SB, SH, SW[, 3]) uint8 frames -> (SB ny nx, ceil(EH/32), EW) int32
+    planes, by the kernel's pieces. ``base`` is the frames' address modulo
+    a 512-byte allocation (the cp.async chunks' alignment)."""
+    ks = kernel_size
+    pcs = model_windows(frames, t, route, kernel_size=ks, base=base, grid=grid)
+    z, r0, c0, ey, ex, mono, z_n = (pcs[k] for k in ("z", "r0", "c0", "ey", "ex", "mono", "z_n"))
+    npc = len(z)
+    ih, iw = t.image
+    eh, ew = t.ext_h, t.ext_w
 
     # The walk, every lane of every piece at once.
     warp, lane = np.divmod(np.arange(NL), 32)

@@ -8,8 +8,8 @@ Run from the root of a checkout, on a host with a CUDA device and nvcc:
 ``--root`` profiles the ``cudacam_tpu_torch`` of DIR instead of this
 checkout's (another commit, unpacked with ``git archive``), so one call on
 the card can time two versions in turns on the same inputs (A, B, B, A;
-``--label`` names the rows). Nine parts (``--parts``; by default all but
-``rounds``, ``ff`` and ``packs``), each printing one JSON line per workload
+``--label`` names the rows). Ten parts (``--parts``; by default all but
+``rounds``, ``ff``, ``packs`` and ``stages``), each printing one JSON line per workload
 (and writing them all to ``--out`` when given):
 
 * ``trace``: ``CannyEngine(device='cuda')`` under torch.profiler: ``process``
@@ -69,6 +69,18 @@ the card can time two versions in turns on the same inputs (A, B, B, A;
   scene over (1, 4, 2); ``unpack`` of scene 0's planes at 1080p, of the x8
   batch's (per frame) and at 8K; the indexed unpack of a K=16 sweep
   (sixteen seeded random planes, a permutation) at 1080p, 4K and 8K.
+
+* ``stages``: the display-stage kernel and the threshold-map pack, each
+  row with the profiler's device µs a call (the kernel's own events), the
+  CUDA-event ms a call, the host µs a call (calls with no synchronize
+  between them), a sha256 of the output and the bytes bound
+  (``step_bound_us``): ``ff_stages`` on 1080p scene 0 with five outputs
+  (BGR), four (gray), THRESH alone and GRADIENT alone, NMSQ at 1080p, 4K
+  and 8K; ``pack_thresh`` of scene 0's threshold map (u8) and keep*g plane
+  (nmsq) at each size; ``ff_pack`` at 1080p and 8K and ``sweep_pack_all``
+  at K=16 (1080p) beside them; ``process_all`` and ``process(frame,
+  THRESH)`` on the 1080p 8-scene stream under torch.profiler (device busy µs
+  a frame, idle share, CUDA-event wall ms a frame).
 
 Imports no jax and nothing of the JAX package: the frame generators are the
 port's own (``cudacam_tpu_torch.io.sources``).
@@ -486,16 +498,113 @@ def packs(label: str) -> list:
     return rows
 
 
-PARTS = ("trace", "sizes", "sweeps", "sharded", "split", "app", "rounds", "ff", "packs")
+def stages(label: str) -> list:
+    """The display-stage kernel and the threshold-map pack in each mode,
+    the "unchanged" rows beside them, and the two streams they serve, with
+    sha256s of the outputs (whatever kernels a version runs for them)."""
+    from cudacam_tpu_torch.ops.cuda.canny import sweep_bounds
+    from cudacam_tpu_torch.ops.cuda.feedforward import FF_STAGES, NMSQ, ff_stages
+    from cudacam_tpu_torch.ops.cuda.hysteresis_fused import (
+        pack_thresh, sweep_order, sweep_pack_all,
+    )
+
+    card = _card()
+    rows = []
+
+    def digest(out) -> str:
+        return hashlib.sha256(b"".join(o.cpu().numpy().tobytes() for o in out)).hexdigest()[:16]
+
+    def host_us(fn, calls):
+        """Host µs a call: ``calls`` calls with no synchronize between them
+        (the enqueue rate where the host is slower than the card), median of
+        five windows."""
+        per = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            per.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+        return statistics.median(per)
+
+    def emit(name, fn, kernel, calls, nbytes):
+        """Profiler device µs a call in ``kernel``'s events, CUDA-event ms a
+        call, host µs a call, the bytes bound in µs (each input read once,
+        each output written once)."""
+        ms = ms_per_call(lambda: [fn() for _ in range(calls)]) / calls
+        rows.append(dict(workload=name, label=label, card=card,
+                         device_us=device_us(fn, kernel, calls), event_ms=ms,
+                         host_us=host_us(fn, calls), sha=digest(fn()),
+                         step_bound_us=nbytes / HBM_BYTES_PER_US))
+
+    thr = torch.tensor([10, 40], dtype=torch.int32, device="cuda")
+    th, gr = (CannyStage.THRESH,), (CannyStage.GRADIENT,)
+    for name, (h, w) in (("1080p", (1080, 1920)), ("4K", (2160, 3840)), ("8K", (4320, 7680))):
+        frame = torch.from_numpy(make_scene(h, w, seed=0)).cuda()
+        px, words = h * w, -(-h // 32) * w
+        n = 50 if h == 1080 else 10
+        if h == 1080:
+            gray = frame[..., 1].contiguous()
+            emit("ff_stages five outputs 1080p BGR", lambda: ff_stages(frame, thr, FF_STAGES),
+                 "ff_stages_kernel", n, 3 * px + 5 * px)
+            emit("ff_stages four outputs 1080p gray",
+                 lambda: ff_stages(gray, thr, FF_STAGES[1:]), "ff_stages_kernel", n, px + 4 * px)
+            emit("ff_stages THRESH alone 1080p", lambda: ff_stages(frame, thr, th),
+                 "ff_stages_kernel", n, 3 * px + px)
+            emit("ff_stages GRADIENT alone 1080p", lambda: ff_stages(frame, thr, gr),
+                 "ff_stages_kernel", n, 3 * px + px)
+        emit(f"ff_stages NMSQ {name}", lambda: ff_stages(frame, None, (NMSQ,)),
+             "ff_stages_kernel", n, 3 * px + 4 * px)
+        (tmap,) = ff_stages(frame, thr, th)
+        (kg,) = ff_stages(frame, None, (NMSQ,))
+        kb = thr * thr
+        emit(f"pack_thresh u8 {name}", lambda: pack_thresh(tmap), "pack_thresh_kernel", n,
+             px + 2 * 4 * words)
+        emit(f"pack_thresh nmsq {name}", lambda: pack_thresh(kg, kb), "pack_thresh_kernel", n,
+             4 * px + 2 * 4 * words)
+        if h != 2160:
+            emit(f"ff_pack {name}", lambda: ff_pack(frame, thr), "ff_pack_kernel", n,
+                 3 * px + 2 * 4 * words)
+        if h == 1080:
+            lows = np.linspace(5, 60, 16).astype(np.int32)
+            highs = np.linspace(20, 180, 16).astype(np.int32)
+            b = sweep_bounds(torch.from_numpy(lows).cuda(), torch.from_numpy(highs).cuda(),
+                             CannyConfig(height=h, width=w))
+            b = b.view(16, 2)[sweep_order(b).long()].reshape(-1)
+            fk = torch.zeros((16, -(-h // 32), w), dtype=torch.int32, device="cuda")
+            pk = torch.zeros_like(fk)
+            emit("sweep_pack_all K=16 1080p", lambda: (sweep_pack_all(kg, b, fk, pk), fk, pk)[1:],
+                 "sweep_pack_all_kernel", n, 4 * px + 2 * 16 * 4 * words)
+        del frame, tmap, kg
+        torch.cuda.empty_cache()
+
+    eng = CannyEngine(CannyConfig(height=1080, width=1920), device="cuda")
+    scenes = [torch.from_numpy(make_scene(1080, 1920, seed=s)).cuda() for s in range(8)]
+    for name, call, passes in (
+            ("process_all 1080p 8-scene stream", eng.process_all, 3),
+            ("process THRESH 1080p 8-scene stream", lambda f: eng.process(f, CannyStage.THRESH), 5)):
+        row = trace(name, call, scenes, 1, passes)
+        outs = [call(f) for f in scenes]
+        outs = [v for o in outs for v in (o.values() if isinstance(o, dict) else [o])]
+        row.update(label=label, card=card, sha=digest(outs),
+                   busy_us_per_frame=row["busy_us"] / row["frames"],
+                   wall_ms_per_frame=ms_per_call(lambda: [call(f) for f in scenes], reps=7) / 8)
+        rows.append(row)
+    return rows
+
+
+PARTS = ("trace", "sizes", "sweeps", "sharded", "split", "app", "rounds", "ff", "packs",
+         "stages")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", type=Path, help="also write the JSON lines here")
-    ap.add_argument("--parts", default=",".join(PARTS[:-3]), help=f"comma-separated of {PARTS}")
+    ap.add_argument("--parts", default=",".join(PARTS[:-4]), help=f"comma-separated of {PARTS}")
     ap.add_argument("--root", type=Path, help="profile the package of this checkout")
     ap.add_argument("--label", default="this checkout",
-                    help="the rounds, ff and packs parts' label")
+                    help="the rounds, ff, packs and stages parts' label")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("port_profile: needs a CUDA device", file=sys.stderr)
@@ -529,6 +638,8 @@ def main() -> int:
         rows += ff(args.label)
     if "packs" in parts:
         rows += packs(args.label)
+    if "stages" in parts:
+        rows += stages(args.label)
     lines = [json.dumps(r) for r in rows]
     print("\n".join(lines))
     if args.out:
