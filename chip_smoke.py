@@ -115,7 +115,18 @@ Phases, each printing its lines before the last:
    (the card's ``auto`` mode: kernel busy time); a ``BatchSource``
    of 8 through the batched kernels; ``device_health_check``; ms/frame and
    fps of host frames (pinned staging) and of ``preload_device_loop``
-   against the bare engine stream.
+   against the bare engine stream;
+13. the benchmark (``python -m cudacam_tpu_torch bench``'s ``main``): the 1080p
+   8-scene stream through ``CannyEngine.process``, one JSON line whose metric
+   names the ``event`` clock and ``cuda``, printed here (the card's line and
+   the kernels' busy time come on standard error), every count set to 0 just
+   before and read just after;
+14. parity's card route (``parity._our_canny`` on ``device='cuda'``: a cached
+   ``CannyEngine``) on ``make_scene`` frames at 288x512 and 540x960, in both
+   threshold domains at the parity gate's pairs (10, 40), (20, 60), (30, 90),
+   byte-equal (``max_abs_err`` 0) to the CPU route (``torch_ops``). The scores
+   need cv2, which the card's host lacks: the CPU tests hold them to the JAX
+   package's.
 
 Any failure raises and exits non-zero before the result line. Without a
 CUDA device, or outside a checkout of the repository, it fails at once.
@@ -1724,6 +1735,57 @@ class Smoke:
             print(f"time app 1080p BGR, {label}: {ms!r} ms/frame, {1e3 / ms!r} fps (wall clock, "
                   f"medians of 5 runs)")
 
+    def phase_bench(self) -> None:
+        """``benchmark.main`` on the card: exactly one JSON line, the event
+        clock on cuda."""
+        import contextlib
+        import io
+
+        from cudacam_tpu_torch import benchmark
+        from cudacam_tpu_torch.ops import cuda as kernels
+
+        main = ("ff_pack", "hyst_phase1", "hyst_phase2", "unpack")
+        buf = io.StringIO()
+
+        def run():
+            with contextlib.redirect_stdout(buf):
+                benchmark.main(device="cuda")
+
+        self.path("bench main (1080p, 8 scenes)", run, {})
+        counts = kernels.launch_counts()
+        require(all(counts[k] > 0 for k in main), f"bench launched {counts}")
+        lines = [ln for ln in buf.getvalue().splitlines() if ln.strip()]
+        require(len(lines) == 1, f"bench printed {len(lines)} lines: {buf.getvalue()!r}")
+        rec = json.loads(lines[0])
+        require(set(rec) == {"metric", "value", "unit", "vs_baseline"}, f"bench keys {sorted(rec)}")
+        require(rec["metric"] == "canny_1080p_event_ms_per_frame_cuda" and rec["value"] > 0,
+                f"bench line {rec}")
+        print(f"bench: {lines[0]}")
+
+    def phase_parity(self) -> None:
+        """Parity's card route against its CPU route, byte for byte."""
+        import numpy as np
+        from cudacam_tpu_torch import parity
+        from cudacam_tpu_torch.io.sources import make_scene
+
+        n = 0
+        for h, w in ((288, 512), (540, 960)):
+            for seed in (0, 1):
+                frame = make_scene(h, w, seed=seed)
+                for lo, hi in ((10, 40), (20, 60), (30, 90)):
+                    # compare_frame's thresholds in each domain.
+                    for domain, pair in (("reference", (lo, hi)), ("opencv", (2 * lo, 2 * hi))):
+                        got = parity._our_canny(frame, *pair, domain, "cuda")
+                        want = parity._our_canny(frame, *pair, domain, "cpu")
+                        err = int(np.abs(got.astype(np.int16) - want.astype(np.int16)).max())
+                        require(got.shape == want.shape and err == 0,
+                                f"parity {h}x{w} seed {seed} {domain} {pair}: card differs "
+                                f"from CPU by {err}")
+                        n += 1
+        print(f"parity: the card route (CannyEngine) == the CPU route (torch_ops) on {n} maps "
+              "(288x512 and 540x960, two scenes each, both domains, the gate's three pairs; "
+              "max_abs_err 0)")
+
     def phase_no_sync(self) -> None:
         torch = self.torch
         from cudacam_tpu_torch import CannyStage
@@ -2014,7 +2076,8 @@ def main() -> int:
                   smoke.phase_sweep, smoke.phase_engine, smoke.phase_sharded,
                   smoke.phase_no_sync, smoke.phase_timing, smoke.phase_sweep_timing,
                   smoke.phase_sharded_timing, smoke.phase_split, smoke.phase_legacy,
-                  smoke.phase_probes, smoke.phase_app]
+                  smoke.phase_probes, smoke.phase_app, smoke.phase_bench,
+                  smoke.phase_parity]
         for phase in phases:
             phase()
             print(f"[{phase.__name__} done at {time.perf_counter() - t0:.1f} s]", flush=True)

@@ -5,6 +5,9 @@ Usage:
     python -m cudacam_tpu_torch run --device cpu --source synthetic:64x128 --frames 8
     python -m cudacam_tpu_torch sweep --source synthetic:540x960
     python -m cudacam_tpu_torch sweep --device cpu --lows 5,40 --highs 20,120
+    python -m cudacam_tpu_torch bench
+    python -m cudacam_tpu_torch bench --full
+    python -m cudacam_tpu_torch parity --device cpu --frames 5
     python -m cudacam_tpu_torch info
     python -m cudacam_tpu_torch convert clip.npy clip.rawv
 
@@ -15,7 +18,9 @@ and writes the same bytes as ``python -m cudacam_tpu convert``. ``run``
 takes the JAX CLI's flags except ``--backend`` (the route follows
 ``--device``); ``--continuation split`` opts into the column-split phase-2
 continuation, and ``--trace DIR`` writes a ``torch.profiler`` chrome trace.
-``parity`` and ``bench`` are not ported yet.
+``bench`` prints the one JSON line of ``benchmark.main`` (``--full``: the
+extended table, written to ``BENCH_TABLE_CUDA.md``). ``parity`` scores the
+edge maps against ``cv2.Canny`` and needs OpenCV (``cv2``) on the host.
 """
 from __future__ import annotations
 
@@ -172,8 +177,20 @@ def cmd_info(args: argparse.Namespace) -> int:
         "kernel_sizes": sorted(GAUSSIAN_TAPS),
         "default_thresholds": [10, 40],
         "stages": [s.name for s in CannyStage],
+        "commands": ["run", "sweep", "bench", "parity", "info", "convert"],
     }
     print(json.dumps(info, indent=2))
+    return 0
+
+
+def cmd_bench(args: argparse.Namespace) -> int:
+    from cudacam_tpu_torch import benchmark
+
+    dev = _device(args.device)
+    if args.full:
+        benchmark.full_table(device=dev)
+    else:
+        benchmark.main(device=dev)
     return 0
 
 
@@ -211,6 +228,24 @@ def cmd_sweep(args: argparse.Namespace) -> int:
         for (lo, hi), m in zip(pairs, arr):
             save_png(f"{args.save_dir}/edges_lo{lo}_hi{hi}.png", m)
         print(f"saved {len(pairs)} maps to {args.save_dir}")
+    return 0
+
+
+def cmd_parity(args: argparse.Namespace) -> int:
+    """Structural parity report against cv2.Canny (the reference's own
+    manual correctness check, README.md:16, done as a measured tool)."""
+    from cudacam_tpu_torch.parity import parity_report
+
+    rep = parity_report(
+        n_frames=args.frames,
+        height=args.height,
+        width=args.width,
+        low=args.low,
+        high=args.high,
+        source_spec=args.source,
+        device=_device(args.device),
+    )
+    print(json.dumps(rep, indent=2))
     return 0
 
 
@@ -328,6 +363,23 @@ def build_parser() -> argparse.ArgumentParser:
     ps.add_argument("--save-dir", default=None, help="save each edge map as PNG")
     _add_device_arg(ps)
     ps.set_defaults(fn=cmd_sweep)
+
+    pb = sub.add_parser("bench", help="run the standard benchmark (one JSON line)")
+    pb.add_argument("--full", action="store_true",
+                    help="extended table -> BENCH_TABLE_CUDA.md")
+    _add_device_arg(pb)
+    pb.set_defaults(fn=cmd_bench)
+
+    pp = sub.add_parser("parity", help="structural parity report vs cv2.Canny (needs cv2)")
+    pp.add_argument("--frames", type=int, default=5)
+    pp.add_argument("--height", type=int, default=540)
+    pp.add_argument("--width", type=int, default=960)
+    pp.add_argument("--low", type=int, default=10)
+    pp.add_argument("--high", type=int, default=40)
+    pp.add_argument("--source", default=None,
+                    help="optional source spec (default: synthetic scenes)")
+    _add_device_arg(pp)
+    pp.set_defaults(fn=cmd_parity)
     return p
 
 

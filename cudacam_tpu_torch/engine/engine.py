@@ -10,8 +10,9 @@ fallback between the two.
 Thresholds are held as one device int32 [low, high] tensor that the
 kernels read, so a threshold change rebuilds nothing and the hot path reads
 nothing back to the host. A batched (B, H, W[, 3]) input runs HYSTER as one
-launch of each kernel for the whole batch; the display stages and
-``process_all`` loop over its frames, as the JAX package maps over them.
+launch of each kernel for the whole batch, and a display stage as one
+``ff_stages`` launch for the whole batch; ``process_all`` loops over its
+frames, as the JAX package maps over them.
 ``threshold_sweep`` runs K threshold pairs over one frame.
 
 Per-stage profiling is off by default and then adds nothing to ``process``:

@@ -13,7 +13,9 @@ ops on both sides, so they are equal too.
 from __future__ import annotations
 
 import dataclasses
+import json
 
+import numpy as np
 import pytest
 import torch
 
@@ -973,3 +975,24 @@ def test_swar_stencil_matches_plain(dev, shape, body):
     want = i16_swar.swar_stencil_plain(x, body)
     for swar in (True, False):
         assert torch.equal(i16_swar.swar_stencil(x, body, swar), want), swar
+
+
+@pytest.mark.parametrize("domain,pair", [("reference", (10, 40)), ("reference", (30, 90)),
+                                         ("opencv", (20, 80)), ("opencv", (60, 180))])
+def test_parity_card_route_equals_cpu_route(dev, domain, pair):
+    from cudacam_tpu_torch import parity
+
+    for h, w, seed in ((288, 512, 0), (37, 53, 1)):
+        frame = make_scene(h, w, seed=seed)
+        assert np.array_equal(parity._our_canny(frame, *pair, domain, dev),
+                              parity._our_canny(frame, *pair, domain, "cpu"))
+
+
+def test_bench_main_prints_one_event_line(dev, capsys):
+    from cudacam_tpu_torch import benchmark
+
+    benchmark.main(device=dev, height=270, width=480)
+    lines = [ln for ln in capsys.readouterr().out.splitlines() if ln.strip()]
+    assert len(lines) == 1
+    rec = json.loads(lines[0])
+    assert rec["metric"] == "canny_270x480_event_ms_per_frame_cuda" and rec["value"] > 0

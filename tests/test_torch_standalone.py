@@ -3,6 +3,7 @@ and its own copies of what it took from there (config, stages, the oracle's
 constants, the frame sources, ``convert``) equal the originals."""
 from __future__ import annotations
 
+import ast
 import dataclasses
 import pkgutil
 import struct
@@ -48,7 +49,8 @@ def test_every_module_imports_with_jax_and_the_jax_package_blocked():
     assert "cudacam_tpu_torch.parallel.sharded" in names and len(names) > 20
     for new in ("app", "io.ring", "io.metrics", "io.multi", "io.compose", "io.keys", "io.server",
                 "utils.logging", "utils.timer", "utils.devtime", "utils.debug",
-                "ops.cuda.hysteresis", "probes.hyster_kernel", "probes.i16_swar"):
+                "ops.cuda.hysteresis", "probes.hyster_kernel", "probes.i16_swar",
+                "benchmark", "parity"):
         assert f"cudacam_tpu_torch.{new}" in names
     code = _BLOCKED + (
         "import importlib, numpy as np\n"
@@ -68,6 +70,11 @@ def test_every_module_imports_with_jax_and_the_jax_package_blocked():
         "    assert app.run(3) == 3 and app.ring.latest_np().shape == (24, 32)\n"
         "assert main(['run', '--device', 'cpu', '--source', 'synthetic:24x32', '--frames', '2',\n"
         "             '--continuation', 'split']) == 0\n"
+        "from cudacam_tpu_torch import benchmark, parity\n"
+        "benchmark.main(device='cpu', height=24, width=32)\n"
+        "frame = make_scene(32, 48, seed=3)\n"
+        "assert set(parity.compare_frame(frame, device='cpu')) >= {'exact_iou'}\n"
+        "assert parity.cv2_input(frame).shape == (32, 48)\n"
         "import importlib.util\n"
         "for tool in ('port_kernel_probe', 'port_i16_probe'):\n"
         "    spec = importlib.util.spec_from_file_location(tool, f'tools/{tool}.py')\n"
@@ -80,6 +87,33 @@ def test_every_module_imports_with_jax_and_the_jax_package_blocked():
     res = subprocess.run([sys.executable, "-c", code], cwd=_REPO, capture_output=True, text=True,
                          timeout=240)
     assert res.returncode == 0 and "standalone ok" in res.stdout, res.stdout + res.stderr
+
+
+_EXAMPLES = sorted((_REPO / "examples").glob("torch_*.py"))
+
+
+@pytest.mark.parametrize("path", _EXAMPLES, ids=[p.name for p in _EXAMPLES])
+def test_examples_import_only_the_port(path):
+    """The port's examples import nothing of JAX or the JAX package: their
+    own imports are the port's modules (each imported above with both
+    blocked), the standard library and numpy."""
+    tree = ast.parse(path.read_text())
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom):
+            roots.add(node.module.split(".")[0])
+    assert "cudacam_tpu_torch" in roots
+    assert not roots & {"jax", "jaxlib", "cudacam_tpu"}, roots
+    assert roots <= {"cudacam_tpu_torch", "numpy", "torch", "argparse", "os", "sys", "typing",
+                     "threading", "time"}, roots
+
+
+def test_there_are_four_examples():
+    assert [p.name for p in _EXAMPLES] == ["torch_basic.py", "torch_custom_source.py",
+                                           "torch_live_controls.py",
+                                           "torch_sharded_megaframe.py"]
 
 
 #: The JAX package's fields that select one of its executors: the port's
