@@ -55,7 +55,14 @@ Phases, each printing its lines before the last:
    ``sweep_pack_all``, 15 seeds, 32 round kernels; equal to the
    plain cold sweep ``torch_ops.threshold_sweep``, edge counts falling as
    the thresholds rise). The CPU tests hold the plain path to the NumPy
-   oracle and the JAX package;
+   oracle and the JAX package; then K6 over a batch: ``pack_thresh`` on an
+   x8 1080p stack of threshold maps (seven scenes' and the spiral) against
+   its plain version, ``hysteresis_fused_batched`` at caps 2, 12 and 100 on
+   1, 3 and 8 of them (4 launches a call) against its plain version and
+   against each map's one-map call, ``process_all`` on the x8 batch (5
+   launches) against 8 single calls key by key, and their times (CUDA
+   events, the profiler's busy time, the wall clock; 8 single
+   ``process_all`` calls beside the batched one);
 6. the tile-sharded path (``ShardedCannyEngine`` on a one-card mesh): the
    export pack (``ff_pack_export``) and phase 1 (K8), the two refreshes
    (``halo_exchange``), the host loop's round kernels (K9, ``saturate_packed``)
@@ -115,7 +122,13 @@ Phases, each printing its lines before the last:
    (the card's ``auto`` mode: kernel busy time); a ``BatchSource``
    of 8 through the batched kernels; ``device_health_check``; ms/frame and
    fps of host frames (pinned staging) and of ``preload_device_loop``
-   against the bare engine stream;
+   against the bare engine stream; then the native frame pump: a 64-frame
+   1080p BGR ``.rawv`` written to a temporary directory, ``CannyApp`` on a
+   ``RawvSource`` uploading from the pump's pinned slots, every edge map
+   equal to ``CannyEngine.process`` of its frame, and the app's ms/frame
+   from the looped file beside the same frames through today's route (a
+   list source and the pinned staging copy), with the ``Memcpy HtoD`` µs
+   the profiler gives;
 13. the benchmark (``python -m cudacam_tpu_torch bench``'s ``main``): the 1080p
    8-scene stream through ``CannyEngine.process``, one JSON line whose metric
    names the ``event`` clock and ``cuda``, printed here (the card's line and
@@ -169,7 +182,7 @@ REPLACES = {
     "hyst_phase2": f"{_MEGA}:839, {_FUSED}, {_SWEEP}",
     "unpack": f"{_MEGA}:569, {_MEGA}:1109, {_FUSED}, {_SWEEP}",
     "ff_stages": "cudacam_tpu/ops/pallas/feedforward.py:810",
-    "pack_thresh": _FUSED,
+    "pack_thresh": f"{_FUSED}, via :983 (hysteresis_fused_batched)",
     "sweep_pack_all": _SWEEP,
     "sweep_seed": _SWEEP,
     "ff_pack_export": _EXPORT,
@@ -219,6 +232,13 @@ SOURCES = {
 #: 32-bit arithmetic outside the tensor cores; no table lists int32 apart).
 HBM_BYTES_PER_S = 3.35e12
 OPS_PER_S = 67e12
+
+
+def bound_ms(nbytes: float, ops: float) -> tuple:
+    """(ms, "bytes" or "operations"): the larger of ``nbytes`` over HBM
+    bandwidth and ``ops`` over the 32-bit peak, and which one it is."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 #: Operations per pixel of the stencil chain (mono, Gaussian, Sobel,
 #: magnitude, NMS, double threshold): 6 for mono, 2 per Gaussian tap plus the
 #: division, 24 for the two Sobel sums, 3 for the squared magnitude, 10 for
@@ -372,10 +392,17 @@ class Smoke:
 
     def set_bound(self, name: str, nbytes: float, ops: float) -> None:
         """The least time the card could take for the timed call of
-        ``name``: the larger of its bytes over HBM bandwidth and its
-        operations over the 32-bit peak."""
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / OPS_PER_S
-        self.bound[name] = (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+        ``name`` (:func:`bound_ms`)."""
+        self.bound[name] = bound_ms(nbytes, ops)
+
+    def wall_ms(self, run, n: int) -> float:
+        """Wall-clock ms per frame of ``run()`` over ``n`` frames, from an
+        idle card to the last frame's end."""
+        self.torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        self.torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / n
 
     def time_ms(self, fn, n: int, reps: int = 5, setup=None) -> float:
         """CUDA-event milliseconds per call of ``fn(state)``: ``n`` calls
@@ -879,6 +906,101 @@ class Smoke:
         require(n == sorted(n, reverse=True) and n[0] > n[-1] > 0, f"sweep edge counts {n}")
         print(f"threshold_sweep 1080p K=16 == plain cold sweep; edge counts {n}")
         self.eng, self.frames, self.cfg, self.batch = eng, frames, cfg, batch
+
+    def phase_batched_hysteresis(self) -> None:
+        """K6 over a batch (``hysteresis_fused_batched``) and ``process_all``
+        on a batch through it, at x8 1080p."""
+        torch = self.torch
+        from cudacam_tpu_torch import CannyStage
+        from cudacam_tpu_torch.ops.cuda import hysteresis_fused_batched, hysteresis_fused_batched_plain
+        from cudacam_tpu_torch.ops.cuda.hysteresis_fused import (
+            hysteresis_fused, pack_thresh, pack_thresh_plain,
+        )
+        from cudacam_tpu_torch.io.sources import make_spiral_thresh
+
+        eng, h, w = self.eng, 1080, 1920
+        # Seven scenes' threshold maps and the spiral map: mixed depths.
+        maps = [eng.process(f, CannyStage.THRESH) for f in self.frames[:7]]
+        maps.append(torch.from_numpy(make_spiral_thresh(h, w)).to(self.dev))
+        stack = torch.stack(maps)
+        got, want = pack_thresh(stack), pack_thresh_plain(stack)
+        self.diff("pack_thresh", got[0], want[0])
+        self.diff("pack_thresh", got[1], want[1])
+        print("pack_thresh on an x8 1080p stack (7 scenes' maps + the spiral) == plain, one launch")
+        four = dict(pack_thresh=1, hyst_phase1=1, hyst_phase2=1, unpack=1)
+        for cap, scan_after in ((2, 1), (12, 10), (100, 64)):
+            kw = dict(max_iters=cap, dilate_steps=16, scan_after=scan_after)
+            for g in (1, 3, 8):
+                out = self.path(f"hysteresis_fused_batched, {g} x 1080p, cap {cap}",
+                                lambda: hysteresis_fused_batched(stack[:g], **kw), four)
+                plain = hysteresis_fused_batched_plain(stack[:g], **kw)
+                for name in four:
+                    self.diff(name, out, plain)
+                for i in range(g):
+                    self.diff("pack_thresh", out[i], hysteresis_fused(stack[i], **kw))
+            finals = (out == 255).sum((1, 2)).tolist()
+            print(f"hysteresis_fused_batched cap {cap} (scan_after {scan_after}) at g = 1, 3, 8: "
+                  f"4 launches a call, == plain and == 8 one-map calls (max_abs_err 0); "
+                  f"FINAL pixels per map at g = 8: {finals}")
+
+        batch = self.batch  # 7 scenes + the spiral frame
+        five = dict(ff_stages=1, **four)
+        allb = self.path("process_all, 8 x 1080p batch", lambda: eng.process_all(batch), five)
+        for i in range(len(batch)):
+            one = eng.process_all(batch[i])
+            for k, e in one.items():
+                g = allb[k][i]
+                require(g.dtype == e.dtype and torch.equal(g, e),
+                        f"process_all batch frame {i} key {k} differs from its single call")
+        print("process_all on the x8 batch (7 scenes + spiral): 5 launches, every key == "
+              "8 single calls")
+        self.k6_stack = stack
+
+    def phase_batched_timing(self) -> None:
+        """Times of the batched K6 call and its pack (events, the profiler's
+        busy time, plain, bound) and of ``process_all`` on an x8 batch
+        against 8 single calls in the same process. Before the sharded
+        phases, so that the app phase's device-mode table, minutes later,
+        meets the profiler's loss of a session's first records
+        (``utils.devtime.SENTINELS``; ROADMAP Queue 3, F8)."""
+        torch = self.torch
+        from cudacam_tpu_torch.ops.cuda import hysteresis_fused_batched, hysteresis_fused_batched_plain
+        from cudacam_tpu_torch.ops.cuda.hysteresis_fused import pack_thresh, pack_thresh_plain
+        from cudacam_tpu_torch.ops.cuda.megakernel import converge
+        from cudacam_tpu_torch.utils.devtime import device_time_ms_per_call
+
+        eng, stack, batch, h, w = self.eng, self.k6_stack, self.batch, 1080, 1920
+        kw = dict(max_iters=100, dilate_steps=16, scan_after=64)
+        nb, px, words = len(stack), h * w, -(-h // 32) * w
+        f, p = pack_thresh(stack)
+        flags = torch.empty((nb, 2, 2), dtype=torch.int32, device=self.dev)
+        converge(f, p, flags, h, **kw)
+        r1, r2 = flags[:, 0, 0].tolist(), flags[:, 1, 0].tolist()
+        k6_ops = sum(a * round_ops(words, 16, False) + (b - a) * round_ops(words, 16, True)
+                     for a, b in zip(r1, r2)) + nb * (4 * px + 2 * px)
+        for label, nbytes, ops, run, plain in (
+                ("pack_thresh x8 (one launch)", nb * (px + 2 * 4 * words), nb * 4 * px,
+                 lambda: pack_thresh(stack), lambda: pack_thresh_plain(stack)),
+                ("hysteresis_fused_batched x8 (4 launches)", nb * 2 * px, k6_ops,
+                 lambda: hysteresis_fused_batched(stack, **kw),
+                 lambda: hysteresis_fused_batched_plain(stack, **kw))):
+            ev = self.time_ms(lambda _: run(), 5 if "pack" in label else 1,
+                              reps=5 if "pack" in label else 3)
+            busy = device_time_ms_per_call(run, calls=3, device=self.dev)
+            pl = self.time_ms(lambda _: plain(), 1, reps=1)
+            bound, by = bound_ms(nbytes, ops)
+            print(f"time {label}, 1080p maps: events {ev!r} ms a call, busy {busy!r} ms, plain "
+                  f"{pl!r} ms, bound {bound!r} ms ({by}) (rounds per map {list(zip(r1, r2))})")
+
+        for what, frames in (("7 scenes + spiral", batch), ("8 scenes", torch.stack(self.frames[:8]))):
+            for label, run in (("x8 batch, one call", lambda: eng.process_all(frames)),
+                               ("8 single calls", lambda: [eng.process_all(x) for x in frames])):
+                ev = self.time_ms(lambda _: run(), 1, reps=7) / nb
+                busy = device_time_ms_per_call(run, calls=3, device=self.dev)
+                busy = None if busy is None else busy / nb  # None: the trace shows no device time
+                wall = statistics.median(self.wall_ms(run, nb) for _ in range(7))
+                print(f"time process_all 1080p, {what}, {label}: events {ev!r} ms/frame, busy "
+                      f"{busy!r} ms/frame, wall {wall!r} ms/frame (medians of 7; busy over 3 calls)")
 
     def check_tiles(self, label: str, eng, frames, loop_rounds=None, max_rounds: int = 2,
                     **schedule) -> None:
@@ -1624,6 +1746,7 @@ class Smoke:
         from cudacam_tpu_torch.io.compose import compose
         from cudacam_tpu_torch.ops import cuda as kernels
         from cudacam_tpu_torch.ops.cuda import _build
+        from cudacam_tpu_torch.utils import devtime
         from cudacam_tpu_torch.utils.debug import device_health_check
 
         h, w = 1080, 1920
@@ -1692,7 +1815,8 @@ class Smoke:
             print("app: thresholds, a stage cycle through all six, pipeline off/on, profiling "
                   "on/off mid-stream == CannyEngine.process, nothing built; profiling table "
                   f"(mode {app.engine._profiling_mode_resolved()}: kernel busy time, every row "
-                  f"> 0):\n{table}")
+                  f"> 0; profiler sessions refused as not whole in this process so far: "
+                  f"{devtime.refused_sessions}):\n{table}")
 
         # Eight cameras: the batched kernels, one launch each a step.
         with CannyApp(open_source("multi:8*synthetic:1080x1920", n_frames=4)) as app:
@@ -1709,31 +1833,152 @@ class Smoke:
 
         # ms/frame, wall clock to the last frame's end: host frames through the
         # pinned staging buffers, the device loop, the bare engine stream.
-        def wall_ms(run, n):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            run()
-            torch.cuda.synchronize()
-            return (time.perf_counter() - t0) * 1e3 / n
-
         def app_ms(source, n, loop=0):
             with CannyApp(source) as app:
                 app.warmup()
                 if loop:
                     app.preload_device_loop(loop)
                 app.run(16)
-                return statistics.median(wall_ms(lambda: app.run(n), n) for _ in range(5))
+                return statistics.median(self.wall_ms(lambda: app.run(n), n) for _ in range(5))
 
         host_ms = app_ms(SequenceSource.from_array(scenes, loop=True), 200)
         loop_ms = app_ms(SequenceSource.from_array(scenes, loop=True), 400, loop=8)
         dev_frames = self.frames[:8]
         eng_ms = statistics.median(
-            wall_ms(lambda: [self.eng.process(f) for f in dev_frames * 50], 400) for _ in range(5))
+            self.wall_ms(lambda: [self.eng.process(f) for f in dev_frames * 50], 400) for _ in range(5))
         for label, ms in (("host frames, looped 8 scenes (pinned staging, non-blocking upload)", host_ms),
                           ("preload_device_loop(8)", loop_ms),
                           ("bare CannyEngine.process on 8 device frames", eng_ms)):
             print(f"time app 1080p BGR, {label}: {ms!r} ms/frame, {1e3 / ms!r} fps (wall clock, "
                   f"medians of 5 runs)")
+
+    def phase_native(self) -> None:
+        """The app on a ``.rawv`` through the native frame pump, uploading
+        from its pinned slots."""
+        torch = self.torch
+        import tempfile
+
+        import numpy as np
+        from cudacam_tpu_torch import CannyConfig
+        from cudacam_tpu_torch.app import CannyApp
+        from cudacam_tpu_torch.engine import CannyEngine
+        from cudacam_tpu_torch.io import SequenceSource, to_host
+        from cudacam_tpu_torch.io.sources import FrameSource, RawvSource
+        from cudacam_tpu_torch.native import FramePump, write_rawv
+        from cudacam_tpu_torch.utils.devtime import SENTINELS
+        from torch.profiler import ProfilerActivity, profile
+
+        h, w, n = 1080, 1920, 64
+        main = ("ff_pack", "hyst_phase1", "hyst_phase2", "unpack")
+        scenes = [to_host(f) for f in self.frames[:8]]
+        # 64 distinct frames: the eight scenes, each XOR-ed with its index.
+        clip = np.stack([scenes[i % 8] ^ np.uint8(i) for i in range(n)])
+        ref = CannyEngine(CannyConfig(height=h, width=w), device="cuda")
+        with tempfile.TemporaryDirectory() as tmp:
+            path = write_rawv(f"{tmp}/clip.rawv", clip)
+            with FramePump(path) as pump:
+                got = [pump.read() for _ in range(3)]
+            require(all(np.array_equal(a, clip[i]) for i, a in enumerate(got)),
+                    "the pump's frames differ from the file's")
+            with CannyApp(RawvSource(path)) as app:
+                require(app._lends and app._source.pinned, "the app does not upload from pinned slots")
+                app.warmup()
+                outs, bad = [], []
+
+                def check(i, out):  # the slot's frame; edge maps are held after the path
+                    outs.append(out)
+                    if not np.array_equal(app._last_input, clip[i]):
+                        bad.append(i)
+
+                done = self.path(f"app on a .rawv, {n} x 1080p BGR through the pump",
+                                 lambda: app.run(None, on_frame=check), dict.fromkeys(main, n))
+                bad += [i for i, out in enumerate(outs) if not torch.equal(out, ref.process(clip[i]))]
+                require(done == n and not bad, f"app on the pump: {done} frames, frames {bad} differ")
+            require(app._last_input.base is None and np.array_equal(app._last_input, clip[-1]),
+                    "after close the app's raw frame is not an owned copy of the last frame")
+            print(f"app on a {n}-frame 1080p BGR .rawv: uploads from the pump's pinned slots "
+                  f"(ring_slots 4), every edge map == CannyEngine.process of its frame; after "
+                  f"close the raw frame is an owned copy")
+
+            def app_ms(source, k=192):
+                with CannyApp(source) as app:
+                    app.warmup()
+                    app.run(16)
+                    ms = statistics.median(self.wall_ms(lambda: app.run(k), k) for _ in range(5))
+                    torch.cuda.synchronize()
+                    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                        for _ in range(SENTINELS[0]):  # the records the profiler may drop
+                            torch.cuda._sleep(1)
+                        torch.cuda.synchronize()
+                        app.run(16)
+                        torch.cuda.synchronize()
+                    htod = [e for e in prof.key_averages() if "Memcpy HtoD" in e.key]
+                    k = sum(e.count for e in htod)
+                    us = sum(e.self_device_time_total or e.device_time_total
+                             for e in htod) / k if k else None
+                    return ms, us, k, sorted(e.key for e in htod)
+
+            class PumpCopies(FrameSource):
+                """The pump's owned copies (``read()``): the app stages them."""
+
+                def _open(self):
+                    self._pump = FramePump(path, loop=True)
+
+                def _next(self):
+                    return self._pump.read()
+
+                def _close(self):
+                    self._pump.close()
+
+            class PythonReader(FrameSource):
+                """The looped file read in Python, a copy a frame: the reader
+                the pump replaced; the app stages its frames."""
+
+                def _open(self):
+                    self._f = open(path, "rb")
+                    self._shape = (h, w, 3)
+                    self._f.seek(28)  # the header
+
+                def _next(self):
+                    buf = self._f.read(h * w * 3)
+                    if not buf:
+                        self._f.seek(28)
+                        buf = self._f.read(h * w * 3)
+                    return np.frombuffer(buf, np.uint8).reshape(self._shape).copy()
+
+                def _close(self):
+                    self._f.close()
+
+            routes = {
+                "a looped .rawv through the pump, uploads from its pinned slots":
+                    lambda: RawvSource(path, loop=True),
+                "the pump's read() (an owned copy) and the pinned staging copy":
+                    PumpCopies,
+                "the file read in Python (the reader the pump replaced) and the pinned staging copy":
+                    PythonReader,
+                "the same 64 frames as a looped list source and the pinned staging copy":
+                    lambda: SequenceSource.from_array(clip, loop=True),
+            }
+            order = list(routes) + list(routes)[::-1]  # each route twice, in turns
+            times = {label: [] for label in routes}
+            for label in order:
+                times[label].append(app_ms(routes[label]()))
+            with FramePump(path, loop=True) as fp:  # the producer alone: lend, give back
+                for _ in range(16):
+                    fp.lend()
+                    fp.give_back()
+                t0 = time.perf_counter()
+                for _ in range(192):
+                    fp.lend()
+                    fp.give_back()
+                alone_ms = (time.perf_counter() - t0) * 1e3 / 192
+        for label, runs in times.items():
+            for ms, us, k, kinds in runs:
+                print(f"time app 1080p BGR, {label}: {ms!r} ms/frame, {1e3 / ms!r} fps (wall "
+                      f"clock, medians of 5 runs of 192 frames); Memcpy HtoD {us!r} us a copy "
+                      f"({k} copies in 16 profiled frames: {kinds})")
+        print(f"time the frame pump alone on the looped 1080p BGR .rawv (lend, give back; its "
+              f"producer thread reading each frame into a slot): {alone_ms!r} ms/frame")
 
     def phase_bench(self) -> None:
         """``benchmark.main`` on the card: exactly one JSON line, the event
@@ -2073,11 +2318,12 @@ def main() -> int:
     try:
         smoke = Smoke()
         phases = [smoke.phase_env, smoke.phase_build, smoke.phase_kernels,
-                  smoke.phase_sweep, smoke.phase_engine, smoke.phase_sharded,
+                  smoke.phase_sweep, smoke.phase_engine, smoke.phase_batched_hysteresis,
+                  smoke.phase_batched_timing, smoke.phase_sharded,
                   smoke.phase_no_sync, smoke.phase_timing, smoke.phase_sweep_timing,
                   smoke.phase_sharded_timing, smoke.phase_split, smoke.phase_legacy,
-                  smoke.phase_probes, smoke.phase_app, smoke.phase_bench,
-                  smoke.phase_parity]
+                  smoke.phase_probes, smoke.phase_app, smoke.phase_native,
+                  smoke.phase_bench, smoke.phase_parity]
         for phase in phases:
             phase()
             print(f"[{phase.__name__} done at {time.perf_counter() - t0:.1f} s]", flush=True)

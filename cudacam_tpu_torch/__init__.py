@@ -2,8 +2,9 @@
 
 The JAX package (``cudacam_tpu``) is the reference; the port imports nothing
 of it and keeps its own copies of what it needs (config, stages, the frame
-sources, the oracle's constants). Each TPU kernel becomes one written by
-hand for sm_90a (``csrc/``), built with nvcc at first use. Entry points run
+sources, the oracle's constants, the native frame pump). Each TPU kernel
+becomes one written by hand for sm_90a (``csrc/``), built with nvcc at
+first use; the frame pump (``native/``) is built with g++. Entry points run
 on the card unless the caller asks for the CPU. Importing the package needs
 no GPU, no nvcc, no triton and no jax.
 """

@@ -23,16 +23,22 @@ host readbacks, all through ``io.ring.to_host``.
 On the card the app owns ``ring_capacity`` pinned staging buffers: a host
 frame is copied into the next one and uploaded with a non-blocking copy on
 the engine's stream, so the run loop never waits for an upload; a buffer is
-reused only after the event recorded behind its last upload. Backpressure is
+reused only after the event recorded behind its last upload. A source that
+lends its ring slots (``RawvSource``, the native frame pump) skips the
+staging copy: its slots are registered as pinned memory when the app is
+made, each frame is uploaded straight from its slot, and a slot goes back to
+the pump only after the event behind its upload has completed. Backpressure is
 one event wait per ring turnover (``DeviceRingBuffer.wait``), never a
 device-wide synchronize. The app runs on ``device='cuda'`` unless asked for
 the CPU, and raises without a card.
 """
 from __future__ import annotations
 
+import collections
 import os
 import time
-from typing import Callable, List, Optional, Union
+import warnings
+from typing import Callable, Deque, List, Optional, Union
 
 import numpy as np
 import torch
@@ -79,6 +85,12 @@ class CannyApp:
         self._staging: Optional[List[torch.Tensor]] = None
         self._staging_events: List[Optional[object]] = [None] * ring_capacity
         self._staging_idx = 0
+        # A source that lends pinned ring slots, on the card: the event behind
+        # each lent slot's last upload, oldest first (None: not uploaded yet).
+        self._lends = self._engine.device.type == "cuda" and hasattr(source, "lend")
+        self._slot_uploads: Deque[Optional[torch.cuda.Event]] = collections.deque()
+        if self._lends:
+            source.pin()
         self._fps = FpsMeter()
         self._stage = CannyStage(final_stage)
         self._paused = False
@@ -254,6 +266,7 @@ class CannyApp:
         soaks/demos/benchmarks of replayable sources; live sources cannot
         use it (their frames would be ignored). Returns the number of frames
         actually preloaded."""
+        self._give_back_slots()
         frames = []
         for _ in range(max(1, int(n_frames))):
             try:
@@ -277,10 +290,24 @@ class CannyApp:
 
     def _upload(self, frame: np.ndarray) -> torch.Tensor:
         """A host frame as a tensor on the engine's device. On the card: a
-        copy into the next pinned staging buffer, then a non-blocking upload
-        on the current stream, with an event behind it; the buffer's previous
-        upload is waited for first (long done, in a stream that keeps up)."""
+        non-blocking upload on the current stream, with an event behind it,
+        straight from a lent ring slot (which must be pinned), or else from a
+        copy into the next pinned staging buffer, whose previous upload is
+        waited for first (long done, in a stream that keeps up)."""
         dev = self._engine.device
+        if self._lends:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", UserWarning)  # a read-only view: the copy reads it
+                host = torch.from_numpy(frame)
+            if not host.is_pinned():
+                raise RuntimeError("the source's ring slot is not pinned: a non-blocking upload "
+                                   "from it would be synchronous")
+            out = host.to(dev, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(dev))
+            if self._slot_uploads:  # empty only once a one-slot ring's stream ended
+                self._slot_uploads[-1] = event
+            return out
         host = torch.from_numpy(np.ascontiguousarray(frame))
         if dev.type != "cuda":
             return host
@@ -298,6 +325,50 @@ class CannyApp:
         event.record(torch.cuda.current_stream(dev))
         self._staging_events[i] = event
         return out
+
+    def _read_frame(self) -> np.ndarray:
+        """The source's next frame: on the slot route a view of its lent
+        slot. Slots whose uploads have completed go back first, oldest
+        first, except the newest (it holds the current raw frame); a ring
+        whose every slot is lent waits for its oldest upload (with one slot,
+        that is the newest, and the current raw frame is copied first)."""
+        if not self._lends:
+            return self._source.read()
+        q = self._slot_uploads
+        while len(q) > 1 and (q[0] is None or q[0].query()):
+            q.popleft()
+            self._source.give_back()
+        if q and self._source.lent >= self._source.ring_slots:
+            if q[0] is not None:
+                q[0].synchronize()
+            if len(q) == 1:
+                self._own_last_input()
+            q.popleft()
+            self._source.give_back()
+        frame = self._source.lend()
+        q.append(None)
+        return frame
+
+    def _own_last_input(self) -> None:
+        """Replace the current raw frame, a view of the newest lent slot, by
+        an owned copy before that slot goes back: a caller that holds the
+        frame (``preview``, ``save_frame`` after ``close``) never reads a
+        slot the producer refills or the pump has freed."""
+        if self._last_input is not None:
+            self._last_input = np.array(self._last_input)
+
+    def _give_back_slots(self) -> None:
+        """Wait for every upload from the source's slots and give every
+        lent slot back, the current raw frame kept as an owned copy."""
+        if self._lends:
+            torch.cuda.current_stream(self._engine.device).synchronize()
+        if self._slot_uploads:
+            self._own_last_input()
+        while self._slot_uploads:
+            event = self._slot_uploads.popleft()
+            if event is not None:
+                event.synchronize()
+            self._source.give_back()
 
     def step(self) -> object:
         """One iteration of the run loop (ImguiApp::run body,
@@ -325,7 +396,7 @@ class CannyApp:
             self._last_input = self._device_raw[self._device_idx]
         else:
             if not self._paused or self._last_input is None:
-                self._last_input = self._source.read()
+                self._last_input = self._read_frame()
             frame = self._upload(self._last_input)
         if self._pipeline_enabled:
             out = self._engine.process(frame, self._stage)
@@ -344,8 +415,10 @@ class CannyApp:
             and self._ring.total_pushed % self._publish_every == 0
         ):
             # self._last_input is always the HOST copy of the current raw
-            # frame (in device-loop mode ``frame`` is device-resident).
-            self._published_pair = (self._last_input, to_host(out))
+            # frame (in device-loop mode ``frame`` is device-resident); a
+            # lent slot's view is copied, since its slot goes back later.
+            raw = self._last_input.copy() if self._lends else self._last_input
+            self._published_pair = (raw, to_host(out))
         self._fps.tick()
         return out
 
@@ -504,6 +577,7 @@ class CannyApp:
         return path
 
     def close(self) -> None:
+        self._give_back_slots()
         self._source.stop()
 
     def __enter__(self) -> "CannyApp":

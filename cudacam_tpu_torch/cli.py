@@ -72,7 +72,7 @@ def cmd_run(args: argparse.Namespace) -> int:
 
     from cudacam_tpu_torch.app import CannyApp
     from cudacam_tpu_torch.config import CannyConfig
-    from cudacam_tpu_torch.io import open_source, to_host
+    from cudacam_tpu_torch.io import open_source
     from cudacam_tpu_torch.stages import CannyStage
 
     dev = _device(args.device)
@@ -96,8 +96,8 @@ def cmd_run(args: argparse.Namespace) -> int:
         raw_frames = [] if args.record_input else None
 
         def on_frame(i: int, out) -> None:
-            if raw_frames is not None:
-                raw_frames.append(to_host(app._last_input))
+            if raw_frames is not None:  # a copy: on the card the frame may be a pump slot's view
+                raw_frames.append(np.array(app._last_input))
             if args.preview != "none" and (i + 1) % args.preview_every == 0:
                 print(app.preview(width=args.preview_width, color=args.preview == "ansi"))
                 print(f"frame {i + 1}  stage={app.stage.name}  fps={app.fps:.1f}")

@@ -11,8 +11,8 @@ Thresholds are held as one device int32 [low, high] tensor that the
 kernels read, so a threshold change rebuilds nothing and the hot path reads
 nothing back to the host. A batched (B, H, W[, 3]) input runs HYSTER as one
 launch of each kernel for the whole batch, and a display stage as one
-``ff_stages`` launch for the whole batch; ``process_all`` loops over its
-frames, as the JAX package maps over them.
+``ff_stages`` launch for the whole batch, and ``process_all`` as the same
+five launches as one frame (the JAX package maps over the frames).
 ``threshold_sweep`` runs K threshold pairs over one frame.
 
 Per-stage profiling is off by default and then adds nothing to ``process``:
@@ -339,8 +339,8 @@ class CannyEngine(ThresholdControls):
 
     def _sample_ms(self, run: Callable[[], object]) -> float:
         """One device-mode sample of ``run``: kernel busy ms per call over 20
-        calls; CUDA events where the profiler shows no device time; on the
-        CPU, the wall clock of one call, which is honest there."""
+        calls; CUDA events where no profiler session gave a whole trace; on
+        the CPU, the wall clock of one call, which is honest there."""
         ms = None
         if self._device.type == "cuda":
             ms = device_time_ms_per_call(run, calls=20, device=self._device)
@@ -379,12 +379,8 @@ class CannyEngine(ThresholdControls):
         """Run everything, returning every stage buffer on the engine's
         device under the keys of ``xla_ops.canny_all_stages`` (stacked per
         key for a batch)."""
-        arr, batched = self._validate(frame)
-        thr = self._thresholds()
-        if not batched:
-            return canny.canny_all_stages(arr, thr, self._cfg)
-        per_frame = [canny.canny_all_stages(f, thr, self._cfg) for f in arr]
-        return {k: torch.stack([d[k] for d in per_frame]) for k in per_frame[0]}
+        arr, _ = self._validate(frame)
+        return canny.canny_all_stages(arr, self._thresholds(), self._cfg)
 
     def threshold_sweep(
         self, frame: FrameLike, lows, highs

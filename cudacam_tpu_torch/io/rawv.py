@@ -3,12 +3,12 @@
 A little-endian header (magic ``"RAWV"``, u32 version 1, u32 height, u32
 width, u32 channels, u64 n_frames; 28 bytes, packed) followed by n_frames
 contiguous uint8 frames of height * width * channels bytes each: the format
-the JAX package's native frame pump reads and writes, byte for byte.
+the native frame pump (``native/framepump.cpp``) reads and writes, byte for
+byte, as the JAX package's does.
 """
 from __future__ import annotations
 
 import struct
-from typing import BinaryIO, Tuple
 
 import numpy as np
 
@@ -27,15 +27,3 @@ def write_rawv(path: str, frames: np.ndarray) -> str:
         f.write(_HEADER.pack(_MAGIC, 1, h, w, c, n))
         f.write(frames.tobytes())
     return path
-
-
-def read_rawv_header(f: BinaryIO, path: str = "") -> Tuple[int, int, int, int]:
-    """(height, width, channels, n_frames) from the header at ``f``'s
-    position; raises on a malformed header."""
-    raw = f.read(_HEADER.size)
-    if len(raw) != _HEADER.size:
-        raise IOError(f"cannot open rawv stream {path}: short header")
-    magic, version, h, w, c, n = _HEADER.unpack(raw)
-    if magic != _MAGIC or version != 1 or h == 0 or w == 0 or c not in (1, 3):
-        raise IOError(f"cannot open rawv stream {path}: bad header")
-    return h, w, c, n

@@ -19,8 +19,6 @@ from typing import Iterator, Optional, Tuple
 
 import numpy as np
 
-from cudacam_tpu_torch.io.rawv import read_rawv_header
-
 log = logging.getLogger("cudacam_tpu_torch.io")
 
 
@@ -160,6 +158,13 @@ class FrameSource(abc.ABC):
     def read(self) -> np.ndarray:
         """Blocking read of the next frame; raises at end of stream or on a
         blank frame."""
+        nxt = self._take()
+        self._frame = nxt
+        return nxt
+
+    def _take(self) -> np.ndarray:
+        """The next frame, start()'s first while it is unserved; raises at
+        end of stream or on a blank frame."""
         if not self._running:
             raise RuntimeError("source not started")
         if self._pending is not None:
@@ -168,7 +173,6 @@ class FrameSource(abc.ABC):
             nxt = self._next()
             if nxt is None or nxt.size == 0:
                 raise EOFError(f"{type(self).__name__}: stream ended/blank frame")
-        self._frame = nxt
         return nxt
 
     def __iter__(self) -> Iterator[np.ndarray]:
@@ -357,39 +361,84 @@ class SequenceSource(FrameSource):
 
 
 class RawvSource(FrameSource):
-    """Frames from a ``.rawv`` stream (``io/rawv.py``), read in order."""
+    """Frames from a ``.rawv`` stream via the native prefetching frame pump
+    (``cudacam_tpu_torch/native``): a C++ producer thread fills a ring of
+    ``ring_slots`` page-aligned slots while the consumer overlaps device
+    work.
 
-    def __init__(self, path: str, loop: bool = False) -> None:
+    ``read()`` returns an owned copy of each frame. ``lend()`` returns the
+    next frame as a read-only view of its slot, which stays the frame's
+    until ``give_back()`` returns that slot (oldest lent first); ``pin()``
+    registers the slots as pinned memory, so that the app uploads straight
+    from them (``CannyApp`` on a card does both). ``frame`` holds only the
+    copies ``read()`` made, never a lent view."""
+
+    def __init__(self, path: str, loop: bool = False, ring_slots: int = 4) -> None:
         super().__init__()
         if not os.path.exists(path):
             raise FileNotFoundError(path)
         self._path = path
         self._loop = loop
-        self._f = None
-        self._shape: Tuple[int, ...] = ()
+        self._ring_slots = ring_slots
+        self._pump = None
 
     def _open(self) -> None:
-        self._f = open(self._path, "rb")
-        h, w, c, _ = read_rawv_header(self._f, self._path)
-        self._shape = (h, w, c) if c > 1 else (h, w)
-        self._header_bytes = self._f.tell()
+        from cudacam_tpu_torch.native import FramePump
+
+        self._pump = FramePump(self._path, loop=self._loop, ring_slots=self._ring_slots)
+
+    def start(self) -> None:
+        if not self._running:
+            super().start()
+            self._frame = None  # the first frame is a lent view until it is served
 
     def _next(self) -> Optional[np.ndarray]:
-        n = int(np.prod(self._shape))
-        buf = self._f.read(n)
-        if not buf and self._loop:
-            self._f.seek(self._header_bytes)
-            buf = self._f.read(n)
-        if len(buf) != n:
-            if buf:
-                raise IOError(f"torn frame in rawv stream {self._path}")
-            return None
-        return np.frombuffer(buf, np.uint8).reshape(self._shape).copy()
+        return self._pump.lend()  # start()'s first frame stays lent until it is served
+
+    def read(self) -> np.ndarray:
+        """Blocking read of the next frame, an owned copy; raises at end of
+        stream. Refused while slots are lent: its slot would not be the
+        oldest to give back."""
+        if self._running and self._pump.lent > (self._pending is not None):
+            raise RuntimeError("RawvSource.read while slots are lent: give them back first")
+        frame = self._take().copy()
+        self._pump.give_back()
+        self._frame = frame
+        return frame
+
+    def lend(self) -> np.ndarray:
+        """The next frame as a read-only view of its ring slot, valid until
+        :meth:`give_back` returns that slot; raises at end of stream."""
+        return self._take()
+
+    def give_back(self) -> None:
+        """Return the oldest lent slot to the producer."""
+        self._pump.give_back()
+
+    @property
+    def lent(self) -> int:
+        """Slots lent and not given back (a frame not yet read included)."""
+        return self._pump.lent if self._pump is not None else 0
+
+    @property
+    def ring_slots(self) -> int:
+        return self._ring_slots
+
+    def pin(self) -> None:
+        """Register the ring's slots as pinned memory (raises without a card
+        or when a registration fails)."""
+        if not self._running:
+            raise RuntimeError("source not started")
+        self._pump.pin()
+
+    @property
+    def pinned(self) -> bool:
+        return self._pump is not None and self._pump.pinned
 
     def _close(self) -> None:
-        if self._f is not None:
-            self._f.close()
-            self._f = None
+        if self._pump is not None:
+            self._pump.close()
+            self._pump = None
 
 
 def open_source(spec: str, **kw) -> FrameSource:

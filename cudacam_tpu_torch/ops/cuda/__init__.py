@@ -10,6 +10,9 @@ from typing import Dict
 
 from cudacam_tpu_torch.ops.cuda._build import LAUNCHES
 from cudacam_tpu_torch.ops.cuda.hysteresis import hysteresis_sweeps, hysteresis_sweeps_plain
+from cudacam_tpu_torch.ops.cuda.hysteresis_fused import (
+    hysteresis_fused_batched, hysteresis_fused_batched_plain,
+)
 
 #: Every kernel (and kernel mode): the HYSTER main path's four in launch
 #: order, then the display stages' feed-forward kernel, the two-kernel path's
@@ -26,8 +29,8 @@ KERNELS = ("ff_pack", "hyst_phase1", "hyst_phase2", "unpack", "ff_stages", "pack
            "hyst_sweeps", "probe_pack", "probe_pack_ballot", "probe_loop", "probe_unpack",
            "swar_stencil")
 
-__all__ = ["KERNELS", "hysteresis_sweeps", "hysteresis_sweeps_plain", "launch_counts",
-           "reset_launch_counts"]
+__all__ = ["KERNELS", "hysteresis_fused_batched", "hysteresis_fused_batched_plain",
+           "hysteresis_sweeps", "hysteresis_sweeps_plain", "launch_counts", "reset_launch_counts"]
 
 
 def launch_counts() -> Dict[str, int]:

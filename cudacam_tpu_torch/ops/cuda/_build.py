@@ -39,7 +39,7 @@ SIGNATURES = {
     "cc_ff_pack": (_I, [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P]),
     "cc_ff_pack_route": (_I, [_P, _I, _I]),
     "cc_ff_stages": (_I, [_P] * 8 + [_I] * 13 + [_P]),
-    "cc_pack_thresh": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "cc_pack_thresh": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "cc_hyst_phase1": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
     "cc_hyst_phase2": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "cc_hyst_scratch_words": (ctypes.c_longlong, [_I, _I, _I, _I]),

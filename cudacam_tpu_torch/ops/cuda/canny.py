@@ -12,7 +12,10 @@ fallback. The same calls take the plain versions on CPU tensors.
 * All stages (``process_all``): one ``ff_stages`` pass emits every display
   buffer, the float inspection planes are plain torch ops on its blur (as
   they are XLA ops in the JAX package), and the edge map comes from the
-  threshold map through ``hysteresis_fused`` (K6), the two-kernel path.
+  threshold map through ``hysteresis_fused`` (K6), the two-kernel path. A
+  batch is the same five launches and torch ops over (B, H, W), the edge
+  maps through ``hysteresis_fused_batched`` (the JAX package maps over the
+  frames).
 * The threshold sweep: one ``ff_stages`` pass emits the int32 ``keep * g``
   plane, the pairs become comparable-domain bounds (plain torch ops, as XLA
   ops in the JAX package), and ``sweep_fused`` (K5) runs every pair with the
@@ -33,7 +36,9 @@ from cudacam_tpu_torch.ops import torch_ops
 from cudacam_tpu_torch.ops.cuda.feedforward import (
     FF_STAGES, NMSQ, ff_stages, ff_stages_batched,
 )
-from cudacam_tpu_torch.ops.cuda.hysteresis_fused import hysteresis_fused, sweep_fused
+from cudacam_tpu_torch.ops.cuda.hysteresis_fused import (
+    hysteresis_fused, hysteresis_fused_batched, sweep_fused,
+)
 from cudacam_tpu_torch.ops.cuda.megakernel import (
     canny_mega_pipeline, canny_mega_pipeline_batched,
 )
@@ -98,13 +103,20 @@ def canny_all_stages(
     frame: torch.Tensor, thresholds: torch.Tensor, cfg: CannyConfig
 ) -> Dict[str, torch.Tensor]:
     """Every stage buffer of one (H, W[, 3]) uint8 frame, the ten keys of
-    ``xla_ops.canny_all_stages``. No host sync."""
-    gray = frame.ndim == 2
+    ``xla_ops.canny_all_stages``; of a (B, H, W[, 3]) batch, each key
+    stacked over the frames, from the same five launches (one
+    ``ff_stages``, :func:`hysteresis_fused_batched`'s four) and the same
+    torch ops as one frame. No host sync."""
+    gray = cfg.channels == 1
+    batched = frame.ndim == (3 if gray else 4)
     stages = FF_STAGES[1:] if gray else FF_STAGES
-    bufs = ff_stages(frame, thresholds, stages, **ff_kwargs(cfg))
+    run = ff_stages_batched if batched else ff_stages
+    bufs = run(frame, thresholds, stages, **ff_kwargs(cfg))
     mono, blur, grad_disp, nms, thresh = ((frame,) + bufs) if gray else bufs
     sx, sy = torch_ops.sobel_xy(blur)
     grad, slope = torch_ops.grad_slope(sx, sy, cfg.grad_coeff, cfg.norm)
+    hyster = (hysteresis_fused_batched(thresh, **hyster_kwargs(cfg)) if batched
+              else hysteresis_fused(thresh, **hyster_kwargs(cfg)))
     return {
         "mono": mono,
         "gaussian": blur,
@@ -115,7 +127,7 @@ def canny_all_stages(
         "gradient_display": grad_disp,
         "nms": nms,
         "thresh": thresh,
-        "hyster": hysteresis_fused(thresh, **hyster_kwargs(cfg)),
+        "hyster": hyster,
     }
 
 

@@ -10,6 +10,10 @@ unpack) becomes ``pack_thresh`` (``csrc/pack.cu``: a column walk, the one
 kernels and the unpack of ``ops/cuda/megakernel.py``, all on the device with
 no readback. It serves ``process_all``'s edge map; the nmsq mode takes the
 int32 ``keep * g`` plane and two bounds instead of a u8 map.
+``hysteresis_fused_batched`` (the JAX entry :983, which stacks g maps as
+sections of one tall map for one launch) is the same kernels over a batch:
+``pack_thresh`` takes a (g, H, W) stack in one launch, and the round
+kernels and the unpack take batches already: 4 launches for any g.
 
 Port of the TPU sweep kernel (hysteresis_fused.py:729 ``pallas_call`` in
 ``sweep_fused`` :644 -> ``_sweep_kernel`` :478): its one launch over a
@@ -63,10 +67,19 @@ def _check(src: torch.Tensor, bounds: Optional[torch.Tensor]) -> None:
         raise ValueError("bounds must be an int32 tensor [lo, hi]")
 
 
+def _check_batch(threshs: torch.Tensor) -> None:
+    if threshs.dtype != torch.uint8 or threshs.ndim != 3 or threshs.numel() == 0:
+        raise ValueError(f"expected a (g, H, W) uint8 stack of threshold maps, got "
+                         f"{tuple(threshs.shape)} {threshs.dtype}")
+
+
 def pack_thresh_plain(
     src: torch.Tensor, bounds: Optional[torch.Tensor] = None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of :func:`pack_thresh`, on any device."""
+    if src.ndim == 3:
+        planes = [pack_thresh_plain(t, bounds) for t in src]
+        return torch.stack([f for f, _ in planes]), torch.stack([p for _, p in planes])
     if bounds is None:
         return bitpack.pack_pair(src)
     lo, hi = bounds.clamp_min(0)
@@ -82,19 +95,25 @@ def pack_thresh(
     """Packed FINAL and CANDIDATE planes, (ceil(H/32), W) int32, of an
     (H, W) uint8 threshold map (FINAL == 255, CANDIDATE == 128); or, with
     int32 ``bounds`` [lo, hi] clamped at 0, of an (H, W) int32 ``keep * g``
-    plane (FINAL: kg > hi; CANDIDATE: lo < kg <= hi)."""
-    _check(src, bounds)
+    plane (FINAL: kg > hi; CANDIDATE: lo < kg <= hi). A (g, H, W) uint8
+    stack of maps gives (g, ceil(H/32), W) planes from one launch."""
+    if bounds is None and src.ndim == 3:
+        _check_batch(src)
+    else:
+        _check(src, bounds)
     if use_plain(src, bounds):
         return pack_thresh_plain(src, bounds)
     require_contiguous(src, *([bounds] if bounds is not None else []))
-    h, w = src.shape
-    f = torch.empty(((h + 31) // 32, w), dtype=torch.int32, device=src.device)
+    n = src.shape[0] if src.ndim == 3 else 1
+    h, w = src.shape[-2:]
+    f = torch.empty(tuple(src.shape[:-2]) + ((h + 31) // 32, w), dtype=torch.int32,
+                    device=src.device)
     p = torch.empty_like(f)
     lib = load()
     lib.check(
         lib.lib.cc_pack_thresh(
             src.data_ptr(), bounds.data_ptr() if bounds is not None else None,
-            f.data_ptr(), p.data_ptr(), h, w, int(bounds is not None), src.device.index,
+            f.data_ptr(), p.data_ptr(), n, h, w, int(bounds is not None), src.device.index,
             stream_of(src),
         ),
         "pack_thresh",
@@ -125,6 +144,7 @@ def hysteresis_fused(
     ``remove_candidates=False`` the candidates that were not promoted keep
     their 128; with ``return_iters`` the round count comes too, as a 0-d
     int32 tensor on the map's device (never read back here)."""
+    _check(thresh, None)
     out, flags = _hysteresis(thresh, None, max_iters, dilate_steps, scan_after)
     if not remove_candidates:
         out = torch.where(out == FINAL_EDGE, out, thresh)
@@ -149,6 +169,49 @@ def hysteresis_fused_nmsq(
         device=kg.device, dtype=torch.int32)
     out, _ = _hysteresis(kg, bounds, max_iters, dilate_steps, scan_after)
     return out
+
+
+def hysteresis_fused_batched_plain(
+    threshs: torch.Tensor,
+    max_iters: int = 100,
+    dilate_steps: int = 16,
+    scan_after: int = 10,
+) -> torch.Tensor:
+    """Plain PyTorch version of :func:`hysteresis_fused_batched`, on any
+    device: ``bitpack``'s pack, round loop and unpack, map by map."""
+    _check_batch(threshs)
+    h, w = threshs.shape[1:]
+    out = torch.empty_like(threshs)
+    for i, t in enumerate(threshs):
+        f, p = bitpack.pack_pair(t)
+        fc, _, _ = bitpack.converge_packed(f, p, h, w, dilate_steps, scan_after, max_iters)
+        out[i] = unpack_plain(fc, h)
+    return out
+
+
+def hysteresis_fused_batched(
+    threshs: torch.Tensor,
+    max_iters: int = 100,
+    dilate_steps: int = 16,
+    scan_after: int = 10,
+) -> torch.Tensor:
+    """Hysteresis of g independent (H, W) uint8 threshold maps, a (g, H, W)
+    stack -> (g, H, W) edge maps (255 / 0), each equal byte for byte to its
+    solo :func:`hysteresis_fused` call, under the cap too: the JAX
+    package's ``hysteresis_fused_batched`` (hysteresis_fused.py:983).
+
+    The JAX entry stacks the maps as sections of one tall map with zero
+    spacer rows, so that one launch serves them all. Here each map is a
+    frame of the batched kernels, which keep a round count and a stop test
+    per frame: ``pack_thresh`` over the stack, the two round kernels, one
+    ``unpack``: 4 launches for any g (3 where the cap is phase 1), no host
+    sync. A map that converges early stops there while another runs on to
+    the cap. u8 maps only, as the JAX entry takes."""
+    _check_batch(threshs)
+    f, p = pack_thresh(threshs)
+    flags = torch.empty((threshs.shape[0], 2, 2), dtype=torch.int32, device=threshs.device)
+    return converge_unpack(f, p, flags, threshs.shape[1], dilate_steps=dilate_steps,
+                           scan_after=scan_after, max_iters=max_iters)
 
 
 def _check_bounds(bounds: torch.Tensor) -> int:

@@ -42,18 +42,19 @@ def rgb2mono(bgr: torch.Tensor) -> torch.Tensor:
 
 
 def _conv2d_zero_pad_i32(img: torch.Tensor, taps: np.ndarray) -> torch.Tensor:
-    """Exact int32 2D correlation with zero padding, as a sum of shifted
-    planes of the zero-padded input."""
+    """Exact int32 2D correlation with zero padding over the last two
+    dimensions (a frame or a batch of frames), as a sum of shifted planes of
+    the zero-padded input."""
     kh, kw = taps.shape
     r = kh // 2
-    h, w = img.shape
+    h, w = img.shape[-2:]
     padded = F.pad(img.to(torch.int32), (r, r, r, r))
-    acc = torch.zeros((h, w), dtype=torch.int32, device=img.device)
+    acc = torch.zeros(img.shape, dtype=torch.int32, device=img.device)
     for dy in range(kh):
         for dx in range(kw):
             t = int(taps[dy, dx])
             if t:
-                acc += t * padded[dy : dy + h, dx : dx + w]
+                acc += t * padded[..., dy : dy + h, dx : dx + w]
     return acc
 
 

@@ -9,16 +9,24 @@ clock around an asynchronous call times the enqueue. Two honest clocks:
   last kernel's end, idle gaps between kernels included;
 * :func:`device_time_ms_per_call`: the kernels' own busy time under
   ``torch.profiler``, summed over every kernel the call launches, idle gaps
-  excluded: the 'device' profiling mode's source.
+  excluded: the 'device' profiling mode's source. A session opens with
+  throwaway launches whose records the profiler may drop, and counts only
+  when its trace is whole (every device entry a multiple of the calls, none
+  from before the session); another session is tried when it is not.
 
 On the CPU there is no device lane: both return ``None``, and the caller
 uses the wall clock, which is honest there.
 """
 from __future__ import annotations
 
+from collections import Counter
 from typing import Callable, Optional, Union
 
 import torch
+
+from cudacam_tpu_torch.utils.logging import get_logger
+
+log = get_logger("devtime")
 
 
 def _cuda(device: Union[str, torch.device, None]) -> Optional[torch.device]:
@@ -52,16 +60,52 @@ def event_time_ms_per_call(
     return start.elapsed_time(end) / calls
 
 
+#: Profiler sessions :func:`device_time_ms_per_call` refused in this
+#: process: traces that were not whole, or showed no device time.
+refused_sessions = 0
+
+#: Throwaway launches (``torch.cuda._sleep``, kernel ``spin_kernel``) that
+#: open a session, one count a try. On the card's torch 2.11 the profiler
+#: drops the first kernel records of a session, more of them the longer
+#: the process has run after its first session (ROADMAP Queue 3, F8): the
+#: throwaway records are dropped in their place.
+SENTINELS = (64, 1024, 16384)
+SENTINEL_KERNEL = "spin_kernel"
+
+
+def whole_session_us(events, calls: int) -> Optional[float]:
+    """Device µs of one profiler session's ``events`` (``prof.events()``)
+    that ran ``calls`` identical calls, host entries left out (on the card's
+    torch a host op's entry repeats its kernels' device time); None when the
+    trace is not whole: no device event, or a device entry whose count is no
+    multiple of ``calls`` (records lost, or carried over from earlier work).
+    Device events that start before the session's first host event belong
+    to earlier work, and the sentinels (:data:`SENTINELS`) to none: both are
+    left out."""
+    cpu = torch.autograd.DeviceType.CPU
+    host0 = min((e.time_range.start for e in events if e.device_type == cpu), default=None)
+    lane = [e for e in events
+            if e.device_type != cpu and SENTINEL_KERNEL not in e.name
+            and (host0 is None or e.time_range.start >= host0)]
+    counts = Counter(e.name for e in lane)
+    if not lane or any(n % calls for n in counts.values()):
+        return None
+    return sum(e.time_range.elapsed_us() for e in lane)
+
+
 def device_time_ms_per_call(
     fn: Callable[[], object],
     calls: int = 4,
     device: Union[str, torch.device, None] = None,
 ) -> Optional[float]:
     """Device busy ms per invocation of ``fn`` (already warm), from
-    ``torch.profiler``: the self device time of every kernel and copy the
-    calls ran, over ``calls``. None when the trace shows no device time (the
-    CPU, or a host whose profiler cannot see the card): time with
+    ``torch.profiler``: the device time of every kernel and copy the calls
+    ran, over ``calls``, from the first of up to three sessions whose trace
+    is whole (:func:`whole_session_us`), each opened by more sentinels
+    (:data:`SENTINELS`). None when no trace is whole or shows device time
+    (the CPU, or a host whose profiler cannot see the card): time with
     :func:`event_time_ms_per_call` then."""
+    global refused_sessions
     dev = _cuda(device)
     if dev is None:
         return None
@@ -69,14 +113,21 @@ def device_time_ms_per_call(
 
     fn()
     torch.cuda.synchronize(dev)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize(dev)
-    total_us = 0.0
-    for ev in prof.key_averages():
-        total_us += float(getattr(ev, "self_device_time_total", 0.0)
-                          or getattr(ev, "self_cuda_time_total", 0.0) or 0.0)
-    if total_us <= 0.0:
-        return None
-    return total_us / calls / 1e3
+    for sentinels in SENTINELS:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with torch.cuda.device(dev):
+                for _ in range(sentinels):
+                    torch.cuda._sleep(1)
+            torch.cuda.synchronize(dev)
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize(dev)
+        events = prof.events()
+        total_us = whole_session_us(events, calls)
+        if total_us is not None:
+            return total_us / calls / 1e3
+        refused_sessions += 1
+        lane = Counter(e.name[:40] for e in events if e.device_type != torch.autograd.DeviceType.CPU)
+        log.warning("profiler trace not whole over %d calls, session refused: device entries %s",
+                    calls, dict(lane))
+    return None

@@ -29,7 +29,8 @@ from cudacam_tpu_torch.ops.cuda.feedforward import (
 )
 from cudacam_tpu_torch.ops.cuda.canny import sweep_bounds
 from cudacam_tpu_torch.ops.cuda.hysteresis_fused import (
-    hysteresis_fused, hysteresis_fused_nmsq, pack_thresh, pack_thresh_plain, sweep_fused,
+    hysteresis_fused, hysteresis_fused_batched, hysteresis_fused_batched_plain,
+    hysteresis_fused_nmsq, pack_thresh, pack_thresh_plain, sweep_fused,
     sweep_fused_plain, sweep_pack_all, sweep_pack_all_plain, sweep_seed, sweep_seed_plain,
 )
 from cudacam_tpu_torch.ops.cuda.megakernel import (
@@ -251,6 +252,70 @@ def test_spiral_threshold_map_cap_digests(dev):
                                       return_iters=True)
         assert int(iters) == cap
         assert hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest() == sha
+
+
+@pytest.mark.parametrize("h,w", [(1, 1), (37, 53), (96, 70), (1080, 1920)])
+@pytest.mark.parametrize("g", [1, 3, 8])
+def test_pack_thresh_batched_matches_plain(dev, h, w, g):
+    """One launch packs a (g, H, W) stack: each frame's planes equal its
+    one-map pack and the plain version, rows past H zero in each frame."""
+    gen = torch.Generator().manual_seed(h * g + w)
+    levels = torch.tensor([0, 128, 255, 127, 129, 254, 1], dtype=torch.uint8)
+    t = levels[torch.randint(0, 7, (g, h, w), generator=gen)].to(dev)
+    kernels.reset_launch_counts()
+    f, p = pack_thresh(t)
+    assert kernels.launch_counts()["pack_thresh"] == 1
+    want = pack_thresh_plain(t)
+    assert torch.equal(f, want[0]) and torch.equal(p, want[1])
+    for i in range(g):
+        fi, pi = pack_thresh(t[i])
+        assert torch.equal(f[i], fi) and torch.equal(p[i], pi)
+
+
+def _mixed_stack(h, w, g, dev):
+    """g threshold maps of mixed depths: scenes' maps and the spiral second."""
+    maps = [ff_stages_plain(_frame(h, w, dev, seed=s), _thr(10, 40, dev), (CannyStage.THRESH,))[0]
+            for s in range(g)]
+    if g > 1:
+        maps[1] = torch.from_numpy(make_spiral_thresh(h, w)).to(dev)
+    return torch.stack(maps)
+
+
+@pytest.mark.parametrize("h,w", [(37, 53), (96, 200), (1080, 1920)])
+@pytest.mark.parametrize("g", [1, 3, 8])
+@pytest.mark.parametrize("max_iters,scan_after", [(2, 1), (12, 10), (100, 64)])
+def test_hysteresis_fused_batched_matches_plain_and_single(dev, h, w, g, max_iters, scan_after):
+    """Four launches for any g; each map equals the plain version and its
+    one-map call, at caps that cut the spiral off and at the default one."""
+    t = _mixed_stack(h, w, g, dev)
+    kw = dict(max_iters=max_iters, dilate_steps=16, scan_after=scan_after)
+    kernels.reset_launch_counts()
+    got = hysteresis_fused_batched(t, **kw)
+    counts = {k: v for k, v in kernels.launch_counts().items() if v}
+    assert counts == dict(pack_thresh=1, hyst_phase1=1, hyst_phase2=1, unpack=1)
+    assert torch.equal(got, hysteresis_fused_batched_plain(t, **kw))
+    for i in range(g):
+        assert torch.equal(got[i], hysteresis_fused(t[i], **kw))
+
+
+@pytest.mark.parametrize("channels", [3, 1])
+@pytest.mark.parametrize("n", [2, 8])
+def test_process_all_batched_matches_single_frames(dev, channels, n):
+    """``process_all`` on a batch: five launches whatever B is, each key
+    equal to the frame's own call (the float planes too: the same ops)."""
+    cfg = CannyConfig(height=96, width=200, channels=channels, hysteresis_scan_after=2)
+    eng = CannyEngine(cfg, device="cuda")
+    frames = [_frame(96, 200, dev, seed=s) for s in range(n - 1)]
+    frames.append(torch.from_numpy(make_spiral_frame(96, 200)).to(dev))
+    batch = torch.stack(frames) if channels == 3 else torch.stack(frames)[..., 0].contiguous()
+    kernels.reset_launch_counts()
+    got = eng.process_all(batch)
+    counts = {k: v for k, v in kernels.launch_counts().items() if v}
+    assert counts == dict(ff_stages=1, pack_thresh=1, hyst_phase1=1, hyst_phase2=1, unpack=1)
+    for i in range(n):
+        one = eng.process_all(batch[i])
+        for k in one:
+            assert got[k][i].dtype == one[k].dtype and torch.equal(got[k][i], one[k]), (i, k)
 
 
 #: Shapes at the round kernels' band edges (bands are multiples of 32 columns).
@@ -996,3 +1061,80 @@ def test_bench_main_prints_one_event_line(dev, capsys):
     assert len(lines) == 1
     rec = json.loads(lines[0])
     assert rec["metric"] == "canny_270x480_event_ms_per_frame_cuda" and rec["value"] > 0
+
+
+@pytest.mark.parametrize("ring_slots", [2, 4])
+def test_app_uploads_from_pinned_slots(dev, tmp_path, ring_slots):
+    """The app on a ``.rawv`` uploads straight from the frame pump's pinned
+    slots: with the pipeline off every output is its frame byte for byte (a
+    slot given back before its upload completed would show a later frame),
+    and with it on every edge map equals ``CannyEngine.process``."""
+    from cudacam_tpu_torch.app import CannyApp
+    from cudacam_tpu_torch.io.sources import RawvSource
+    from cudacam_tpu_torch.native import write_rawv
+
+    h, w, n = 256, 512, 48
+    rng = np.random.default_rng(ring_slots)
+    clip = rng.integers(0, 256, (n, h, w, 3), dtype=np.uint8)
+    clip[::3] = [make_scene(h, w, seed=s) for s in range(0, n, 3)]
+    path = write_rawv(str(tmp_path / "clip.rawv"), clip)
+    eng = CannyEngine(CannyConfig(height=h, width=w), device="cuda")
+    with CannyApp(RawvSource(path, ring_slots=ring_slots)) as app:
+        assert app._lends and app._source.pinned
+        app.toggle_pipeline()
+        outs = []
+        assert app.run(n // 2, on_frame=lambda i, o: outs.append(o)) == n // 2
+        torch.cuda.synchronize()
+        assert app._source.lent <= ring_slots
+        for i, out in enumerate(outs):
+            assert torch.equal(out.cpu(), torch.from_numpy(clip[i])), i
+        app.toggle_pipeline()
+        seen = []
+        assert app.run(None, on_frame=lambda i, o: seen.append(
+            (o, eng.process(app._last_input)))) == n - n // 2
+        for out, want in seen:
+            assert torch.equal(out, want)
+        app.pause()
+        again = app.step()
+        assert torch.equal(again, seen[-1][0])
+    src = RawvSource(path, ring_slots=ring_slots)
+    with CannyApp(src) as app:
+        app._source._pump._unpin()  # an unpinned slot is refused, not copied synchronously
+        with pytest.raises(RuntimeError, match="not pinned"):
+            app.step()
+
+
+def test_cli_record_input_from_a_rawv_on_the_card(dev, tmp_path):
+    """``run --source x.rawv --record-input`` on the card: the app uploads
+    from the pump's slots and the recording is the input file byte for byte
+    (each recorded frame a copy, not a view of a slot the producer refills)."""
+    from cudacam_tpu_torch.cli import main as cli_main
+    from cudacam_tpu_torch.native import write_rawv
+
+    n = 24
+    clip = np.random.default_rng(7).integers(0, 256, (n, 64, 128, 3), dtype=np.uint8)
+    src = write_rawv(str(tmp_path / "clip.rawv"), clip)
+    out = str(tmp_path / "in.rawv")
+    assert cli_main(["run", "--source", src, "--frames", str(n), "--record-input", out]) == 0
+    with open(out, "rb") as a, open(src, "rb") as b:
+        assert a.read() == b.read()
+
+
+@pytest.mark.parametrize("ring_slots", [1, 2])
+def test_save_frame_after_close_on_the_card(dev, tmp_path, ring_slots):
+    """After ``close`` has freed the pump's slots, the app's raw frame is an
+    owned copy of the last frame and ``save_frame`` writes what it wrote
+    while the slot was lent."""
+    from cudacam_tpu_torch.app import CannyApp
+    from cudacam_tpu_torch.io.sources import RawvSource
+    from cudacam_tpu_torch.native import write_rawv
+
+    clip = np.random.default_rng(ring_slots).integers(0, 256, (10, 64, 128, 3), dtype=np.uint8)
+    path = write_rawv(str(tmp_path / "clip.rawv"), clip)
+    with CannyApp(RawvSource(path, ring_slots=ring_slots)) as app:
+        assert app._lends and app.run(None) == 10
+        with open(app.save_frame(str(tmp_path / "a.png")), "rb") as f:
+            before = f.read()
+    np.testing.assert_array_equal(app._last_input, clip[-1])
+    with open(app.save_frame(str(tmp_path / "b.png")), "rb") as f:
+        assert f.read() == before

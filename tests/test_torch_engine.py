@@ -292,3 +292,43 @@ def test_devtime_on_the_cpu_is_none():
     assert device_time_ms_per_call(lambda: calls.append(1), device="cpu") is None
     assert event_time_ms_per_call(lambda: calls.append(1), device="cpu") is None
     assert not calls  # no device lane: nothing is run
+
+
+def _events(*spec):
+    """Fake ``prof.events()`` entries: (name, "cpu" or "cuda", start µs, µs)."""
+    from types import SimpleNamespace
+
+    kinds = {"cpu": torch.autograd.DeviceType.CPU, "cuda": torch.autograd.DeviceType.CUDA}
+    return [SimpleNamespace(name=name, device_type=kinds[kind], time_range=SimpleNamespace(
+        start=start, elapsed_us=lambda us=us: us)) for name, kind, start, us in spec]
+
+
+def test_device_lane_leaves_host_entries_out():
+    """The busy time sums the device-side entries only: a host op's entry
+    repeats its kernels' device time and must not count twice."""
+    from cudacam_tpu_torch.utils.devtime import whole_session_us
+
+    events = _events(("aten::add_", "cpu", 0, 5.0), ("add_kernel", "cuda", 1, 5.0),
+                     ("hyst_kernel", "cuda", 2, 7.5), ("Memcpy HtoD", "cuda", 3, 2.0),
+                     ("cudaLaunchKernel", "cpu", 1, 0.0))
+    assert whole_session_us(events, calls=1) == 14.5
+
+
+@pytest.mark.parametrize("extra,want", [
+    ((), 20.0),
+    ((("hyst_kernel", "cuda", 9, 3.0),), None),  # a third hyst_kernel in two calls: not whole
+    ((("old_kernel", "cuda", -4, 3.0),), 20.0),  # before the session's first host event: left out
+    ((("hyst_kernel", "cuda", -4, 3.0),), 20.0),
+    ((("at::cuda::spin_kernel(long)", "cuda", 1, 3.0),), 20.0),  # a sentinel: left out
+])
+def test_whole_session_counts_only_a_whole_trace(extra, want):
+    """A session of two identical calls counts when every device entry is a
+    multiple of two; device events from before the session and the
+    sentinels are left out."""
+    from cudacam_tpu_torch.utils.devtime import whole_session_us
+
+    events = _events(("aten::op", "cpu", 0, 1.0), ("hyst_kernel", "cuda", 1, 4.0),
+                     ("unpack_kernel", "cuda", 2, 6.0), ("aten::op", "cpu", 5, 1.0),
+                     ("hyst_kernel", "cuda", 6, 4.0), ("unpack_kernel", "cuda", 7, 6.0), *extra)
+    assert whole_session_us(events, calls=2) == want
+    assert whole_session_us(_events(("aten::op", "cpu", 0, 1.0)), calls=2) is None

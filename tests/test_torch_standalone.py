@@ -50,7 +50,7 @@ def test_every_module_imports_with_jax_and_the_jax_package_blocked():
     for new in ("app", "io.ring", "io.metrics", "io.multi", "io.compose", "io.keys", "io.server",
                 "utils.logging", "utils.timer", "utils.devtime", "utils.debug",
                 "ops.cuda.hysteresis", "probes.hyster_kernel", "probes.i16_swar",
-                "benchmark", "parity"):
+                "benchmark", "parity", "native"):
         assert f"cudacam_tpu_torch.{new}" in names
     code = _BLOCKED + (
         "import importlib, numpy as np\n"
@@ -81,6 +81,18 @@ def test_every_module_imports_with_jax_and_the_jax_package_blocked():
         "    mod = importlib.util.module_from_spec(spec)\n"
         "    spec.loader.exec_module(mod)\n"
         "    assert mod.main(['--device', 'cpu']) == 0\n"
+        "import tempfile\n"
+        "from cudacam_tpu_torch.native import FramePump, write_rawv\n"
+        "from cudacam_tpu_torch.io.sources import RawvSource\n"
+        "from cudacam_tpu_torch.ops.cuda import hysteresis_fused_batched\n"
+        "clip = np.stack([make_scene(24, 32, seed=s) for s in range(3)])\n"
+        "path = write_rawv(tempfile.mkdtemp() + '/clip.rawv', clip)\n"
+        "with FramePump(path) as pump:\n"
+        "    assert (pump.read() == clip[0]).all()\n"
+        "with CannyApp(RawvSource(path), device='cpu') as app:\n"
+        "    assert app.run(None) == 3\n"
+        "    assert eng.process_all(np.stack([make_scene(37, 53, seed=s) for s in (1, 2)]))[\n"
+        "        'hyster'].shape == (2, 37, 53)\n"
         "assert not [m for m in sys.modules if m.split('.')[0] in ('jax', 'cudacam_tpu')]\n"
         "print('standalone ok')\n"
     )
@@ -240,3 +252,28 @@ def test_convert_writes_the_jax_package_bytes(tmp_path):
         back = np.stack(list(rsrc))
     np.testing.assert_array_equal(back, clip)
     assert port_cli(["convert", str(src), str(tmp_path / "clip.png")]) == 2
+
+
+def _extern_c(src: str) -> dict:
+    """name -> normalized signature of every function in the C ABI block."""
+    import re
+
+    body = src[src.index('extern "C" {'):]
+    return {m.group(2): " ".join(m.group(0).split())
+            for m in re.finditer(r"^([\w\s\*]+?)\b(fp_\w+)\(([^)]*)\)", body, re.M)}
+
+
+def test_frame_pump_source_is_a_copy():
+    """The port's ``native/framepump.cpp`` keeps the JAX package's stream
+    format (header, magic) and every entry point of its C ABI with the same
+    signature; it adds only the slot accessors."""
+    jax_src = (_REPO / "cudacam_tpu" / "native" / "framepump.cpp").read_text()
+    port_src = (_REPO / "cudacam_tpu_torch" / "native" / "framepump.cpp").read_text()
+    for part in ("struct Header {", "constexpr uint32_t kMagic"):
+        start = jax_src.index(part)
+        block = jax_src[start:jax_src.index("}", start) + 1] if "{" in part else \
+            jax_src[start:jax_src.index("\n", start)]
+        assert block in port_src, part
+    want, got = _extern_c(jax_src), _extern_c(port_src)
+    assert len(want) == 11 and {k: got[k] for k in want} == want
+    assert set(got) - set(want) == {"fp_slot_count", "fp_slot", "fp_frame_bytes"}

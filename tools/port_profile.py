@@ -8,8 +8,8 @@ Run from the root of a checkout, on a host with a CUDA device and nvcc:
 ``--root`` profiles the ``cudacam_tpu_torch`` of DIR instead of this
 checkout's (another commit, unpacked with ``git archive``), so one call on
 the card can time two versions in turns on the same inputs (A, B, B, A;
-``--label`` names the rows). Ten parts (``--parts``; by default all but
-``rounds``, ``ff``, ``packs`` and ``stages``), each printing one JSON line per workload
+``--label`` names the rows). Eleven parts (``--parts``; by default all but
+``rounds``, ``ff``, ``packs``, ``stages`` and ``devtime``), each printing one JSON line per workload
 (and writing them all to ``--out`` when given):
 
 * ``trace``: ``CannyEngine(device='cuda')`` under torch.profiler: ``process``
@@ -81,6 +81,24 @@ the card can time two versions in turns on the same inputs (A, B, B, A;
   at K=16 (1080p) beside them; ``process_all`` and ``process(frame,
   THRESH)`` on the 1080p 8-scene stream under torch.profiler (device busy µs
   a frame, idle share, CUDA-event wall ms a frame).
+
+* ``devtime``: the profiler's busy time checked against itself, on the
+  programs of the ``device`` profiling mode (``ff_stages`` to each display
+  stage and HYSTER's four kernels, 1080p scene 0): every session of 20
+  calls reports each device entry's count (a whole trace holds a multiple
+  of 20 of each), the device events that start before the session's first
+  host event, and the busy µs a call of every device event and of a whole
+  trace (``utils.devtime.whole_session_us``), and ``device_time_ms_per_call``; three interleaved rounds of the six
+  programs as the first sessions of the process, then after one session
+  followed by 0, 20 000 and 200 000 small launches outside any session;
+  then the engine's device-mode ``profiling_table`` after the same; then,
+  the card running the HYSTER program in between, every 30 s up to 180 s
+  after the first session, the MONO and HYSTER programs in a bare session
+  and in one idle for 100 ms on each side of the calls, inside the window
+  and before it (whether a wider window keeps the records; how far the
+  first device event starts after the first host event and the last ends
+  after the synchronize), in one opened by 64 sentinel launches (how many
+  of those records the profiler kept), and ``device_time_ms_per_call``.
 
 Imports no jax and nothing of the JAX package: the frame generators are the
 port's own (``cudacam_tpu_torch.io.sources``).
@@ -351,15 +369,21 @@ def rounds(label: str) -> list:
 
 def device_events(fn, calls: int) -> list:
     """(kernel name, device µs) of every device event of ``calls`` calls of
-    ``fn`` under the profiler, after one untraced call."""
+    ``fn`` under the profiler, after one untraced call; the session opens
+    with ``utils.devtime``'s first count of sentinel launches, left out."""
+    from cudacam_tpu_torch.utils.devtime import SENTINEL_KERNEL, SENTINELS
+
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(SENTINELS[0]):
+            torch.cuda._sleep(1)
+        torch.cuda.synchronize()
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
     return [(e.name, e.time_range.elapsed_us()) for e in prof.events()
-            if e.device_type.name == "CUDA"]
+            if e.device_type.name == "CUDA" and SENTINEL_KERNEL not in e.name]
 
 
 def device_us(fn, kernel: str, calls: int) -> float:
@@ -594,14 +618,138 @@ def stages(label: str) -> list:
     return rows
 
 
+def _session(fn, calls: int, pad_s: float = 0.0, sentinels: int = 0) -> dict:
+    """One profiler session of ``calls`` calls of ``fn`` (warm), idle for
+    ``pad_s`` before it and, inside it, before and after the calls, and
+    opened by ``sentinels`` throwaway launches (``utils.devtime``): each
+    device entry's count (the sentinels' apart), the device events starting
+    before the session's first host event, the busy µs a call, and how far
+    the first device event starts after the first host event and the last
+    ends after the last (the synchronize)."""
+    from collections import Counter
+
+    from cudacam_tpu_torch.utils.devtime import SENTINEL_KERNEL, whole_session_us
+
+    fn()
+    torch.cuda.synchronize()
+    time.sleep(pad_s)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(pad_s)
+        for _ in range(sentinels):
+            torch.cuda._sleep(1)
+        torch.cuda.synchronize()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        time.sleep(pad_s)
+    events = prof.events()
+    kept = sum(SENTINEL_KERNEL in e.name for e in events if e.device_type.name != "CPU")
+    dev = [e for e in events if e.device_type.name != "CPU" and SENTINEL_KERNEL not in e.name]
+    host = [e for e in events if e.device_type.name == "CPU"]
+    host0 = min((e.time_range.start for e in host), default=0)
+    counts = Counter(e.name for e in dev)
+    whole = whole_session_us(events, calls)
+    return {"busy_us": sum(e.time_range.elapsed_us() for e in dev) / calls,
+            "whole_busy_us": None if whole is None else whole / calls,
+            "whole": all(c % calls == 0 for c in counts.values()),
+            "early": sum(e.time_range.start < host0 for e in dev),
+            "device_end_after_host_end_us": (max(e.time_range.end for e in dev)
+                                             - max(e.time_range.end for e in host))
+            if dev and host else None,
+            "device_start_after_host_start_us": (min(e.time_range.start for e in dev) - host0)
+            if dev and host else None,
+            "sentinels_kept": kept,
+            "counts": {k[:40]: c for k, c in counts.items()}}
+
+
+def devtime() -> list:
+    from cudacam_tpu_torch.utils.devtime import device_time_ms_per_call
+
+    eng = CannyEngine(CannyConfig(height=1080, width=1920), device="cuda")
+    x = torch.from_numpy(make_scene(1080, 1920, seed=0)).cuda()
+    thr = eng._thresholds()
+    programs = [(s.name, eng._sample_program(x, False, s, thr)) for s in CannyStage]
+    small = torch.zeros(16, device="cuda")
+    rows = []
+
+    def outside(n: int) -> None:
+        """One session of the HYSTER program, then ``n`` small launches
+        outside any session."""
+        _session(programs[-1][1], 3)
+        for _ in range(n):
+            small.add_(1)
+        torch.cuda.synchronize()
+
+    def rounds(label: str) -> None:
+        sessions = []
+        for _ in range(3):
+            for name, run in programs:
+                sessions.append(dict(_session(run, 20), program=name))
+        fixed = {name: device_time_ms_per_call(run, calls=20) for name, run in programs}
+        rows.append({
+            "workload": f"devtime: {label}",
+            "busy_us_median": {name: statistics.median(t["busy_us"] for t in sessions
+                                                       if t["program"] == name)
+                               for name, _ in programs},
+            "device_time_ms_per_call": fixed,
+            "sessions_not_whole": [t for t in sessions if not t["whole"]][:6],
+            "sessions_with_early_events": sum(t["early"] > 0 for t in sessions),
+            "sessions": len(sessions),
+        })
+
+    t0 = time.perf_counter()
+    rounds("the first sessions of the process")
+    for n in (0, 20000, 200000):
+        outside(n)
+        rounds(f"after one session and {n} launches outside any session")
+    for n in (0, 200000):
+        outside(n)
+        pe = CannyEngine(CannyConfig(height=1080, width=1920), device="cuda", profiling=True)
+        pe.profiling_mode = "device"
+        pe.process(x)
+        rows.append({"workload": f"devtime: the device-mode table after one session and {n} "
+                                 "launches outside any session",
+                     "table": pe.profiling_table()})
+    # The process ages, the card running the HYSTER program in between: every
+    # 30 s up to 180 s after the first session, the MONO and HYSTER programs
+    # bare, with 100 ms pads, opened by 64 sentinels, and
+    # device_time_ms_per_call.
+    from cudacam_tpu_torch.utils import devtime as dt
+
+    for age in range(30, 181, 30):
+        while time.perf_counter() - t0 < age:  # the card kept busy meanwhile
+            for _ in range(100):
+                programs[-1][1]()
+            torch.cuda.synchronize()
+        refused = dt.refused_sessions
+        row = {"workload": f"devtime: {age} s after the first session"}
+        for name, run in (programs[0], programs[-1]):
+            bare, padded = _session(run, 20), _session(run, 20, pad_s=0.1)
+            opened = _session(run, 20, sentinels=64)
+            row[name] = {"bare_whole": bare["whole"], "bare_counts": bare["counts"],
+                         "padded_whole": padded["whole"],
+                         "sentinel_whole": opened["whole"],
+                         "sentinels_kept_of_64": opened["sentinels_kept"],
+                         "padded_device_end_after_host_end_us":
+                             padded["device_end_after_host_end_us"],
+                         "padded_device_start_after_host_start_us":
+                             padded["device_start_after_host_start_us"],
+                         "bare_device_end_after_host_end_us": bare["device_end_after_host_end_us"],
+                         "device_time_ms_per_call": dt.device_time_ms_per_call(run, calls=20)}
+        row["refused_by_device_time_ms_per_call"] = dt.refused_sessions - refused
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+    return rows
+
+
 PARTS = ("trace", "sizes", "sweeps", "sharded", "split", "app", "rounds", "ff", "packs",
-         "stages")
+         "stages", "devtime")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", type=Path, help="also write the JSON lines here")
-    ap.add_argument("--parts", default=",".join(PARTS[:-4]), help=f"comma-separated of {PARTS}")
+    ap.add_argument("--parts", default=",".join(PARTS[:-5]), help=f"comma-separated of {PARTS}")
     ap.add_argument("--root", type=Path, help="profile the package of this checkout")
     ap.add_argument("--label", default="this checkout",
                     help="the rounds, ff, packs and stages parts' label")
@@ -640,6 +788,8 @@ def main() -> int:
         rows += packs(args.label)
     if "stages" in parts:
         rows += stages(args.label)
+    if "devtime" in parts:
+        rows += devtime()
     lines = [json.dumps(r) for r in rows]
     print("\n".join(lines))
     if args.out:
