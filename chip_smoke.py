@@ -107,7 +107,8 @@ Phases, each printing its lines before the last:
 10. the legacy row-sweep hysteresis (K12, ``hyst_sweeps``) against its plain
    version at 1080p (scene 0 converged at two block heights; the spiral cut
    off by ``max_iters`` and ``max_local_iters``), equal to the fused
-   hysteresis (K6) on converged maps, its ms beside K6's;
+   hysteresis (K6) on converged maps, its ms beside K6's, and its ms and µs
+   a promotion step at 1080p, 4K and 8K (scene 0, equal to K6 there);
 11. the probes (K13: ``probe_pack``, ``probe_pack_ballot``, ``probe_loop``,
    ``probe_unpack``; K14: ``swar_stencil``): the port's probe tools' runs,
    each kernel against its plain version at the TPU probes' shapes and at
@@ -1577,14 +1578,16 @@ class Smoke:
 
     def phase_legacy(self) -> None:
         """K12: ``hyst_sweeps`` against its plain version and against the
-        fused hysteresis (K6) at 1080p."""
+        fused hysteresis (K6) at 1080p, then timed at 1080p, 4K and 8K
+        (scene 0, equal to K6 there) with µs a promotion step."""
         torch = self.torch
-        from cudacam_tpu_torch import CannyStage
-        from cudacam_tpu_torch.io.sources import make_spiral_thresh
+        from cudacam_tpu_torch import CannyConfig, CannyStage
+        from cudacam_tpu_torch.engine import CannyEngine
+        from cudacam_tpu_torch.io.sources import make_scene, make_spiral_thresh
         from cudacam_tpu_torch.ops.cuda import hysteresis_sweeps, hysteresis_sweeps_plain
         from cudacam_tpu_torch.ops.cuda.canny import hyster_kwargs
         from cudacam_tpu_torch.ops.cuda.feedforward import ff_stages
-        from cudacam_tpu_torch.ops.cuda.hysteresis import DEFAULT_BLOCK_H, HALO
+        from cudacam_tpu_torch.ops.cuda.hysteresis import DEFAULT_BLOCK_H, HALO, sweeps_layout
         from cudacam_tpu_torch.ops.cuda.hysteresis_fused import hysteresis_fused
 
         h, w = 1080, 1920
@@ -1593,7 +1596,7 @@ class Smoke:
         for block_h, rc in ((DEFAULT_BLOCK_H, True), (64, False)):
             kw = dict(block_h=block_h, remove_candidates=rc, return_info=True)
             got, info = self.path(f"hysteresis_sweeps 1080p scene 0, block_h {block_h}",
-                                  lambda: hysteresis_sweeps(tmap, **kw), dict(hyst_sweeps=1))
+                                  lambda: hysteresis_sweeps(tmap, **kw), dict(hyst_sweeps=3))
             t0 = time.perf_counter()
             want, winfo = hysteresis_sweeps_plain(tmap, **kw)
             torch.cuda.synchronize()
@@ -1621,10 +1624,28 @@ class Smoke:
         k6_ms = self.time_ms(lambda _: hysteresis_fused(tmap, **hyster_kwargs(self.cfg)), 20)
         window_words = -(-(DEFAULT_BLOCK_H + 2 * HALO) // 32) * w
         self.set_bound("hyst_sweeps", 2 * h * w, SWEEP_STEP_OPS * steps * window_words)
+        lay = sweeps_layout(h, w)
         print(f"time hyst_sweeps: kernel {self.ms['hyst_sweeps']!r} ms, plain "
               f"{self.plain_ms['hyst_sweeps']!r} ms, bound {self.bound['hyst_sweeps'][0]!r} ms "
               f"({self.bound['hyst_sweeps'][1]}); K6 on the same map {k6_ms!r} ms (1080p scene 0, "
-              f"block_h {DEFAULT_BLOCK_H}, {steps} promotion steps)")
+              f"block_h {DEFAULT_BLOCK_H}, {steps} promotion steps, "
+              f"{self.ms['hyst_sweeps'] * 1e3 / steps!r} us a step; {lay.cols} columns a thread "
+              f"over {lay.threads} threads)")
+        for name, (hh, ww) in (("4K", (2160, 3840)), ("8K", (4320, 7680))):
+            eng = CannyEngine(CannyConfig(height=hh, width=ww), device="cuda")
+            frame = torch.from_numpy(make_scene(hh, ww, seed=0)).to(self.dev)
+            (big,) = ff_stages(frame, eng._thresholds(), (CannyStage.THRESH,))
+            out, info = hysteresis_sweeps(big, return_info=True)
+            require(int(info[1]) == 0 and torch.equal(out, hysteresis_fused(
+                big, **hyster_kwargs(eng.config))), f"hyst_sweeps differs from K6 at {name}")
+            ms = self.time_ms(lambda _: hysteresis_sweeps(big), 2, reps=3)
+            sweeps, _, n_steps = info.tolist()
+            lay = sweeps_layout(hh, ww)
+            print(f"time hyst_sweeps {name} scene 0, block_h {DEFAULT_BLOCK_H}: {ms!r} ms, "
+                  f"{sweeps} sweeps, {sweeps * -(-hh // DEFAULT_BLOCK_H)} windows, {n_steps} steps, "
+                  f"{ms * 1e3 / n_steps!r} us a step (== K6; {lay.cols} columns a thread over "
+                  f"{lay.threads} threads)")
+            del eng, frame, big, out
 
     def phase_probes(self) -> None:
         """K13 and K14: the port's probe tools' runs as paths (counts set to

@@ -49,7 +49,9 @@ from cudacam_tpu_torch.ops import bitpack, torch_ops
 from cudacam_tpu_torch.ops.cuda import canny
 from cudacam_tpu_torch.ops.cuda._build import load
 from cudacam_tpu_torch.ops.cuda.feedforward import ff_stages_batched
-from cudacam_tpu_torch.utils.devtime import device_time_ms_per_call, event_time_ms_per_call
+from cudacam_tpu_torch.utils.devtime import (
+    device_time_ms_per_call, event_time_ms_per_call, open_session,
+)
 from cudacam_tpu_torch.utils.logging import get_logger
 from cudacam_tpu_torch.utils.timer import TimerManager
 
@@ -422,7 +424,12 @@ class CannyEngine(ThresholdControls):
     def trace(self, logdir: str):
         """Capture a ``torch.profiler`` profile of everything run inside the
         context and write it as a chrome trace, ``<logdir>/trace.json``: the
-        deep-dive layer under the per-stage timer table."""
+        deep-dive layer under the per-stage timer table. On a CUDA device
+        the session opens with ``utils.devtime``'s sentinel launches
+        (``SENTINELS[0]`` of ``torch.cuda._sleep``, kernel ``spin_kernel``)
+        and a synchronize, so the trace begins with them: the profiler drops
+        a session's first kernel records, and drops theirs in place of the
+        engine's."""
         from torch.profiler import ProfilerActivity, profile
 
         activities = [ProfilerActivity.CPU]
@@ -430,6 +437,8 @@ class CannyEngine(ThresholdControls):
             activities.append(ProfilerActivity.CUDA)
         os.makedirs(logdir, exist_ok=True)
         with profile(activities=activities) as prof:
+            if self._device.type == "cuda":
+                open_session(self._device)
             yield
             if self._device.type == "cuda":
                 torch.cuda.synchronize(self._device)

@@ -46,8 +46,8 @@ SIGNATURES = {
     "cc_hyst_layout": (_I, [_I, _I, _I, _I, _I, _I, _P]),
     "cc_split_converge": (_I, [_P, _P, _P, _P] + [_I] * 8 + [_P]),
     "cc_split_scratch_words": (ctypes.c_longlong, [_I, _I, _I]),
-    "cc_hyst_sweeps": (_I, [_P, _P] + [_I] * 6 + [_P]),
-    "cc_hyst_sweeps_smem": (ctypes.c_longlong, [_I, _I]),
+    "cc_hyst_sweeps": (_I, [_P] * 4 + [_I] * 7 + [_P]),
+    "cc_hyst_sweeps_layout": (_I, [_I, _I, _I, _P]),
     "cc_unpack": (_I, [_P, _P, _P, _I, _I, _I, _I, _P]),
     "cc_unpack_core": (_I, [_P, _P] + [_I] * 12 + [_P]),
     "cc_halo_exchange": (_I, [_P, _P, _P, _I, _I, _P, _I, _I, _I, _I, _I, _P, _I, _P]),

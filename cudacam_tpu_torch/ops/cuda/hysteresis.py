@@ -7,13 +7,15 @@ with its 8 halo rows on either side and written back, the slabs of a sweep in
 order on the updated map, alternating down and up sweeps until one changes
 nothing. It is kept, as there, as the independently derived check of the
 fused hysteresis (``hysteresis_fused``): a different algorithm that must
-reach the same fixed point. The kernel (``csrc/hyst_sweep.cu``) is one
-persistent block for the whole call; the copy of the map before it and the
-candidate removal after it are plain torch ops, as they are XLA ops around
-the TPU kernel.
+reach the same fixed point. The kernel (``csrc/hyst_sweep.cu``) is three
+launches: a pack of the map into bit planes on every SM, the slab chain on
+one block with the window carried from slab to slab, and the unpack into
+the output map (:func:`sweeps_layout` gives the chain's form).
 """
 from __future__ import annotations
 
+import ctypes
+import dataclasses
 from typing import Optional, Tuple, Union
 
 import torch
@@ -26,8 +28,7 @@ from cudacam_tpu_torch.ops.cuda._build import (
 #: Halo rows of a slab's window on either side (the TPU kernel's ``HALO``).
 HALO = 8
 #: The default slab height. A window is then 16 + 2 * 8 = 32 rows: exactly one
-#: packed word a column in the kernel's shared memory, so a promotion step
-#: needs no carry across words and the window of any supported width fits.
+#: packed word a column, so a promotion step needs no carry across words.
 #: (The TPU kernel sizes its slabs to its own fast memory instead; the bytes
 #: depend on the slab height only when ``max_iters`` or ``max_local_iters``
 #: cuts the call off, so pass ``block_h`` to compare cut-off outputs.)
@@ -37,6 +38,37 @@ DEFAULT_BLOCK_H = 16
 _PLAIN_CHECK_EVERY = 32
 #: Shared memory one block can use on sm_90 (227 KB).
 _SMEM_LIMIT = 232448
+
+
+@dataclasses.dataclass(frozen=True)
+class SweepsLayout:
+    """The form :func:`hysteresis_sweeps` takes for a map, as the kernel
+    library computes it (``cc_hyst_sweeps_layout``, ``csrc/hyst_sweep.cu``):
+    ``cols`` columns a thread of the chain's block of ``threads`` threads,
+    the window in registers, or 0 for the shared-memory form
+    (``smem_bytes`` of it); ``pitch`` words a word row and ``plane_words``
+    words in each of the four bit planes of the map (FINAL and CANDIDATE in
+    two layouts of ``block_h``-row groups)."""
+
+    cols: int
+    threads: int
+    pitch: int
+    plane_words: int
+    smem_bytes: int
+
+
+def sweeps_layout(h: int, w: int, block_h: Optional[int] = None) -> SweepsLayout:
+    """The kernel's layout for an (h, w) map at ``block_h`` (default 16):
+    registers with the fewest columns a thread that give it 8 window words,
+    where the window has at most five words a column and such a block covers
+    the width, else the shared-memory form. Needs the kernel library (a
+    host with nvcc)."""
+    out = (ctypes.c_longlong * 5)()
+    lib = load()
+    lib.check(lib.lib.cc_hyst_sweeps_layout(h, w, block_h or DEFAULT_BLOCK_H,
+                                            ctypes.cast(out, ctypes.c_void_p)),
+              "cc_hyst_sweeps_layout")
+    return SweepsLayout(*out)
 
 
 def _check(thresh: torch.Tensor, max_iters: int, block_h: Optional[int],
@@ -132,9 +164,10 @@ def hysteresis_sweeps(
     keep their 128. ``block_h`` defaults to 16 (:data:`DEFAULT_BLOCK_H`).
 
     With ``return_info`` the int32 tensor [sweeps run, the last sweep still
-    changed a slab, promotion steps taken] comes too, on the map's device. One
-    kernel launch on a CUDA tensor, no host sync; a window that does not fit
-    one SM's shared memory raises."""
+    changed a slab, promotion steps taken] comes too, on the map's device.
+    Three kernel launches on a CUDA tensor (the pack, the chain, the
+    unpack), no host sync; a window that does not fit one SM's shared memory
+    raises."""
     bh = _check(thresh, max_iters, block_h, max_local_iters)
     kw = dict(max_iters=max_iters, remove_candidates=remove_candidates, block_h=bh,
               max_local_iters=max_local_iters, return_info=return_info)
@@ -142,17 +175,20 @@ def hysteresis_sweeps(
         return hysteresis_sweeps_plain(thresh, **kw)
     require_contiguous(thresh)
     h, w = thresh.shape
+    lay = sweeps_layout(h, w, bh)
+    if lay.smem_bytes > _SMEM_LIMIT:
+        raise ValueError(f"a window of {bh + 2 * HALO} rows x {w} columns needs {lay.smem_bytes} "
+                         f"bytes of shared memory, a block has {_SMEM_LIMIT}: lower block_h")
+    out = torch.empty_like(thresh)
     lib = load()
-    need = lib.lib.cc_hyst_sweeps_smem(bh, w)
-    if need > _SMEM_LIMIT:
-        raise ValueError(f"a window of {bh + 2 * HALO} rows x {w} columns needs {need} bytes of "
-                         f"shared memory, a block has {_SMEM_LIMIT}: lower block_h")
-    state = thresh.clone()
+    planes = torch.empty(4 * lay.plane_words, dtype=torch.int32, device=thresh.device)
     info = torch.empty(3, dtype=torch.int32, device=thresh.device)
     lib.check(
-        lib.lib.cc_hyst_sweeps(state.data_ptr(), info.data_ptr(), h, w, bh, max_iters,
-                               max_local_iters, thresh.device.index, stream_of(thresh)),
+        lib.lib.cc_hyst_sweeps(thresh.data_ptr(), out.data_ptr(), planes.data_ptr(),
+                               info.data_ptr(), h, w, bh, max_iters, max_local_iters,
+                               int(remove_candidates), thresh.device.index, stream_of(thresh)),
         "hyst_sweeps",
     )
-    count_launch("hyst_sweeps")
-    return _finish(state, info, remove_candidates, return_info)
+    for _ in range(3):  # the pack, the chain and the unpack
+        count_launch("hyst_sweeps")
+    return (out, info) if return_info else out

@@ -73,24 +73,43 @@ SENTINELS = (64, 1024, 16384)
 SENTINEL_KERNEL = "spin_kernel"
 
 
-def whole_session_us(events, calls: int) -> Optional[float]:
-    """Device µs of one profiler session's ``events`` (``prof.events()``)
-    that ran ``calls`` identical calls, host entries left out (on the card's
-    torch a host op's entry repeats its kernels' device time); None when the
-    trace is not whole: no device event, or a device entry whose count is no
-    multiple of ``calls`` (records lost, or carried over from earlier work).
-    Device events that start before the session's first host event belong
-    to earlier work, and the sentinels (:data:`SENTINELS`) to none: both are
-    left out."""
+def open_session(device: Union[str, torch.device, None] = None,
+                 sentinels: int = SENTINELS[0]) -> None:
+    """Open a profiler session on ``device`` with ``sentinels`` throwaway
+    launches (:data:`SENTINEL_KERNEL`) and a synchronize: the records the
+    profiler drops at a session's start are theirs. Every ``torch.profiler``
+    session of the port that traces the card opens so."""
+    dev = _cuda(device)
+    with torch.cuda.device(dev):
+        for _ in range(sentinels):
+            torch.cuda._sleep(1)
+    torch.cuda.synchronize(dev)
+
+
+def session_lane(events, calls: int):
+    """The device lane of one profiler session's ``events``
+    (``prof.events()``) that ran ``calls`` identical calls: (the device
+    events, whether the lane is whole). Host entries are left out (on the
+    card's torch a host op's entry repeats its kernels' device time), so are
+    the sentinels (:data:`SENTINELS`) and device events that start before
+    the session's first host event (earlier work). The lane is whole when
+    it holds a device event and every device entry's count is a multiple of
+    ``calls``: a session that lost records, or carried some over, is not."""
     cpu = torch.autograd.DeviceType.CPU
     host0 = min((e.time_range.start for e in events if e.device_type == cpu), default=None)
     lane = [e for e in events
             if e.device_type != cpu and SENTINEL_KERNEL not in e.name
             and (host0 is None or e.time_range.start >= host0)]
     counts = Counter(e.name for e in lane)
-    if not lane or any(n % calls for n in counts.values()):
-        return None
-    return sum(e.time_range.elapsed_us() for e in lane)
+    return lane, bool(lane) and all(n % calls == 0 for n in counts.values())
+
+
+def whole_session_us(events, calls: int) -> Optional[float]:
+    """Device µs of one profiler session's ``events`` that ran ``calls``
+    identical calls (:func:`session_lane`), None when its lane is not
+    whole."""
+    lane, whole = session_lane(events, calls)
+    return sum(e.time_range.elapsed_us() for e in lane) if whole else None
 
 
 def device_time_ms_per_call(
@@ -115,10 +134,7 @@ def device_time_ms_per_call(
     torch.cuda.synchronize(dev)
     for sentinels in SENTINELS:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            with torch.cuda.device(dev):
-                for _ in range(sentinels):
-                    torch.cuda._sleep(1)
-            torch.cuda.synchronize(dev)
+            open_session(dev, sentinels)
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize(dev)

@@ -1,0 +1,61 @@
+"""The ctypes signatures of the kernel library (``ops/cuda/_build.py``,
+``SIGNATURES``) against the ``extern "C"`` entry points of ``csrc/*.cu``.
+
+The library is built and called only on a host with a card, where a
+signature that passes one argument too few, or a pointer as a 32-bit int,
+fails at run time or corrupts arguments. Here each entry point's
+declaration is parsed from its source: every name in ``SIGNATURES`` is
+declared once, with the same number of parameters, each of the ctypes type
+its C type takes (a pointer as ``c_void_p``, ``int`` as ``c_int``, ``long
+long`` as ``c_longlong``), and the same return type.
+"""
+from __future__ import annotations
+
+import ctypes
+import re
+
+import pytest
+
+from cudacam_tpu_torch.ops.cuda._build import CSRC_DIR, SIGNATURES
+
+_DECL = re.compile(r'extern\s+"C"\s+([\w\s\*]+?)\s*\b(cc_\w+)\s*\(([^)]*)\)', re.S)
+
+
+def _ctype(c: str):
+    c = " ".join(c.replace("*", " * ").split())
+    if c.endswith("char *"):
+        return ctypes.c_char_p
+    if "*" in c:
+        return ctypes.c_void_p
+    if c in ("int", "const int"):
+        return ctypes.c_int
+    if c in ("long long", "const long long"):
+        return ctypes.c_longlong
+    raise AssertionError(f"no ctypes mapping for C type {c!r}")
+
+
+def _declarations() -> dict:
+    found = {}
+    for src in sorted(CSRC_DIR.glob("*.cu")):
+        for ret, name, params in _DECL.findall(src.read_text()):
+            assert name not in found, f"{name} declared twice"
+            types = [re.sub(r"\w+\s*$", "", p) for p in params.split(",") if p.strip()]
+            found[name] = (_ctype(ret), [_ctype(t) for t in types])
+    return found
+
+
+DECLS = _declarations()
+
+
+@pytest.mark.parametrize("name", sorted(SIGNATURES))
+def test_signature_matches_the_c_declaration(name):
+    assert name in DECLS, f"{name} has no extern \"C\" declaration in csrc"
+    restype, argtypes = SIGNATURES[name]
+    want_ret, want_args = DECLS[name]
+    assert restype is want_ret
+    assert len(argtypes) == len(want_args), (len(argtypes), len(want_args))
+    assert [a.__name__ for a in argtypes] == [a.__name__ for a in want_args]
+
+
+def test_every_entry_point_has_a_signature():
+    assert sorted(DECLS) == sorted(SIGNATURES)

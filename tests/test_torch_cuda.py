@@ -885,6 +885,107 @@ def test_hysteresis_sweeps_spiral_cut_off(dev):
         hysteresis_sweeps(torch.zeros((64, 30000), dtype=torch.uint8, device=dev))
 
 
+SWEEP_CUTS = ((100, 4096), (1, 4096), (100, 1), (0, 3), (3, 0))
+SWEEP_WIDTHS = (1, 31, 32, 33, 63, 65, 1023, 1025, 2049)
+SWEEP_BLOCK_HS = (1, 15, 16, 17, 48, 64, 112, 128)
+
+
+def _sweep_form(h, w, block_h):
+    """(columns a thread, window words a column) of the kernel's form for an
+    (h, w) map at ``block_h`` (0 columns: the shared-memory form)."""
+    from cudacam_tpu_torch.ops.cuda.hysteresis import HALO, sweeps_layout
+
+    return sweeps_layout(h, w, block_h).cols, -(-(block_h + 2 * HALO) // 32)
+
+
+@pytest.mark.parametrize("w", SWEEP_WIDTHS)
+@pytest.mark.parametrize("block_h", SWEEP_BLOCK_HS)
+def test_hysteresis_sweeps_at_odd_shapes_matches_plain(dev, w, block_h):
+    """Widths across a thread's, a warp's and a block's share of columns,
+    windows of 1-5 words a column, heights no multiple of ``block_h``: the
+    bytes and info[:2] are the plain version's, converged and cut off;
+    converged, the fused hysteresis' (K6). Together the cases reach every
+    form of the kernel (``test_hysteresis_sweeps_cases_reach_every_form``)."""
+    h = 2 * block_h + 5 if block_h > 16 else 45
+    t = _random_map(h, w, 7 * w + block_h).to(dev)
+    for max_iters, max_local in SWEEP_CUTS:
+        for rc in (True, False):
+            kw = dict(max_iters=max_iters, remove_candidates=rc, block_h=block_h,
+                      max_local_iters=max_local, return_info=True)
+            want, winfo = hysteresis_sweeps_plain(t, **kw)
+            got, info = hysteresis_sweeps(t, **kw)
+            assert torch.equal(got, want), kw
+            assert info[:2].tolist() == winfo[:2].tolist(), kw
+    k6 = hysteresis_fused(t, max_iters=10000)
+    assert torch.equal(hysteresis_sweeps(t, block_h=block_h), k6)
+
+
+def test_hysteresis_sweeps_cases_reach_every_form(dev):
+    """The shapes of ``test_hysteresis_sweeps_at_odd_shapes_matches_plain``
+    take each register instance of ``csrc/hyst_sweep.cu`` (CC_SWEEP_FORMS)
+    and the shared-memory form, at 3, 4 and 5 window words a column."""
+    forms = {_sweep_form(2 * bh + 5 if bh > 16 else 45, w, bh)
+             for w in SWEEP_WIDTHS for bh in SWEEP_BLOCK_HS}
+    assert {f for f in forms if f[0]} == {(8, 1), (4, 2), (8, 2), (4, 3), (2, 4), (4, 4), (2, 5)}
+    assert {wr for cols, wr in forms if cols == 0} == {3, 4, 5}
+
+
+@pytest.mark.parametrize("h,w,block_h,cols,threads", [
+    (1080, 1920, 16, 8, 256), (2160, 3840, 16, 8, 480), (4320, 7680, 16, 8, 960),
+    (64, 8192, 16, 8, 1024), (64, 8193, 16, 0, 1024), (1080, 1920, 64, 4, 480),
+    (1080, 1920, 128, 0, 1024), (64, 19370, 16, 0, 1024), (5, 1, 1, 8, 32),
+    (9, 2049, 112, 0, 1024), (9, 1000, 48, 4, 256), (9, 4096, 17, 8, 512),
+])
+def test_hysteresis_sweeps_layout_picks_the_form_by_width_and_window(dev, h, w, block_h, cols,
+                                                                   threads):
+    """``cc_hyst_sweeps_layout``: registers with the fewest columns a
+    thread that give it 8 window words where that block covers the width,
+    a wider instance past it, the shared-memory form past both or past five
+    window words; the planes' size for either pitch."""
+    from cudacam_tpu_torch.ops.cuda.hysteresis import HALO, sweeps_layout
+
+    lay = sweeps_layout(h, w, block_h)
+    assert (lay.cols, lay.threads) == (cols, threads)
+    wr, gw = -(-(block_h + 2 * HALO) // 32), -(-block_h // 32)
+    groups = -(-h // block_h) + -(-2 * HALO // block_h)
+    assert lay.plane_words == groups * gw * lay.pitch
+    if cols:
+        assert lay.pitch == cols * threads >= w and lay.smem_bytes == 0
+    else:
+        assert lay.pitch == w and lay.smem_bytes == 3 * wr * w * 4
+
+
+@pytest.mark.parametrize("make", ["scene", "spiral"])
+def test_hysteresis_sweeps_1080p_cut_off_matches_plain(dev, make):
+    h, w = 1080, 1920
+    if make == "scene":
+        frame = torch.from_numpy(make_scene(h, w, seed=0)).to(dev)
+        (t,) = ff_stages(frame, _thr(10, 40, dev), (CannyStage.THRESH,))
+    else:
+        t = torch.from_numpy(make_spiral_thresh(h, w)).to(dev)
+    kw = dict(max_iters=2, block_h=16, return_info=True)
+    want, winfo = hysteresis_sweeps_plain(t, **kw)
+    got, info = hysteresis_sweeps(t, **kw)
+    assert torch.equal(got, want)
+    assert info[:2].tolist() == winfo[:2].tolist()
+    if make == "scene":  # scene 0 converges within two sweep pairs
+        assert int(winfo[1]) == 0
+        assert torch.equal(hysteresis_sweeps(t), hysteresis_fused(t, max_iters=10000))
+
+
+def test_hysteresis_sweeps_widest_window_still_fits(dev):
+    """The widest map the one-block kernel took at block_h 16 (its window in
+    one SM's shared memory) still runs, in the shared-memory form."""
+    from cudacam_tpu_torch.ops.cuda.hysteresis import sweeps_layout
+
+    h, w = 40, 19370
+    assert sweeps_layout(h, w).cols == 0
+    t = _random_map(h, w, 5).to(dev)
+    got, info = hysteresis_sweeps(t, return_info=True)
+    want, winfo = hysteresis_sweeps_plain(t, block_h=16, return_info=True)
+    assert torch.equal(got, want) and info[:2].tolist() == winfo[:2].tolist()
+
+
 # -- the live app, profiling and the debug switches on the card --------------
 
 
@@ -991,6 +1092,23 @@ def test_devtime_and_debug_switches_on_the_card(dev, tmp_path):
     with eng.trace(str(tmp_path / "prof")):
         eng.process(fr)
     assert (tmp_path / "prof" / "trace.json").stat().st_size > 0
+
+
+def test_run_trace_opens_its_session_with_sentinels(dev, tmp_path):
+    """``run --trace`` writes a chrome trace whose kernels begin with the
+    sentinel launches (``utils.devtime.open_session``): every sentinel the
+    profiler kept precedes the engine's first kernel."""
+    from cudacam_tpu_torch.cli import main as cli_main
+    from cudacam_tpu_torch.utils.devtime import SENTINEL_KERNEL
+
+    assert cli_main(["run", "--source", "synthetic:72x128", "--frames", "4",
+                     "--trace", str(tmp_path)]) == 0
+    with open(tmp_path / "trace.json") as f:
+        kernels = sorted((e for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"),
+                         key=lambda e: e["ts"])
+    spins = [i for i, e in enumerate(kernels) if SENTINEL_KERNEL in e["name"]]
+    assert spins and len(spins) < len(kernels)
+    assert spins == list(range(len(spins)))  # the sentinels come first, the engine's after
 
 
 # -- K13, K14: the probes' kernels -------------------------------------------

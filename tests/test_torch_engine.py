@@ -332,3 +332,45 @@ def test_whole_session_counts_only_a_whole_trace(extra, want):
                      ("hyst_kernel", "cuda", 6, 4.0), ("unpack_kernel", "cuda", 7, 6.0), *extra)
     assert whole_session_us(events, calls=2) == want
     assert whole_session_us(_events(("aten::op", "cpu", 0, 1.0)), calls=2) is None
+
+
+@pytest.mark.parametrize("extra,n_lane,whole", [
+    ((), 4, True),
+    ((("at::cuda::spin_kernel(long)", "cuda", -9, 1.0),) * 3, 4, True),  # sentinels: left out
+    ((("at::cuda::spin_kernel(long)", "cuda", 1, 1.0),), 4, True),
+    ((("old_kernel", "cuda", -4, 3.0),), 4, True),  # before the first host event
+    ((("unpack_kernel", "cuda", 9, 6.0),), 5, False),  # three unpacks in two calls
+])
+def test_session_lane_leaves_sentinels_out_and_checks_whole_multiples(extra, n_lane, whole):
+    """The accounting the trace tools share (``port_profile.trace``,
+    ``device_events``, the device profiling mode): the lane of a session of
+    two calls holds the device events after the session's first host event,
+    sentinels left out, and is whole when every entry is a multiple of two."""
+    from cudacam_tpu_torch.utils.devtime import session_lane, whole_session_us
+
+    events = _events(("aten::op", "cpu", 0, 1.0), ("hyst_kernel", "cuda", 1, 4.0),
+                     ("unpack_kernel", "cuda", 2, 6.0), ("aten::op", "cpu", 5, 1.0),
+                     ("hyst_kernel", "cuda", 6, 4.0), ("unpack_kernel", "cuda", 7, 6.0), *extra)
+    lane, got = session_lane(events, calls=2)
+    assert (len(lane), got) == (n_lane, whole)
+    assert all("spin_kernel" not in e.name and e.time_range.start >= 0 for e in lane)
+    assert (whole_session_us(events, calls=2) is not None) == whole
+    assert session_lane(_events(("aten::op", "cpu", 0, 1.0)), calls=2) == ([], False)
+
+
+def test_open_session_launches_the_sentinels_on_the_card_only(cfg, frame, tmp_path, monkeypatch):
+    """``open_session`` launches its sentinels on the device it is given;
+    the engine's CPU trace opens no session on a card."""
+    from cudacam_tpu_torch.utils import devtime
+
+    seen = []
+    monkeypatch.setattr(torch.cuda, "_sleep", lambda n: seen.append(n))
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda dev=None: seen.append(("sync", dev)))
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: __import__("contextlib").nullcontext())
+    devtime.open_session("cuda:0", 3)
+    assert seen == [1, 1, 1, ("sync", torch.device("cuda:0"))]
+    seen.clear()
+    eng = port(cfg)
+    with eng.trace(str(tmp_path / "prof")):
+        eng.process(frame)
+    assert seen == []

@@ -105,3 +105,22 @@ def test_bad_arguments_raise(bad):
     kw = dict(dict(thresh=torch.zeros((4, 4), dtype=torch.uint8)), **bad)
     with pytest.raises(ValueError):
         hysteresis_sweeps(**kw)
+
+
+@pytest.mark.parametrize("h,w,block_h", [
+    (45, 1, 1), (45, 31, 15), (37, 33, 16), (45, 63, 17), (45, 65, 16), (101, 33, 48),
+    (133, 31, 64), (229, 17, 112), (261, 9, 128), (8, 65, 1),
+])
+def test_odd_widths_and_block_heights_are_the_pallas_bytes(h, w, block_h):
+    """The shapes of the kernel's card cases (widths across a thread's and a
+    warp's share of columns, windows of 1-5 words a column, heights no
+    multiple of ``block_h``): the plain version against
+    ``hysteresis_pallas(interpret=True)``, converged and cut off by either
+    cap, with and without ``remove_candidates``."""
+    t = _random_map(h, w, h * w + block_h)
+    for max_iters, max_local, rc in ((100, 4096, True), (1, 4096, False), (100, 1, True),
+                                     (0, 3, False), (3, 0, True)):
+        kw = dict(max_iters=max_iters, remove_candidates=rc, block_h=block_h,
+                  max_local_iters=max_local)
+        got = hysteresis_sweeps(torch.from_numpy(t), **kw).numpy()
+        np.testing.assert_array_equal(got, _jax(t, **kw), err_msg=str(kw))

@@ -8,11 +8,14 @@ Run from the root of a checkout, on a host with a CUDA device and nvcc:
 ``--root`` profiles the ``cudacam_tpu_torch`` of DIR instead of this
 checkout's (another commit, unpacked with ``git archive``), so one call on
 the card can time two versions in turns on the same inputs (A, B, B, A;
-``--label`` names the rows). Eleven parts (``--parts``; by default all but
-``rounds``, ``ff``, ``packs``, ``stages`` and ``devtime``), each printing one JSON line per workload
+``--label`` names the rows). Twelve parts (``--parts``; by default all but
+``rounds``, ``ff``, ``packs``, ``stages``, ``legacy`` and ``devtime``), each printing one JSON line per workload
 (and writing them all to ``--out`` when given):
 
-* ``trace``: ``CannyEngine(device='cuda')`` under torch.profiler: ``process``
+* ``trace``: ``CannyEngine(device='cuda')`` under torch.profiler, the session
+  opened by sentinel launches (``utils.devtime.open_session``, left out of
+  every sum; ``whole_session`` says whether each kernel's event count is a
+  multiple of the calls): ``process``
   on the 1080p 8-scene stream (``make_scene`` seeds 0-7, five passes), on the
   1080p spiral frame (two passes) and on the x8 batch of seven scenes and the
   spiral (one call per pass, five passes), and ``process_all`` on the 8-scene
@@ -82,6 +85,11 @@ the card can time two versions in turns on the same inputs (A, B, B, A;
   THRESH)`` on the 1080p 8-scene stream under torch.profiler (device busy µs
   a frame, idle share, CUDA-event wall ms a frame).
 
+* ``legacy``: K12 (``hysteresis_sweeps``) on scene 0's threshold map at
+  1080p, 4K and 8K with block_h 16 and at 1080p with block_h 64: profiler
+  device µs a call and the chain kernel's share of them, CUDA-event ms a
+  call, sweeps, windows, steps, device µs a step, a sha256 of the map.
+
 * ``devtime``: the profiler's busy time checked against itself, on the
   programs of the ``device`` profiling mode (``ff_stages`` to each display
   stage and HYSTER's four kernels, 1080p scene 0): every session of 20
@@ -106,6 +114,7 @@ port's own (``cudacam_tpu_torch.io.sources``).
 from __future__ import annotations
 
 import argparse
+import functools
 import hashlib
 import json
 import statistics
@@ -123,6 +132,20 @@ def _root() -> Path:
 
 
 sys.path.insert(0, str(_root()))
+
+
+@functools.lru_cache(maxsize=None)
+def _own_devtime():
+    """This checkout's ``utils/devtime.py``, whichever tree ``--root``
+    profiles: both trees of an A/B are timed and counted by the same
+    accounting (sentinels, whole sessions)."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parents[1] / "cudacam_tpu_torch" / "utils" / "devtime.py"
+    spec = importlib.util.spec_from_file_location("port_profile_devtime", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -161,11 +184,17 @@ def _busy_us(intervals) -> float:
 
 
 def trace(name: str, call, inputs, frames_per_input: int, passes: int) -> dict:
-    """``call(x)`` for every x of ``inputs``, ``passes`` times, traced."""
+    """``call(x)`` for every x of ``inputs``, ``passes`` times, traced in a
+    session opened by sentinel launches (``utils.devtime.open_session``),
+    which are left out with any device event from before the session;
+    ``whole_session`` says whether every kernel's event count is a whole
+    multiple of the calls (``utils.devtime.session_lane``)."""
+    devtime = _own_devtime()
     for x in inputs:  # warm-up: build, launch configs, thresholds on the device
         call(x)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        devtime.open_session()
         t0 = time.perf_counter()
         for _ in range(passes):
             for x in inputs:
@@ -173,7 +202,7 @@ def trace(name: str, call, inputs, frames_per_input: int, passes: int) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     n = passes * len(inputs) * frames_per_input
-    dev = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    dev, whole = devtime.session_lane(prof.events(), passes * len(inputs))
     per_kernel = {}
     for e in dev:
         key = next((k for k in KERNELS if k in e.name), e.name)
@@ -181,7 +210,7 @@ def trace(name: str, call, inputs, frames_per_input: int, passes: int) -> dict:
     span = max(e.time_range.end for e in dev) - min(e.time_range.start for e in dev)
     busy = _busy_us((e.time_range.start, e.time_range.end) for e in dev)
     return {
-        "workload": name, "frames": n, "device_events": len(dev),
+        "workload": name, "frames": n, "device_events": len(dev), "whole_session": whole,
         "device_us_per_frame": {k: sum(v) / n for k, v in per_kernel.items()},
         "events_per_frame": {k: len(v) / n for k, v in per_kernel.items()},
         "median_us_per_event": {k: statistics.median(v) for k, v in per_kernel.items()},
@@ -371,19 +400,16 @@ def device_events(fn, calls: int) -> list:
     """(kernel name, device µs) of every device event of ``calls`` calls of
     ``fn`` under the profiler, after one untraced call; the session opens
     with ``utils.devtime``'s first count of sentinel launches, left out."""
-    from cudacam_tpu_torch.utils.devtime import SENTINEL_KERNEL, SENTINELS
-
+    devtime = _own_devtime()
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(SENTINELS[0]):
-            torch.cuda._sleep(1)
-        torch.cuda.synchronize()
+        devtime.open_session()
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
     return [(e.name, e.time_range.elapsed_us()) for e in prof.events()
-            if e.device_type.name == "CUDA" and SENTINEL_KERNEL not in e.name]
+            if e.device_type.name == "CUDA" and devtime.SENTINEL_KERNEL not in e.name]
 
 
 def device_us(fn, kernel: str, calls: int) -> float:
@@ -618,6 +644,40 @@ def stages(label: str) -> list:
     return rows
 
 
+def legacy(label: str) -> list:
+    """K12, the legacy row sweeps, on scene 0's threshold map (the engine's
+    default thresholds) at 1080p, 4K and 8K with block_h 16 and at 1080p
+    with block_h 64: profiler device µs a call, of which the chain's kernel
+    (``sweeps_kernel_chain``; 0 in a version with no kernel of that name),
+    CUDA-event ms, the chain's length (sweeps, windows = sweeps x slabs,
+    promotion steps) and device µs a step, a sha256 of the map."""
+    from cudacam_tpu_torch.ops.cuda import hysteresis as hy
+    from cudacam_tpu_torch.ops.cuda.feedforward import ff_stages
+
+    card = _card()
+    rows = []
+    for name, (h, w), bh in (("1080p", (1080, 1920), 16), ("4K", (2160, 3840), 16),
+                             ("8K", (4320, 7680), 16), ("1080p", (1080, 1920), 64)):
+        eng = CannyEngine(CannyConfig(height=h, width=w), device="cuda")
+        frame = torch.from_numpy(make_scene(h, w, seed=0)).cuda()
+        (tmap,) = ff_stages(frame, eng._thresholds(), (CannyStage.THRESH,))
+        run = lambda: hy.hysteresis_sweeps(tmap, block_h=bh)  # noqa: E731
+        out, info = hy.hysteresis_sweeps(tmap, block_h=bh, return_info=True)
+        sweeps, _, steps = info.tolist()
+        events = device_events(run, 5)
+        us = sum(t for k, t in events if "sweeps_kernel" in k) / 5
+        chain_us = sum(t for k, t in events if "sweeps_kernel_chain" in k) / 5
+        rows.append(dict(
+            workload=f"hyst_sweeps {name} scene 0, block_h {bh}", label=label, card=card,
+            device_us=us, chain_device_us=chain_us, event_ms=ms_per_call(run, reps=5),
+            sweeps=sweeps, windows=sweeps * -(-h // bh), steps=steps, us_per_step=us / steps,
+            sha=hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()[:16]))
+        print(json.dumps(rows[-1]), flush=True)
+        del eng, frame, tmap
+        torch.cuda.empty_cache()
+    return rows
+
+
 def _session(fn, calls: int, pad_s: float = 0.0, sentinels: int = 0) -> dict:
     """One profiler session of ``calls`` calls of ``fn`` (warm), idle for
     ``pad_s`` before it and, inside it, before and after the calls, and
@@ -743,16 +803,16 @@ def devtime() -> list:
 
 
 PARTS = ("trace", "sizes", "sweeps", "sharded", "split", "app", "rounds", "ff", "packs",
-         "stages", "devtime")
+         "stages", "legacy", "devtime")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", type=Path, help="also write the JSON lines here")
-    ap.add_argument("--parts", default=",".join(PARTS[:-5]), help=f"comma-separated of {PARTS}")
+    ap.add_argument("--parts", default=",".join(PARTS[:-6]), help=f"comma-separated of {PARTS}")
     ap.add_argument("--root", type=Path, help="profile the package of this checkout")
     ap.add_argument("--label", default="this checkout",
-                    help="the rounds, ff, packs and stages parts' label")
+                    help="the rounds, ff, packs, stages and legacy parts' label")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("port_profile: needs a CUDA device", file=sys.stderr)
@@ -788,6 +848,8 @@ def main() -> int:
         rows += packs(args.label)
     if "stages" in parts:
         rows += stages(args.label)
+    if "legacy" in parts:
+        rows += legacy(args.label)
     if "devtime" in parts:
         rows += devtime()
     lines = [json.dumps(r) for r in rows]
