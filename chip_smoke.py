@@ -68,7 +68,9 @@ Phases, each printing its lines before the last:
    (``halo_exchange``), the host loop's round kernels (K9, ``saturate_packed``)
    step by step through the first collective rounds, the one-launch round
    loop (``sharded_loop``) from the export's state against the host loop
-   with the plain saturate and refresh, and ``unpack_core`` (K10, with the
+   with the plain saturate and refresh (each mesh's loop layout printed, and
+   the phase-1 and phase-2 rounds of every tile in each collective round the
+   step-by-step loop takes), and ``unpack_core`` (K10, with the
    heads and tails its row runs take), each
    against its plain version at each mesh's own tile shapes: 1080p (1, 2, 2)
    (scene + spiral, BGR and mono), 8K (1, 4, 2), 4K x4 (2, 2, 1) and 1080p
@@ -93,7 +95,10 @@ Phases, each printing its lines before the last:
    the K=16 sweeps at 1080p, 4K and 8K (plain at 1080p and 4K, and at 8K
    for K=2), seeded against cold tails at 1080p; of K8, K10, the exchange
    and the round loop at the 8K (1, 4, 2) tiles, of K9 on the 1080p spiral's
-   first collective round over (1, 2, 2) (where both of its phases work),
+   first collective round over (1, 2, 2) (where both of its phases work), of
+   the round loop on the 1080p spiral over (1, 2, 2) at caps 100 (cut off)
+   and 400 against ``sharded_loop_plain`` (planes, flags, rounds) with its
+   bound from the rounds each tile takes and its rounds a collective round,
    and ms/frame of each sharded path beside the unsharded engine and the
    host loop on the same frames;
 9. the column-split continuation (K11, ``split_converge``) against its plain
@@ -450,7 +455,8 @@ class Smoke:
                 print("  ptxas:", line.split("info    :")[-1].strip())
         for name, rep in kernel_reports(lib.compiler_log, (
                 "ff_pack_kernel", "ff_stages_kernel", "pack_thresh_kernel", "unpack_kernel",
-                "unpack_core_kernel", "sweep_pack_all_kernel", "sweep_seed_kernel")):
+                "unpack_core_kernel", "sweep_pack_all_kernel", "sweep_seed_kernel",
+                "hyst_kernel", "split_kernel", "sharded_loop_kernel")):
             print(f"nvcc report {name}: {json.dumps(rep)}")
 
     def phase_kernels(self) -> None:
@@ -1023,7 +1029,7 @@ class Smoke:
             saturate_packed, saturate_packed_plain,
         )
         from cudacam_tpu_torch.ops.cuda.megakernel import (
-            hyst_phase1, hyst_phase1_plain, unpack_core, unpack_core_plain,
+            hyst_phase1, hyst_phase1_plain, loop_layout, unpack_core, unpack_core_plain,
         )
         from cudacam_tpu_torch.parallel.packed_halo import sharded_loop, sharded_loop_plain
 
@@ -1057,11 +1063,13 @@ class Smoke:
              lambda x, pe: halo_exchange(x, grid, g, grow=flags[:, 0, 1], pending=pe),
              lambda x, pe: halo_exchange_plain(x, grid, g, grow=flags[:, 0, 1], pending=pe),
              f, pending)
-        taken = 0
+        taken, per_round = 0, []
         while taken < max_rounds and int(pending):
             step(("saturate_phase1", "saturate_phase2"),
                  lambda x, fl: saturate_packed(x, p, fl, g.ext_h, **hk),
                  lambda x, fl: saturate_packed_plain(x, p, fl, g.ext_h, **hk), f, flags)
+            r1 = flags[:, 0, 0].tolist()
+            per_round.append((r1, [b - a for a, b in zip(r1, flags[:, 1, 0].tolist())]))
             step(("halo_exchange",),
                  lambda x, pe: halo_exchange(x, grid, g, grow=flags[:, 1, 1], pending=pe),
                  lambda x, pe: halo_exchange_plain(x, grid, g, grow=flags[:, 1, 1], pending=pe),
@@ -1081,6 +1089,59 @@ class Smoke:
               f"{taken} collective rounds, sharded_loop over {int(rk)} rounds (budget {budget}) "
               f"and unpack_core == plain at its {t.ny}x{t.nx} tiles of {g.ext_h}x{g.ext_w} "
               f"({core_runs(out, t)})")
+        lay = loop_layout(grid, g.ext_h, g.ext_w, hk["dilate_steps"])
+        print(f"  loop layout {json.dumps(lay)}")
+        for r, (r1, r2) in enumerate(per_round):
+            print(f"  collective round {r}: phase-1 rounds a tile {r1}, phase-2 {r2}")
+
+    def spiral_loop(self, f, p, flags, grid, g, hk, budget):
+        """``sharded_loop`` on the 1080p spiral's export state at ``budget``
+        collective rounds (the cap): equal to ``sharded_loop_plain`` (planes,
+        flags, rounds), its CUDA-event ms and the plain version's, and its
+        bound from the rounds each tile takes, counted on the host loop with
+        the saturate's round kernels. Returns (ms, plain ms, bound, collective
+        rounds, inner rounds (the most any tile takes a phase, summed),
+        {(phase-1, phase-2): collective rounds})."""
+        from collections import Counter
+        from cudacam_tpu_torch.ops.cuda.halo import halo_exchange
+        from cudacam_tpu_torch.ops.cuda.hysteresis_fused import saturate_packed
+        from cudacam_tpu_torch.parallel.packed_halo import (
+            packed_hysteresis_loop, sharded_loop, sharded_loop_plain,
+        )
+
+        state = lambda: (f.clone(), p.clone(), flags.clone())  # noqa: E731
+        run = lambda s: sharded_loop(*s, grid, g, max_rounds=budget, **hk)  # noqa: E731
+        ms = self.time_ms(run, 1, reps=3, setup=state)
+        got, want = state(), state()
+        rk = run(got)
+        t0 = time.perf_counter()
+        rp = sharded_loop_plain(*want, grid, g, max_rounds=budget, **hk)
+        self.torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        for a, b in zip(got + (rk,), want + (rp,)):
+            self.diff("sharded_loop", a, b)
+        fc, pc, flc = state()
+        per = []
+
+        def counting(ff, pp):
+            saturate_packed(ff, pp, flc, g.ext_h, **hk)
+            r1 = flc[:, 0, 0].tolist()
+            per.append((r1, [b - a for a, b in zip(r1, flc[:, 1, 0].tolist())]))
+            return flc[:, 1, 1]
+
+        taken = int(packed_hysteresis_loop(
+            fc, pc, flc[:, 0, 1], counting, lambda x, **k: halo_exchange(x, grid, g, **k), budget))
+        require(taken == int(rk), f"spiral cap {budget}: {int(rk)} rounds, the host loop {taken}")
+        words = g.hw * g.ext_w
+        ops = sum(sum(r1) * round_ops(words, hk["dilate_steps"], False)
+                  + sum(r2) * round_ops(words, hk["dilate_steps"], True) for r1, r2 in per)
+        k = min(64, g.e_left)
+        strips = f.shape[0] * (2 * g.ext_w + 2 * g.hw * k)
+        bound = bound_ms(3 * 4 * words * f.shape[0] + taken * 2 * 4 * strips,
+                         ops + taken * 4 * strips)
+        inner = sum(max(r1) + max(r2) for r1, r2 in per)
+        pairs = dict(Counter((max(r1), max(r2)) for r1, r2 in per))
+        return ms, plain_ms, bound, taken, inner, pairs
 
     def unpack_core_offsets(self) -> None:
         """``unpack_core`` against its plain version on cores at bit offsets
@@ -1396,9 +1457,9 @@ class Smoke:
                        sum(r1) * round_ops(sw, sds, False))
         self.set_bound("saturate_phase2", 3 * 4 * sw * grew,
                        sum(r2) * round_ops(sw, sds, True))
-        spiral_loop_ms = self.time_ms(
-            lambda s: sharded_loop(*s, sgrid, sg, max_rounds=scfg.max_hysteresis_iters, **shk),
-            1, reps=3, setup=lambda: (sf.clone(), spl.clone(), sfl.clone()))
+        spiral = {}
+        for cap in (100, 400):
+            spiral[cap] = self.spiral_loop(sf, spl, sfl, sgrid, sg, dict(shk, max_iters=cap), cap)
 
         for name, where in (("ff_pack_export", "8K (1, 4, 2) tiles"),
                             ("halo_exchange", "8K (1, 4, 2) tiles"),
@@ -1411,8 +1472,12 @@ class Smoke:
                   f"bound {self.bound[name][0]!r} ms ({self.bound[name][1]}) ({where})")
         print(f"  saturate on the spiral's first collective round, rounds per tile: phase 1 "
               f"{r1}, phase 2 {r2} ({grew} tiles continue)")
-        print(f"time sharded_loop on the 1080p spiral (1, 2, 2) from the export's state, "
-              f"{scfg.max_hysteresis_iters} collective rounds: {spiral_loop_ms!r} ms")
+        for cap, (ms, plain_ms, bound, taken_s, inner, pairs) in spiral.items():
+            print(f"time sharded_loop on the 1080p spiral (1, 2, 2) from the export's state, cap "
+                  f"{cap}: kernel {ms!r} ms, plain {plain_ms!r} ms, bound {bound[0]!r} ms "
+                  f"({bound[1]}; {taken_s} collective rounds, {inner} inner rounds, "
+                  f"{ms * 1e3 / max(inner, 1)!r} µs an inner round; (phase-1, phase-2) rounds "
+                  f"a collective round, the most any tile takes: {pairs})")
 
         def host_loop(seng, fr):
             """The same HYSTER frame through the host loop on this card (the

@@ -2,8 +2,8 @@
 // sharded frame batch on one card, and the collective round's pending flag.
 //
 // The refresh itself (the reference's strip exchange, its order and its
-// flag) is halo.cuh's exchange_body, which hyst_rounds.cu's sharded_loop
-// also runs once per collective round. This launch serves the two refreshes
+// flag) is halo.cuh's exchange_body; hyst_rounds.cu's sharded_loop runs its
+// resident form once per collective round. This launch serves the two refreshes
 // before that loop (the CANDIDATE plane once, then FINAL with the export's
 // still-growing flags) and each round of the host loop that a one-card mesh
 // runs with an injected local operator.

@@ -1,6 +1,8 @@
-// The halo refresh of a one-card sharded frame batch, as a device function:
-// the body of halo.cu's exchange_kernel and one step of hyst_rounds.cu's
-// sharded_loop (the whole collective round loop in one launch).
+// The halo refresh of a one-card sharded frame batch, as device functions:
+// exchange_body, the body of halo.cu's exchange_kernel, on the planes in
+// global memory; and its resident form (publish_band, apply_band), one step
+// of hyst_rounds.cu's sharded_loop (the whole collective round loop in one
+// launch), on the bands each block keeps in shared memory.
 //
 // Replaces the strip exchange of the sharded round loop, which the JAX
 // package computes as XLA ops around jax.lax.ppermute (cudacam_tpu/parallel/
@@ -29,6 +31,19 @@
 // The caller launches cooperatively; every block calls exchange_body. It
 // ends with a grid barrier, after which thread 0 of block 0 writes
 // *pending; a caller that reads it in other blocks syncs the grid first.
+//
+// The resident form computes the same words with one grid barrier. Before
+// it, each band (columns [c0, c0 + cb), word rows [k0, k0 + hk) of tile t,
+// its words in shared memory) publishes what its tile's neighbours read of
+// it, as the planes stand: the two word rows each row strip starts in, and
+// its part of the tile's first and last k core lanes over every word row.
+// After it, each band computes every word of its own that the refresh
+// writes, one thread a word: the strips of the tiles above and below placed
+// in its halo rows, and in its halo lanes the neighbour's edge lanes ORed
+// with what the neighbour's own row step places in them (the corners, which
+// the reference carries by running the column step after the row step).
+// Each word is ORed in by one thread, so two small halo slots that share a
+// word need no atomics; a bit is new where the OR set it.
 
 #pragma once
 
@@ -168,6 +183,172 @@ __device__ inline void exchange_body(const Xchg& a, cg::grid_group& grid) {
       for (int i = 0; i < a.n_grow; ++i) p |= __ldcg(a.grow + (size_t)i * a.grow_stride);
     *a.pending = p != 0;
   }
+}
+
+// The resident form's scratch: each tile's plane words at the two word rows
+// each of its row strips starts in, and its first and last k (<= 64) core
+// lanes over every word row, as published before the barrier.
+struct Strips {
+  uint32_t* rows;   // (T, 4, w): strip s (0: down, 1: up), its word rows q_s and q_s + 1
+  uint32_t* lanes;  // (T, 2, hw, 64): the first (0) and last (1) k core lanes
+  int ny, nx, hw, w;
+  int e_top, h_loc, e_left, w_loc, ext_h;
+};
+
+// int32 words of the resident form's scratch for T tiles of hw x w words.
+__host__ __device__ inline long long strips_words(long long tiles, int hw, int w) {
+  return tiles * (4LL * w + 128LL * hw);
+}
+
+// The first row of strip s of a tile (0: its bottom core rows, for the tile
+// below; 1: its top core rows, for the tile above), and the word row it
+// starts in.
+__device__ __forceinline__ int strip_row(const Strips& a, int s) {
+  return s ? a.e_top : a.e_top + a.h_loc - 32;
+}
+__device__ __forceinline__ int strip_word(const Strips& a, int s) {
+  const int b = strip_row(a, s);
+  return b < 0 ? 0 : b >> 5;
+}
+
+// _extract32 of lane c of strip s of tile u, from its published words.
+__device__ __forceinline__ uint32_t strip_at(const Strips& a, int u, int s, int c) {
+  const uint32_t* r = a.rows + (size_t)(4 * u + 2 * s) * a.w + c;
+  const int b = strip_row(a, s);
+  if (b < 0) return __ldcg(r) << (-b);
+  const int q = b >> 5, sh = b & 31;
+  uint32_t v = __ldcg(r);
+  if (sh) v = (v >> sh) | ((q + 1 < a.hw ? __ldcg(r + a.w) : 0u) << (32 - sh));
+  return v;
+}
+
+// What _or_place32 of `strip` at row b (bits at rows >= cap dropped) puts
+// in word row k.
+__device__ __forceinline__ uint32_t placed(uint32_t strip, int b, int cap, int k, int hw) {
+  if (b < 0) {
+    strip >>= -b;
+    b = 0;
+  }
+  if (b >= cap) return 0u;
+  const int q = b >> 5, r = b & 31;
+  if (k == q) return (r ? strip << r : strip) & word_mask(b, cap, q);
+  if (r && k == q + 1 && q + 1 < hw) return (strip >> (32 - r)) & word_mask(b, cap, q + 1);
+  return 0u;
+}
+
+// The row step's bits in word (k, c) of tile t: the strip of the tile above
+// in its top halo slot, of the tile below in its bottom one.
+__device__ __forceinline__ uint32_t row_part(const Strips& a, int t, int k, int c) {
+  const int i = (t / a.nx) % a.ny;
+  uint32_t v = 0u;
+  if (i > 0) v |= placed(strip_at(a, t - a.nx, 0, c), a.e_top - 32, a.ext_h, k, a.hw);
+  if (i < a.ny - 1) v |= placed(strip_at(a, t + a.nx, 1, c), a.e_top + a.h_loc, a.ext_h, k, a.hw);
+  return v;
+}
+
+// The column step's bits in word (k, c) of tile t, c a halo lane: the
+// neighbour's edge lane as its row step leaves it.
+__device__ __forceinline__ uint32_t lane_part(const Strips& a, int t, int k, int c) {
+  const int j = t % a.nx, kl = min(64, a.e_left), c_r = a.e_left + a.w_loc;
+  if (j > 0 && c >= a.e_left - kl && c < a.e_left) {
+    const int l = c - (a.e_left - kl);
+    return __ldcg(a.lanes + ((size_t)(2 * (t - 1) + 1) * a.hw + k) * 64 + l) |
+           row_part(a, t - 1, k, c_r - kl + l);
+  }
+  if (j < a.nx - 1 && c >= c_r && c < c_r + kl) {
+    const int l = c - c_r;
+    return __ldcg(a.lanes + ((size_t)(2 * (t + 1)) * a.hw + k) * 64 + l) |
+           row_part(a, t + 1, k, a.e_left + l);
+  }
+  return 0u;
+}
+
+// Publishes a band's part of what its tile's neighbours read (see the head
+// of this file): X is the band's word (k0, c0), rows rs words apart. Every
+// thread of the block calls it.
+__device__ inline void publish_band(const Strips& a, int t, const uint32_t* X, int rs, int k0,
+                                    int hk, int c0, int cb) {
+  const int i = (t / a.nx) % a.ny, j = t % a.nx;
+  for (int s = 0; s < 2 && a.ny > 1; ++s) {
+    if (s == 0 ? i == a.ny - 1 : i == 0) continue;  // no tile reads it
+    for (int jj = 0; jj < 2; ++jj) {
+      const int k = strip_word(a, s) + jj;
+      if (k < k0 || k >= k0 + hk || k >= a.hw) continue;
+      uint32_t* o = a.rows + (size_t)(4 * t + 2 * s + jj) * a.w + c0;
+      for (int c = threadIdx.x; c < cb; c += blockDim.x) o[c] = X[(k - k0) * rs + c];
+    }
+  }
+  if (a.nx == 1) return;
+  const int kl = min(64, a.e_left), c_r = a.e_left + a.w_loc;
+  for (int side = 0; side < 2; ++side) {
+    if (side == 0 ? j == 0 : j == a.nx - 1) continue;
+    const int lo = side ? c_r - kl : a.e_left;
+    const int s0 = max(lo, c0), s1 = min(lo + kl, c0 + cb), n = s1 - s0;
+    if (n <= 0) continue;
+    uint32_t* o = a.lanes + ((size_t)(2 * t + side) * a.hw + k0) * 64 + (s0 - lo);
+    for (int e = threadIdx.x; e < hk * n; e += blockDim.x) {
+      const int k = e / n, l = e - k * n;
+      o[(size_t)k * 64 + l] = X[k * rs + s0 - c0 + l];
+    }
+  }
+}
+
+// ORs into a band's words what the refresh writes there (after the barrier
+// that follows every band's publish_band). Returns the new bits this thread
+// set. Every thread of the block calls it; the caller syncs the block.
+__device__ inline int apply_band(const Strips& a, int t, uint32_t* X, int rs, int k0, int hk,
+                                 int c0, int cb) {
+  const int i = (t / a.nx) % a.ny, j = t % a.nx;
+  // The word rows the row step writes, those of this band: at most 4, each
+  // once (-1: none), held in registers.
+  int rows[4] = {-1, -1, -1, -1};
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    const bool from = a.ny > 1 && (s == 0 ? i > 0 : i < a.ny - 1);  // a tile above / below
+    const int b = max(s == 0 ? a.e_top - 32 : a.e_top + a.h_loc, 0);
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj) {
+      const int k = (b >> 5) + jj;
+      const bool in = from && b < a.ext_h && (jj == 0 || (b & 31)) && k >= k0 && k < k0 + hk &&
+                      k < a.hw;
+      rows[2 * s + jj] = in ? k : -1;
+    }
+  }
+#pragma unroll
+  for (int m = 1; m < 4; ++m)
+#pragma unroll
+    for (int q = 0; q < m; ++q)
+      if (rows[m] == rows[q]) rows[m] = -1;
+  // The halo lanes of this band: left [e_left - kl, e_left) and right
+  // [c_r, c_r + kl), where there is a neighbour.
+  const int kl = min(64, a.e_left), c_r = a.e_left + a.w_loc;
+  const int l0 = j > 0 ? max(c0, a.e_left - kl) : 0, l1 = j > 0 ? min(c0 + cb, a.e_left) : 0;
+  const int r0 = j < a.nx - 1 ? max(c0, c_r) : 0, r1 = j < a.nx - 1 ? min(c0 + cb, c_r + kl) : 0;
+  const int nl = max(l1 - l0, 0), nrt = max(r1 - r0, 0), nlanes = a.nx > 1 ? nl + nrt : 0;
+  int fresh = 0;
+  // Every word of the rows the row step writes, its halo lanes' bits with it.
+  for (int e = threadIdx.x; e < 4 * cb; e += blockDim.x) {
+    const int m = e / cb, c = c0 + e - m * cb;
+    const int k = m == 0 ? rows[0] : m == 1 ? rows[1] : m == 2 ? rows[2] : rows[3];
+    if (k < 0) continue;
+    const uint32_t v = row_part(a, t, k, c) | (nlanes ? lane_part(a, t, k, c) : 0u);
+    uint32_t* w = X + (k - k0) * rs + (c - c0);
+    const uint32_t nb = v & ~*w;
+    *w |= nb;
+    fresh += __popc(nb);
+  }
+  // The halo lanes' words in the other rows.
+  for (int e = threadIdx.x; e < nlanes * hk; e += blockDim.x) {
+    const int kk = e / nlanes, l = e - kk * nlanes, k = k0 + kk;
+    if (k == rows[0] || k == rows[1] || k == rows[2] || k == rows[3]) continue;
+    const int c = l < nl ? l0 + l : r0 + (l - nl);
+    const uint32_t v = lane_part(a, t, k, c);
+    uint32_t* w = X + kk * rs + (c - c0);
+    const uint32_t nb = v & ~*w;
+    *w |= nb;
+    fresh += __popc(nb);
+  }
+  return fresh;
 }
 
 }  // namespace halo

@@ -136,16 +136,32 @@
 // on one card (cudacam_tpu/parallel/packed_halo.py:256-306: a lax.while_loop
 // whose body is K9 on every tile, the FINAL strip exchange, and a psum of
 // "some tile still growing | some new halo bit"). The whole loop is ONE
-// cooperative launch: a collective round runs both phases' round loops
-// (round_loop, the body the two round kernels launch alone) on every
-// extended tile, the round count from 0, each writing its bands back, then
-// halo.cuh's refresh on the planes, which writes the pending flag; the loop
-// reads it after a grid barrier and runs while it is up and below the round
-// budget, then writes the rounds taken. So a sharded HYSTER call is a
-// constant handful of launches whatever the cap and however soon the tiles
-// converge, and nothing is read back. Bound: grid barriers, as the round
-// kernels; one barrier more per collective round than the separate launches
-// had, and no launch.
+// cooperative launch, and each tile's bands stay resident in shared memory
+// for all of it: the first round loop (round_loop with CARRY) loads a
+// band's CANDIDATE words (the exchange before the launch deepened their
+// halo; they never change) and its FINAL core once, and the kernel writes
+// FINAL back once at its end. A collective round runs phase 1 (from round
+// 0) and phase 2 (from the state phase 1 left in each block's copy, no
+// barrier between) on every tile, each writing the tiles' flags as K9
+// does, then halo.cuh's refresh on the resident bands:
+// each band publishes what its tile's neighbours read of it, one grid
+// barrier, each band ORs what falls in its own halo rows and lanes into its
+// words (its change test counting the new bits) and publishes its edges
+// again, and the flag "some new bit, or some flags[t][1][1]" is read after
+// the barrier that ends the round. The loop runs while the flag is up and
+// below the round budget, then writes the rounds taken. So a sharded HYSTER
+// call is a constant handful of launches whatever the cap and however soon
+// the tiles converge, and nothing is read back.
+// * Layout (choose_layout over every tile, reported by
+//   cc_sharded_loop_layout): every tile's bands in both phases, a block a
+//   band, the rounds' barriers grid barriers; where the bands outnumber the
+//   co-resident blocks, each block streams its bands through shared memory
+//   stage by stage, the refresh included.
+// * Grid barriers a collective round besides its rounds': two (the
+//   refresh's and the flag's). Nothing moves through global memory between
+//   the two phases, and the refresh moves only what crosses tiles.
+// * Bound: as the round kernels (latency: the dilation steps and the
+//   barriers); the refresh moves two word rows and 2 x 64 lanes a tile.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -431,6 +447,17 @@ __device__ int dilate_band(const Params& a, Ws ws, int cur, Band d, int s0, int 
     cur ^= 1;
   }
   return cur;
+}
+
+// The sum of every thread's v over the block (every thread gets it).
+__device__ __forceinline__ int block_sum(Ws ws, int v) {
+  __syncthreads();
+  if (threadIdx.x == 0) *ws.red = 0;
+  __syncthreads();
+  for (int o = 16; o; o >>= 1) v += __shfl_down_sync(FULL, v, o);
+  if (lane_id() == 0) atomicAdd(ws.red, v);
+  __syncthreads();
+  return *ws.red;
 }
 
 // The popcount of the tile's core in X (every thread gets it).
@@ -1002,25 +1029,47 @@ __device__ void list_active(const Params& a, const FrameState& st, int r) {
   *st.n = n;
 }
 
+// What sharded_loop_kernel's round loops (CARRY) carry from one to the
+// next, the same in every block: the FINAL plane of the workspace, the edge
+// publications so far (the latest is in slot (ex - 1) & 1) and the rounds
+// so far (the change flags rotate over three slots by them).
+struct Carry {
+  int cur, ex, q;
+};
+
 // One round loop on every frame of a: dilation rounds, and from round
 // a.scan_from on rounds of dilations and the 8 scans (hyst_kernel's body;
-// each collective round of sharded_loop_kernel runs a phase-1 and a phase-2
-// loop, each seam round of split_kernel one loop on its slices). Every block
-// of a cooperative grid calls it with the same arguments and takes the same
-// branches: the per-frame state is a copy per block. PHASE2 starts from
-// flags[b][0] (read through L2, so a caller may run it right after phase 1
-// in the same launch, with a grid barrier between) and writes flags[b][1];
-// phase 1 starts every frame at round 0 and writes flags[b][0]. The planes
-// are read at the start and written back at the end; a caller syncs the
-// grid before it reads them. SEG: compiled for layouts with height
-// segments (a launch takes the kernel its layout needs), so the code that
-// carries across segments is not in the one-segment kernels.
-template <bool PHASE2, bool SEG>
-__device__ void round_loop(const Params& a, uint32_t* sm, cg::grid_group& grid) {
+// each seam round of split_kernel runs one loop on its slices, each
+// collective round of sharded_loop_kernel a phase-1 and a phase-2 loop).
+// Every block of a cooperative grid calls it with the same arguments and
+// takes the same branches: the per-frame state is a copy per block. PHASE2
+// starts from flags[b][0] (read through L2) and writes flags[b][1]; phase 1
+// starts every frame at round 0 and writes flags[b][0]. The planes are read
+// at the start and written back at the end; a caller syncs the grid before
+// it reads them. SEG: compiled for layouts with height segments (a launch
+// takes the kernel its layout needs), so the code that carries across
+// segments is not in the one-segment kernels.
+// CARRY (sharded_loop_kernel): the bands of every frame stay in the blocks'
+// shared memory from one loop to the next, loaded by the first phase-1 loop
+// of the launch and stored by the kernel at its end; phase 2 starts from
+// the state phase 1 left in the block's copy. Without CARRY the code is the
+// round kernels' alone: a local that outlives the loop (a hoisted Params
+// field, an argument more to list_active) moves their registers and spills.
+template <bool PHASE2, bool SEG, bool CARRY = false>
+__device__ void round_loop(const Params& a, uint32_t* sm, cg::grid_group& grid,
+                           Carry* c = nullptr) {
   const FrameState st = frame_state(a, sm);
   const Ws ws = workspace(a, sm);
   const bool lead = blockIdx.x == 0 && threadIdx.x == 0;
-  if (threadIdx.x == 0) {
+  if constexpr (CARRY) {
+    if (threadIdx.x == 0) {
+      for (int b = 0; !PHASE2 && b < a.nb; ++b) {
+        st.it[b] = 0;
+        st.grow[b] = 1;
+      }
+      list_active<PHASE2>(a, st, 0);
+    }
+  } else if (threadIdx.x == 0) {
     for (int b = 0; b < a.nb; ++b) {
       st.it[b] = PHASE2 ? __ldcg(a.flags + 4 * b) : 0;
       st.grow[b] = PHASE2 ? __ldcg(a.flags + 4 * b + 1) : 1;
@@ -1047,29 +1096,37 @@ __device__ void round_loop(const Params& a, uint32_t* sm, cg::grid_group& grid) 
   const int bands = *st.nl * a.nbw * (SEG ? a.ns : 1);
   const bool resident = bands <= (int)gridDim.x;
   int cur = 0;  // the FINAL plane of the workspace
-  for (int g = blockIdx.x; g < bands; g += gridDim.x) {
-    const Band d = band_of<SEG>(a, st, g);
-    if (resident) {  // zero first: the columns outside the frame stay 0
-      for (int i = threadIdx.x; i < 3 * a.rows * a.rs; i += NT) sm[i] = 0u;
-      __syncthreads();
-      load_candidates(a, ws, d);
-    }
-    load_core(a, ws.x[0], a.f, d);
-    __syncthreads();
-    publish_edges(a, ws.x[0], d, 0);
-    const int c = core_popc(a, ws, ws.x[0], d);
-    if (threadIdx.x == 0) a.cnt[g] = c;
+  int ex = 1;   // edge publications so far: the latest is in slot (ex - 1) & 1
+  int q = 0;    // the rounds before this loop
+  if constexpr (CARRY) {
+    cur = c->cur;
+    ex = c->ex;
+    q = c->q;
   }
-  int ex = 1;  // edge publications so far: the latest is in slot (ex - 1) & 1
-  if (lead)
-    for (int i = 0; i < 3 * a.nb; ++i) a.chg[i] = 0;
-  grid.sync();
+  if (!CARRY || q == 0) {
+    for (int g = blockIdx.x; g < bands; g += gridDim.x) {
+      const Band d = band_of<SEG>(a, st, g);
+      if (resident) {  // zero first: the columns outside the frame stay 0
+        for (int i = threadIdx.x; i < 3 * a.rows * a.rs; i += NT) sm[i] = 0u;
+        __syncthreads();
+        load_candidates(a, ws, d);
+      }
+      load_core(a, ws.x[0], a.f, d);
+      __syncthreads();
+      publish_edges(a, ws.x[0], d, 0);
+      const int n = core_popc(a, ws, ws.x[0], d);
+      if (threadIdx.x == 0) a.cnt[g] = n;
+    }
+    if (lead)
+      for (int i = 0; i < 3 * a.nb; ++i) a.chg[i] = 0;
+    grid.sync();
+  }
 
   const int nseg = (a.dilate_steps + a.halo - 1) / a.halo;
   for (int r = 0; *st.n > 0; ++r) {
-    const int slot = r % 3;
+    const int slot = (q + r) % 3;
     if (lead)
-      for (int b = 0; b < a.nb; ++b) a.chg[((r + 1) % 3) * a.nb + b] = 0;
+      for (int b = 0; b < a.nb; ++b) a.chg[((q + r + 1) % 3) * a.nb + b] = 0;
     const bool scan = r >= a.scan_from;
     // The dilations, in segments of at most `halo` steps: the halo from
     // the edges last published, the steps, and the edges published again,
@@ -1152,9 +1209,14 @@ __device__ void round_loop(const Params& a, uint32_t* sm, cg::grid_group& grid) 
       list_active<PHASE2>(a, st, r + 1);
     }
     __syncthreads();
+    if constexpr (CARRY) ++c->q;
   }
-  if (resident && (int)blockIdx.x < bands)
+  if constexpr (CARRY) {
+    c->cur = cur;
+    c->ex = ex;
+  } else if (resident && (int)blockIdx.x < bands) {
     store_core(a, ws.x[cur], a.f, band_of<SEG>(a, st, blockIdx.x));
+  }
   if (lead && a.flags) {
     for (int b = 0; b < a.nb; ++b) {
       a.flags[4 * b + (PHASE2 ? 2 : 0)] = st.it[b];
@@ -1171,40 +1233,97 @@ __global__ void __launch_bounds__(NT, 1) hyst_kernel(Params a) {
 }
 
 // The collective round loop of a one-card sharded batch of extended tiles
-// (see the head of this file): the loop's flag, set before the launch by the
-// refresh that follows the export; the round count it writes at the end;
-// phase 1's cap, min(scan_after, max_iters); the round budget.
+// (see the head of this file): the loop's flag before the first round, set
+// by the refresh that follows the export; three slots of a round's flag,
+// rotating (scratch); the round count it writes at the end; the round
+// budget.
 struct LoopParams {
   const int* pending;
+  int* pend;
   int* rounds;
-  int cap1;
   int max_rounds;
 };
 
+// a: phase 2's parameters; a1: phase 1's (its cap min(scan_after,
+// max_iters), no scans), a kernel parameter of its own so that neither is
+// copied to local memory.
 template <bool SEG>
-__global__ void __launch_bounds__(NT, 1) sharded_loop_kernel(Params a, halo::Xchg x, LoopParams l) {
+__global__ void __launch_bounds__(NT, 1) sharded_loop_kernel(Params a, Params a1,
+                                                            halo::Strips x, LoopParams l) {
   extern __shared__ uint32_t sm[];
   cg::grid_group grid = cg::this_grid();
-  Params a1 = a;
-  a1.cap = l.cap1;
-  a1.scan_from = INT_MAX;
-  int it = 0;
+  const FrameState st = frame_state(a, sm);
+  const Ws ws = workspace(a, sm);
   // The reference's cond (packed_halo.py:294): the budget is tested before
-  // a round. Every thread reads the flag after a grid barrier, through L2.
-  while (it < l.max_rounds && *(volatile const int*)l.pending) {
-    // K9 on every tile, its round count from 0: phase 1, then phase 2 on the
-    // tiles still growing. Where the cap is phase 1, phase 2 finds no tile
-    // below the cap and copies each tile's phase-1 flags as final, as the
-    // host loop does, and only in a round that runs. Each loop writes its
-    // bands back to the planes before the barrier after it, so the refresh
-    // works on the planes.
-    round_loop<false, SEG>(a1, sm, grid);
-    grid.sync();
-    round_loop<true, SEG>(a, sm, grid);
-    grid.sync();
-    halo::exchange_body(x, grid);  // clears newbit first, ends on a barrier
-    grid.sync();                   // *pending is written
-    ++it;
+  // a round. Every thread reads the flag, after a grid barrier in the loop.
+  bool pending = l.max_rounds > 0 && *(volatile const int*)l.pending;
+  int it = 0;
+  if (pending) {
+    // Every tile's bands in both phases: the layout does not follow the
+    // active tiles, so a block keeps its band for the whole launch.
+    if (threadIdx.x == 0) {
+      for (int b = 0; b < a.nb; ++b) st.lay[b] = b;
+      *st.nl = a.nb;
+    }
+    if (blockIdx.x == 0 && threadIdx.x == 0)
+      for (int i = 0; i < 3; ++i) l.pend[i] = 0;
+    const int bands = a.nb * a.nbw * (SEG ? a.ns : 1);
+    const bool resident = bands <= (int)gridDim.x;
+    Carry c{0, 1, 0};
+    while (it < l.max_rounds && pending) {
+      // K9 on every tile, its round count from 0: phase 1, then phase 2 on
+      // the tiles still growing, from the state phase 1 left. Where the cap
+      // is phase 1, phase 2 finds no tile below the cap and writes each
+      // tile's phase-1 flags as final, as the host loop does.
+      round_loop<false, SEG, true>(a1, sm, grid, &c);
+      round_loop<true, SEG, true>(a, sm, grid, &c);
+      // The refresh on the resident bands: publish, one grid barrier, OR
+      // in; every band publishes its edges again (a tile that stopped
+      // early left older edges in the latest slot), and the flag is "some
+      // new bit, or some tile still growing (flags[t][1][1])".
+      const int ps = it % 3;
+      if (blockIdx.x == 0 && threadIdx.x == 0) l.pend[(it + 1) % 3] = 0;
+      for (int g = blockIdx.x; g < bands; g += gridDim.x) {
+        const Band d = band_of<SEG>(a, st, g);
+        uint32_t* X = ws.x[resident ? c.cur : 0];
+        if (!resident) {
+          load_core(a, X, a.f, d);
+          __syncthreads();
+        }
+        halo::publish_band(x, d.b, X + core0(a, d), a.rs, d.k0, d.hk, d.c0, d.cb);
+        if (!resident) __syncthreads();
+      }
+      grid.sync();
+      bool up = false;
+      if (blockIdx.x == 0 && threadIdx.x == 0)
+        for (int b = 0; b < a.nb; ++b) up = up || __ldcg(a.flags + 4 * b + 3);
+      for (int g = blockIdx.x; g < bands; g += gridDim.x) {
+        const Band d = band_of<SEG>(a, st, g);
+        uint32_t* X = ws.x[resident ? c.cur : 0];
+        if (!resident) {
+          load_core(a, X, a.f, d);
+          __syncthreads();
+        }
+        const int fresh =
+            block_sum(ws, halo::apply_band(x, d.b, X + core0(a, d), a.rs, d.k0, d.hk, d.c0, d.cb));
+        if (fresh && threadIdx.x == 0) {
+          a.cnt[g] += fresh;  // a round's change test counts from here
+          up = true;
+        }
+        publish_edges(a, X, d, (c.ex - 1) & 1);
+        if (!resident) {
+          __syncthreads();
+          store_core(a, X, a.f, d);
+          __syncthreads();
+        }
+      }
+      if (up) atomicOr(&l.pend[ps], 1);
+      grid.sync();
+      pending = *(volatile int*)&l.pend[ps];
+      ++it;
+    }
+    if (resident && (int)blockIdx.x < bands)
+      store_core(a, ws.x[c.cur], a.f, band_of<SEG>(a, st, blockIdx.x));
   }
   if (blockIdx.x == 0 && threadIdx.x == 0) *l.rounds = it;
 }
@@ -1475,6 +1594,15 @@ cudaError_t launch_rounds(Params a, int device, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// The collective round loop's kernels and its layout for the (tiles, hw, w)
+// planes of a, set into a: choose_layout's bands over every tile, a block a
+// band up to the co-resident grid.
+const Kern LOOP{(const void*)sharded_loop_kernel<false>, (const void*)sharded_loop_kernel<true>};
+
+cudaError_t loop_plan(Params& a, int device, Layout* lay, unsigned* grid) {
+  return plan(LOOP, a, a.nb, BAND_UNIT, device, lay, grid);
+}
+
 }  // namespace
 
 // int32 words of scratch either phase needs for B frames (``phase`` is kept
@@ -1580,9 +1708,9 @@ extern "C" int cc_split_converge(void* f, const void* p, void* scratch, void* fl
 
 // int32 words of scratch the sharded loop needs for T extended tiles of
 // h x w: the rounds' scratch (its change flags last), then the refresh's
-// strips and new-bit word.
+// published strips and lanes and three slots of a round's flag.
 extern "C" long long cc_sharded_loop_scratch_words(int tiles, int h, int w) {
-  return rounds_scratch_words(tiles, h, w) + halo::scratch_words(tiles, w);
+  return rounds_scratch_words(tiles, h, w) + halo::strips_words(tiles, (h + 31) / 32, w) + 3;
 }
 
 // The collective round loop of a one-card (nb, ny, nx) mesh, one launch:
@@ -1599,15 +1727,9 @@ extern "C" int cc_sharded_loop(void* f, const void* p, void* scratch, void* flag
   if (nb < 1 || ny < 1 || nx < 1 || max_rounds < 0) return cudaErrorInvalidValue;
   const int tiles = nb * ny * nx;
   Params a = make_params(f, p, scratch, flags, tiles, h, w, dilate_steps, max_iters, 0);
-  halo::Xchg x;
-  x.x = a.f;
-  x.strips = reinterpret_cast<uint32_t*>(a.chg + 3 * tiles);
-  x.newbit = reinterpret_cast<int*>(x.strips + 2LL * tiles * w);
-  x.grow = a.flags + 3;  // flags[t][1][1]: the saturate's final "still growing"
-  x.n_grow = tiles;
-  x.grow_stride = 4;
-  x.pending = const_cast<int*>(static_cast<const int*>(pending));
-  x.nb = nb;
+  halo::Strips x;
+  x.rows = reinterpret_cast<uint32_t*>(a.chg + 3 * tiles);
+  x.lanes = x.rows + 4LL * tiles * w;
   x.ny = ny;
   x.nx = nx;
   x.hw = a.hw;
@@ -1619,23 +1741,50 @@ extern "C" int cc_sharded_loop(void* f, const void* p, void* scratch, void* flag
   x.ext_h = geo[4];
   LoopParams l;
   l.pending = static_cast<const int*>(pending);
+  l.pend = reinterpret_cast<int*>(x.rows + halo::strips_words(tiles, a.hw, w));
   l.rounds = static_cast<int*>(rounds);
-  l.cap1 = scan_after < max_iters ? scan_after : max_iters;
   l.max_rounds = max_rounds;
-  // One grid for the saturate and the refresh: a block for each band of
-  // every extended tile, or the refresh's lanes, whichever is more, up to
-  // this kernel's own co-resident limit (its registers and shared memory
-  // are the union of both steps'). Both phases share the layout.
-  const Kern kern{(const void*)sharded_loop_kernel<false>, (const void*)sharded_loop_kernel<true>};
   Layout lay;
   unsigned grid = 0;
-  cudaError_t err = plan(kern, a, tiles, BAND_UNIT, device, &lay, &grid);
+  cudaError_t err = loop_plan(a, device, &lay, &grid);
   if (err != cudaSuccess) return err;
-  const long long xgrid = (halo::work_items(x) + NT - 1) / NT;
-  if (xgrid > grid) grid = (unsigned)(xgrid < lay.limit ? xgrid : lay.limit);
-  void* args[] = {&a, &x, &l};
-  err = cudaLaunchCooperativeKernel(kern.pick(lay.ns), dim3(grid), dim3(NT), args, lay.smem,
+  Params a1 = a;  // phase 1: min(scan_after, max_iters) rounds, no scans
+  a1.cap = scan_after < max_iters ? scan_after : max_iters;
+  a1.scan_from = INT_MAX;
+  void* args[] = {&a, &a1, &x, &l};
+  err = cudaLaunchCooperativeKernel(LOOP.pick(lay.ns), dim3(grid), dim3(NT), args, lay.smem,
                                     static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+// The layout of the collective round loop of a one-card (nb, ny, nx) mesh of
+// h x w extended tiles: out = (band width, halo columns, bands a tile,
+// blocks, cluster size (1: the loop has no cluster form), grid barriers a
+// phase-1 round and a phase-2 round, height segments, grid barriers a
+// collective round besides its rounds', dynamic shared memory bytes a
+// block).
+extern "C" int cc_sharded_loop_layout(int nb, int ny, int nx, int h, int w, int dilate_steps,
+                                      int device, int* out) {
+  DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return guard.err;
+  if (nb < 1 || ny < 1 || nx < 1) return cudaErrorInvalidValue;
+  Params a = make_params(nullptr, nullptr, nullptr, nullptr, nb * ny * nx, h, w, dilate_steps, 0,
+                         0);
+  Layout lay;
+  unsigned grid = 0;
+  cudaError_t err = loop_plan(a, device, &lay, &grid);
+  if (err != cudaSuccess) return err;
+  const int p1 = (dilate_steps + a.halo - 1) / a.halo;
+  out[0] = a.bw;
+  out[1] = a.halo;
+  out[2] = a.nbw * a.ns;
+  out[3] = (int)grid;
+  out[4] = 1;
+  out[5] = p1;
+  out[6] = p1 + (a.ns > 1 ? 12 : 6);
+  out[7] = a.ns;
+  out[8] = 2;  // the refresh's and the flag's
+  out[9] = (int)lay.smem;
+  return cudaSuccess;
 }

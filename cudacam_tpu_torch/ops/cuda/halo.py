@@ -2,8 +2,9 @@
 launch.
 
 Wraps ``csrc/halo.cu``, which replaces the strip exchange of the sharded
-round loop; its body (``csrc/halo.cuh``) is also one step of the round loop
-kernel (``parallel/packed_halo.py::sharded_loop``). The JAX package
+round loop; ``csrc/halo.cuh`` also holds its resident form, the refresh
+step of the round loop kernel (``parallel/packed_halo.py::sharded_loop``)
+on the bands each block keeps in shared memory. The JAX package
 computes it as XLA ops around ``jax.lax.ppermute``
 (cudacam_tpu/parallel/packed_halo.py: ``exchange_packed`` :195,
 ``_extract32`` :124, ``_or_place32`` :150) with a ``psum``'d flag

@@ -130,6 +130,29 @@ def round_layout(nb: int, h: int, w: int, dilate_steps: int, phase: int,
                      "segments"), out))
 
 
+#: ``loop_layout``'s keys, in ``cc_sharded_loop_layout``'s order.
+LOOP_LAYOUT_KEYS = ("band_width", "halo", "bands_per_tile", "blocks", "cluster",
+                    "grid_barriers_phase1_round", "grid_barriers_phase2_round", "segments",
+                    "grid_barriers_per_collective_round", "smem_bytes")
+
+
+def loop_layout(grid: Tuple[int, int, int], h: int, w: int, dilate_steps: int = 16,
+                device: int = 0) -> dict:
+    """The layout the collective round loop (``sharded_loop``) takes on a
+    card for a one-card (nb, ny, nx) mesh of h x w extended tiles: band
+    width, halo columns, bands a tile, blocks, the cluster size (1: the
+    loop's round barriers are grid barriers), the grid barriers a phase-1
+    and a phase-2 round, height segments, the grid barriers a collective
+    round takes besides its rounds', and a block's shared memory
+    (``cc_sharded_loop_layout``)."""
+    out = (ctypes.c_int * len(LOOP_LAYOUT_KEYS))()
+    lib = load()
+    lib.check(lib.lib.cc_sharded_loop_layout(*grid, h, w, dilate_steps, device,
+                                             ctypes.cast(out, ctypes.c_void_p)),
+              "cc_sharded_loop_layout")
+    return dict(zip(LOOP_LAYOUT_KEYS, out))
+
+
 def _launch_rounds(phase: int, f, p, flags, h: int, *args, name: Optional[str] = None) -> None:
     """One launch of a round kernel, counted as ``hyst_phase1`` /
     ``hyst_phase2`` or as ``name`` (the sharded host loop's local saturate,

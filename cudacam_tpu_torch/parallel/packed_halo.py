@@ -12,8 +12,11 @@ One loop per transport, as in the reference:
 
 * :func:`sharded_loop`: a one-card mesh on the card. The whole loop is one
   cooperative launch (``sharded_loop_kernel`` in ``csrc/hyst_rounds.cu``):
-  K9 on every tile, the refresh and the pending flag per round, ended on the
-  device. Nothing is read back.
+  every tile's bands stay in shared memory for the whole launch, and each
+  collective round runs K9 on every tile, the refresh on those bands
+  (``csrc/halo.cuh``'s resident form) and the pending flag, ended on the
+  device. Nothing is read back. ``megakernel.loop_layout`` reports its
+  layout.
 * :func:`packed_hysteresis_loop`: the host loop, for a distributed mesh
   (the host reads the all-reduced pending flag once per round, where the
   JAX loop has its ``psum``) and for an injected local operator. With the

@@ -59,3 +59,26 @@ def test_signature_matches_the_c_declaration(name):
 
 def test_every_entry_point_has_a_signature():
     assert sorted(DECLS) == sorted(SIGNATURES)
+
+
+def _out_indices(name: str) -> list:
+    """The indices of ``out[i] = ...`` in the body of entry point ``name``."""
+    for src in sorted(CSRC_DIR.glob("*.cu")):
+        text = src.read_text()
+        head = re.search(r'extern\s+"C"\s+int\s+' + name + r'\s*\(', text)
+        if head:
+            body = text[head.end():text.index("\n}\n", head.end())]
+            return sorted(int(i) for i in re.findall(r"\bout\[(\d+)\]\s*=", body))
+    raise AssertionError(f"{name} not found in csrc")
+
+
+@pytest.mark.parametrize("name,keys", [("cc_hyst_layout", 6),
+                                       ("cc_sharded_loop_layout", "LOOP_LAYOUT_KEYS")])
+def test_layout_reporter_fills_every_key_once(name, keys):
+    """A layout reporter writes each int its Python reader allocates once,
+    and none past it: ``round_layout`` reads 6, ``loop_layout`` one per
+    ``LOOP_LAYOUT_KEYS`` entry."""
+    from cudacam_tpu_torch.ops.cuda import megakernel
+
+    n = len(getattr(megakernel, keys)) if isinstance(keys, str) else keys
+    assert _out_indices(name) == list(range(n))

@@ -699,23 +699,35 @@ def test_sharded_spiral_cut_off_by_the_cap_matches_plain(dev):
     assert not torch.equal(got[0], converged)  # the cap cut it off
 
 
-@pytest.mark.parametrize("cap", [100, 400])
-@pytest.mark.parametrize("hw,mesh", [((256, 384), (1, 2, 2)), ((200, 320), (2, 2, 1)),
-                                     ((37, 53), (1, 1, 1)), ((96, 384), (1, 1, 4))])
+#: (frame, mesh, cap) of the round loop's card cases: the meshes of the
+#: sharded paths, and tiles past 476 word rows (height segments) at two
+#: widths (8 and 16 bands a tile).
+LOOP_CASES = [(hw, mesh, cap) for hw, mesh in (
+    ((256, 384), (1, 2, 2)), ((200, 320), (2, 2, 1)), ((37, 53), (1, 1, 1)),
+    ((96, 384), (1, 1, 4)), ((320, 384), (1, 4, 2))) for cap in (100, 400)] + [
+    ((32000, 256), (1, 2, 1), 12), ((32000, 512), (1, 2, 1), 12)]
+
+
+@pytest.mark.parametrize("hw,mesh,cap", LOOP_CASES)
 def test_sharded_loop_matches_the_host_loop(dev, hw, mesh, cap):
     """The one-launch round loop against its plain version (the host loop,
     on the same card) from the export's state: the planes, every tile's
     flags and the round count, converged and cut off by the budget (the
-    spiral at budget 3); six launches a call whatever the cap."""
+    spiral at budget 3); six launches a call whatever the cap. The tall
+    frames' tiles take height segments, on the grid layout."""
+    from cudacam_tpu_torch.ops.cuda.megakernel import loop_layout
+
     h, w = hw
     cfg = CannyConfig(height=h, width=w, max_hysteresis_iters=cap, hysteresis_scan_after=4)
     pipe = build_sharded_pipeline(cfg, make_mesh(*mesh))
     frames = _batch(h, w, 2 * mesh[0], dev)
     kw = dict(dilate_steps=16, scan_after=4, max_iters=cap)
+    grid = (2 * mesh[0], mesh[1], mesh[2])
+    lay = loop_layout(grid, pipe.geo.ext_h, pipe.geo.ext_w, 16)
+    assert lay["cluster"] == 1 and (lay["segments"] > 1) == (h >= 32000)
     for max_rounds in (cap, 3):
         f, p, flags = mega_export(frames, _thr(10, 40, dev), pipe.tiling, **kw)
         fp, pp, flp = f.clone(), p.clone(), flags.clone()
-        grid = (2 * mesh[0], mesh[1], mesh[2])
         rounds = sharded_loop(f, p, flags, grid, pipe.geo, max_rounds=max_rounds, **kw)
         want = sharded_loop_plain(fp, pp, flp, grid, pipe.geo, max_rounds=max_rounds, **kw)
         assert int(rounds) == int(want) <= max_rounds
@@ -734,6 +746,46 @@ def test_sharded_loop_matches_the_host_loop(dev, hw, mesh, cap):
     plain = ShardedCannyEngine(cfg, make_mesh(*mesh), device="cpu")
     assert torch.equal(got.cpu(), plain.process(frames.cpu()))
     assert int(sharded.pipeline().rounds) == int(plain.pipeline().rounds)
+
+
+@pytest.mark.parametrize("hw,mesh,segments,streams", [((256, 384), (1, 2, 2), False, False),
+                                                      ((1080, 1920), (1, 2, 2), False, False),
+                                                      ((4320, 7680), (1, 4, 2), False, False),
+                                                      ((32000, 512), (1, 2, 1), True, False),
+                                                      ((1080, 1920), (4, 4, 4), False, True)])
+def test_sharded_loop_layout_forms(dev, hw, mesh, segments, streams):
+    """The loop's grid layout in its forms: each block keeps one band
+    resident (1080p over (1, 2, 2): 64-column bands, 17 a tile, 68 blocks;
+    8K over (1, 4, 2): 256 columns, 16 a tile, 128 blocks), with height
+    segments (32000 x 512 over (1, 2, 1)), or streaming its bands through
+    shared memory (four 1080p frames over (4, 4, 4): 64 tiles, more bands
+    than co-resident blocks). The rounds' barriers are grid barriers (no
+    cluster), and each form equals the host loop, cut off by the budget."""
+    from cudacam_tpu_torch.ops.cuda.megakernel import loop_layout
+
+    h, w = hw
+    cfg = CannyConfig(height=h, width=w, max_hysteresis_iters=12, hysteresis_scan_after=4)
+    pipe = build_sharded_pipeline(cfg, make_mesh(*mesh))
+    lay = loop_layout(mesh, pipe.geo.ext_h, pipe.geo.ext_w, 16)
+    bands = lay["bands_per_tile"] * pipe.tiling.tiles * mesh[0]
+    assert lay["cluster"] == 1 and (lay["blocks"] < bands) == streams
+    assert (lay["segments"] > 1) == segments
+    steps = -(-16 // lay["halo"])
+    assert lay["grid_barriers_phase1_round"] == steps
+    assert lay["grid_barriers_phase2_round"] == steps + (12 if segments else 6)
+    if hw == (1080, 1920) and mesh == (1, 2, 2):
+        assert (lay["band_width"], lay["bands_per_tile"], lay["blocks"]) == (64, 17, 68)
+    if mesh == (1, 4, 2):
+        assert (lay["band_width"], lay["bands_per_tile"], lay["blocks"]) == (256, 16, 128)
+    frames = torch.stack([torch.from_numpy(make_spiral_frame(h, w)).to(dev)] +
+                         [_frame(h, w, dev, seed=s) for s in range(mesh[0] - 1)])
+    kw = dict(dilate_steps=16, scan_after=4, max_iters=12)
+    f, p, flags = mega_export(frames, _thr(10, 40, dev), pipe.tiling, **kw)
+    fp, pp, flp = f.clone(), p.clone(), flags.clone()
+    rounds = sharded_loop(f, p, flags, mesh, pipe.geo, max_rounds=3, **kw)
+    want = sharded_loop_plain(fp, pp, flp, mesh, pipe.geo, max_rounds=3, **kw)
+    assert int(rounds) == int(want) == 3
+    assert torch.equal(f, fp) and torch.equal(flags, flp)
 
 
 def test_sharded_no_host_sync(dev):

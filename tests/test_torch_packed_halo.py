@@ -19,7 +19,7 @@ import torch
 from jax.sharding import PartitionSpec as P
 
 from cudacam_tpu import CannyConfig as JaxConfig
-from cudacam_tpu.io.sources import make_spiral_frame
+from cudacam_tpu.io.sources import make_scene, make_spiral_frame
 from cudacam_tpu.parallel import packed_halo as jph
 from cudacam_tpu.parallel.mesh import AXES
 from cudacam_tpu.parallel.mesh import make_mesh as jax_mesh
@@ -110,9 +110,11 @@ def _from_jax(g, ny: int, nx: int, rows: int) -> np.ndarray:
     return x.reshape(ny * nx, rows + 1, lanes)[:, :rows]
 
 
-def _shard_map(fn, ny: int, nx: int, n_out: int):
-    mesh = jax_mesh(batch=1, rows=ny, cols=nx, devices=jax.devices()[: ny * nx])
-    spec = P("y", "x")
+def _shard_map(fn, ny: int, nx: int, n_out: int, nb: int = 1):
+    """``fn`` under ``shard_map`` on an (nb, ny, nx) mesh; the global arrays
+    stack the batch over the rows (``_jax_tiles`` with nb ny rows)."""
+    mesh = jax_mesh(batch=nb, rows=ny, cols=nx, devices=jax.devices()[: nb * ny * nx])
+    spec = P(("b", "y"), "x") if nb > 1 else P("y", "x")
     return jax.jit(jax.shard_map(fn, mesh=mesh, in_specs=(spec,) * n_out,
                                  out_specs=(spec,) * n_out, check_vma=False))
 
@@ -176,31 +178,53 @@ def test_packed_hysteresis_loop_matches_jax(grid, cap, scan_after):
     assert 0 < int(rounds) <= cap
 
 
-@pytest.mark.parametrize("cap,scan_after", [(100, 3), (5, 2), (0, 3)])
-@pytest.mark.parametrize("grid", [(2, 2), (4, 1), (1, 1)])
+#: Cases of the loop test where a tile is still growing in some round while
+#: a tile that is not gains new halo bits: both terms of the pending flag at
+#: once.
+MIXED = {((4, 1), 5, 2), ((1, 4), 5, 2)}
+
+
+@pytest.mark.parametrize("cap,scan_after", [(100, 3), (5, 2), (0, 3), (1, 3), (2, 2)])
+@pytest.mark.parametrize("grid", [(2, 2), (4, 1), (1, 1), (2, 1), (1, 4), (2, 2, 2)])
 def test_sharded_loop_matches_jax(grid, cap, scan_after):
     """The one-card round loop's entry point (on the CPU: its plain version,
     the host loop with the plain saturate and refresh) from the export's
     state against the JAX loop under ``shard_map``, its round count against
-    the host loop with the port's saturate and the mesh's refresh."""
-    ny, nx = grid
+    the host loop with the port's saturate and the mesh's refresh. ``grid``
+    is (ny, nx), or (nb, ny, nx) with a batch axis (the spiral and a scene);
+    budgets 0, 1, 2, 5 and 100."""
+    nb, ny, nx = grid if len(grid) == 3 else (1, *grid)
     h, w = 64, 128
     jcfg = JaxConfig(height=h, width=w, max_hysteresis_iters=max(cap, 1),
                      hysteresis_scan_after=scan_after, hysteresis_inner_steps=4)
     cfg = config_from_jax(jcfg)
-    mesh = make_mesh(1, ny, nx)
-    geo = build_sharded_pipeline(cfg, mesh).geo
-    frames = torch.from_numpy(make_spiral_frame(h, w))[None]
-    f, p, flags = mega_export(frames, torch.tensor([10, 40], dtype=torch.int32),
-                              build_sharded_pipeline(cfg, mesh).tiling, **pipeline_kwargs(cfg))
+    mesh = make_mesh(nb, ny, nx)
+    pipe = build_sharded_pipeline(cfg, mesh)
+    geo = pipe.geo
+    frames = torch.from_numpy(np.stack([make_spiral_frame(h, w)] +
+                                       [make_scene(h, w, seed=s) for s in range(nb - 1)]))
+    f, p, flags = mega_export(frames, torch.tensor([10, 40], dtype=torch.int32), pipe.tiling,
+                              **pipeline_kwargs(cfg))
     f0, p0, still = _to_np(f).copy(), _to_np(p).copy(), flags[:, 0, 1].numpy().copy()
     fh, ph_, flh = f.clone(), p.clone(), flags.clone()
-    rounds = ph.sharded_loop(f, p, flags, (1, ny, nx), geo, max_rounds=cap, **hyster_kwargs(cfg))
+    rounds = ph.sharded_loop(f, p, flags, (nb, ny, nx), geo, max_rounds=cap,
+                             **hyster_kwargs(cfg))
+    mixed = []
+
+    def exchange(x, grow=None, pending=None):
+        before = x.clone()
+        mesh.exchange(x, geo, grow=grow, pending=pending)
+        if grow is not None:
+            new = (x != before).flatten(1).any(1)
+            mixed.append(any(grow[t] and new[u] and not grow[u] for t in range(len(x))
+                             for u in range(len(x)) if u != t))
+
     host = ph.packed_hysteresis_loop(
         fh, ph_, flh[:, 0, 1].clone(),
         lambda ff, pp: saturate_packed(ff, pp, flh, geo.ext_h, **hyster_kwargs(cfg))[1],
-        lambda x, **kw: mesh.exchange(x, geo, **kw), cap)
+        exchange, cap)
     assert int(rounds) == int(host) <= cap and torch.equal(f, fh) and torch.equal(flags, flh)
+    assert any(mixed) == ((grid, cap, scan_after) in MIXED)
     jgeo = jph.make_geo(geo.h_loc, geo.w_loc, granule=False, ny=ny, nx=nx)
     sat = xla_packed_saturate(jcfg, jgeo)
 
@@ -208,7 +232,9 @@ def test_sharded_loop_matches_jax(grid, cap, scan_after):
         out = jph.packed_hysteresis_loop(ff, pp, grow[0, 0] == 1, jgeo, sat, AXES, ny, nx, cap)
         return out, pp, grow
 
-    grow = np.broadcast_to(still[:, None, None], (ny * nx, geo.hw, geo.ext_w)).astype(np.uint32)
-    out, _, _ = _shard_map(loop, ny, nx, 3)(_jax_tiles(f0, ny, nx), _jax_tiles(p0, ny, nx),
-                                            _jax_tiles(grow, ny, nx))
-    np.testing.assert_array_equal(_to_np(f), _from_jax(out, ny, nx, geo.hw))
+    grow = np.broadcast_to(still[:, None, None],
+                           (nb * ny * nx, geo.hw, geo.ext_w)).astype(np.uint32)
+    out, _, _ = _shard_map(loop, ny, nx, 3, nb)(_jax_tiles(f0, nb * ny, nx),
+                                                _jax_tiles(p0, nb * ny, nx),
+                                                _jax_tiles(grow, nb * ny, nx))
+    np.testing.assert_array_equal(_to_np(f), _from_jax(out, nb * ny, nx, geo.hw))

@@ -8,8 +8,9 @@ Run from the root of a checkout, on a host with a CUDA device and nvcc:
 ``--root`` profiles the ``cudacam_tpu_torch`` of DIR instead of this
 checkout's (another commit, unpacked with ``git archive``), so one call on
 the card can time two versions in turns on the same inputs (A, B, B, A;
-``--label`` names the rows). Twelve parts (``--parts``; by default all but
-``rounds``, ``ff``, ``packs``, ``stages``, ``legacy`` and ``devtime``), each printing one JSON line per workload
+``--label`` names the rows). Thirteen parts (``--parts``; by default all but
+``rounds``, ``ff``, ``packs``, ``stages``, ``legacy``, ``loop`` and
+``devtime``), each printing one JSON line per workload
 (and writing them all to ``--out`` when given):
 
 * ``trace``: ``CannyEngine(device='cuda')`` under torch.profiler, the session
@@ -89,6 +90,23 @@ the card can time two versions in turns on the same inputs (A, B, B, A;
   1080p, 4K and 8K with block_h 16 and at 1080p with block_h 64: profiler
   device µs a call and the chain kernel's share of them, CUDA-event ms a
   call, sweeps, windows, steps, device µs a step, a sha256 of the map.
+
+* ``loop``: the collective round loop (``sharded_loop``) from the export's
+  state on the 8K (1, 4, 2) scene-0 tiles, the 4K x4 (2, 2, 1) batch of
+  scenes 0-3 and the 1080p spiral over (1, 2, 2) at a budget of 100
+  collective rounds: the loop kernel's profiler device µs a call (the mean
+  of its own events over five calls, each from a fresh copy of the state,
+  and how many the profiler kept; the two refreshes before it are left
+  out), CUDA-event ms of the whole call, CUDA-event ms a frame of the
+  sharded HYSTER call (``ShardedCannyEngine.process``, windows of ten
+  calls), a sha256 of the planes, flags and rounds; the collective rounds
+  and, for each, the phase-1 and phase-2 rounds of every tile, counted on
+  the host loop with the saturate's round kernels (one launch a phase,
+  their flags read after each round); the inner rounds the loop runs (a
+  phase's rounds run while any tile of the phase is active: the most any
+  tile takes, summed over the collective rounds); µs a collective round and
+  an inner round; and the loop's layout (``megakernel.loop_layout``; none in
+  a version without it).
 
 * ``devtime``: the profiler's busy time checked against itself, on the
   programs of the ``device`` profiling mode (``ff_stages`` to each display
@@ -678,6 +696,75 @@ def legacy(label: str) -> list:
     return rows
 
 
+def loop(label: str) -> list:
+    """The collective round loop on its cases (see the module's docstring)."""
+    from cudacam_tpu_torch.ops.cuda import megakernel
+    from cudacam_tpu_torch.ops.cuda.canny import hyster_kwargs
+    from cudacam_tpu_torch.ops.cuda.halo import halo_exchange
+    from cudacam_tpu_torch.ops.cuda.hysteresis_fused import saturate_packed
+    from cudacam_tpu_torch.parallel.packed_halo import packed_hysteresis_loop, sharded_loop
+
+    card = _card()
+    rows = []
+    for name, (h, w), mesh, frames in (
+            ("8K scene 0 (1, 4, 2)", (4320, 7680), (1, 4, 2),
+             lambda: [make_scene(4320, 7680, seed=0)]),
+            ("4K x4 (2, 2, 1)", (2160, 3840), (2, 2, 1),
+             lambda: [make_scene(2160, 3840, seed=s) for s in range(4)]),
+            ("1080p spiral (1, 2, 2)", (1080, 1920), (1, 2, 2),
+             lambda: [make_spiral_frame(1080, 1920)])):
+        eng = ShardedCannyEngine(CannyConfig(height=h, width=w), make_mesh(*mesh))
+        fr = torch.from_numpy(np.stack(frames())).cuda()
+        eng.process(fr)
+        pipe, cfg = eng.pipeline(), eng.config
+        t, g, hk = pipe.tiling, pipe.geo, hyster_kwargs(cfg)
+        grid = (len(fr), t.ny, t.nx)
+        state = megakernel.mega_export(fr, eng._thresholds(), t, **pipeline_kwargs(cfg))
+        budget = cfg.max_hysteresis_iters
+        fresh = lambda: tuple(x.clone() for x in state)  # noqa: E731
+        run = lambda s: sharded_loop(*s, grid, g, max_rounds=budget, **hk)  # noqa: E731
+        out = fresh()
+        rounds = int(run(out))
+        sha = hashlib.sha256(b"".join(x.cpu().numpy().tobytes() for x in out)
+                             + str(rounds).encode()).hexdigest()[:16]
+        # The breakdown: the host loop with the saturate's round kernels.
+        fc, pc, flc = fresh()
+        per = []
+
+        def counting(ff, pp):
+            saturate_packed(ff, pp, flc, g.ext_h, **hk)
+            r1 = flc[:, 0, 0].tolist()
+            per.append((r1, [b - a for a, b in zip(r1, flc[:, 1, 0].tolist())]))
+            return flc[:, 1, 1]
+
+        taken = int(packed_hysteresis_loop(fc, pc, flc[:, 0, 1], counting,
+                                           lambda x, **k: halo_exchange(x, grid, g, **k), budget))
+        inner = sum(max(r1) + max(r2) for r1, r2 in per)
+        states = iter([fresh() for _ in range(6)])  # the untraced call's, then five
+        kept = [t_us for k, t_us in device_events(lambda: run(next(states)), 5)
+                if "sharded_loop_kernel" in k]
+        us = statistics.mean(kept)
+        try:
+            layout = megakernel.loop_layout(grid, g.ext_h, g.ext_w, hk["dilate_steps"])
+        except AttributeError:  # a version without the reporter
+            layout = None
+        frame_ms = ms_per_state(lambda _: eng.process(fr), 10, lambda: None) / len(fr)
+        rows.append(dict(
+            workload=f"sharded_loop {name}", label=label, card=card, tiles=len(fr) * t.tiles,
+            tile_planes=[g.hw, g.ext_w], device_us=us, device_records=len(kept),
+            event_ms=ms_per_state(run, 1, fresh, reps=5), frame_ms=frame_ms, sha=sha,
+            collective_rounds=rounds,
+            host_loop_rounds=taken, inner_rounds=inner,
+            us_per_collective_round=us / max(rounds, 1), us_per_inner_round=us / max(inner, 1),
+            rounds_per_collective_round=[[max(r1), max(r2)] for r1, r2 in per],
+            tile_rounds=per if len(per) <= 4 else per[:2] + per[-2:], layout=layout))
+        print(json.dumps({k: v for k, v in rows[-1].items()
+                          if k not in ("rounds_per_collective_round", "tile_rounds")}), flush=True)
+        del eng, fr, state
+        torch.cuda.empty_cache()
+    return rows
+
+
 def _session(fn, calls: int, pad_s: float = 0.0, sentinels: int = 0) -> dict:
     """One profiler session of ``calls`` calls of ``fn`` (warm), idle for
     ``pad_s`` before it and, inside it, before and after the calls, and
@@ -803,16 +890,16 @@ def devtime() -> list:
 
 
 PARTS = ("trace", "sizes", "sweeps", "sharded", "split", "app", "rounds", "ff", "packs",
-         "stages", "legacy", "devtime")
+         "stages", "legacy", "loop", "devtime")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", type=Path, help="also write the JSON lines here")
-    ap.add_argument("--parts", default=",".join(PARTS[:-6]), help=f"comma-separated of {PARTS}")
+    ap.add_argument("--parts", default=",".join(PARTS[:-7]), help=f"comma-separated of {PARTS}")
     ap.add_argument("--root", type=Path, help="profile the package of this checkout")
     ap.add_argument("--label", default="this checkout",
-                    help="the rounds, ff, packs, stages and legacy parts' label")
+                    help="the rounds, ff, packs, stages, legacy and loop parts' label")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("port_profile: needs a CUDA device", file=sys.stderr)
@@ -850,6 +937,8 @@ def main() -> int:
         rows += stages(args.label)
     if "legacy" in parts:
         rows += legacy(args.label)
+    if "loop" in parts:
+        rows += loop(args.label)
     if "devtime" in parts:
         rows += devtime()
     lines = [json.dumps(r) for r in rows]
