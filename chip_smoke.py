@@ -101,12 +101,18 @@ Phases, each printing its lines before the last:
    bound from the rounds each tile takes and its rounds a collective round,
    and ms/frame of each sharded path beside the unsharded engine and the
    host loop on the same frames;
-9. the column-split continuation (K11, ``split_converge``) against its plain
+9. the column-split continuation (K11, ``split_converge``; nvcc's report of
+   both ``split_kernel`` instances comes with the build's) against its plain
    version with ``n_split`` 2 and 4 on the 8K spiral's phase-1 exit state
    (cut off by the round budget) and on an 8K scene that escalates and
    converges; ``CannyEngine(continuation='split')`` on the converged 8K
    frame equal to the default engine and on the spiral equal to the plain
-   split route, four launches a call whatever the cap, no host sync; 8K
+   split route, four launches a call whatever the cap, no host sync; its
+   time with the seam rounds counted and its layout; the batched call
+   (``converge_packed_split_batched``, one launch) against its plain version
+   and a call a frame on x8 1080p (7 scenes and the spiral) and x2 8K (scene
+   0 and the spiral), with the engine's batch against single calls; the
+   engine's launches under ``split`` for B = 1, 2 and 8 (four each); 8K
    ms/frame of ``split`` against ``kernel`` on the cap-class and on a calm
    frame;
 10. the legacy row-sweep hysteresis (K12, ``hyst_sweeps``) against its plain
@@ -267,6 +273,20 @@ SCAN_OPS = 2 * 2 + 4 * (2 + 3) + 2 * (2 + 27)
 def round_ops(words: int, dilate_steps: int, scans: bool) -> int:
     """Word operations of one round on ``words`` packed words."""
     return words * (DILATE_OPS * dilate_steps + 1 + (SCAN_OPS if scans else 0))
+
+
+def split_work(h: int, w: int, n_split: int, seams, dilate_steps: int) -> tuple:
+    """(bytes, operations) of a column-split call whose growing frames took
+    the seam rounds ``seams`` (one list of inner rounds a seam round per
+    frame): each frame's F and P read once and F written once; each seam
+    round a dilation round and then scan rounds on every slice (k + ws + k
+    columns, k = min(64, ws)), as many as the slowest slice took."""
+    ws = w // n_split
+    sw = -(-h // 32) * (ws + 2 * min(64, ws))
+    nbytes = 3 * 4 * -(-h // 32) * w * len(seams)
+    ops = sum(n_split * (len(s) * round_ops(sw, dilate_steps, False)
+                         + (sum(s) - len(s)) * round_ops(sw, dilate_steps, True)) for s in seams)
+    return nbytes, ops
 
 
 #: Word operations per packed word of one promotion step of the row sweeps:
@@ -1524,10 +1544,10 @@ class Smoke:
         from cudacam_tpu_torch.io.sources import make_scene, make_spiral_frame
         from cudacam_tpu_torch.ops.cuda.canny import pipeline_kwargs
         from cudacam_tpu_torch.ops.cuda.hysteresis_fused import (
-            SPLIT_HALO, converge_packed_split, converge_packed_split_plain,
+            converge_packed_split, converge_packed_split_plain,
         )
         from cudacam_tpu_torch.ops.cuda.megakernel import (
-            SPLIT_CHUNK, canny_mega, split_count, unpack_plain,
+            SPLIT_CHUNK, canny_mega, split_count, split_layout, unpack_plain,
         )
 
         dev = self.dev
@@ -1620,19 +1640,14 @@ class Smoke:
         self.ms["split_converge"] = self.time_ms(
             lambda s: converge_packed_split(s[0], p, s[1], h, 2, **kw), 1, reps=3,
             setup=lambda: (f.clone(), flags.clone()))
-        spent = int(spiral_flags[1, 0]) - int(spiral_flags[0, 0])
-        seams = -(-spent // SPLIT_CHUNK)
-        ws = w // 2
-        sw = -(-h // 32) * (ws + 2 * SPLIT_HALO)
-        words = -(-h // 32) * w
-        ds = cfg.hysteresis_inner_steps
-        self.set_bound("split_converge", 3 * 4 * words,
-                       2 * (seams * round_ops(sw, ds, False)
-                            + (spent - seams) * round_ops(sw, ds, True)))
+        seams = self.seam_rounds(f, p, flags, h, 2, kw)
+        self.set_bound("split_converge", *split_work(h, w, 2, [seams], cfg.hysteresis_inner_steps))
         print(f"time split_converge: kernel {self.ms['split_converge']!r} ms, plain "
               f"{self.plain_ms['split_converge']!r} ms, bound {self.bound['split_converge'][0]!r} ms "
               f"({self.bound['split_converge'][1]}) (8K spiral from round {int(flags[0, 0])}: "
-              f"{spent} rounds in {seams} seam rounds, n_split 2)")
+              f"{sum(seams)} rounds in {len(seams)} seam rounds {seams}, n_split 2; layout "
+              f"{json.dumps(split_layout(1, h, w, 2, cfg.hysteresis_inner_steps))})")
+        self.split_batches()
         eng8 = CannyEngine(cfg, device="cuda")
         for label, frame, reps in (("cap-class spiral", spiral, 3), ("calm scene 0", scene, 7)):
             t_split = self.time_ms(lambda _: self.eng8_split.process(frame), 1, reps=reps)
@@ -1640,6 +1655,103 @@ class Smoke:
             t_split2 = self.time_ms(lambda _: self.eng8_split.process(frame), 1, reps=reps)
             print(f"time 8K {label}: continuation='split' {t_split!r} / {t_split2!r} ms/frame, "
                   f"'kernel' (K2) {t_kernel!r} ms/frame (medians of {reps}, split, kernel, split)")
+
+    def seam_rounds(self, f, p, flags, h, n_split, kw) -> list:
+        """The inner rounds of each seam round of one frame's split call from
+        (f, flags): the seam rounds run one launch each (a budget of one
+        more round ends the loop after one seam round, whose inner cap is
+        the chunk all the same), the planes left as they were."""
+        from cudacam_tpu_torch.ops.cuda.hysteresis_fused import converge_packed_split
+
+        fs, it, changed, out = f.clone(), int(flags[0, 0]), int(flags[0, 1]), []
+        while changed and it < kw["max_iters"]:
+            fl = self.torch.tensor([[it, 1], [0, 0]], dtype=self.torch.int32, device=self.dev)
+            converge_packed_split(fs, p, fl, h, n_split, **dict(kw, max_iters=it + 1))
+            nxt, changed = (int(v) for v in fl[1])
+            out.append(nxt - it)
+            it = nxt
+        return out
+
+    def split_batches(self) -> None:
+        """The batched K11 (``converge_packed_split_batched``): one launch for
+        a batch against its plain version frame by frame and against a call
+        a frame, on x8 1080p (7 scenes and the spiral) and x2 8K (scene 0 and
+        the spiral) at their phase-1 exit, cap 100; the engine's launches
+        under ``split`` for B = 1, 2 and 8; the times."""
+        torch = self.torch
+        import numpy as np
+        from cudacam_tpu_torch import CannyConfig
+        from cudacam_tpu_torch.engine import CannyEngine
+        from cudacam_tpu_torch.io.sources import make_scene, make_spiral_frame
+        from cudacam_tpu_torch.ops.cuda.canny import pipeline_kwargs
+        from cudacam_tpu_torch.ops.cuda.hysteresis_fused import (
+            converge_packed_split, converge_packed_split_batched,
+            converge_packed_split_batched_plain,
+        )
+        from cudacam_tpu_torch.ops.cuda.megakernel import (
+            SPLIT_CHUNK, canny_mega_batched, split_count, split_layout,
+        )
+
+        cases = (("x8 1080p (7 scenes + spiral)", (1080, 1920),
+                  lambda: [make_scene(1080, 1920, seed=s) for s in range(7)]
+                  + [make_spiral_frame(1080, 1920)]),
+                 ("x2 8K (scene 0 + spiral)", (4320, 7680),
+                  lambda: [make_scene(4320, 7680, seed=0), make_spiral_frame(4320, 7680)]))
+        for label, (h, w), frames in cases:
+            cfg = CannyConfig(height=h, width=w, continuation="split")
+            eng = CannyEngine(cfg, device="cuda")
+            x = torch.from_numpy(np.stack(frames())).to(self.dev)
+            f, p, flags = canny_mega_batched(x, eng._thresholds(), **pipeline_kwargs(cfg))
+            n, ds = split_count(h, w), cfg.hysteresis_inner_steps
+            kw = dict(dilate_steps=ds, scan_after=0, max_iters=cfg.max_hysteresis_iters,
+                      chunk=SPLIT_CHUNK)
+            fk, flk, fp, flp = f.clone(), flags.clone(), f.clone(), flags.clone()
+            self.path(f"converge_packed_split_batched {label}",
+                      lambda: converge_packed_split_batched(fk, p, flk, h, n, **kw),
+                      dict(split_converge=1))
+            t0 = time.perf_counter()
+            converge_packed_split_batched_plain(fp, p, flp, h, n, **kw)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            self.diff("split_converge", fk, fp)
+            self.diff("split_converge", flk, flp)
+            grew = [b for b in range(len(x)) if int(flags[b, 0, 1])]
+            require(grew and any(int(flk[b, 1, 1]) for b in grew),
+                    f"{label}: no frame cut off by the cap: {flk.tolist()}")
+            seams = [self.seam_rounds(f[b], p[b], flags[b], h, n, kw) for b in grew]
+            fresh = lambda: (f.clone(), flags.clone())  # noqa: E731
+            ms = self.time_ms(lambda s: converge_packed_split_batched(s[0], p, s[1], h, n, **kw),
+                              1, reps=5, setup=fresh)
+            ms_single = self.time_ms(
+                lambda s: [converge_packed_split(s[0][b], p[b], s[1][b], h, n, **kw)
+                           for b in range(len(x))], 1, reps=5, setup=fresh)
+            t_ms, kind = bound_ms(*split_work(h, w, n, seams, ds))
+            eng.process(x)
+            batch_ms = self.time_ms(lambda _: eng.process(x), 1, reps=5)
+            single_ms = self.time_ms(lambda _: [eng.process(fr) for fr in x], 1, reps=5)
+            print(f"split_converge batched == plain on {label}, n_split {n}: final flags "
+                  f"{flk[:, 1].tolist()}, growing at phase 1 {grew}, seam rounds {seams}; layout "
+                  f"{json.dumps(split_layout(len(x), h, w, n, ds))}")
+            print(f"time split_converge batched {label}: kernel {ms!r} ms (one launch) against "
+                  f"{ms_single!r} ms in {len(x)} single calls, plain {plain_ms!r} ms, bound "
+                  f"{t_ms!r} ms ({kind}); the engine's batch {batch_ms!r} ms against {single_ms!r} "
+                  f"ms in single calls")
+        # A continuation='split' call is four launches for any B.
+        cfg = CannyConfig(height=1080, width=1920, continuation="split")
+        eng = CannyEngine(cfg, device="cuda")
+        scenes = [make_spiral_frame(1080, 1920)] + [make_scene(1080, 1920, seed=s)
+                                                    for s in range(7)]
+        expect = dict(ff_pack=1, hyst_phase1=1, split_converge=1, unpack=1, hyst_phase2=0)
+        for nb in (1, 2, 8):
+            x = torch.from_numpy(np.stack(scenes[:nb])).to(self.dev)
+            eng.process(x)
+            got = self.path(f"process HYSTER x{nb} 1080p, continuation='split'",
+                            lambda: eng.process(x), expect)
+            for b in range(nb):
+                require(torch.equal(got[b], eng.process(x[b])),
+                        f"x{nb} split batch differs from the single call on frame {b}")
+        print("continuation='split' on x1, x2, x8 1080p batches: 4 launches a call, each frame "
+              "equal to its single call")
 
     def phase_legacy(self) -> None:
         """K12: ``hyst_sweeps`` against its plain version and against the

@@ -118,20 +118,40 @@
 // split_kernel replaces the column-split continuation (hysteresis_fused.py:876
 // converge_packed_split, driven by megakernel.py:921 _cont_split: a host-traced
 // loop of one saturate_packed launch per column slice with XLA pad / slice /
-// concatenate between). Here the whole seam loop is ONE cooperative launch,
-// gated on the frame's growing flag as phase 2 is: the slices are the batch
-// dimension of a scratch copy (n_split, hw, k + ws + k) that round_loop works
-// on as on any batch (per-slice round counts and stop tests). A seam round
-// extracts every slice with its k halo columns from the frame's plane (zero
-// outside the frame), runs the saturate schedule on each (one unconditional
-// dilation round, dilation rounds below scan_after, then dilations + scans,
-// while the slice changes and below the inner cap), writes the owned ws
-// columns back, and adds the most rounds any slice took to the budget
-// counter; the loop ends on the device when a seam round changes no owned
-// word or the budget is spent. So a call is one launch whatever the cap,
-// and the host reads nothing back. Bound: as the round kernels; the
-// extract and merge passes move the planes through L2 once a seam round.
-//
+// concatenate between). Here the seam loops of a batch of frames are ONE
+// cooperative launch, gated on each frame's growing flag as phase 2 is. The
+// n_split slices of each frame still growing (k + ws + k columns: the ws it
+// owns and k = min(64, ws) of halo each side, zero outside the frame) are
+// the frames of round_loop, cut into bands that stay in the blocks' shared
+// memory for the whole launch, as sharded_loop_kernel's tiles do:
+// * load once: each band loads its F and P words straight from the frame's
+//   planes (16 bytes a lane where the address allows it);
+// * a seam round runs the saturate schedule on every slice of the frames
+//   still in their loop (one unconditional dilation round, dilation rounds
+//   below scan_after, then dilations + scans, while the slice changes and
+//   below the inner cap; round_loop with SEAM: a frame out of its loop takes
+//   no round), then the change test (some owned word changed: a seam round
+//   only adds bits to a slice, so the popcount of the owned columns grew)
+//   and, from the bands that hold owned columns within k of a seam, those
+//   columns into the slice's seam records; one grid barrier; each frame
+//   adds the most rounds any of its slices took to its budget count (or 1
+//   unchunked) and goes on while the round changed an owned word and the
+//   count is below max_iters;
+// * the seam refresh on the resident bands: the bands that hold a slice's
+//   halo columns overwrite them with the neighbours' records (an overwrite,
+//   as the reference's extract is: a slice may have grown bits in its halo
+//   that the neighbour does not hold), every band publishes its edges
+//   again, one grid barrier; interior bands keep their words;
+// * write once: the owned columns of FINAL into the frames' planes at the
+//   end. So a call is one launch whatever the cap and the batch, and the
+//   host reads nothing back.
+// Layout (split_plan, reported by cc_split_layout): one frame's slices, a
+// block a band, as phase 2 lays out one frame; where the frames still
+// growing hold more bands than that, each block streams its bands through
+// shared memory stage by stage, from slice planes extracted into scratch
+// once a launch. Bound: as the round kernels; a seam round moves only the
+// seam columns and the edges through L2 besides its rounds'.
+
 // sharded_loop_kernel replaces the collective round loop of the sharded path
 // on one card (cudacam_tpu/parallel/packed_halo.py:256-306: a lax.while_loop
 // whose body is K9 on every tile, the FINAL strip exchange, and a psum of
@@ -190,6 +210,7 @@ constexpr int N_XDIR = 6;              // scan directions that cross bands: 0, 1
 constexpr int FOLD_BATCH = 8;          // upstream bands a fold loads in one pass
 constexpr int MIN_SEG = 64;            // the fewest word rows of a height segment
 constexpr int N_SEAM = 6;              // words a column of a tile's seam record: see Params::seam
+constexpr int SEAM_BATCH = 8;          // words a thread loads at once in split_kernel's seam refresh
 
 struct Params {
   uint32_t* f;        // (B, hw, w) FINAL planes, updated in place
@@ -1015,14 +1036,16 @@ __device__ __forceinline__ void scan_stage(int s, int* dir, bool* fix) {
 }
 
 // Marks the frames that run round r (thread 0 only; the caller syncs the
-// block). Every block computes the same state.
-template <bool PHASE2>
+// block). Every block computes the same state. MASK (split_kernel's seam
+// rounds): the first round too runs only the frames whose grow the caller
+// set.
+template <bool PHASE2, bool MASK = false>
 __device__ void list_active(const Params& a, const FrameState& st, int r) {
   int n = 0;
   for (int b = 0; b < a.nb; ++b) {
     // Phase 1 runs its first round unconditionally; phase 2 starts at the
     // phase-1 exit state.
-    const bool on = (!PHASE2 && r == 0) || (st.grow[b] && st.it[b] < a.cap);
+    const bool on = (!PHASE2 && !MASK && r == 0) || (st.grow[b] && st.it[b] < a.cap);
     st.on[b] = on;
     n += on;
   }
@@ -1052,10 +1075,13 @@ struct Carry {
 // CARRY (sharded_loop_kernel): the bands of every frame stay in the blocks'
 // shared memory from one loop to the next, loaded by the first phase-1 loop
 // of the launch and stored by the kernel at its end; phase 2 starts from
-// the state phase 1 left in the block's copy. Without CARRY the code is the
-// round kernels' alone: a local that outlives the loop (a hoisted Params
-// field, an argument more to list_active) moves their registers and spills.
-template <bool PHASE2, bool SEG, bool CARRY = false>
+// the state phase 1 left in the block's copy. SEAM (with CARRY,
+// split_kernel): the kernel loads the bands and sets each frame's round
+// count and grow before every loop; a frame whose grow is 0 takes no round.
+// Without CARRY the code is the round kernels' alone: a local that outlives
+// the loop (a hoisted Params field, an argument more to list_active) moves
+// their registers and spills.
+template <bool PHASE2, bool SEG, bool CARRY = false, bool SEAM = false>
 __device__ void round_loop(const Params& a, uint32_t* sm, cg::grid_group& grid,
                            Carry* c = nullptr) {
   const FrameState st = frame_state(a, sm);
@@ -1063,11 +1089,11 @@ __device__ void round_loop(const Params& a, uint32_t* sm, cg::grid_group& grid,
   const bool lead = blockIdx.x == 0 && threadIdx.x == 0;
   if constexpr (CARRY) {
     if (threadIdx.x == 0) {
-      for (int b = 0; !PHASE2 && b < a.nb; ++b) {
+      for (int b = 0; !PHASE2 && !SEAM && b < a.nb; ++b) {
         st.it[b] = 0;
         st.grow[b] = 1;
       }
-      list_active<PHASE2>(a, st, 0);
+      list_active<PHASE2, SEAM>(a, st, 0);
     }
   } else if (threadIdx.x == 0) {
     for (int b = 0; b < a.nb; ++b) {
@@ -1103,7 +1129,7 @@ __device__ void round_loop(const Params& a, uint32_t* sm, cg::grid_group& grid,
     ex = c->ex;
     q = c->q;
   }
-  if (!CARRY || q == 0) {
+  if (!CARRY || (!SEAM && q == 0)) {
     for (int g = blockIdx.x; g < bands; g += gridDim.x) {
       const Band d = band_of<SEG>(a, st, g);
       if (resident) {  // zero first: the columns outside the frame stay 0
@@ -1206,7 +1232,7 @@ __device__ void round_loop(const Params& a, uint32_t* sm, cg::grid_group& grid,
         st.grow[b] = *(volatile int*)&a.chg[slot * a.nb + b];
         ++st.it[b];
       }
-      list_active<PHASE2>(a, st, r + 1);
+      list_active<PHASE2, SEAM>(a, st, r + 1);
     }
     __syncthreads();
     if constexpr (CARRY) ++c->q;
@@ -1328,80 +1354,331 @@ __global__ void __launch_bounds__(NT, 1) sharded_loop_kernel(Params a, Params a1
   if (blockIdx.x == 0 && threadIdx.x == 0) *l.rounds = it;
 }
 
-// The column-split continuation of one frame (see the head of this file).
+// The column-split continuation of a batch of frames (see the head of this
+// file). The slices are the frames of the launch's Params: slice i of frame
+// f is a.f's frame f n + i, slice column c is frame column i ws - k + c.
 struct SplitParams {
-  uint32_t* ff;        // (hw, fw) the frame's FINAL plane, updated in place
-  const uint32_t* fp;  // (hw, fw) the frame's CANDIDATE plane
-  uint32_t* sp;        // (n_split, hw, k + ws + k) the slices' CANDIDATE planes (scratch)
-  int* fflags;         // (2, 2): row 0 read (round count, growing), row 1 written
-  int* mchg;           // [3] "a seam round changed an owned word", rotating
+  uint32_t* ff;        // (nf, hw, fw) the frames' FINAL planes, updated in place
+  const uint32_t* fp;  // (nf, hw, fw) the frames' CANDIDATE planes
+  int* fflags;         // (nf, 2, 2): row 0 read (round count, growing), row 1 written
+  uint32_t* sp;        // the streaming layout's slice CANDIDATE planes (a.p; scratch)
+  uint32_t* pub;       // per slice [2][hw][k]: its first and its last k owned columns
+  int* ocnt;           // per tile: the popcount of the owned columns it holds
+  int* mchg;           // [3][nf] "a seam round changed an owned word of frame f", rotating
+  int nf, n;           // frames, slices a frame
   int fw, ws, k;       // frame columns, owned columns a slice, seam halo columns
   int budget;          // the total round budget (max_iters)
   int chunked;         // a seam round spends its slowest slice's rounds (else 1)
 };
 
-// Slice i of a frame plane with its halo, zero outside the frame.
-__device__ void split_extract(const Params& a, const SplitParams& s, const uint32_t* src,
-                              uint32_t* dst) {
-  const long long total = a.nb * a.plane;
-  for (long long e = blockIdx.x * NT + threadIdx.x; e < total; e += (long long)gridDim.x * NT) {
-    const int i = (int)(e / a.plane), rem = (int)(e - i * a.plane);
-    const int kr = rem / a.w, c = rem - kr * a.w;
-    const int gc = i * s.ws - s.k + c;
-    dst[e] = (gc >= 0 && gc < s.fw) ? __ldcg(src + (long long)kr * s.fw + gc) : 0u;
+// The frames' seam-loop state, one copy per block after the slices'
+// FrameState (the layout sizes a block's shared memory for nb + nf frames).
+struct SeamState {
+  int* it;   // [nf] round count (the budget spent)
+  int* ch;   // [nf] the last seam round changed an owned word (at first: growing)
+  int* on;   // [nf] the frame takes another seam round
+  int* any;  // [1] some frame does
+};
+
+__device__ __forceinline__ SeamState seam_state(const Params& a, const SplitParams& s,
+                                                uint32_t* sm) {
+  int* t = reinterpret_cast<int*>(sm + a.wsw) + 2 + 4 * a.nb + 2;
+  return SeamState{t, t + s.nf, t + 2 * s.nf, t + 3 * s.nf};
+}
+
+// Words [0, n) of a plane row from src into dst, 16 bytes a lane where the
+// address allows it (a slice starts at frame column i ws - k, a multiple of
+// 4 words only where ws and k are; a row's first word sits on a 16-byte
+// boundary only where its row index times fw is a multiple of 4), 4 bytes
+// at the head and the tail; each word ANDed with m. One warp.
+__device__ void load_row16(uint32_t* dst, const uint32_t* src, int n, uint32_t m) {
+  const int lane = lane_id();
+  const int head = min(n, (int)(((16u - ((uint32_t)(uintptr_t)src & 15u)) & 15u) >> 2));
+  const int nv = (n - head) >> 2;
+  if (lane < head) dst[lane] = __ldcg(src + lane) & m;
+  const uint4* v = reinterpret_cast<const uint4*>(src + head);
+  for (int j = lane; j < nv; j += 32) {
+    const uint4 x = __ldcg(v + j);
+    uint32_t* o = dst + head + 4 * j;
+    o[0] = x.x & m;
+    o[1] = x.y & m;
+    o[2] = x.z & m;
+    o[3] = x.w & m;
   }
+  for (int t = head + 4 * nv + lane; t < n; t += 32) dst[t] = __ldcg(src + t) & m;
+}
+
+// The resident start-up's load into a zeroed workspace: shared rows [r0,
+// r1) and columns [lo, hi) of X straight from the frame plane that slice
+// d.b cuts from src. Shared (i, cc) is plane row k0 - vh + i and slice
+// column c0 - halo + cc; what lies outside the frame stays zero, and the
+// bits of rows at and past h read as zero.
+__device__ void load_slice(const Params& a, const SplitParams& s, uint32_t* X, const uint32_t* src,
+                           Band d, int r0, int r1, int lo, int hi) {
+  const int f = d.b / s.n, base = (d.b - f * s.n) * s.ws - s.k + d.c0 - a.halo;
+  const int g0 = max(base + lo, 0), g1 = min(base + hi, s.fw);
+  if (g0 >= g1) return;
+  const uint32_t* plane = src + (long long)f * a.hw * s.fw;
+  for (int i = r0 + warp_id(); i < r1; i += NW) {
+    const int kr = d.k0 - d.vh + i;
+    if (kr < 0 || kr >= a.hw) continue;
+    load_row16(X + i * a.rs + g0 - base, plane + (long long)kr * s.fw + g0, g1 - g0,
+               kr == a.hw - 1 ? a.tail : FULL);
+  }
+}
+
+// The streaming layout's start-up: the layout's slices of the frames' F and
+// P planes into the scratch slice planes a.f and s.sp, zero outside the
+// frame. Its rounds then stream the bands from there.
+__device__ void extract_slices(const Params& a, const SplitParams& s, const FrameState& st) {
+  const long long total = (long long)*st.nl * a.plane;
+  for (long long e = blockIdx.x * NT + threadIdx.x; e < total; e += (long long)gridDim.x * NT) {
+    const int li = (int)(e / a.plane), rem = (int)(e - li * a.plane);
+    const int sl = st.lay[li], f = sl / s.n, kr = rem / a.w, c = rem - kr * a.w;
+    const int gc = (sl - f * s.n) * s.ws - s.k + c;
+    const long long src = ((long long)f * a.hw + kr) * s.fw + gc, dst = sl * a.plane + rem;
+    const bool in = gc >= 0 && gc < s.fw;
+    a.f[dst] = in ? __ldcg(s.ff + src) : 0u;
+    s.sp[dst] = in ? __ldcg(s.fp + src) : 0u;
+  }
+}
+
+// The tile's core columns [*t0, *t1) that are slice columns [lo, lo + n).
+__device__ __forceinline__ void cols_of(Band d, int lo, int n, int* t0, int* t1) {
+  *t0 = max(lo - d.c0, 0);
+  *t1 = min(lo + n - d.c0, d.cb);
+}
+
+// The popcount of the owned columns the tile holds (every thread gets it).
+// A seam round only adds bits to a slice, so its owned words changed iff
+// this grew; the halo columns do not count.
+__device__ int owned_popc(const Params& a, const SplitParams& s, Ws ws, const uint32_t* X,
+                          Band d) {
+  int t0, t1, c = 0;
+  cols_of(d, s.k, s.ws, &t0, &t1);
+  X += core0(a, d);
+  for (int kk = warp_id(); kk < d.hk; kk += NW)
+    for (int t = t0 + lane_id(); t < t1; t += 32) c += __popc(X[kk * a.rs + t]);
+  return block_sum(ws, c);
+}
+
+// The owned columns the tile holds within k of its slice's seams, at its
+// rows of the slice's records: record 0 its first k owned columns (the left
+// neighbour's right halo), record 1 its last k (the right neighbour's left
+// halo). A frame's first slice has no record 0 and its last no record 1.
+__device__ void publish_seams(const Params& a, const SplitParams& s, const uint32_t* X, Band d) {
+  const int i = d.b % s.n;
+  X += core0(a, d);
+  for (int r = 0; r < 2; ++r) {
+    if (r == 0 ? i == 0 : i == s.n - 1) continue;
+    const int lo = r == 0 ? s.k : s.ws;  // slice columns [lo, lo + k)
+    int t0, t1;
+    cols_of(d, lo, s.k, &t0, &t1);
+    uint32_t* o = s.pub + ((long long)(2 * d.b + r) * a.hw + d.k0) * s.k + d.c0 - lo;
+    for (int kk = warp_id(); kk < d.hk; kk += NW)
+      for (int t = t0 + lane_id(); t < t1; t += 32) o[(long long)kk * s.k + t] = X[kk * a.rs + t];
+  }
+}
+
+// The tile's words in its slice's halo columns overwritten with the
+// neighbours' owned words as they published them: the left halo is the left
+// neighbour's record 1, the right halo the right neighbour's record 0. An
+// overwrite, as the reference's extract is, not an OR: a slice may have
+// grown bits in its halo that the neighbour does not hold. The halo outside
+// the frame stays zero (no candidate lies there, so no bit grows). Returns
+// whether the tile holds any halo column it overwrote (uniform in the block).
+__device__ bool apply_seams(const Params& a, const SplitParams& s, uint32_t* X, Band d) {
+  const int i = d.b % s.n;
+  bool any = false;
+  X += core0(a, d);
+  for (int r = 0; r < 2; ++r) {
+    if (r == 0 ? i == 0 : i == s.n - 1) continue;
+    const int lo = r == 0 ? 0 : s.k + s.ws;  // slice columns [lo, lo + k)
+    int t0, t1;
+    cols_of(d, lo, s.k, &t0, &t1);
+    if (t0 >= t1) continue;
+    any = true;
+    const int nbr = r == 0 ? d.b - 1 : d.b + 1;  // the neighbouring slice
+    const uint32_t* src = s.pub + ((long long)(2 * nbr + 1 - r) * a.hw + d.k0) * s.k + d.c0 - lo;
+    // A thread's words are loaded before any is stored, so that its L2
+    // round trips are in flight together: the other blocks wait for this
+    // at the next grid barrier.
+    const int cw = t1 - t0, n = d.hk * cw;
+    for (int e0 = threadIdx.x; e0 < n; e0 += SEAM_BATCH * NT) {
+      uint32_t v[SEAM_BATCH];
+#pragma unroll
+      for (int j = 0; j < SEAM_BATCH; ++j) {
+        const int e = e0 + j * NT, kk = e / cw;
+        v[j] = e < n ? __ldcg(src + (long long)kk * s.k + t0 + e - kk * cw) : 0u;
+      }
+#pragma unroll
+      for (int j = 0; j < SEAM_BATCH; ++j) {
+        const int e = e0 + j * NT, kk = e / cw;
+        if (e < n) X[kk * a.rs + t0 + e - kk * cw] = v[j];
+      }
+    }
+  }
+  return any;
+}
+
+// The owned columns the tile holds into its frame's plane.
+__device__ void store_owned(const Params& a, const SplitParams& s, const uint32_t* X, Band d) {
+  const int f = d.b / s.n;
+  int t0, t1;
+  cols_of(d, s.k, s.ws, &t0, &t1);
+  uint32_t* o = s.ff + ((long long)f * a.hw + d.k0) * s.fw + (d.b - f * s.n) * s.ws - s.k + d.c0;
+  X += core0(a, d);
+  for (int kk = warp_id(); kk < d.hk; kk += NW)
+    for (int t = t0 + lane_id(); t < t1; t += 32) o[(long long)kk * s.fw + t] = X[kk * a.rs + t];
 }
 
 template <bool SEG>
 __global__ void __launch_bounds__(NT, 1) split_kernel(Params a, SplitParams s) {
-  const bool lead = blockIdx.x == 0 && threadIdx.x == 0;
-  int it = s.fflags[0];
-  if (s.fflags[1] == 0) {  // every block: the frame converged in phase 1
-    if (lead) {
-      s.fflags[2] = it;
-      s.fflags[3] = 0;
-    }
-    return;
-  }
   extern __shared__ uint32_t sm[];
-  const FrameState st = frame_state(a, sm);
   cg::grid_group grid = cg::this_grid();
-  split_extract(a, s, s.fp, s.sp);
-  if (lead)
-    for (int i = 0; i < 3; ++i) s.mchg[i] = 0;
-  int changed = 1;
-  for (int seam = 0; changed && it < s.budget; ++seam) {
-    split_extract(a, s, s.ff, a.f);
-    if (lead) s.mchg[(seam + 1) % 3] = 0;
-    grid.sync();  // the slices are out
-    // Every slice from round 0: one unconditional round, dilation rounds
-    // below a.scan_from, then dilations + scans, while it changes and below
-    // the inner cap.
-    round_loop<false, SEG>(a, sm, grid);
-    grid.sync();  // the slices are back in their planes
-    int spent = 0;
-    for (int i = 0; i < a.nb; ++i) spent = max(spent, st.it[i]);
-    // Merge: the owned columns of every slice back into the frame's plane.
-    const int mslot = seam % 3;
-    const long long owned = (long long)a.hw * s.ws, total = a.nb * owned;
-    bool ch = false;
-    for (long long e = blockIdx.x * NT + threadIdx.x; e < total; e += (long long)gridDim.x * NT) {
-      const int i = (int)(e / owned), rem = (int)(e - i * owned);
-      const int kr = rem / s.ws, c = rem - kr * s.ws;
-      const uint32_t v = __ldcg(a.f + i * a.plane + (long long)kr * a.w + s.k + c);
-      uint32_t* dst = s.ff + (long long)kr * s.fw + i * s.ws + c;
-      ch |= v != __ldcg(dst);
-      *dst = v;
+  const FrameState st = frame_state(a, sm);
+  const Ws ws = workspace(a, sm);
+  const SeamState ss = seam_state(a, s, sm);
+  const bool lead = blockIdx.x == 0 && threadIdx.x == 0;
+  // The layout: the slices of the frames that take a seam round, for the
+  // whole launch (a frame still growing at phase 1 and below the budget).
+  if (threadIdx.x == 0) {
+    int nl = 0;
+    for (int f = 0; f < s.nf; ++f) {
+      ss.it[f] = __ldcg(s.fflags + 4 * f);
+      ss.ch[f] = __ldcg(s.fflags + 4 * f + 1) != 0;
+      ss.on[f] = ss.ch[f] && ss.it[f] < s.budget;
+      for (int i = 0; ss.on[f] && i < s.n; ++i) st.lay[nl++] = f * s.n + i;
     }
-    if (__syncthreads_or(ch) && threadIdx.x == 0) atomicOr(&s.mchg[mslot], 1);
+    *st.nl = nl;
+  }
+  __syncthreads();
+  const int bands = *st.nl * a.nbw * (SEG ? a.ns : 1);
+  const bool resident = bands <= (int)gridDim.x;
+  if (bands > 0) {
+    // Load once: a resident tile from the frames' planes straight into its
+    // block's shared memory; a streamed one from the slice planes extracted
+    // into scratch. Then its edges and its counts.
+    if (!resident) {
+      extract_slices(a, s, st);
+      grid.sync();
+    }
+    for (int g = blockIdx.x; g < bands; g += gridDim.x) {
+      const Band d = band_of<SEG>(a, st, g);
+      uint32_t* X = ws.x[0];
+      if (resident) {  // zero first: the columns outside the frame stay 0
+        for (int i = threadIdx.x; i < 3 * a.rows * a.rs; i += NT) sm[i] = 0u;
+        __syncthreads();
+        load_slice(a, s, ws.pc, s.fp, d, 0, d.hk + 2 * d.vh, 0, d.cb + 2 * a.halo);
+        load_slice(a, s, X, s.ff, d, d.vh, d.vh + d.hk, a.halo, a.halo + d.cb);
+      } else {
+        load_core(a, X, a.f, d);
+      }
+      __syncthreads();
+      publish_edges(a, X, d, 0);
+      const int n = core_popc(a, ws, X, d), o = owned_popc(a, s, ws, X, d);
+      if (threadIdx.x == 0) {
+        a.cnt[g] = n;
+        s.ocnt[g] = o;
+      }
+    }
+    if (lead) {
+      for (int i = 0; i < 3 * a.nb; ++i) a.chg[i] = 0;
+      for (int i = 0; i < 3 * s.nf; ++i) s.mchg[i] = 0;
+    }
     grid.sync();
-    changed = *(volatile int*)&s.mchg[mslot];
-    it += s.chunked ? spent : 1;
+    Carry c{0, 1, 0};
+    for (int seam = 0;; ++seam) {
+      // Every slice of a frame that takes this seam round from round 0: one
+      // unconditional round, dilation rounds below a.scan_from, then
+      // dilations + scans, while it changes and below the inner cap.
+      if (threadIdx.x == 0)
+        for (int b = 0; b < a.nb; ++b) {
+          st.it[b] = 0;
+          st.grow[b] = ss.on[b / s.n];
+        }
+      round_loop<false, SEG, true, true>(a, sm, grid, &c);
+      // The change test on the owned columns, and the seam columns out.
+      const int mslot = seam % 3;
+      if (lead)
+        for (int f = 0; f < s.nf; ++f) s.mchg[((seam + 1) % 3) * s.nf + f] = 0;
+      for (int g = blockIdx.x; g < bands; g += gridDim.x) {
+        const Band d = band_of<SEG>(a, st, g);
+        if (!ss.on[d.b / s.n]) continue;
+        uint32_t* X = ws.x[resident ? c.cur : 0];
+        if (!resident) {
+          load_core(a, X, a.f, d);
+          __syncthreads();
+        }
+        const int o = owned_popc(a, s, ws, X, d);
+        if (threadIdx.x == 0 && o != s.ocnt[g]) {
+          s.ocnt[g] = o;
+          atomicOr(&s.mchg[mslot * s.nf + d.b / s.n], 1);
+        }
+        publish_seams(a, s, X, d);
+        if (!resident) __syncthreads();
+      }
+      grid.sync();
+      for (int f = threadIdx.x; f < s.nf; f += NT)  // the L2 reads side by side
+        if (ss.on[f]) ss.ch[f] = *(volatile int*)&s.mchg[mslot * s.nf + f];
+      __syncthreads();
+      if (threadIdx.x == 0) {
+        int any = 0;
+        for (int f = 0; f < s.nf; ++f) {
+          if (!ss.on[f]) continue;
+          int spent = 0;
+          for (int i = 0; i < s.n; ++i) spent = max(spent, st.it[f * s.n + i]);
+          ss.it[f] += s.chunked ? spent : 1;
+          ss.on[f] = ss.ch[f] && ss.it[f] < s.budget;
+          any |= ss.on[f];
+        }
+        *ss.any = any;
+      }
+      __syncthreads();
+      if (!*ss.any) break;
+      // The seam refresh on the tiles of the frames that go on: the halo
+      // columns overwritten (their count taken again), and every tile's
+      // edges published again in the latest slot (a slice that stopped
+      // early left older edges there).
+      for (int g = blockIdx.x; g < bands; g += gridDim.x) {
+        const Band d = band_of<SEG>(a, st, g);
+        if (!ss.on[d.b / s.n]) continue;
+        uint32_t* X = ws.x[resident ? c.cur : 0];
+        if (!resident) {
+          load_core(a, X, a.f, d);
+          __syncthreads();
+        }
+        if (apply_seams(a, s, X, d)) {
+          const int n = core_popc(a, ws, X, d);
+          if (threadIdx.x == 0) a.cnt[g] = n;
+        }
+        __syncthreads();
+        publish_edges(a, X, d, (c.ex - 1) & 1);
+        if (!resident) {
+          __syncthreads();
+          store_core(a, X, a.f, d);
+          __syncthreads();
+        }
+      }
+      grid.sync();
+    }
+    // Write once: every tile's owned columns into its frame's plane.
+    for (int g = blockIdx.x; g < bands; g += gridDim.x) {
+      const Band d = band_of<SEG>(a, st, g);
+      const uint32_t* X = ws.x[resident ? c.cur : 0];
+      if (!resident) {
+        __syncthreads();
+        load_core(a, ws.x[0], a.f, d);
+        __syncthreads();
+      }
+      store_owned(a, s, X, d);
+    }
   }
-  if (lead) {
-    s.fflags[2] = it;
-    s.fflags[3] = changed;
-  }
+  if (lead)
+    for (int f = 0; f < s.nf; ++f) {
+      s.fflags[4 * f + 2] = ss.it[f];
+      s.fflags[4 * f + 3] = ss.ch[f];
+    }
 }
 
 // Dynamic shared memory of a block: the tile workspace (geometry), two
@@ -1603,6 +1880,49 @@ cudaError_t loop_plan(Params& a, int device, Layout* lay, unsigned* grid) {
   return plan(LOOP, a, a.nb, BAND_UNIT, device, lay, grid);
 }
 
+// The column-split continuation's launch over nf (h, w) frames cut into
+// n_split slices: its Params over the nf n_split slices of ws + 2k columns
+// (no pointers set), its layout and grid, and the scratch it needs.
+// choose_layout's bands over one frame's slices, a block a band up to the
+// co-resident grid, as phase 2 lays out one frame: a launch whose frames
+// still growing hold more bands than that streams them. Each block's shared
+// memory holds the slices' state and, as nf frames more, the frames'
+// seam-loop state. The scratch: the rounds' over the slices, the seam
+// rounds' change flags (3 a frame), a count a tile, the slices' seam
+// records, and where the launch can stream, the slices' F and P planes.
+struct SplitPlan {
+  Params a;
+  Layout l;
+  unsigned grid;
+  int ws, k;
+  long long words;  // int32 words of scratch
+  bool planes;      // the scratch holds slice planes: more frames than one can grow
+};
+
+const Kern SPLIT{(const void*)split_kernel<false>, (const void*)split_kernel<true>};
+
+cudaError_t split_plan(int nf, int h, int w, int n_split, int dilate_steps, int device,
+                       SplitPlan* o) {
+  if (nf < 1 || h < 1 || n_split < 1 || w % n_split || dilate_steps < 1 ||
+      dilate_steps > MAX_DILATE_STEPS)
+    return cudaErrorInvalidValue;
+  o->ws = w / n_split;
+  o->k = o->ws < 64 ? o->ws : 64;
+  const int nb = nf * n_split, sw = o->ws + 2 * o->k;
+  o->a = make_params(nullptr, nullptr, nullptr, nullptr, nb, h, sw, dilate_steps, 0, 0);
+  cudaError_t err = choose_layout(SPLIT, device, n_split, nb + nf, o->a.hw, sw, dilate_steps,
+                                  BAND_UNIT, &o->l);
+  if (err != cudaSuccess) return err;
+  set_layout(o->a, o->l);
+  const long long one = (long long)n_split * o->a.nbw * o->a.ns;
+  o->grid = (unsigned)(one < o->l.limit ? one : o->l.limit);
+  o->planes = nf > (long long)o->grid / one;
+  const long long tiles = (long long)nb * ((sw + MIN_BAND - 1) / MIN_BAND) * max_segments(o->a.hw);
+  o->words = rounds_scratch_words(nb, h, sw) + 3LL * nf + tiles + 2LL * nb * o->a.hw * o->k +
+             (o->planes ? 2 * nb * o->a.plane : 0);
+  return cudaSuccess;
+}
+
 }  // namespace
 
 // int32 words of scratch either phase needs for B frames (``phase`` is kept
@@ -1657,53 +1977,87 @@ extern "C" int cc_hyst_layout(int nb, int h, int w, int dilate_steps, int phase,
   return cudaSuccess;
 }
 
-// int32 words of scratch the column-split continuation needs: the slices'
-// FINAL and CANDIDATE planes, 3 change flags for the seam rounds, then the
-// rounds' scratch over the slices.
-extern "C" long long cc_split_scratch_words(int n_split, int h, int slice_w) {
-  return 2LL * n_split * ((h + 31) / 32) * slice_w + 3 +
-         rounds_scratch_words(n_split, h, slice_w);
+// int32 words of scratch the column-split continuation of nf (h, w) frames
+// needs (split_plan), or minus a CUDA error.
+extern "C" long long cc_split_scratch_words(int nf, int h, int w, int n_split, int dilate_steps,
+                                            int device) {
+  DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return -(long long)guard.err;
+  SplitPlan o;
+  const cudaError_t err = split_plan(nf, h, w, n_split, dilate_steps, device, &o);
+  return err != cudaSuccess ? -(long long)err : o.words;
 }
 
-// The column-split continuation of one (ceil(h/32), w) frame: flags row 0
-// (round count, growing) is read on the device, row 1 written. ``chunk`` < 1
-// is the unchunked mode: slices run to max_iters and a seam round counts 1.
-extern "C" int cc_split_converge(void* f, const void* p, void* scratch, void* flags, int h, int w,
-                                 int n_split, int dilate_steps, int scan_after, int max_iters,
-                                 int chunk, int device, void* stream) {
+// The column-split continuation of nf (ceil(h/32), w) frames, one launch:
+// each frame's flags row 0 (round count, growing) is read on the device,
+// row 1 written. ``chunk`` < 1 is the unchunked mode: slices run to
+// max_iters and a seam round counts 1.
+extern "C" int cc_split_converge(void* f, const void* p, void* scratch, void* flags, int nf, int h,
+                                 int w, int n_split, int dilate_steps, int scan_after,
+                                 int max_iters, int chunk, int device, void* stream) {
   DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return guard.err;
-  if (n_split < 1 || w % n_split || max_iters < 1) return cudaErrorInvalidValue;
-  const int ws = w / n_split, k = ws < 64 ? ws : 64;
-  const int inner = chunk >= 1 ? chunk : max_iters;
+  if (max_iters < 1) return cudaErrorInvalidValue;
+  SplitPlan o;
+  cudaError_t err = split_plan(nf, h, w, n_split, dilate_steps, device, &o);
+  if (err != cudaSuccess) return err;
+  const int nb = nf * n_split, inner = chunk >= 1 ? chunk : max_iters;
   const int cap1 = scan_after < inner ? scan_after : inner;
-  uint32_t* sc = static_cast<uint32_t*>(scratch);
-  const long long planes = (long long)n_split * ((h + 31) / 32) * (ws + 2 * k);
-  // The slice batch: its FINAL planes, its CANDIDATE planes, the seam
-  // rounds' flags, then the rounds' scratch.
-  Params a = make_params(sc, sc + planes, sc + 2 * planes + 3, nullptr, n_split, h, ws + 2 * k,
-                         dilate_steps, inner, cap1 > 1 ? cap1 : 1);
+  Params a = make_params(nullptr, nullptr, scratch, nullptr, nb, h, o.a.w, dilate_steps, inner,
+                         cap1 > 1 ? cap1 : 1);
+  set_layout(a, o.l);
   SplitParams s;
   s.ff = static_cast<uint32_t*>(f);
   s.fp = static_cast<const uint32_t*>(p);
-  s.sp = sc + planes;
-  s.mchg = reinterpret_cast<int*>(sc + 2 * planes);
   s.fflags = static_cast<int*>(flags);
+  s.mchg = a.chg + 3 * nb;
+  s.ocnt = s.mchg + 3 * nf;
+  s.pub = reinterpret_cast<uint32_t*>(
+      s.ocnt + (long long)nb * ((a.w + MIN_BAND - 1) / MIN_BAND) * max_segments(a.hw));
+  uint32_t* planes = s.pub + 2LL * nb * a.hw * o.k;
+  a.f = o.planes ? planes : nullptr;
+  s.sp = o.planes ? planes + nb * a.plane : nullptr;
+  a.p = s.sp;
+  s.nf = nf;
+  s.n = n_split;
   s.fw = w;
-  s.ws = ws;
-  s.k = k;
+  s.ws = o.ws;
+  s.k = o.k;
   s.budget = max_iters;
   s.chunked = chunk >= 1;
-  const Kern kern{(const void*)split_kernel<false>, (const void*)split_kernel<true>};
-  Layout l;
-  unsigned grid = 0;
-  cudaError_t err = plan(kern, a, n_split, BAND_UNIT, device, &l, &grid);
-  if (err != cudaSuccess) return err;
   void* args[] = {&a, &s};
-  err = cudaLaunchCooperativeKernel(kern.pick(l.ns), dim3(grid), dim3(NT), args, l.smem,
+  err = cudaLaunchCooperativeKernel(SPLIT.pick(o.l.ns), dim3(o.grid), dim3(NT), args, o.l.smem,
                                     static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+// The layout of the column-split continuation of nf (h, w) frames by
+// n_split slices: out = (band width, halo columns, bands a slice, blocks,
+// height segments, frames whose slices stay resident when they grow at
+// once (0: every launch streams), whether the scratch holds slice planes,
+// grid barriers a seam round besides its rounds', grid barriers a dilation
+// round and a scan round, dynamic shared memory bytes a block).
+extern "C" int cc_split_layout(int nf, int h, int w, int n_split, int dilate_steps, int device,
+                               int* out) {
+  DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return guard.err;
+  SplitPlan o;
+  const cudaError_t err = split_plan(nf, h, w, n_split, dilate_steps, device, &o);
+  if (err != cudaSuccess) return err;
+  const int one = n_split * o.a.nbw * o.a.ns, p1 = (dilate_steps + o.a.halo - 1) / o.a.halo;
+  out[0] = o.a.bw;
+  out[1] = o.a.halo;
+  out[2] = o.a.nbw * o.a.ns;
+  out[3] = (int)o.grid;
+  out[4] = o.a.ns;
+  out[5] = (int)o.grid / one;
+  out[6] = o.planes;
+  out[7] = 2;  // after the change test and the seam records; after the refresh
+  out[8] = p1;
+  out[9] = p1 + (o.a.ns > 1 ? 12 : 6);
+  out[10] = (int)o.l.smem;
+  return cudaSuccess;
 }
 
 // int32 words of scratch the sharded loop needs for T extended tiles of

@@ -44,8 +44,9 @@ SIGNATURES = {
     "cc_hyst_phase2": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "cc_hyst_scratch_words": (ctypes.c_longlong, [_I, _I, _I, _I]),
     "cc_hyst_layout": (_I, [_I, _I, _I, _I, _I, _I, _P]),
-    "cc_split_converge": (_I, [_P, _P, _P, _P] + [_I] * 8 + [_P]),
-    "cc_split_scratch_words": (ctypes.c_longlong, [_I, _I, _I]),
+    "cc_split_converge": (_I, [_P, _P, _P, _P] + [_I] * 9 + [_P]),
+    "cc_split_scratch_words": (ctypes.c_longlong, [_I] * 6),
+    "cc_split_layout": (_I, [_I] * 6 + [_P]),
     "cc_hyst_sweeps": (_I, [_P] * 4 + [_I] * 7 + [_P]),
     "cc_hyst_sweeps_layout": (_I, [_I, _I, _I, _P]),
     "cc_unpack": (_I, [_P, _P, _P, _I, _I, _I, _I, _P]),

@@ -35,7 +35,9 @@ Port of the column-split convergence (hysteresis_fused.py:876
 ``saturate_packed`` launch per column slice per seam round, XLA pad / slice /
 concatenate between, in a traced loop): :func:`converge_packed_split` runs
 the same seam schedule as one cooperative launch (``split_kernel`` in
-``csrc/hyst_rounds.cu``), the loop on the device.
+``csrc/hyst_rounds.cu``), the loop on the device, and
+:func:`converge_packed_split_batched` runs the seam loops of a batch of
+frames in that one launch.
 """
 from __future__ import annotations
 
@@ -447,10 +449,12 @@ def _split_geometry(w: int, n_split: int) -> Tuple[int, int]:
     return ws, min(SPLIT_HALO, ws)
 
 
-def _split_check(f, p, flags, h, max_iters, chunk) -> None:
+def _split_check(f, p, flags, h, max_iters, chunk, ndim: int = 2) -> None:
     _check_planes(f, p, h, flags)
-    if f.ndim != 2:
-        raise ValueError("converge_packed_split takes the (hw, w) planes of one frame")
+    if f.ndim != ndim:
+        raise ValueError("converge_packed_split takes the (hw, w) planes of one frame"
+                         if ndim == 2 else
+                         "converge_packed_split_batched takes (B, hw, w) planes")
     if max_iters < 1 or (chunk is not None and chunk < 1):
         raise ValueError("max_iters and chunk must be >= 1")
 
@@ -534,25 +538,87 @@ def converge_packed_split(
 
     Returns ``(f, growing)``, ``growing`` the 0-d int32 view ``flags[1, 1]``.
     One cooperative launch on CUDA tensors whatever the budget, no host
-    sync. Converged outputs equal every other route's; outputs cut off by
-    the budget are this multi-slice executor's own."""
+    sync: :func:`converge_packed_split_batched`'s with B = 1. Converged
+    outputs equal every other route's; outputs cut off by the budget are
+    this multi-slice executor's own."""
     _split_check(f, p, flags, h, max_iters, chunk)
     kw = dict(dilate_steps=dilate_steps, scan_after=scan_after, max_iters=max_iters, chunk=chunk)
     if use_plain(f, p, flags):
         return converge_packed_split_plain(f, p, flags, h, n_split, **kw)
+    _split_launch(f[None], p[None], flags[None], h, n_split, **kw)
+    return f, flags[1, 1]
+
+
+def converge_packed_split_batched_plain(
+    f: torch.Tensor,
+    p: torch.Tensor,
+    flags: torch.Tensor,
+    h: int,
+    n_split: int,
+    *,
+    dilate_steps: int = 16,
+    scan_after: int = 10,
+    max_iters: int = 100,
+    chunk: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`converge_packed_split_batched`, on any
+    device: :func:`converge_packed_split_plain` frame by frame."""
+    _split_check(f, p, flags, h, max_iters, chunk, ndim=3)
+    kw = dict(dilate_steps=dilate_steps, scan_after=scan_after, max_iters=max_iters, chunk=chunk)
+    for fb, pb, flb in zip(f, p, flags):
+        converge_packed_split_plain(fb, pb, flb, h, n_split, **kw)
+    return f, flags[:, 1, 1]
+
+
+def converge_packed_split_batched(
+    f: torch.Tensor,
+    p: torch.Tensor,
+    flags: torch.Tensor,
+    h: int,
+    n_split: int,
+    *,
+    dilate_steps: int = 16,
+    scan_after: int = 10,
+    max_iters: int = 100,
+    chunk: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`converge_packed_split` on each frame of (B, ceil(h/32), w)
+    planes with (B, 2, 2) flags, in place: frame by frame the bytes of a
+    call on that frame alone, outputs cut off by the budget included. A
+    frame whose flags say converged, or whose budget is spent, takes no
+    round and gets row 1 = (its round count, its growing flag).
+
+    Returns ``(f, growing)``, ``growing`` the (B,) int32 view
+    ``flags[:, 1, 1]``. One cooperative launch on CUDA tensors (counted as
+    ``split_converge``) whatever B and the budget, no host sync: the seam
+    loops of the frames still growing advance together, their slices'
+    bands resident in shared memory for the whole launch where one frame's
+    layout holds them (``megakernel.split_layout``)."""
+    kw = dict(dilate_steps=dilate_steps, scan_after=scan_after, max_iters=max_iters, chunk=chunk)
+    _split_check(f, p, flags, h, max_iters, chunk, ndim=3)
+    if use_plain(f, p, flags):
+        return converge_packed_split_batched_plain(f, p, flags, h, n_split, **kw)
+    _split_launch(f, p, flags, h, n_split, **kw)
+    return f, flags[:, 1, 1]
+
+
+def _split_launch(f, p, flags, h: int, n_split: int, *, dilate_steps: int, scan_after: int,
+                  max_iters: int, chunk: Optional[int]) -> None:
+    """One ``split_kernel`` launch on (B, hw, w) CUDA planes."""
     _check_steps(dilate_steps)
     require_contiguous(f, p, flags)
-    w = f.shape[1]
-    ws, k = _split_geometry(w, n_split)
+    nf, w = f.shape[0], f.shape[-1]
+    _split_geometry(w, n_split)
     lib = load()
+    words = lib.lib.cc_split_scratch_words(nf, h, w, n_split, dilate_steps, f.device.index)
+    if words < 0:
+        lib.check(-words, "split_converge")
     # Stream-ordered: the scratch is reusable once the kernel ran.
-    scratch = torch.empty(lib.lib.cc_split_scratch_words(n_split, h, ws + 2 * k),
-                          dtype=torch.int32, device=f.device)
+    scratch = torch.empty(words, dtype=torch.int32, device=f.device)
     lib.check(
         lib.lib.cc_split_converge(f.data_ptr(), p.data_ptr(), scratch.data_ptr(), flags.data_ptr(),
-                                  h, w, n_split, dilate_steps, scan_after, max_iters,
+                                  nf, h, w, n_split, dilate_steps, scan_after, max_iters,
                                   chunk if chunk is not None else 0, f.device.index, stream_of(f)),
         "split_converge",
     )
     count_launch("split_converge")
-    return f, flags[1, 1]

@@ -32,7 +32,8 @@ the whole-frame ``hyst_phase2`` at every size, single-chip truncation
 identity with the JAX package's ``'pallas'`` and ``'xla'`` forms;
 ``'split'`` is the column-split form (``_cont_split`` :921 there, which its
 ``'auto'`` takes at 8K): :func:`_cont_split`, one launch of
-``hysteresis_fused.converge_packed_split`` per frame and then ``unpack``,
+``hysteresis_fused.converge_packed_split_batched`` for the batch and then
+``unpack``,
 equal to ``'kernel'`` on every converged frame and to the JAX package's
 split form when the cap cuts it off.
 
@@ -151,6 +152,30 @@ def loop_layout(grid: Tuple[int, int, int], h: int, w: int, dilate_steps: int = 
                                              ctypes.cast(out, ctypes.c_void_p)),
               "cc_sharded_loop_layout")
     return dict(zip(LOOP_LAYOUT_KEYS, out))
+
+
+#: ``split_layout``'s keys, in ``cc_split_layout``'s order.
+SPLIT_LAYOUT_KEYS = ("band_width", "halo", "bands_per_slice", "blocks", "segments",
+                     "resident_frames", "slice_planes", "grid_barriers_per_seam_round",
+                     "grid_barriers_dilation_round", "grid_barriers_scan_round", "smem_bytes")
+
+
+def split_layout(nb: int, h: int, w: int, n_split: int, dilate_steps: int = 16,
+                 device: int = 0) -> dict:
+    """The layout the column-split continuation (``split_converge``) takes on
+    a card for nb (h, w) frames cut into ``n_split`` slices: band width,
+    halo columns, bands a slice, blocks (one frame's slices, a block a band
+    up to the co-resident grid), height segments, how many frames still
+    growing at once keep their slices resident (0: the launch streams them),
+    whether the scratch holds slice planes (where it can stream), the grid
+    barriers a seam round takes besides its rounds', those of a dilation
+    round and of a scan round, and a block's shared memory
+    (``cc_split_layout``)."""
+    out = (ctypes.c_int * len(SPLIT_LAYOUT_KEYS))()
+    lib = load()
+    lib.check(lib.lib.cc_split_layout(nb, h, w, n_split, dilate_steps, device,
+                                      ctypes.cast(out, ctypes.c_void_p)), "cc_split_layout")
+    return dict(zip(SPLIT_LAYOUT_KEYS, out))
 
 
 def _launch_rounds(phase: int, f, p, flags, h: int, *args, name: Optional[str] = None) -> None:
@@ -433,11 +458,12 @@ def split_count(h: int, w: int) -> int:
 
 def _cont_split(f, p, flags, h: int, dilate_steps: int, max_iters: int) -> torch.Tensor:
     """The column-split phase-2 continuation of a (B, hw, w) batch at its
-    phase-1 exit, in place, then the edge maps: per frame one
-    ``converge_packed_split`` (resuming the round budget at the frame's
-    phase-1 count, ``scan_after`` 0, ``SPLIT_CHUNK`` internal rounds; gated on
-    the frame's growing flag on the device), then ``unpack``, as the kernel
-    route ends. B + 1 launches whatever the cap, no host sync.
+    phase-1 exit, in place, then the edge maps: one
+    ``converge_packed_split_batched`` for the batch (each frame resuming
+    the round budget at its phase-1 count, ``scan_after`` 0, ``SPLIT_CHUNK``
+    internal rounds; gated on each frame's growing flag on the device), then
+    ``unpack``, as the kernel route ends. Two launches whatever B and the
+    cap, no host sync.
 
     ``n_split`` is :func:`split_count`'s, not the JAX package's rule, and
     it is part of the bytes when the cap cuts a frame off: a truncated
@@ -448,13 +474,11 @@ def _cont_split(f, p, flags, h: int, dilate_steps: int, max_iters: int) -> torch
     against 8). Converged outputs equal it everywhere, and
     ``converge_packed_split`` with an explicit ``n_split`` stays byte-equal
     to its JAX counterpart at every size."""
-    from cudacam_tpu_torch.ops.cuda.hysteresis_fused import converge_packed_split
+    from cudacam_tpu_torch.ops.cuda.hysteresis_fused import converge_packed_split_batched
 
-    w = f.shape[-1]
-    n_split = split_count(h, w)
-    for fb, pb, flb in zip(f, p, flags):
-        converge_packed_split(fb, pb, flb, h, n_split, dilate_steps=dilate_steps, scan_after=0,
-                              max_iters=max_iters, chunk=SPLIT_CHUNK)
+    converge_packed_split_batched(f, p, flags, h, split_count(h, f.shape[-1]),
+                                  dilate_steps=dilate_steps, scan_after=0, max_iters=max_iters,
+                                  chunk=SPLIT_CHUNK)
     return unpack(f, h)
 
 
@@ -595,7 +619,7 @@ def canny_mega_pipeline_batched(
     flags), four launches whatever B is. Frame by frame it equals
     :func:`canny_mega_pipeline`: phase 2 continues only the frames still
     growing at ``scan_after``. With ``continuation='split'`` and an even
-    width the continuation is :func:`_cont_split` (3 + B launches); an odd
+    width the continuation is :func:`_cont_split` (four launches too); an odd
     width has no column split and takes the whole-frame kernel, as the JAX
     package's policy does. No host sync."""
     if continuation not in CONTINUATIONS:

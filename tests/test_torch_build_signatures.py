@@ -73,11 +73,13 @@ def _out_indices(name: str) -> list:
 
 
 @pytest.mark.parametrize("name,keys", [("cc_hyst_layout", 6),
-                                       ("cc_sharded_loop_layout", "LOOP_LAYOUT_KEYS")])
+                                       ("cc_sharded_loop_layout", "LOOP_LAYOUT_KEYS"),
+                                       ("cc_split_layout", "SPLIT_LAYOUT_KEYS")])
 def test_layout_reporter_fills_every_key_once(name, keys):
     """A layout reporter writes each int its Python reader allocates once,
     and none past it: ``round_layout`` reads 6, ``loop_layout`` one per
-    ``LOOP_LAYOUT_KEYS`` entry."""
+    ``LOOP_LAYOUT_KEYS`` entry, ``split_layout`` one per
+    ``SPLIT_LAYOUT_KEYS`` entry."""
     from cudacam_tpu_torch.ops.cuda import megakernel
 
     n = len(getattr(megakernel, keys)) if isinstance(keys, str) else keys

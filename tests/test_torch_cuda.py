@@ -890,7 +890,7 @@ def test_engine_split_continuation(dev, cap, h, w):
     batch = torch.from_numpy(__import__("numpy").stack(frames)).to(dev)
     kernels.reset_launch_counts()
     bout = split.process(batch)
-    assert kernels.launch_counts()["split_converge"] == 2
+    assert kernels.launch_counts()["split_converge"] == 1  # one launch for the batch
     for b, fr in enumerate(frames):
         assert torch.equal(bout[b], split.process(fr))
 
@@ -899,6 +899,123 @@ def _pipeline_kw(cfg):
     from cudacam_tpu_torch.ops.cuda.canny import pipeline_kwargs
 
     return pipeline_kwargs(cfg)
+
+
+from cudacam_tpu_torch.ops.cuda.hysteresis_fused import (  # noqa: E402
+    converge_packed_split_batched, converge_packed_split_batched_plain,
+)
+
+
+def _split_batch(h, w, n, dev, seed=0):
+    """n frames of one shape with the flags of a batch at its phase-1 exit,
+    in turn: the spiral from round 0 (cut off by the budget), converged at
+    phase 1, still growing from round 3, the budget spent (round 40),
+    growing from round 1; F, P and (n, 2, 2) flags on ``dev``."""
+    maps = [make_spiral_thresh(h, w) if (b % 5 == 0 and min(h, w) >= 32)
+            else _random_map(h, w, seed + b).numpy() for b in range(n)]
+    planes = [bitpack.pack_pair(torch.from_numpy(t)) for t in maps]
+    kinds = [[[0, 1], [0, 0]], [[7, 0], [9, 9]], [[3, 1], [0, 0]], [[40, 1], [0, 0]],
+             [[1, 1], [0, 0]]]
+    flags = torch.tensor([kinds[b % 5] for b in range(n)], dtype=torch.int32)
+    return (torch.stack([f for f, _ in planes]).to(dev), torch.stack([p for _, p in planes]).to(dev),
+            flags.to(dev))
+
+
+SPLIT_KW = [
+    dict(dilate_steps=4, scan_after=0, max_iters=20, chunk=8),   # the continuation's schedule
+    dict(dilate_steps=4, scan_after=2, max_iters=12, chunk=4),   # cut off by the budget
+    dict(dilate_steps=4, scan_after=2, max_iters=5),             # unchunked
+    dict(dilate_steps=3, scan_after=1, max_iters=400, chunk=4),  # converges
+]
+
+
+@pytest.mark.parametrize("nb", [1, 3, 8])
+@pytest.mark.parametrize("n_split", [1, 2, 4])
+@pytest.mark.parametrize("kw", SPLIT_KW)
+def test_converge_packed_split_batched_matches_plain(dev, nb, n_split, kw):
+    """One launch over the batch against the plain version frame by frame,
+    and each frame against the kernel's call on that frame alone: several
+    frames still growing stream through the one-frame layout."""
+    for h, w in ((64, 512), (96, 384)):
+        f, p, flags = _split_batch(h, w, nb, dev, seed=h)
+        fk, flk = f.clone(), flags.clone()
+        kernels.reset_launch_counts()
+        _, growing = converge_packed_split_batched(fk, p, flk, h, n_split, **kw)
+        assert kernels.launch_counts()["split_converge"] == 1
+        fp, flp = f.clone(), flags.clone()
+        converge_packed_split_batched_plain(fp, p, flp, h, n_split, **kw)
+        assert flk.tolist() == flp.tolist(), (flk.tolist(), flp.tolist())
+        assert torch.equal(fk, fp) and torch.equal(growing, flk[:, 1, 1])
+        for b in range(nb):
+            fb, flb = f[b].clone(), flags[b].clone()
+            converge_packed_split(fb, p[b], flb, h, n_split, **kw)
+            assert torch.equal(fb, fk[b]) and torch.equal(flb, flk[b])
+
+
+@pytest.mark.parametrize("nb", [1, 3, 8])
+def test_converge_packed_split_batched_odd_shapes(dev, nb):
+    """The shapes of test_converge_packed_split_gate_and_odd_shapes: 37 rows
+    (a last word row of 5 bits), 54 columns in 2, 3 and 6 slices (halos as
+    wide as a slice, rows not 16-byte aligned)."""
+    for n_split in (2, 3, 6):
+        kw = dict(dilate_steps=3, scan_after=1, max_iters=40, chunk=4)
+        f, p, flags = _split_batch(37, 54, nb, dev, seed=n_split)
+        fk, flk, fp, flp = f.clone(), flags.clone(), f.clone(), flags.clone()
+        converge_packed_split_batched(fk, p, flk, 37, n_split, **kw)
+        converge_packed_split_batched_plain(fp, p, flp, 37, n_split, **kw)
+        assert torch.equal(fk, fp) and flk.tolist() == flp.tolist()
+
+
+@pytest.mark.parametrize("nb", [1, 2, 8])
+def test_engine_split_batch_is_four_launches(dev, nb):
+    """A continuation='split' call is 4 launches for any B, equal to the
+    plain route, with no host sync."""
+    h, w = 64, 512
+    frames = np.stack([make_spiral_frame(h, w) if b % 2 else make_scene(h, w, seed=b)
+                       for b in range(nb)])
+    kw = dict(height=h, width=w, hysteresis_scan_after=2, max_hysteresis_iters=60,
+              continuation="split")
+    eng = CannyEngine(CannyConfig(**kw), device="cuda")
+    x = torch.from_numpy(frames).to(dev)
+    eng.process(x)
+    kernels.reset_launch_counts()
+    got = eng.process(x)
+    counts = kernels.launch_counts()
+    assert {k: v for k, v in counts.items() if v} == dict(ff_pack=1, hyst_phase1=1,
+                                                           split_converge=1, unpack=1)
+    assert torch.equal(got.cpu(), CannyEngine(CannyConfig(**kw), device="cpu").process(frames))
+    f, p, flags = _split_batch(h, w, nb, dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng.process(x)
+        converge_packed_split_batched(f, p, flags, h, 2, dilate_steps=4, scan_after=0,
+                                      max_iters=20, chunk=8)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+def test_split_layout_reporter(dev):
+    from cudacam_tpu_torch.ops.cuda.megakernel import SPLIT_LAYOUT_KEYS, split_layout
+
+    for nb, (h, w), n_split in ((1, (4320, 7680), 2), (1, (4320, 7680), 4), (2, (4320, 7680), 2),
+                                (8, (1080, 1920), 2), (3, (37, 54), 6)):
+        lay = split_layout(nb, h, w, n_split, 16)
+        assert tuple(lay) == SPLIT_LAYOUT_KEYS
+        assert lay["band_width"] % 32 == 0 and lay["bands_per_slice"] >= 1
+        assert 1 <= lay["blocks"] <= n_split * lay["bands_per_slice"]
+        assert lay["resident_frames"] in (0, 1)
+        assert lay["slice_planes"] == int(nb > lay["resident_frames"])
+        assert lay["grid_barriers_per_seam_round"] == 2
+        assert lay["grid_barriers_scan_round"] > lay["grid_barriers_dilation_round"] >= 1
+        assert 0 < lay["smem_bytes"] <= 232448
+    # 8K in two slices: one frame's slices resident, a band a block
+    lay = split_layout(1, 4320, 7680, 2, 16)
+    assert lay["resident_frames"] == 1 and lay["slice_planes"] == 0
+    assert lay["blocks"] == 2 * lay["bands_per_slice"]
+    with pytest.raises(RuntimeError):
+        split_layout(1, 64, 510, 4, 16)  # 510 % 4
 
 
 # -- K12: the legacy row-sweep hysteresis ------------------------------------

@@ -34,9 +34,23 @@ the card can time two versions in turns on the same inputs (A, B, B, A;
   over (1, 2, 2) (two passes), with the device events per frame of each
   kernel and the median µs of one event (the round loop is one
   ``sharded_loop`` event a call);
-* ``split``: ``CannyEngine.process`` at 8K under torch.profiler with
-  ``continuation='split'`` (K11) and with the whole-frame continuation (K2):
-  the cap-class spiral (two passes) and calm scene 0 (five passes);
+* ``split``: K11 (``split_converge``). The 8K spiral from its phase-1
+  exit (round 32), ``n_split`` 2 and 4: the kernel's CUDA-event ms and
+  profiler device µs a call, the seam rounds and the inner rounds of each
+  (counted by running the seam rounds one launch each: a budget of one more
+  round ends the loop after one seam round), the layout
+  (``megakernel.split_layout``; none in a version without it) and a sha256
+  of planes and flags. The fixed cost of a seam round: from the same state,
+  4 and 16 seam rounds of one inner round each (chunk 1) with 16-step and
+  1-step dilation rounds; the slope is the µs a seam round besides the
+  launch's own. ``CannyEngine.process`` of the 8K spiral under ``split``.
+  The batches under ``split`` at cap 100, x8 1080p (7 scenes and the
+  spiral) and x2 8K (scene 0 and the spiral): the kernel from the batch's
+  phase-1 exit state in one batched call (the single-frame calls in a
+  version without ``converge_packed_split_batched``) against a call a
+  frame, and the engine's batch call against single calls, with launches a
+  batch call and sha256s. Then the 8K spiral and calm scene 0 under
+  torch.profiler with each continuation (two and five passes);
 * ``app``: ``CannyApp`` at 1080p BGR under torch.profiler, 64 frames of a
   looped sequence of the eight scenes: host frames through the pinned
   staging buffers (the uploads show as ``Memcpy HtoD``) and
@@ -132,6 +146,7 @@ port's own (``cudacam_tpu_torch.io.sources``).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import functools
 import hashlib
 import json
@@ -292,13 +307,137 @@ def sharded() -> list:
     return rows
 
 
-def split() -> list:
-    h, w = 4320, 7680
-    spiral = torch.from_numpy(make_spiral_frame(h, w)).cuda()
-    scene = torch.from_numpy(make_scene(h, w, seed=0)).cuda()
+def split(label: str) -> list:
+    """K11 (``split_converge``) on its cases (see the module's docstring)."""
+    from cudacam_tpu_torch.ops import cuda as kernels
+    from cudacam_tpu_torch.ops.cuda import hysteresis_fused as hf, megakernel
+
+    card = _card()
     rows = []
+
+    def sha(*out):
+        return hashlib.sha256(b"".join(o.cpu().numpy().tobytes() for o in out)).hexdigest()[:16]
+
+    def emit(name, **extra):
+        rows.append(dict(workload=name, label=label, card=card, **extra))
+        print(json.dumps(rows[-1]), flush=True)
+
+    def kernel_us(run, setup, calls=3):
+        """(profiler device µs a call of ``split_kernel``'s events, records kept:
+        a whole session keeps calls x the launches a call)."""
+        states = iter([setup() for _ in range(calls + 1)])  # the untraced call's, then the traced
+        kept = [us for k, us in device_events(lambda: run(next(states)), calls)
+                if "split_kernel" in k]
+        return (sum(kept) / calls if kept else None), len(kept)
+
+    def batched(f, p, flags, h, n_split, **kw):
+        """One call of the batched kernel, or the single-frame calls of a
+        version without it."""
+        call = getattr(hf, "converge_packed_split_batched", None)
+        if call is not None:
+            return call(f, p, flags, h, n_split, **kw)
+        for b in range(f.shape[0]):
+            hf.converge_packed_split(f[b], p[b], flags[b], h, n_split, **kw)
+
+    def singles(f, p, flags, h, n_split, **kw):
+        for b in range(f.shape[0]):
+            hf.converge_packed_split(f[b], p[b], flags[b], h, n_split, **kw)
+
+    h, w = 4320, 7680
+    cfg = CannyConfig(height=h, width=w)
+    thr = CannyEngine(cfg, device="cuda")._thresholds()
+    spiral = torch.from_numpy(make_spiral_frame(h, w)).cuda()
+    f, p, flags = megakernel.canny_mega(spiral, thr, **pipeline_kwargs(cfg))
+    it0, ds, cap = int(flags[0, 0]), cfg.hysteresis_inner_steps, cfg.max_hysteresis_iters
+    kw = dict(dilate_steps=ds, scan_after=0, max_iters=cap, chunk=megakernel.SPLIT_CHUNK)
+    fresh = lambda: (f.clone(), flags.clone())  # noqa: E731
+    for n_split in (2, 4):
+        run = lambda s: hf.converge_packed_split(s[0], p, s[1], h, n_split, **kw)  # noqa: E731
+        out = fresh()
+        run(out)
+        # The seam rounds one at a time: a budget of one more round ends the
+        # loop after one seam round, whose inner cap is the chunk all the same.
+        seams, fs, it, changed = [], f.clone(), it0, 1
+        while changed and it < cap:
+            fl = torch.tensor([[it, 1], [0, 0]], dtype=torch.int32, device="cuda")
+            hf.converge_packed_split(fs, p, fl, h, n_split, **dict(kw, max_iters=it + 1))
+            nxt, changed = (int(v) for v in fl[1])
+            seams.append(nxt - it)
+            it = nxt
+        us, kept = kernel_us(run, fresh)
+        try:
+            layout = megakernel.split_layout(1, h, w, n_split, ds)
+        except AttributeError:  # a version without the reporter
+            layout = None
+        emit(f"split_converge 8K spiral from round {it0}, n_split {n_split}",
+             event_ms=ms_per_state(run, 1, fresh, reps=5), device_us=us, device_records=kept,
+             flags=out[1].tolist(), sha=sha(*out), seam_rounds=len(seams),
+             inner_rounds_a_seam_round=seams, inner_rounds=sum(seams),
+             seam_by_seam_equal=bool(torch.equal(fs, out[0]) and it == int(out[1][1, 0])),
+             layout=layout)
+    # The fixed cost of a seam round: from the same state, n seam rounds of
+    # one inner round each (chunk 1) at n = 4 and 16; the slope is a seam
+    # round's cost without the launch's own, one dilation round of
+    # ``dilate_steps`` steps included (1: nearly none of it).
+    for steps in (ds, 1):
+        per = {}
+        for n in (4, 16):
+            k1 = dict(dilate_steps=steps, scan_after=0, max_iters=it0 + n, chunk=1)
+            run = lambda s: hf.converge_packed_split(s[0], p, s[1], h, 2, **k1)  # noqa: E731
+            out = fresh()
+            run(out)
+            assert out[1][1].tolist() == [it0 + n, 1], out[1].tolist()
+            per[n] = ms_per_state(run, 1, fresh, reps=7)
+        emit(f"split_converge 8K spiral, seam rounds of one {steps}-step round (chunk 1, n_split 2)",
+             event_ms_4=per[4], event_ms_16=per[16],
+             us_a_seam_round=(per[16] - per[4]) * 1e3 / 12,
+             us_a_launch_besides=(per[4] - 4 * (per[16] - per[4]) / 12) * 1e3)
+    e8 = CannyEngine(dataclasses.replace(cfg, continuation="split"), device="cuda")
+    emit("process 8K spiral, continuation='split' (ms a call)",
+         event_ms=ms_per_call(lambda: e8.process(spiral), reps=5), sha=sha(e8.process(spiral)))
+    # Batches: the kernel from the batch's phase-1 exit state, one batched
+    # call against a call a frame, and the engine's call against single calls.
+    for name, (bh, bw), frames, bcap in (
+            ("x8 1080p (7 scenes + spiral)", (1080, 1920),
+             lambda: [make_scene(1080, 1920, seed=s) for s in range(7)]
+             + [make_spiral_frame(1080, 1920)], 100),
+            ("x2 8K (scene 0 + spiral)", (h, w),
+             lambda: [make_scene(h, w, seed=0), make_spiral_frame(h, w)], 100)):
+        bcfg = CannyConfig(height=bh, width=bw, continuation="split", max_hysteresis_iters=bcap)
+        eng = CannyEngine(bcfg, device="cuda")
+        x = torch.from_numpy(np.stack(frames())).cuda()
+        bf, bp, bfl = megakernel.canny_mega_batched(x, eng._thresholds(), **pipeline_kwargs(bcfg))
+        n_split = megakernel.split_count(bh, bw)
+        bkw = dict(dilate_steps=bcfg.hysteresis_inner_steps, scan_after=0, max_iters=bcap,
+                   chunk=megakernel.SPLIT_CHUNK)
+        bfresh = lambda: (bf.clone(), bfl.clone())  # noqa: E731
+        one = lambda s: batched(s[0], bp, s[1], bh, n_split, **bkw)  # noqa: E731
+        each = lambda s: singles(s[0], bp, s[1], bh, n_split, **bkw)  # noqa: E731
+        ob, oe = bfresh(), bfresh()
+        one(ob)
+        each(oe)
+        eng.process(x)
+        kernels.reset_launch_counts()
+        out = eng.process(x)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in kernels.launch_counts().items() if v}
+        try:
+            layout = megakernel.split_layout(len(x), bh, bw, n_split, bkw["dilate_steps"])
+        except AttributeError:
+            layout = None
+        emit(f"split {name}, cap {bcap}", n_split=n_split, phase1_flags=bfl[:, 0].tolist(),
+             flags=ob[1][:, 1].tolist(), batched_equals_single=bool(
+                 torch.equal(ob[0], oe[0]) and torch.equal(ob[1], oe[1])),
+             kernel_batched_ms=ms_per_state(one, 1, bfresh, reps=5),
+             kernel_single_calls_ms=ms_per_state(each, 1, bfresh, reps=5),
+             kernel_batched_device_us_and_records=kernel_us(one, bfresh), sha=sha(*ob),
+             engine_batch_ms=ms_per_call(lambda: eng.process(x), reps=5),
+             engine_single_calls_ms=ms_per_call(lambda: [eng.process(fr) for fr in x], reps=5),
+             engine_sha=sha(out), launches=launches, layout=layout)
+    # Where the time goes: the 8K frames under the profiler, each continuation.
+    scene = torch.from_numpy(make_scene(h, w, seed=0)).cuda()
     for cont in ("split", "kernel"):
-        eng = CannyEngine(CannyConfig(height=h, width=w, continuation=cont), device="cuda")
+        eng = CannyEngine(dataclasses.replace(cfg, continuation=cont), device="cuda")
         rows += [trace(f"8K spiral, continuation={cont}", eng.process, [spiral], 1, 2),
                  trace(f"8K scene 0, continuation={cont}", eng.process, [scene], 1, 5)]
     return rows
@@ -899,7 +1038,7 @@ def main() -> int:
     ap.add_argument("--parts", default=",".join(PARTS[:-7]), help=f"comma-separated of {PARTS}")
     ap.add_argument("--root", type=Path, help="profile the package of this checkout")
     ap.add_argument("--label", default="this checkout",
-                    help="the rounds, ff, packs, stages, legacy and loop parts' label")
+                    help="the split, rounds, ff, packs, stages, legacy and loop parts' label")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("port_profile: needs a CUDA device", file=sys.stderr)
@@ -924,7 +1063,7 @@ def main() -> int:
     if "sharded" in parts:
         rows += sharded()
     if "split" in parts:
-        rows += split()
+        rows += split(args.label)
     if "app" in parts:
         rows += app()
     if "rounds" in parts:
