@@ -67,21 +67,28 @@ Phases, each printing its lines before the last:
    export pack (``ff_pack_export``) and phase 1 (K8), the two refreshes
    (``halo_exchange``), the host loop's round kernels (K9, ``saturate_packed``)
    step by step through the first collective rounds, the one-launch round
-   loop (``sharded_loop``) from the export's state against the host loop
-   with the plain saturate and refresh (each mesh's loop layout printed, and
+   loop (``sharded_loop``, the two refreshes in its prologue) from the
+   export's state against the host loop with the plain saturate and refresh,
+   at a budget of 0 (the prologue alone) and at the config's (each mesh's
+   loop layout printed, and
    the phase-1 and phase-2 rounds of every tile in each collective round the
    step-by-step loop takes), and ``unpack_core`` (K10, with the
    heads and tails its row runs take), each
    against its plain version at each mesh's own tile shapes: 1080p (1, 2, 2)
    (scene + spiral, BGR and mono), 8K (1, 4, 2), 4K x4 (2, 2, 1) and 1080p
-   (1, 1, 1); the export pack alone at tile pitches that are not 16-byte
-   aligned (66x1918 over (1, 2, 2), 64x1936 over (1, 1, 2)); then, counts set to 0 just before each and read just after
-   (six launches a call at caps 100 and 400), HYSTER on one 8K scene over
+   (1, 1, 1); the export pack at tile pitches that are not 16-byte
+   aligned (66x1918 over (1, 2, 2), 64x1936 over (1, 1, 2)), with the
+   round loop at budgets 0 and 100 and the refresh on the small tiles of the
+   first; then, counts set to 0 just before each and read just after
+   (four launches a call at caps 100 and 400), HYSTER on one 8K scene over
    (1, 4, 2) and on four 4K scenes over (2, 2, 1) equal to
    ``CannyEngine.process``, on 1080p over (1, 1, 1) equal to it too, the
    1080p spiral over (1, 2, 2) cut off by the cap (100 and 400) equal to the
    plain route on the CPU, rounds included, and THRESH over (1, 2, 2) equal
-   to ``CannyEngine.process(frame, THRESH)``; no host sync; then the
+   to ``CannyEngine.process(frame, THRESH)``; no host sync; the host loop
+   on a one-card mesh with an injected local operator (``build_sharded_pipeline
+   (local_saturate=)``: K9 as two launches a round, ``halo_exchange`` two
+   before the loop and one a round) equal to the one-card loop; then the
    distributed route (the host loop: K9 as two launches a round, the flag
    all-reduced) on a one-process NCCL group, equal to the one-card loop;
 7. the steady-state hot paths under ``torch.cuda.set_sync_debug_mode("error")``;
@@ -273,6 +280,29 @@ SCAN_OPS = 2 * 2 + 4 * (2 + 3) + 2 * (2 + 27)
 def round_ops(words: int, dilate_steps: int, scans: bool) -> int:
     """Word operations of one round on ``words`` packed words."""
     return words * (DILATE_OPS * dilate_steps + 1 + (SCAN_OPS if scans else 0))
+
+
+def refresh_work(g, grid) -> tuple:
+    """(bytes, operations) of one halo refresh of the (nb ny nx, hw, ext_w)
+    planes of a (nb, ny, nx) mesh of ``g`` tiles: for each pair of
+    neighbours, each way, the word rows the sender's 32-row strip spans (or
+    its k = min(64, e_left) core lanes over every word row) read once, and
+    the word rows the receiver's halo slot spans (or its k halo lanes) read
+    and written once (an OR); an OR, two shifts and the mask a word
+    written."""
+    nb, ny, nx = grid
+
+    def span(b0, b1):  # the word rows of the plane's rows [b0, b1)
+        b0, b1 = max(b0, 0), min(b1, g.ext_h)
+        return 0 if b1 <= b0 else (b1 - 1) // 32 - b0 // 32 + 1
+
+    top, bot = g.e_top, g.e_top + g.h_loc
+    k = min(64, g.e_left)
+    v_read = g.ext_w * (span(bot - 32, bot) + span(top, top + 32))
+    v_write = g.ext_w * (span(top - 32, top) + span(bot, bot + 32))
+    words_r = nb * nx * (ny - 1) * (v_read + v_write) + nb * ny * (nx - 1) * 2 * 2 * k * g.hw
+    words_w = nb * nx * (ny - 1) * v_write + nb * ny * (nx - 1) * 2 * k * g.hw
+    return 4 * (words_r + words_w), 4 * words_w
 
 
 def split_work(h: int, w: int, n_split: int, seams, dilate_steps: int) -> tuple:
@@ -476,7 +506,7 @@ class Smoke:
         for name, rep in kernel_reports(lib.compiler_log, (
                 "ff_pack_kernel", "ff_stages_kernel", "pack_thresh_kernel", "unpack_kernel",
                 "unpack_core_kernel", "sweep_pack_all_kernel", "sweep_seed_kernel",
-                "hyst_kernel", "split_kernel", "sharded_loop_kernel")):
+                "hyst_kernel", "split_kernel", "sharded_loop_kernel", "exchange_kernel")):
             print(f"nvcc report {name}: {json.dumps(rep)}")
 
     def phase_kernels(self) -> None:
@@ -1038,7 +1068,8 @@ class Smoke:
         the host loop step by step (K9 as ``saturate_packed``'s two round
         kernels, then the refresh); the one-launch round loop
         (``sharded_loop``) from the export's state against the host loop with
-        the plain saturate and refresh, over ``loop_rounds`` rounds at most
+        the plain saturate and refresh, at a budget of 0 (its prologue, the
+        two refreshes, alone) and over ``loop_rounds`` rounds at most
         (default: the config's budget); the core unpack (K10). ``schedule``
         overrides the round arguments."""
         torch = self.torch
@@ -1096,6 +1127,7 @@ class Smoke:
                  f, pending)
             taken += 1
         budget = cfg.max_hysteresis_iters if loop_rounds is None else loop_rounds
+        self.loop_at_budget_0(export, grid, g, hk)
         fk, pk, flk = (s.clone() for s in export)
         rk = sharded_loop(fk, pk, flk, grid, g, max_rounds=budget, **hk)
         rp = sharded_loop_plain(*export, grid, g, max_rounds=budget, **hk)
@@ -1106,13 +1138,34 @@ class Smoke:
         want = unpack_core_plain(fk, out.clone(), t)
         self.diff("unpack_core", unpack_core(fk, out, t), want)
         print(f"{label}: ff_pack_export, hyst_phase1, halo_exchange, saturate_phase1/2 over "
-              f"{taken} collective rounds, sharded_loop over {int(rk)} rounds (budget {budget}) "
+              f"{taken} collective rounds, sharded_loop at budget 0 and over {int(rk)} rounds "
+              f"(budget {budget}) "
               f"and unpack_core == plain at its {t.ny}x{t.nx} tiles of {g.ext_h}x{g.ext_w} "
               f"({core_runs(out, t)})")
         lay = loop_layout(grid, g.ext_h, g.ext_w, hk["dilate_steps"])
         print(f"  loop layout {json.dumps(lay)}")
         for r, (r1, r2) in enumerate(per_round):
             print(f"  collective round {r}: phase-1 rounds a tile {r1}, phase-2 {r2}")
+
+    def loop_at_budget_0(self, export, grid, g, hk) -> None:
+        """``sharded_loop`` at a budget of 0 from the (f, p, flags) state
+        ``export``: its prologue alone, one launch, the two refreshes before
+        the reference's round loop; both planes, the flags (untouched) and 0
+        rounds equal to the host loop's."""
+        from cudacam_tpu_torch.ops import cuda as kernels
+        from cudacam_tpu_torch.parallel.packed_halo import sharded_loop, sharded_loop_plain
+
+        got, want = [s.clone() for s in export], [s.clone() for s in export]
+        kernels.reset_launch_counts()
+        rk = sharded_loop(*got, grid, g, max_rounds=0, **hk)
+        counts = kernels.launch_counts()
+        require(counts["sharded_loop"] == 1 and counts["halo_exchange"] == 0,
+                f"sharded_loop at budget 0 launched {dict(counts)}")
+        rp = sharded_loop_plain(*want, grid, g, max_rounds=0, **hk)
+        for a, b in zip(got + [rk], want + [rp]):
+            self.diff("sharded_loop", a, b)
+        self.diff("sharded_loop", got[2], export[2])
+        require(int(rk) == 0, f"sharded_loop at budget 0 took {int(rk)} rounds")
 
     def spiral_loop(self, f, p, flags, grid, g, hk, budget):
         """``sharded_loop`` on the 1080p spiral's export state at ``budget``
@@ -1155,10 +1208,9 @@ class Smoke:
         words = g.hw * g.ext_w
         ops = sum(sum(r1) * round_ops(words, hk["dilate_steps"], False)
                   + sum(r2) * round_ops(words, hk["dilate_steps"], True) for r1, r2 in per)
-        k = min(64, g.e_left)
-        strips = f.shape[0] * (2 * g.ext_w + 2 * g.hw * k)
-        bound = bound_ms(3 * 4 * words * f.shape[0] + taken * 2 * 4 * strips,
-                         ops + taken * 4 * strips)
+        refresh = refresh_work(g, grid)
+        bound = bound_ms(3 * 4 * words * f.shape[0] + (taken + 2) * refresh[0],
+                         ops + (taken + 2) * refresh[1])
         inner = sum(max(r1) + max(r2) for r1, r2 in per)
         pairs = dict(Counter((max(r1), max(r2)) for r1, r2 in per))
         return ms, plain_ms, bound, taken, inner, pairs
@@ -1191,10 +1243,12 @@ class Smoke:
         refreshes; K9 as the host loop's round kernels; the one-launch round
         loop; K10: ``unpack_core``) against its plain version at that mesh's
         tile shapes (:meth:`check_tiles`); then the sharded engine, counts
-        set to 0 just before and read just after (six launches a call at
-        caps 100 and 400), against ``CannyEngine`` and the spiral, cut off by
-        the cap, against the plain route on the CPU; then the distributed
-        route (the host loop) on a one-process NCCL group."""
+        set to 0 just before and read just after (four launches a call at
+        caps 100 and 400, no ``halo_exchange``), against ``CannyEngine`` and
+        the spiral, cut off by the cap, against the plain route on the CPU;
+        then the host loop on this card with an injected local operator
+        (:meth:`injected_route`) and the distributed route (the host loop) on
+        a one-process NCCL group."""
         torch = self.torch
         import dataclasses
         import numpy as np
@@ -1219,13 +1273,21 @@ class Smoke:
         # Export tilings whose tile pitch is not 16-byte aligned: 959 BGR
         # columns of a 1918-pixel frame (cp.async chunks), 968 of a
         # 1936-pixel frame (TMA at unaligned tile origins); a batch view one
-        # frame in.
+        # frame in. On the first, whose tiles' bottom strip starts in the
+        # word its bottom halo slot starts in, the round loop at budgets 0
+        # and 100 and the refresh, each against its plain version.
+        from cudacam_tpu_torch.ops.cuda.canny import hyster_kwargs, pipeline_kwargs
         from cudacam_tpu_torch.ops.cuda.feedforward import ff_pack_plain, ff_pack_tiles
+        from cudacam_tpu_torch.ops.cuda.halo import halo_exchange, halo_exchange_plain
+        from cudacam_tpu_torch.ops.cuda.megakernel import mega_export
         from cudacam_tpu_torch.parallel import build_sharded_pipeline
+        from cudacam_tpu_torch.parallel.packed_halo import sharded_loop, sharded_loop_plain
 
         thr = torch.tensor([10, 40], dtype=torch.int32, device=dev)
         for (hh, ww), mesh in (((66, 1918), (1, 2, 2)), ((64, 1936), (1, 1, 2))):
-            t = build_sharded_pipeline(CannyConfig(height=hh, width=ww), make_mesh(*mesh)).tiling
+            cfg_t = CannyConfig(height=hh, width=ww)
+            pipe_t = build_sharded_pipeline(cfg_t, make_mesh(*mesh))
+            t = pipe_t.tiling
             fr = torch.from_numpy(np.stack([make_scene(hh, ww, seed=s) for s in range(3)])).to(dev)
             for x in (fr, fr[..., 1].contiguous(), fr[1:]):
                 f, p = ff_pack_tiles(x, thr, t)
@@ -1234,10 +1296,29 @@ class Smoke:
                 self.diff("ff_pack_export", p, torch.cat([b for _, b in planes]))
             print(f"ff_pack_export == plain at {hh}x{ww} over {mesh} (tiles of "
                   f"{t.ext_h}x{t.ext_w} from column pitch {t.w_loc}), BGR, mono, a view")
+            if mesh != (1, 2, 2):
+                continue
+            g_t, hk_t, grid_t = pipe_t.geo, hyster_kwargs(cfg_t), (len(fr), t.ny, t.nx)
+            export = mega_export(fr, thr, t, **pipeline_kwargs(cfg_t))
+            self.loop_at_budget_0(export, grid_t, g_t, hk_t)
+            got, want = [s.clone() for s in export], [s.clone() for s in export]
+            rk = sharded_loop(*got, grid_t, g_t, max_rounds=100, **hk_t)
+            rp = sharded_loop_plain(*want, grid_t, g_t, max_rounds=100, **hk_t)
+            for a, b in zip(got + [rk], want + [rp]):
+                self.diff("sharded_loop", a, b)
+            pk, pp = torch.zeros(1, dtype=torch.int32, device=dev), torch.zeros(
+                1, dtype=torch.int32, device=dev)
+            xk, xp = export[0].clone(), export[0].clone()
+            halo_exchange(xk, grid_t, g_t, grow=export[2][:, 0, 1], pending=pk)
+            halo_exchange_plain(xp, grid_t, g_t, grow=export[2][:, 0, 1], pending=pp)
+            self.diff("halo_exchange", xk, xp)
+            self.diff("halo_exchange", pk, pp)
+            print(f"  {hh}x{ww} over {mesh}: sharded_loop at budgets 0 and 100 ({int(rk)} "
+                  f"rounds) and halo_exchange == plain on 3 frames")
 
         self.unpack_core_offsets()
 
-        main = dict(ff_pack_export=1, hyst_phase1=1, halo_exchange=2, sharded_loop=1,
+        main = dict(ff_pack_export=1, hyst_phase1=1, halo_exchange=0, sharded_loop=1,
                     unpack_core=1, saturate_phase1=0, saturate_phase2=0, ff_pack=0, unpack=0)
         self.sharded = {}
 
@@ -1314,7 +1395,46 @@ class Smoke:
             torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize()
         print("sharded process() on every mesh: no host sync under set_sync_debug_mode('error')")
+        self.injected_route(cfg, spiral)
         self.distributed_route(cfg, spiral)
+
+    def injected_route(self, cfg, spiral) -> None:
+        """The host loop on a one-card (1, 2, 2) mesh, as a pipeline with an
+        injected local operator takes it (``build_sharded_pipeline(...,
+        local_saturate=)``, here K9 through ``saturate_packed``): the
+        refresh kernel (``halo_exchange``) twice before the loop and once a
+        round, the pending flag read once a round; the spiral cut off by a
+        short budget, equal to the one-card loop, rounds included."""
+        torch = self.torch
+        import dataclasses
+        from cudacam_tpu_torch.ops.cuda.canny import hyster_kwargs
+        from cudacam_tpu_torch.ops.cuda.hysteresis_fused import saturate_packed
+        from cudacam_tpu_torch.parallel import build_sharded_pipeline, make_mesh
+
+        cap = 8
+        cfg_c = dataclasses.replace(cfg, max_hysteresis_iters=cap, hysteresis_scan_after=4)
+        mesh = make_mesh(1, 2, 2)
+        geo = build_sharded_pipeline(cfg_c, mesh).geo
+
+        def k9(f, p):
+            flags = torch.zeros((f.shape[0], 2, 2), dtype=torch.int32, device=f.device)
+            return f, saturate_packed(f, p, flags, geo.ext_h, **hyster_kwargs(cfg_c))[1]
+
+        run = build_sharded_pipeline(cfg_c, mesh, local_saturate=k9)
+        thr = torch.tensor([cfg_c.low_threshold, cfg_c.high_threshold], dtype=torch.int32,
+                           device=self.dev)
+        frames = spiral[None]
+        run(frames, thr)
+        out = self.path("sharded HYSTER 1080p spiral (1, 2, 2), injected local operator "
+                        "(the host loop on one card)", lambda: run(frames, thr),
+                        dict(ff_pack_export=1, hyst_phase1=1, saturate_phase1=cap,
+                             saturate_phase2=cap, sharded_loop=0, halo_exchange=cap + 2,
+                             unpack_core=1))
+        local = build_sharded_pipeline(cfg_c, mesh)
+        require(torch.equal(out, local(frames, thr)), "the injected route differs")
+        require(int(run.rounds) == int(local.rounds) == cap, f"injected rounds {int(run.rounds)}")
+        print(f"injected local operator on one card: == the one-card loop, {cap} rounds, "
+              f"halo_exchange {cap + 2} launches")
 
     def distributed_route(self, cfg, spiral) -> None:
         """The distributed route on this card: a one-process NCCL group, a
@@ -1401,9 +1521,8 @@ class Smoke:
         self.plain_ms["halo_exchange"] = self.time_ms(
             lambda s: halo_exchange_plain(s[0], grid, g, grow=flags[:, 0, 1], pending=s[1]), 5,
             setup=x_state)
-        k = min(64, g.e_left)
-        strips = ntile * (2 * g.ext_w + 2 * g.hw * k)  # words moved per refresh
-        self.set_bound("halo_exchange", 2 * 4 * strips, 4 * strips)
+        refresh = refresh_work(g, grid)
+        self.set_bound("halo_exchange", *refresh)
 
         # The round loop from the export's state (8K scene 0: the tiles meet
         # in one collective round), kernel and plain; its bound from the
@@ -1427,8 +1546,9 @@ class Smoke:
             lambda x, **k2: halo_exchange_plain(x, grid, g, **k2), cfg.max_hysteresis_iters))
         loop_ops = sum(r1 * round_ops(words, ds, False)
                        + r2 * round_ops(words, ds, True) for r1, r2 in sat_rounds)
-        self.set_bound("sharded_loop", 3 * 4 * words * ntile + taken * 2 * 4 * strips,
-                       loop_ops + taken * 4 * strips)
+        # the prologue's two refreshes (both planes), then one a collective round
+        self.set_bound("sharded_loop", 3 * 4 * words * ntile + (taken + 2) * refresh[0],
+                       loop_ops + (taken + 2) * refresh[1])
         fx = fc
         out = torch.empty((1, h, w), dtype=torch.uint8, device=dev)
         self.ms["unpack_core"] = self.time_ms(lambda _: unpack_core(fx, out, t), 50)

@@ -155,31 +155,38 @@
 // sharded_loop_kernel replaces the collective round loop of the sharded path
 // on one card (cudacam_tpu/parallel/packed_halo.py:256-306: a lax.while_loop
 // whose body is K9 on every tile, the FINAL strip exchange, and a psum of
-// "some tile still growing | some new halo bit"). The whole loop is ONE
-// cooperative launch, and each tile's bands stay resident in shared memory
-// for all of it: the first round loop (round_loop with CARRY) loads a
-// band's CANDIDATE words (the exchange before the launch deepened their
-// halo; they never change) and its FINAL core once, and the kernel writes
-// FINAL back once at its end. A collective round runs phase 1 (from round
-// 0) and phase 2 (from the state phase 1 left in each block's copy, no
-// barrier between) on every tile, each writing the tiles' flags as K9
-// does, then halo.cuh's refresh on the resident bands:
+// "some tile still growing | some new halo bit"), and the two strip
+// exchanges before it (:285-286). The whole loop is ONE cooperative launch.
+// Its prologue refreshes both planes in global memory, the grid's threads
+// split between the tiles: halo.cuh's publish_planes on CANDIDATE's and
+// FINAL's words, one grid barrier, apply_planes on both, and the loop's
+// first flag ("some FINAL bit new, or some flags[t][0][1]") read after a
+// second barrier; then the budget test, so a budget of 0 still refreshes both, as
+// the reference does. Each tile's bands then stay resident in shared
+// memory: the first round loop (round_loop with CARRY) loads a band's
+// CANDIDATE words (never changed again) and its FINAL core once, and the
+// kernel writes FINAL back once at its end. A collective round runs phase
+// 1 (from round 0) and phase 2 (from the state phase 1 left in each block's
+// copy, no barrier between) on every tile, each writing the tiles' flags as
+// K9 does, then the same refresh on the resident bands:
 // each band publishes what its tile's neighbours read of it, one grid
 // barrier, each band ORs what falls in its own halo rows and lanes into its
 // words (its change test counting the new bits) and publishes its edges
 // again, and the flag "some new bit, or some flags[t][1][1]" is read after
 // the barrier that ends the round. The loop runs while the flag is up and
 // below the round budget, then writes the rounds taken. So a sharded HYSTER
-// call is a constant handful of launches whatever the cap and however soon
-// the tiles converge, and nothing is read back.
+// call is four launches (the export pack, its phase 1, this loop, the core
+// unpack) whatever the cap and however soon the tiles converge, and nothing
+// is read back.
 // * Layout (choose_layout over every tile, reported by
 //   cc_sharded_loop_layout): every tile's bands in both phases, a block a
 //   band, the rounds' barriers grid barriers; where the bands outnumber the
 //   co-resident blocks, each block streams its bands through shared memory
 //   stage by stage, the refresh included.
 // * Grid barriers a collective round besides its rounds': two (the
-//   refresh's and the flag's). Nothing moves through global memory between
-//   the two phases, and the refresh moves only what crosses tiles.
+//   refresh's and the flag's); the prologue's: two. Nothing moves through
+//   global memory between the two phases, and the refresh moves only what
+//   crosses tiles.
 // * Bound: as the round kernels (latency: the dilation steps and the
 //   barriers); the refresh moves two word rows and 2 x 64 lanes a tile.
 
@@ -1259,40 +1266,72 @@ __global__ void __launch_bounds__(NT, 1) hyst_kernel(Params a) {
 }
 
 // The collective round loop of a one-card sharded batch of extended tiles
-// (see the head of this file): the loop's flag before the first round, set
-// by the refresh that follows the export; three slots of a round's flag,
-// rotating (scratch); the round count it writes at the end; the round
-// budget.
+// (see the head of this file): four slots of scratch flags (three of a
+// round's flag, rotating, then the prologue's); the round count it writes at
+// the end; the round budget.
 struct LoopParams {
-  const int* pending;
   int* pend;
   int* rounds;
   int max_rounds;
 };
+
+// The loop's prologue: the two refreshes that follow the export
+// (packed_halo.py:285-286, before the while_loop), CANDIDATE's and FINAL's,
+// in one pass over both planes in global memory (halo.cuh's publish_planes /
+// apply_planes, the grid's threads split between the tiles): both planes
+// published (xf, xp: a scratch each), one grid barrier, both applied; the
+// flag "some FINAL bit new, or some flags[t][0][1]" goes into *flag (zero
+// before the barrier), read after a second barrier. The round loop's first
+// loads (with __ldcg) come after it. On a (b, 1, 1) mesh the flag is the
+// tiles' growth alone, read by every thread.
+__device__ bool loop_prologue(const Params& a, const halo::Strips& xf, const halo::Strips& xp,
+                              int* flag, cg::grid_group& grid) {
+  if (xf.ny == 1 && xf.nx == 1) {  // no tile has a neighbour: no refresh, no barrier
+    bool up = false;
+    for (int b = 0; b < a.nb; ++b) up = up || __ldcg(a.flags + 4 * b + 1);
+    return up;
+  }
+  const int i = blockIdx.x * NT + threadIdx.x, n = gridDim.x * NT;
+  uint32_t* P = const_cast<uint32_t*>(a.p);
+  halo::publish_planes(xf, a.f, a.nb, i, n);
+  halo::publish_planes(xp, P, a.nb, i, n);
+  grid.sync();
+  const int fresh = halo::apply_planes(xf, a.f, a.nb, i, n);
+  halo::apply_planes(xp, P, a.nb, i, n);
+  bool up = __syncthreads_or(fresh);
+  if (blockIdx.x == 0 && threadIdx.x == 0)
+    for (int b = 0; b < a.nb; ++b) up = up || __ldcg(a.flags + 4 * b + 1);
+  if (up && threadIdx.x == 0) atomicOr(flag, 1);
+  grid.sync();
+  return *(volatile int*)flag;
+}
 
 // a: phase 2's parameters; a1: phase 1's (its cap min(scan_after,
 // max_iters), no scans), a kernel parameter of its own so that neither is
 // copied to local memory.
 template <bool SEG>
 __global__ void __launch_bounds__(NT, 1) sharded_loop_kernel(Params a, Params a1,
-                                                            halo::Strips x, LoopParams l) {
+                                                            halo::Strips x, halo::Strips xp,
+                                                            LoopParams l) {
   extern __shared__ uint32_t sm[];
   cg::grid_group grid = cg::this_grid();
   const FrameState st = frame_state(a, sm);
   const Ws ws = workspace(a, sm);
+  // Every tile's bands in both phases: the layout does not follow the
+  // active tiles, so a block keeps its band for the whole launch.
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < a.nb; ++b) st.lay[b] = b;
+    *st.nl = a.nb;
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0)
+    for (int i = 0; i < 4; ++i) l.pend[i] = 0;
+  __syncthreads();
   // The reference's cond (packed_halo.py:294): the budget is tested before
-  // a round. Every thread reads the flag, after a grid barrier in the loop.
-  bool pending = l.max_rounds > 0 && *(volatile const int*)l.pending;
+  // a round, after the refreshes. Every thread reads the flag, after a grid
+  // barrier.
+  bool pending = loop_prologue(a, x, xp, &l.pend[3], grid) && l.max_rounds > 0;
   int it = 0;
   if (pending) {
-    // Every tile's bands in both phases: the layout does not follow the
-    // active tiles, so a block keeps its band for the whole launch.
-    if (threadIdx.x == 0) {
-      for (int b = 0; b < a.nb; ++b) st.lay[b] = b;
-      *st.nl = a.nb;
-    }
-    if (blockIdx.x == 0 && threadIdx.x == 0)
-      for (int i = 0; i < 3; ++i) l.pend[i] = 0;
     const int bands = a.nb * a.nbw * (SEG ? a.ns : 1);
     const bool resident = bands <= (int)gridDim.x;
     Carry c{0, 1, 0};
@@ -1316,7 +1355,8 @@ __global__ void __launch_bounds__(NT, 1) sharded_loop_kernel(Params a, Params a1
           load_core(a, X, a.f, d);
           __syncthreads();
         }
-        halo::publish_band(x, d.b, X + core0(a, d), a.rs, d.k0, d.hk, d.c0, d.cb);
+        halo::publish_band(x, d.b, X + core0(a, d), a.rs, d.k0, d.hk, d.c0, d.cb, threadIdx.x,
+                           blockDim.x);
         if (!resident) __syncthreads();
       }
       grid.sync();
@@ -1330,8 +1370,8 @@ __global__ void __launch_bounds__(NT, 1) sharded_loop_kernel(Params a, Params a1
           load_core(a, X, a.f, d);
           __syncthreads();
         }
-        const int fresh =
-            block_sum(ws, halo::apply_band(x, d.b, X + core0(a, d), a.rs, d.k0, d.hk, d.c0, d.cb));
+        const int fresh = block_sum(ws, halo::apply_band(x, d.b, X + core0(a, d), a.rs, d.k0, d.hk,
+                                                         d.c0, d.cb, threadIdx.x, blockDim.x));
         if (fresh && threadIdx.x == 0) {
           a.cnt[g] += fresh;  // a round's change test counts from here
           up = true;
@@ -2062,20 +2102,22 @@ extern "C" int cc_split_layout(int nf, int h, int w, int n_split, int dilate_ste
 
 // int32 words of scratch the sharded loop needs for T extended tiles of
 // h x w: the rounds' scratch (its change flags last), then the refresh's
-// published strips and lanes and three slots of a round's flag.
+// published strips and lanes (FINAL's, then CANDIDATE's for the prologue)
+// and four flag slots.
 extern "C" long long cc_sharded_loop_scratch_words(int tiles, int h, int w) {
-  return rounds_scratch_words(tiles, h, w) + halo::strips_words(tiles, (h + 31) / 32, w) + 3;
+  return rounds_scratch_words(tiles, h, w) + 2 * halo::strips_words(tiles, (h + 31) / 32, w) + 4;
 }
 
 // The collective round loop of a one-card (nb, ny, nx) mesh, one launch:
-// f, p are the (T, ceil(h/32), w) extended-tile planes (T = nb ny nx, h x w
-// the extended tile), flags the (T, 2, 2) round flags, pending the one-int
-// loop flag the refresh before it set, rounds the one int it writes. geo: 5
-// ints (e_top, h_loc, e_left, w_loc, ext_h), as cc_halo_exchange's.
-extern "C" int cc_sharded_loop(void* f, const void* p, void* scratch, void* flags,
-                               const void* pending, void* rounds, int nb, int ny, int nx, int h,
-                               int w, const int* geo, int dilate_steps, int scan_after,
-                               int max_iters, int max_rounds, int device, void* stream) {
+// f, p are the (T, ceil(h/32), w) extended-tile planes at the export's
+// phase-1 exit (T = nb ny nx, h x w the extended tile; both refreshed in
+// place before the first round), flags the (T, 2, 2) round flags, rounds the
+// one int it writes. geo: 5 ints (e_top, h_loc, e_left, w_loc, ext_h), as
+// cc_halo_exchange's.
+extern "C" int cc_sharded_loop(void* f, void* p, void* scratch, void* flags, void* rounds,
+                               int nb, int ny, int nx, int h, int w, const int* geo,
+                               int dilate_steps, int scan_after, int max_iters, int max_rounds,
+                               int device, void* stream) {
   DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return guard.err;
   if (nb < 1 || ny < 1 || nx < 1 || max_rounds < 0) return cudaErrorInvalidValue;
@@ -2093,9 +2135,11 @@ extern "C" int cc_sharded_loop(void* f, const void* p, void* scratch, void* flag
   x.e_left = geo[2];
   x.w_loc = geo[3];
   x.ext_h = geo[4];
+  halo::Strips xp = x;
+  xp.rows = x.rows + halo::strips_words(tiles, a.hw, w);
+  xp.lanes = xp.rows + 4LL * tiles * w;
   LoopParams l;
-  l.pending = static_cast<const int*>(pending);
-  l.pend = reinterpret_cast<int*>(x.rows + halo::strips_words(tiles, a.hw, w));
+  l.pend = reinterpret_cast<int*>(xp.rows + halo::strips_words(tiles, a.hw, w));
   l.rounds = static_cast<int*>(rounds);
   l.max_rounds = max_rounds;
   Layout lay;
@@ -2105,7 +2149,7 @@ extern "C" int cc_sharded_loop(void* f, const void* p, void* scratch, void* flag
   Params a1 = a;  // phase 1: min(scan_after, max_iters) rounds, no scans
   a1.cap = scan_after < max_iters ? scan_after : max_iters;
   a1.scan_from = INT_MAX;
-  void* args[] = {&a, &a1, &x, &l};
+  void* args[] = {&a, &a1, &x, &xp, &l};
   err = cudaLaunchCooperativeKernel(LOOP.pick(lay.ns), dim3(grid), dim3(NT), args, lay.smem,
                                     static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return err;
@@ -2117,7 +2161,7 @@ extern "C" int cc_sharded_loop(void* f, const void* p, void* scratch, void* flag
 // blocks, cluster size (1: the loop has no cluster form), grid barriers a
 // phase-1 round and a phase-2 round, height segments, grid barriers a
 // collective round besides its rounds', dynamic shared memory bytes a
-// block).
+// block, grid barriers of the prologue).
 extern "C" int cc_sharded_loop_layout(int nb, int ny, int nx, int h, int w, int dilate_steps,
                                       int device, int* out) {
   DeviceGuard guard(device);
@@ -2140,5 +2184,6 @@ extern "C" int cc_sharded_loop_layout(int nb, int ny, int nx, int h, int w, int 
   out[7] = a.ns;
   out[8] = 2;  // the refresh's and the flag's
   out[9] = (int)lay.smem;
+  out[10] = 2;  // the prologue's refresh and its flag
   return cudaSuccess;
 }

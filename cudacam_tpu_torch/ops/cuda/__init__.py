@@ -19,8 +19,9 @@ from cudacam_tpu_torch.ops.cuda.hysteresis_fused import (
 #: pack and the threshold sweep's pack of every pair and its per-pair seed;
 #: then the tile-sharded path's: ``ff_pack`` in its export mode (with
 #: ``hyst_phase1``, K8), the round kernels as the host loop's local saturate
-#: (K9), the core unpack (K10), the halo exchange and the one-card round loop
-#: (K9 + the exchange in one launch); then the column-split continuation
+#: (K9), the core unpack (K10), the halo exchange (the host loop's) and the
+#: one-card round loop (the two refreshes before it, then K9 + the refresh a
+#: round, in one launch); then the column-split continuation
 #: (K11) and the legacy row-sweep hysteresis (K12); then the probes' kernels
 #: (K13, K14).
 KERNELS = ("ff_pack", "hyst_phase1", "hyst_phase2", "unpack", "ff_stages", "pack_thresh",

@@ -52,8 +52,8 @@ SIGNATURES = {
     "cc_unpack": (_I, [_P, _P, _P, _I, _I, _I, _I, _P]),
     "cc_unpack_core": (_I, [_P, _P] + [_I] * 12 + [_P]),
     "cc_halo_exchange": (_I, [_P, _P, _P, _I, _I, _P, _I, _I, _I, _I, _I, _P, _I, _P]),
-    "cc_exchange_scratch_words": (ctypes.c_longlong, [_I, _I]),
-    "cc_sharded_loop": (_I, [_P] * 6 + [_I] * 5 + [_P] + [_I] * 5 + [_P]),
+    "cc_exchange_scratch_words": (ctypes.c_longlong, [_I, _I, _I]),
+    "cc_sharded_loop": (_I, [_P] * 5 + [_I] * 5 + [_P] + [_I] * 5 + [_P]),
     "cc_sharded_loop_scratch_words": (ctypes.c_longlong, [_I, _I, _I]),
     "cc_sharded_loop_layout": (_I, [_I] * 7 + [_P]),
     "cc_sweep_pack_all": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _P]),

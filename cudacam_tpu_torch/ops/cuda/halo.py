@@ -2,17 +2,19 @@
 launch.
 
 Wraps ``csrc/halo.cu``, which replaces the strip exchange of the sharded
-round loop; ``csrc/halo.cuh`` also holds its resident form, the refresh
-step of the round loop kernel (``parallel/packed_halo.py::sharded_loop``)
-on the bands each block keeps in shared memory. The JAX package
-computes it as XLA ops around ``jax.lax.ppermute``
-(cudacam_tpu/parallel/packed_halo.py: ``exchange_packed`` :195,
-``_extract32`` :124, ``_or_place32`` :150) with a ``psum``'d flag
-(``packed_hysteresis_loop`` :288-306); as plain torch ops it would be about
-30 launches per round. On one card every tile of the (b, y, x) mesh is a
-slice of one tensor, so the kernel does the vertical strips, the horizontal
-ones, the OR placement, the new-bit test and the pending flag for all tiles
-in one cooperative launch. Its plain version is
+round loop. The JAX package computes it as XLA ops around
+``jax.lax.ppermute`` (cudacam_tpu/parallel/packed_halo.py:
+``exchange_packed`` :195, ``_extract32`` :124, ``_or_place32`` :150) with a
+``psum``'d flag (``packed_hysteresis_loop`` :288-306); as plain torch ops it
+would be about 30 launches per round. On one card every tile of the
+(b, y, x) mesh is a slice of one tensor, so the kernel refreshes every
+tile in one cooperative launch: each band publishes what its tile's
+neighbours read of it, one grid barrier, each band ORs its halo words in
+(``csrc/halo.cuh``), then the pending flag after a second barrier. The
+round loop kernel (``parallel/packed_halo.py::sharded_loop``) runs the same
+device functions in its own launch, so the one-card sharded HYSTER call
+never launches this one; the host loop with an injected local operator
+does, once a round. Its plain version is
 ``ops/packed_strips.py::exchange_packed`` with the index-shift hop.
 """
 from __future__ import annotations
@@ -30,8 +32,8 @@ from cudacam_tpu_torch.ops.packed_strips import PackedGeo, exchange_packed, loca
 
 
 @functools.lru_cache(maxsize=None)
-def _scratch_words(tiles: int, w: int) -> int:
-    return load().lib.cc_exchange_scratch_words(tiles, w)
+def _scratch_words(tiles: int, hw: int, w: int) -> int:
+    return load().lib.cc_exchange_scratch_words(tiles, hw, w)
 
 
 def _check(x, grid, geo, grow, pending) -> None:
@@ -82,7 +84,7 @@ def halo_exchange(
     if grow is not None and grow.dtype != torch.int32:
         grow = grow.to(torch.int32)
     require_contiguous(x, *([pending] if pending is not None else []))
-    scratch = torch.empty(_scratch_words(x.shape[0], geo.ext_w), dtype=torch.int32,
+    scratch = torch.empty(_scratch_words(x.shape[0], geo.hw, geo.ext_w), dtype=torch.int32,
                           device=x.device)
     nb, ny, nx = grid
     lib = load()

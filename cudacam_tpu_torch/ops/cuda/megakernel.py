@@ -134,7 +134,8 @@ def round_layout(nb: int, h: int, w: int, dilate_steps: int, phase: int,
 #: ``loop_layout``'s keys, in ``cc_sharded_loop_layout``'s order.
 LOOP_LAYOUT_KEYS = ("band_width", "halo", "bands_per_tile", "blocks", "cluster",
                     "grid_barriers_phase1_round", "grid_barriers_phase2_round", "segments",
-                    "grid_barriers_per_collective_round", "smem_bytes")
+                    "grid_barriers_per_collective_round", "smem_bytes",
+                    "grid_barriers_prologue")
 
 
 def loop_layout(grid: Tuple[int, int, int], h: int, w: int, dilate_steps: int = 16,
@@ -144,7 +145,8 @@ def loop_layout(grid: Tuple[int, int, int], h: int, w: int, dilate_steps: int = 
     width, halo columns, bands a tile, blocks, the cluster size (1: the
     loop's round barriers are grid barriers), the grid barriers a phase-1
     and a phase-2 round, height segments, the grid barriers a collective
-    round takes besides its rounds', and a block's shared memory
+    round takes besides its rounds', a block's shared memory, and the grid
+    barriers of the prologue (the two refreshes before the first round)
     (``cc_sharded_loop_layout``)."""
     out = (ctypes.c_int * len(LOOP_LAYOUT_KEYS))()
     lib = load()

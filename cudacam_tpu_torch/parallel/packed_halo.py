@@ -11,12 +11,13 @@ anywhere, or at the round budget (the JAX ``lax.while_loop`` :256-306).
 One loop per transport, as in the reference:
 
 * :func:`sharded_loop`: a one-card mesh on the card. The whole loop is one
-  cooperative launch (``sharded_loop_kernel`` in ``csrc/hyst_rounds.cu``):
-  every tile's bands stay in shared memory for the whole launch, and each
-  collective round runs K9 on every tile, the refresh on those bands
-  (``csrc/halo.cuh``'s resident form) and the pending flag, ended on the
-  device. Nothing is read back. ``megakernel.loop_layout`` reports its
-  layout.
+  cooperative launch (``sharded_loop_kernel`` in ``csrc/hyst_rounds.cu``),
+  the two refreshes before it included: its prologue refreshes both planes
+  in global memory (``csrc/halo.cuh``) and sets the first pending flag;
+  then every tile's bands stay in shared memory, and each collective round
+  runs K9 on every tile, the refresh on those bands and the pending flag,
+  ended on the device. Nothing is read back. ``megakernel.loop_layout``
+  reports its layout.
 * :func:`packed_hysteresis_loop`: the host loop, for a distributed mesh
   (the host reads the all-reduced pending flag once per round, where the
   JAX loop has its ``psum``) and for an injected local operator. With the
@@ -32,7 +33,7 @@ import torch
 from cudacam_tpu_torch.ops.cuda._build import (
     count_launch, load, require_contiguous, stream_of, use_plain,
 )
-from cudacam_tpu_torch.ops.cuda.halo import geo_args, halo_exchange, halo_exchange_plain
+from cudacam_tpu_torch.ops.cuda.halo import geo_args, halo_exchange_plain
 from cudacam_tpu_torch.ops.cuda.hysteresis_fused import saturate_packed_plain
 from cudacam_tpu_torch.ops.cuda.megakernel import _check_planes, _check_steps
 from cudacam_tpu_torch.ops.packed_strips import PackedGeo
@@ -131,11 +132,11 @@ def sharded_loop(
     device. ``flags`` is the export's (T, 2, 2): row 0's "still growing" is
     the entry state; each round overwrites both rows, as K9 does.
 
-    On CUDA tensors: the two refreshes before the loop (``halo_exchange``:
-    CANDIDATE, then FINAL with the entry state's flags, which sets the
-    pending flag) and one launch of the loop kernel, whatever the budget and
-    however soon the tiles converge; no host sync. Byte for byte the host
-    loop, which CPU tensors run (:func:`sharded_loop_plain`)."""
+    On CUDA tensors: one launch of the loop kernel, the two refreshes before
+    the loop (CANDIDATE, then FINAL with the entry state's flags, which sets
+    the pending flag) included, whatever the budget (0 too) and however soon
+    the tiles converge; no host sync. Byte for byte the host loop, which CPU
+    tensors run (:func:`sharded_loop_plain`)."""
     _check_loop(f, p, flags, grid, geo, max_rounds)
     kw = dict(dilate_steps=dilate_steps, scan_after=scan_after, max_iters=max_iters)
     if use_plain(f, p, flags):
@@ -143,18 +144,15 @@ def sharded_loop(
     _check_steps(dilate_steps)
     require_contiguous(f, p, flags)
     nb, ny, nx = grid
-    pending = torch.empty(1, dtype=torch.int32, device=f.device)
     rounds = torch.empty(1, dtype=torch.int32, device=f.device)
-    halo_exchange(p, grid, geo)
-    halo_exchange(f, grid, geo, grow=flags[:, 0, 1], pending=pending)
     lib = load()
     # Stream-ordered: the scratch is reusable once the kernel ran.
     scratch = torch.empty(lib.lib.cc_sharded_loop_scratch_words(f.shape[0], geo.ext_h, geo.ext_w),
                           dtype=torch.int32, device=f.device)
     lib.check(
         lib.lib.cc_sharded_loop(
-            f.data_ptr(), p.data_ptr(), scratch.data_ptr(), flags.data_ptr(), pending.data_ptr(),
-            rounds.data_ptr(), nb, ny, nx, geo.ext_h, geo.ext_w, geo_args(geo), dilate_steps,
+            f.data_ptr(), p.data_ptr(), scratch.data_ptr(), flags.data_ptr(), rounds.data_ptr(),
+            nb, ny, nx, geo.ext_h, geo.ext_w, geo_args(geo), dilate_steps,
             scan_after, max_iters, max_rounds, f.device.index, stream_of(f)),
         "sharded_loop",
     )

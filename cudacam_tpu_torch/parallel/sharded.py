@@ -26,9 +26,9 @@ backends everywhere.
 The route follows the tensors' device: the plain versions on the CPU, the
 kernels on CUDA, with no backend switch and no fallback. On a one-card
 mesh the kernels read each extended tile straight out of the frame batch in
-device memory, and the round loop is one launch that ends on the device
-(``sharded_loop``): a HYSTER call is six launches whatever the cap, and
-nothing is read back. Across processes the tile's pixels and strips move
+device memory, and the round loop, the two refreshes before it included,
+is one launch that ends on the device (``sharded_loop``): a HYSTER call is
+four launches whatever the cap, and nothing is read back. Across processes the tile's pixels and strips move
 through ``torch.distributed`` and the host reads the all-reduced pending
 flag once per round (the host loop, as with an injected local operator). The display stages run ``ff_stages`` on each extended
 tile with its global origin (``local_feed_forward_pallas`` :255) and keep

@@ -634,7 +634,9 @@ def test_unpack_core_matches_plain(dev, hw, mesh):
     assert torch.equal(unpack_core(f2, out, tt), want)
 
 
-@pytest.mark.parametrize("hw,mesh", SHARDED + [((64, 96), (1, 8, 1)), ((64, 96), (1, 2, 4))])
+@pytest.mark.parametrize("hw,mesh", SHARDED + [((64, 96), (1, 8, 1)), ((64, 96), (1, 2, 4)),
+                                     ((16, 24), (1, 2, 2)), ((66, 1918), (1, 2, 2)),
+                                     ((4320, 7680), (1, 4, 2))])
 def test_halo_exchange_matches_plain(dev, hw, mesh):
     h, w = hw
     geo = _tiles(h, w, mesh).geo
@@ -674,7 +676,8 @@ def test_sharded_engine_matches_engine(dev, hw, mesh, channels):
     got = sharded.process(batch)
     counts = kernels.launch_counts()
     assert {k: v for k, v in counts.items() if v} == dict(
-        ff_pack_export=1, hyst_phase1=1, halo_exchange=2, sharded_loop=1, unpack_core=1)
+        ff_pack_export=1, hyst_phase1=1, sharded_loop=1, unpack_core=1)
+    assert counts["halo_exchange"] == 0
     assert torch.equal(got, eng.process(batch))
     plain = ShardedCannyEngine(cfg, make_mesh(*mesh), device="cpu")
     for stage in CannyStage:
@@ -713,7 +716,7 @@ def test_sharded_loop_matches_the_host_loop(dev, hw, mesh, cap):
     """The one-launch round loop against its plain version (the host loop,
     on the same card) from the export's state: the planes, every tile's
     flags and the round count, converged and cut off by the budget (the
-    spiral at budget 3); six launches a call whatever the cap. The tall
+    spiral at budget 3); four launches a call whatever the cap. The tall
     frames' tiles take height segments, on the grid layout."""
     from cudacam_tpu_torch.ops.cuda.megakernel import loop_layout
 
@@ -741,11 +744,49 @@ def test_sharded_loop_matches_the_host_loop(dev, hw, mesh, cap):
         got = sharded.process(frames)
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    assert {k: v for k, v in kernels.launch_counts().items() if v} == dict(
-        ff_pack_export=1, hyst_phase1=1, halo_exchange=2, sharded_loop=1, unpack_core=1)
+    counts = kernels.launch_counts()
+    assert {k: v for k, v in counts.items() if v} == dict(
+        ff_pack_export=1, hyst_phase1=1, sharded_loop=1, unpack_core=1)
+    assert counts["halo_exchange"] == 0
     plain = ShardedCannyEngine(cfg, make_mesh(*mesh), device="cpu")
     assert torch.equal(got.cpu(), plain.process(frames.cpu()))
     assert int(sharded.pipeline().rounds) == int(plain.pipeline().rounds)
+
+
+#: The budget-0 cases: the sharded meshes, small tiles whose two halo slots
+#: share a word (16 x 24 over (1, 2, 2)), the 66 x 1918 frame over
+#: (1, 2, 2), tiles with height segments, and a streaming layout.
+BUDGET0 = SHARDED + [((16, 24), (1, 2, 2)), ((66, 1918), (1, 2, 2)),
+                     ((32000, 512), (1, 2, 1)), ((1080, 1920), (4, 4, 4))]
+
+
+@pytest.mark.parametrize("hw,mesh", BUDGET0)
+def test_sharded_loop_at_budget_0_matches_plain(dev, hw, mesh):
+    """The loop kernel's prologue alone (the two refreshes before the
+    reference's round loop): at a budget of 0 both planes come out
+    refreshed, the flags untouched and 0 rounds, equal to the host loop's,
+    in one launch; from the export's state and from random planes (bits in
+    every halo word) with random flags."""
+    h, w = hw
+    pipe = _tiles(h, w, mesh)
+    g, kw = pipe.geo, dict(dilate_steps=16, scan_after=4, max_iters=100)
+    gen = torch.Generator().manual_seed(h + w)
+    rand = lambda shape: torch.randint(-2**31, 2**31 - 1, shape, generator=gen,  # noqa: E731
+                                       dtype=torch.int32).to(dev)
+    export = mega_export(_batch(h, w, mesh[0], dev), _thr(10, 40, dev), pipe.tiling, **kw)
+    n = export[0].shape[0]
+    random = (rand(export[0].shape) & rand(export[0].shape), rand(export[1].shape),
+              rand((n, 2, 2)) & 1)
+    for state in (export, random):
+        got, want = [x.clone() for x in state], [x.clone() for x in state]
+        kernels.reset_launch_counts()
+        rounds = sharded_loop(*got, mesh, g, max_rounds=0, **kw)
+        counts = kernels.launch_counts()
+        assert counts["sharded_loop"] == 1 and counts["halo_exchange"] == 0
+        assert int(sharded_loop_plain(*want, mesh, g, max_rounds=0, **kw)) == int(rounds) == 0
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        assert torch.equal(got[2], state[2])
 
 
 @pytest.mark.parametrize("hw,mesh,segments,streams", [((256, 384), (1, 2, 2), False, False),

@@ -7,13 +7,24 @@ In the loop kernel every tile's (hw, w) plane is cut into column bands of
 ``bw`` columns and, for tall planes, ``ns`` stacked height segments; each
 block keeps its band in shared memory. Before one grid barrier each band
 publishes, from its own words as they stand, the word rows its tile's row
-strips start in and its part of the tile's first and last k core lanes.
+strips span and its part of the tile's first and last k core lanes.
 After it each band computes every word of its own that the refresh writes,
 one thread a word: the strips of the tiles above and below placed in its
 halo rows, and in its halo lanes the neighbour's edge lanes ORed with what
 the neighbour's own row step places there (the corners). The model below is
 that, band by band, with the published scratch starting as garbage, so a
 word that no band published but some band reads shows up as a difference.
+
+The same functions run on the planes in global memory in two more places,
+each tile one band (``publish_planes`` / ``apply_planes``; how the grid's
+threads split a band's words changes no word): the loop kernel's prologue
+(both planes published from one snapshot, a scratch each, one barrier,
+both applied, then the flag "some FINAL bit new, or some tile still
+growing"), which stands for the two exchanges before the reference's round
+loop; and the standalone ``halo_exchange`` (``csrc/halo.cu``, one plane).
+:func:`prologue` models both, held to the port's two ``exchange_packed``
+calls, to the JAX ``exchange_packed`` under ``shard_map`` and to
+``sharded_loop_plain`` at a budget of 0.
 
 Tolerance: 0. Every value is a packed word, a count of new bits or a flag.
 """
@@ -29,6 +40,8 @@ from jax.sharding import PartitionSpec as P
 from cudacam_tpu.parallel import packed_halo as jph
 from cudacam_tpu.parallel.mesh import make_mesh as jax_mesh
 from cudacam_tpu_torch.ops import packed_strips as ps
+from cudacam_tpu_torch.ops.cuda.halo import halo_exchange_plain
+from cudacam_tpu_torch.parallel.packed_halo import sharded_loop, sharded_loop_plain
 
 U32 = np.uint32
 FULL = 0xFFFFFFFF
@@ -110,7 +123,8 @@ class Model:
         for s in range(2 if self.ny > 1 else 0):
             if (i == self.ny - 1) if s == 0 else (i == 0):
                 continue
-            for jj in range(2):
+            b = self.strip_row(s)
+            for jj in range(2 if b > 0 and b & 31 else 1):  # the second where it starts mid-word
                 k = self.strip_word(s) + jj
                 if k0 <= k < k0 + hk and k < self.hw:
                     self.rows[t, 2 * s + jj, c0:c0 + cb] = x[t, k, c0:c0 + cb]
@@ -266,3 +280,143 @@ def test_resident_refresh_matches_jax(frame, grid, bw, ns):
                   .reshape(ny * nx, geo.hw + 1, geo.ext_w) for a in fn(g))
     np.testing.assert_array_equal(got, out[:, :geo.hw])
     np.testing.assert_array_equal(new > 0, fresh[:, 0, 0] == 1)
+
+
+# -- the loop kernel's prologue and the standalone refresh -------------------
+
+
+def prologue(f, p, grow, geo, grid, seed=0):
+    """The two refreshes before the round loop as the loop kernel's prologue
+    runs them, each tile one band: (FINAL, CANDIDATE, flag). Both planes are
+    published from one snapshot, each into a garbage scratch of its own;
+    after the barrier each tile ORs in its halo words of both; the flag is
+    "some FINAL bit new, or some grow". Each plane's part is also the
+    standalone ``halo_exchange``."""
+    rng = np.random.default_rng(seed)
+    mf, mp = Model(geo, grid, rng), Model(geo, grid, rng)
+    f, p = f.copy(), p.copy()
+    tiles = bands(geo.hw, geo.ext_w, geo.ext_w, 1)
+    for t in range(mf.T):
+        for band in tiles:
+            mf.publish(f, t, *band)
+            mp.publish(p, t, *band)
+    new = 0
+    for t in range(mf.T):
+        for band in tiles:
+            new += mf.apply(f, t, *band)
+            mp.apply(p, t, *band)
+    return f, p, int(new > 0 or bool(np.any(grow)))
+
+
+def _two_exchanges(f, p, grow, geo, grid):
+    """The port's two refreshes before the host loop (packed_halo.py's
+    ``exchange(p)``, ``exchange(f, grow=, pending=)``)."""
+    ft, pt = _to_torch(f), _to_torch(p)
+    pending = torch.zeros(1, dtype=torch.int32)
+    halo_exchange_plain(pt, grid, geo)
+    halo_exchange_plain(ft, grid, geo, grow=torch.from_numpy(grow), pending=pending)
+    return ft.numpy().view(U32), pt.numpy().view(U32), int(pending)
+
+
+#: (frame, mesh): the meshes of the sharded paths; small tiles whose two
+#: halo slots share a word (16 x 24 and 8 x 8 over (1, 2, 2)); the 66 x 1918
+#: frame over (1, 2, 2), whose bottom strip and bottom halo slot start in one
+#: word.
+PROLOGUE_CASES = [
+    ((64, 200), (1, 2, 1)), ((40, 260), (1, 1, 2)), ((96, 160), (1, 2, 2)), ((64, 96), (2, 2, 2)),
+    ((160, 256), (1, 4, 2)), ((16, 24), (1, 2, 2)), ((8, 8), (1, 2, 2)), ((66, 1918), (1, 2, 2)),
+]
+
+
+def _state(frame, grid, seed):
+    nb, ny, nx = grid
+    geo = ps.make_geo(frame[0] // ny, frame[1] // nx, ny=ny, nx=nx)
+    rng = np.random.default_rng(seed)
+    shape = (nb * ny * nx, geo.hw, geo.ext_w)
+    return geo, _random_planes(rng, shape, geo.ext_h), _random_planes(rng, shape, geo.ext_h)
+
+
+@pytest.mark.parametrize("frame,grid", PROLOGUE_CASES)
+def test_prologue_matches_two_exchanges(frame, grid):
+    """Both planes and the flag equal the port's ``exchange_packed`` of
+    CANDIDATE, then of FINAL with the flag; the flag with a tile growing,
+    with none, and from a state the refresh already reached (nothing new:
+    only growth sets it)."""
+    geo, f, p = _state(frame, grid, sum(frame))
+    T = f.shape[0]
+    none, one = np.zeros(T, np.int32), np.eye(1, T, T - 1, dtype=np.int32)[0]
+    for grow in (none, one):
+        got_f, got_p, flag = prologue(f, p, grow, geo, grid)
+        want_f, want_p, want_flag = _two_exchanges(f, p, grow, geo, grid)
+        np.testing.assert_array_equal(got_f, want_f)
+        np.testing.assert_array_equal(got_p, want_p)
+        assert flag == want_flag
+    assert prologue(f, p, none, geo, grid)[2] == int(
+        not np.array_equal(got_f, f))
+    again = prologue(got_f, got_p, none, geo, grid, seed=1)
+    np.testing.assert_array_equal(again[0], got_f)
+    np.testing.assert_array_equal(again[1], got_p)
+    assert again[2] == 0
+    assert prologue(got_f, got_p, one, geo, grid, seed=2)[2] == 1
+
+
+@pytest.mark.parametrize("frame,grid", PROLOGUE_CASES)
+def test_sharded_loop_at_budget_0_is_the_prologue(frame, grid):
+    """A budget of 0 still refreshes both planes, as the reference's loop
+    does before its ``while_loop``: ``sharded_loop_plain`` (and
+    ``sharded_loop`` on CPU tensors) leave the prologue's planes, the flags
+    as they were, and 0 rounds."""
+    geo, f, p = _state(frame, grid, sum(frame))
+    T = f.shape[0]
+    flags = np.zeros((T, 2, 2), np.int32)
+    flags[:, 0, 1] = np.arange(T) % 2
+    want_f, want_p, _ = prologue(f, p, flags[:, 0, 1], geo, grid)
+    for loop in (sharded_loop_plain, sharded_loop):
+        ft, pt, flt = _to_torch(f), _to_torch(p), torch.from_numpy(flags.copy())
+        rounds = loop(ft, pt, flt, grid, geo, max_rounds=0)
+        assert int(rounds) == 0
+        np.testing.assert_array_equal(ft.numpy().view(U32), want_f)
+        np.testing.assert_array_equal(pt.numpy().view(U32), want_p)
+        np.testing.assert_array_equal(flt.numpy(), flags)
+
+
+@pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 virtual devices")
+@pytest.mark.parametrize("frame,grid", PROLOGUE_CASES)
+def test_prologue_matches_jax(frame, grid):
+    """The prologue against the JAX ``exchange_packed`` of CANDIDATE, then of
+    FINAL, under ``shard_map`` on a (1, ny, nx) mesh of virtual devices, a
+    call per frame of the batch (the exchange never crosses frames), the
+    flag the JAX loop's (packed_halo.py:296-305): some FINAL bit new, or
+    some tile still growing."""
+    nb, ny, nx = grid
+    geo, f, p = _state(frame, grid, sum(frame) + 3)
+    jgeo = jph.make_geo(geo.h_loc, geo.w_loc, granule=False, ny=ny, nx=nx)
+    mesh = jax_mesh(batch=1, rows=ny, cols=nx, devices=jax.devices()[: ny * nx])
+
+    def exchange(xs):
+        out, fresh = jph.exchange_packed(xs, jgeo, "y", "x", ny, nx)
+        return out, jnp.broadcast_to(fresh.astype(jnp.uint32), xs.shape)
+
+    fn = jax.jit(jax.shard_map(exchange, mesh=mesh, in_specs=(P("y", "x"),),
+                               out_specs=(P("y", "x"),) * 2, check_vma=False))
+
+    def jax_exchange(x):
+        g = np.concatenate([x, np.zeros((ny * nx, 1, geo.ext_w), U32)], axis=1)  # the guard row
+        g = g.reshape(ny, nx, geo.hw + 1, geo.ext_w).transpose(0, 2, 1, 3)
+        out, fresh = (np.asarray(a).reshape(ny, geo.hw + 1, nx, geo.ext_w).transpose(0, 2, 1, 3)
+                      .reshape(ny * nx, geo.hw + 1, geo.ext_w)
+                      for a in fn(jnp.asarray(g.reshape(ny * (geo.hw + 1), nx * geo.ext_w))))
+        return out[:, :geo.hw], bool((fresh[:, 0, 0] == 1).any())
+
+    T, per = f.shape[0], ny * nx
+    for grow in (np.zeros(T, np.int32), np.eye(1, T, 0, dtype=np.int32)[0]):
+        got_f, got_p, flag = prologue(f, p, grow, geo, grid)
+        new = False
+        for b in range(nb):
+            tiles = slice(b * per, (b + 1) * per)
+            want_p, _ = jax_exchange(p[tiles])
+            want_f, fresh = jax_exchange(f[tiles])
+            np.testing.assert_array_equal(got_p[tiles], want_p)
+            np.testing.assert_array_equal(got_f[tiles], want_f)
+            new |= fresh
+        assert flag == int(new or bool(grow.any()))

@@ -107,13 +107,20 @@ the card can time two versions in turns on the same inputs (A, B, B, A;
 
 * ``loop``: the collective round loop (``sharded_loop``) from the export's
   state on the 8K (1, 4, 2) scene-0 tiles, the 4K x4 (2, 2, 1) batch of
-  scenes 0-3 and the 1080p spiral over (1, 2, 2) at a budget of 100
+  scenes 0-3, the 1080p spiral over (1, 2, 2), 1080p scene 0 over
+  (1, 1, 1) and a 32000 x 512 scene over (1, 2, 1) (tiles that take height
+  segments: the loop kernel's other instance) at a budget of 100
   collective rounds: the loop kernel's profiler device µs a call (the mean
   of its own events over five calls, each from a fresh copy of the state,
-  and how many the profiler kept; the two refreshes before it are left
-  out), CUDA-event ms of the whole call, CUDA-event ms a frame of the
-  sharded HYSTER call (``ShardedCannyEngine.process``, windows of ten
-  calls), a sha256 of the planes, flags and rounds; the collective rounds
+  and how many the profiler kept), the
+  whole call's (every kernel it launches: in a version that refreshes
+  before the loop kernel, its two ``exchange_kernel`` launches too) and its
+  launches by kernel, CUDA-event ms of the whole call, CUDA-event ms a
+  frame of the sharded HYSTER call (``ShardedCannyEngine.process``, windows
+  of ten calls) and its launches, a sha256 of the planes, flags and
+  rounds; at 8K, the standalone refresh (``halo_exchange`` of FINAL with
+  the export's flags and the pending flag) alone: its profiler device µs
+  and CUDA-event ms a call; the collective rounds
   and, for each, the phase-1 and phase-2 rounds of every tile, counted on
   the host loop with the saturate's round kernels (one launch a phase,
   their flags read after each round); the inner rounds the loop runs (a
@@ -200,7 +207,8 @@ from cudacam_tpu_torch.parallel import make_mesh  # noqa: E402
 
 KERNELS = ("ff_pack_kernel", "hyst_kernel<false", "hyst_kernel<true", "unpack_kernel",
            "ff_stages_kernel", "pack_thresh_kernel", "sweep_pack_all_kernel", "sweep_seed_kernel",
-           "unpack_core_kernel", "exchange_kernel", "split_kernel", "sweeps_kernel")
+           "unpack_core_kernel", "exchange_kernel", "split_kernel", "sweeps_kernel",
+           "sharded_loop_kernel")
 
 
 def _busy_us(intervals) -> float:
@@ -837,6 +845,7 @@ def legacy(label: str) -> list:
 
 def loop(label: str) -> list:
     """The collective round loop on its cases (see the module's docstring)."""
+    from cudacam_tpu_torch.ops import cuda as kernels
     from cudacam_tpu_torch.ops.cuda import megakernel
     from cudacam_tpu_torch.ops.cuda.canny import hyster_kwargs
     from cudacam_tpu_torch.ops.cuda.halo import halo_exchange
@@ -851,7 +860,11 @@ def loop(label: str) -> list:
             ("4K x4 (2, 2, 1)", (2160, 3840), (2, 2, 1),
              lambda: [make_scene(2160, 3840, seed=s) for s in range(4)]),
             ("1080p spiral (1, 2, 2)", (1080, 1920), (1, 2, 2),
-             lambda: [make_spiral_frame(1080, 1920)])):
+             lambda: [make_spiral_frame(1080, 1920)]),
+            ("1080p scene 0 (1, 1, 1)", (1080, 1920), (1, 1, 1),
+             lambda: [make_scene(1080, 1920, seed=0)]),
+            ("32000x512 scene 0 (1, 2, 1), height segments", (32000, 512), (1, 2, 1),
+             lambda: [make_scene(32000, 512, seed=0)])):
         eng = ShardedCannyEngine(CannyConfig(height=h, width=w), make_mesh(*mesh))
         fr = torch.from_numpy(np.stack(frames())).cuda()
         eng.process(fr)
@@ -880,9 +893,29 @@ def loop(label: str) -> list:
                                            lambda x, **k: halo_exchange(x, grid, g, **k), budget))
         inner = sum(max(r1) + max(r2) for r1, r2 in per)
         states = iter([fresh() for _ in range(6)])  # the untraced call's, then five
-        kept = [t_us for k, t_us in device_events(lambda: run(next(states)), 5)
-                if "sharded_loop_kernel" in k]
+        events = device_events(lambda: run(next(states)), 5)
+        kept = [t_us for k, t_us in events if "sharded_loop_kernel" in k]
         us = statistics.mean(kept)
+
+        def launches(call):
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            call()
+            torch.cuda.synchronize()
+            return {k: n for k, n in kernels.launch_counts().items() if n}
+
+        call_launches = launches(lambda: run(fresh()))
+        standalone = {}
+        if mesh == (1, 4, 2):
+            pend = torch.zeros(1, dtype=torch.int32, device="cuda")
+            xch = lambda s: halo_exchange(s, grid, g, grow=state[2][:, 0, 1],  # noqa: E731
+                                          pending=pend)
+            xs = iter([state[0].clone() for _ in range(21)])
+            ev = device_events(lambda: xch(next(xs)), 20)
+            standalone = dict(
+                halo_exchange_device_us=sum(t_us for k, t_us in ev if "exchange_kernel" in k) / 20,
+                halo_exchange_records=sum("exchange_kernel" in k for k, _ in ev),
+                halo_exchange_event_ms=ms_per_state(xch, 20, lambda: state[0].clone()))
         try:
             layout = megakernel.loop_layout(grid, g.ext_h, g.ext_w, hk["dilate_steps"])
         except AttributeError:  # a version without the reporter
@@ -891,12 +924,15 @@ def loop(label: str) -> list:
         rows.append(dict(
             workload=f"sharded_loop {name}", label=label, card=card, tiles=len(fr) * t.tiles,
             tile_planes=[g.hw, g.ext_w], device_us=us, device_records=len(kept),
+            call_device_us=sum(t_us for _, t_us in events) / 5, call_records=len(events),
+            call_launches=call_launches, engine_launches=launches(lambda: eng.process(fr)),
             event_ms=ms_per_state(run, 1, fresh, reps=5), frame_ms=frame_ms, sha=sha,
             collective_rounds=rounds,
             host_loop_rounds=taken, inner_rounds=inner,
             us_per_collective_round=us / max(rounds, 1), us_per_inner_round=us / max(inner, 1),
             rounds_per_collective_round=[[max(r1), max(r2)] for r1, r2 in per],
-            tile_rounds=per if len(per) <= 4 else per[:2] + per[-2:], layout=layout))
+            tile_rounds=per if len(per) <= 4 else per[:2] + per[-2:], layout=layout,
+            **standalone))
         print(json.dumps({k: v for k, v in rows[-1].items()
                           if k not in ("rounds_per_collective_round", "tile_rounds")}), flush=True)
         del eng, fr, state
