@@ -10,8 +10,9 @@ Phases, each printing its lines before the last:
 1. environment probe and the card's name and power limit (nvidia-smi);
 2. build of the kernels in ``cudacam_tpu_torch/csrc`` with nvcc (sm_90a, one
    nvcc per source, all at once), with nvcc's registers, stack and spill
-   bytes of ``ff_pack``'s, ``ff_stages``', ``pack_thresh``', the unpacks'
-   and the sweep's pack and seed kernels;
+   bytes of ``ff_pack``'s, ``ff_stages``', ``pack_thresh``', the unpacks',
+   the sweep's pack and seed kernels, the round kernels', the exchange's
+   and K13's ballot pack and resident loop (each instance);
 3. every kernel against its plain PyTorch version on the card, at the main
    paths' shapes (1080p, 720p), at 37x53 and 1x1 and at the alignment
    classes of ``ff_pack``'s loads and ``unpack``'s row runs (33x1919,
@@ -130,9 +131,14 @@ Phases, each printing its lines before the last:
 11. the probes (K13: ``probe_pack``, ``probe_pack_ballot``, ``probe_loop``,
    ``probe_unpack``; K14: ``swar_stencil``): the port's probe tools' runs,
    each kernel against its plain version at the TPU probes' shapes and at
-   8K, B/C/D's (326, 0); the cost of one ``grid.sync()`` against the grid
-   size, the unpack a thread per word against a thread per byte, P4 in
-   SWAR against int32 at 1080p and 8K;
+   8K (the packs also at widths 7696, 1918 and 53 and one byte off a
+   16-byte boundary, with the ballot pack's grid; the loop on both routes,
+   the probe's plane (the tallest resident one) and one word row more, with
+   its layout),
+   B/C/D's (326, 0); the cost of one ``grid.sync()`` against the grid
+   size, the unpack a thread per word against a thread per byte, the four
+   stencil bodies in both modes at 1080p, P4 in SWAR against int32 at
+   1080p and 8K;
 12. the live app (``CannyApp`` on the card): 64 frames of a 1080p BGR
    ``SyntheticSource`` through ``run`` equal to ``CannyEngine.process`` of
    the same frames, the ring holding CUDA tensors; thresholds, a stage cycle
@@ -506,7 +512,8 @@ class Smoke:
         for name, rep in kernel_reports(lib.compiler_log, (
                 "ff_pack_kernel", "ff_stages_kernel", "pack_thresh_kernel", "unpack_kernel",
                 "unpack_core_kernel", "sweep_pack_all_kernel", "sweep_seed_kernel",
-                "hyst_kernel", "split_kernel", "sharded_loop_kernel", "exchange_kernel")):
+                "hyst_kernel", "split_kernel", "sharded_loop_kernel", "exchange_kernel",
+                "pack_ballot_kernel", "loop_block_kernel")):
             print(f"nvcc report {name}: {json.dumps(rep)}")
 
     def phase_kernels(self) -> None:
@@ -1947,11 +1954,16 @@ class Smoke:
     def phase_probes(self) -> None:
         """K13 and K14: the port's probe tools' runs as paths (counts set to
         0 just before, read just after), every probe kernel against its
-        plain version at the TPU probes' shapes and at a larger one
-        (tolerance 0), B/C/D's (326, 0); then the timings: one grid.sync()
+        plain version at the TPU probes' shapes and at larger ones
+        (tolerance 0): the packs also at widths 7696, 1918 and 53 and on an
+        8K mask one byte past a 16-byte boundary, the loop on both routes
+        (the probe's plane, the tallest 256-column plane the resident route
+        takes, and one word row more), with each plane's
+        ``probe_loop_layout`` and the ballot pack's grid; B/C/D's (326, 0);
+        then the timings: one grid.sync()
         against the grid size, the unpack a thread per word against a thread
-        per byte on an 8K plane, the P4 stencil in SWAR against its int32
-        mode at 1080p and 8K."""
+        per byte on an 8K plane, the four stencil bodies in both modes at
+        1080p, and P4 in SWAR against its int32 mode at 1080p and 8K."""
         torch = self.torch
         from cudacam_tpu_torch.probes import hyster_kernel as hk
         from cudacam_tpu_torch.probes import i16_swar as sw
@@ -1967,16 +1979,37 @@ class Smoke:
         require(all(ok for _, ok, _ in rows), "a probe failed")
 
         h8, w8 = 4320, 7680
-        for h, w in (hk.PACK_SHAPE, (h8, w8)):
+        for h, w in (hk.PACK_SHAPE, (h8, w8), (h8, w8 + 16), (1080, 1918), (70, 53)):
             mask = torch.from_numpy(hk.pack_input(0, h, w)).to(dev)
             want = hk.probe_pack_plain(mask)
             self.diff("probe_pack", hk.probe_pack(mask), want)
             self.diff("probe_pack_ballot", hk.probe_pack_ballot(mask), want)
+            print(f"probe_pack_ballot grid {h}x{w}: "
+                  f"{json.dumps(hk.probe_pack_ballot_grid(h, w, dev.index))}")
+        buf = torch.zeros(h8 * w8 + 16, dtype=torch.uint8, device=dev)
+        shifted = buf[1:1 + h8 * w8].view(h8, w8)  # every row's address off the boundary
+        shifted.copy_(torch.from_numpy(hk.pack_input(0, h8, w8)).to(dev))
+        want = hk.probe_pack_plain(shifted)
+        self.diff("probe_pack", hk.probe_pack(shifted), want)
+        self.diff("probe_pack_ballot", hk.probe_pack_ballot(shifted), want)
+        del buf, shifted
         for hw, w in (hk.UNPACK_WORDS, (h8 // 32, w8)):
             f = torch.from_numpy(hk.unpack_input(2, hw, w)).to(dev)
             for per_word in (True, False):
                 self.diff("probe_unpack", hk.probe_unpack(f, per_word), hk.probe_unpack_plain(f))
-        for shape, cap in ((hk.LOOP_SHAPE, hk.LOOP_ROUNDS), ((h8 // 32, w8), 40)):
+        # The probe's 40 x 256 plane is the tallest 256-column plane the
+        # resident route takes (every thread of a 1024-thread block at 10
+        # rows); one word row more takes the grid route.
+        past = (hk.LOOP_SHAPE[0] + 1, hk.LOOP_SHAPE[1])
+        for shape, cap in ((hk.LOOP_SHAPE, hk.LOOP_ROUNDS), ((h8 // 32, w8), 40),
+                           (past, hk.LOOP_ROUNDS)):
+            lay = hk.probe_loop_layout(*shape, dev.index)
+            print(f"probe_loop_layout {shape[0]}x{shape[1]}: {json.dumps(lay)}")
+            require(lay["route"] == ("resident" if shape == hk.LOOP_SHAPE else "grid"),
+                    f"probe_loop route at {shape}")
+            if shape == hk.LOOP_SHAPE:
+                require((lay["threads"], lay["words_per_thread"]) == (1024, 10),
+                        f"probe_loop layout at {shape}: {lay}")
             plane = torch.from_numpy(hk.loop_input(*shape)).to(dev)
             got, flags = hk.probe_loop(plane, cap)
             want, want_flags = hk.probe_loop_plain(plane, cap)
@@ -1993,7 +2026,9 @@ class Smoke:
                     self.diff("swar_stencil", sw.swar_stencil(x, body, swar), want)
         print("probe_pack, probe_pack_ballot, probe_unpack (both modes), probe_loop and "
               "swar_stencil (P1-P4, both modes) == plain at the TPU probes' shapes and at 8K "
-              "(swar_stencil at 1080p too); B/C/D (rounds, changed) = (326, 0)")
+              "(the packs also at 8Kx7696, 1080x1918, 70x53 and one byte off a 16-byte "
+              f"boundary; the loop at {past[0]}x{past[1]} (grid); "
+              "swar_stencil at 1080p too); B/C/D (rounds, changed) = (326, 0)")
 
         # Times, each beside its bound and its plain version.
         mask = torch.from_numpy(hk.pack_input(0, h8, w8)).to(dev)
@@ -2043,6 +2078,13 @@ class Smoke:
               f"ms, a thread per byte {byte_ms!r} ms")
         print(f"time swar_stencil P4 1080p: library (circular conv2d, float32) "
               f"{self.library_ms['swar_stencil']!r} ms")
+        body_ops = {1: 4, 2: 2, 3: 4, 4: 5}  # adds and multiplies a pixel
+        for body, label in sw.BODIES.items():
+            x = x8 if body == 4 else x16
+            t = [self.time_ms(lambda _, s=s: sw.swar_stencil(x, body, s), 50) for s in (True, False)]
+            bound, binds = bound_ms(1080 * 1920 * (x.element_size() + 4), body_ops[body] * 1080 * 1920)
+            print(f"time swar_stencil {label} 1080p: SWAR {t[0]!r} ms, int32 mode {t[1]!r} ms, "
+                  f"bound {bound!r} ms ({binds})")
         for label, (h, w) in (("1080p", (1080, 1920)), ("8K", (h8, w8))):
             xu8 = torch.from_numpy(sw.probe_inputs(h, w)[1]).to(dev)
             t = [self.time_ms(lambda _, s=s: sw.swar_stencil(xu8, 4, s), 50)

@@ -13,31 +13,57 @@
 //                      coalesced loads, then transposed: thread c builds its
 //                      column's word from 32 shared bytes (the packs of
 //                      pack_walk.cuh hold a column in registers instead).
-//   probe_pack_ballot  the same pack by a loop over word rows with no shared
-//                      memory (TPU probe A'): lane r of a warp holds row 32k + r
-//                      of one column, and __ballot_sync is the word.
+//   probe_pack_ballot  the same pack with no shared memory (TPU probe A'):
+//                      lane r of a warp holds row 32k + r, and __ballot_sync
+//                      is the word. A warp's task is one word row x 32
+//                      columns; the grid walks all tasks persistently, each
+//                      warp with BALLOT_TASKS tasks' loads in flight. A lane
+//                      reads its row's 32 bytes as two 16-byte loads (one
+//                      sector) where the row's address is 16-byte aligned
+//                      and the columns lie inside w, else byte by byte; 32
+//                      ballots, one per byte position, give the 32 columns'
+//                      words, lane b keeping word b, and the warp stores them
+//                      as 128 contiguous bytes.
 //   probe_loop         (hw, w) words, round f | roll(f, 1, rows) | roll(f, w-1,
 //                      cols) | f << 1 (cyclic rolls, a shift inside each word)
 //                      until nothing changes or the round budget, the first
 //                      round unconditional; (rounds, changed) out (TPU probes
-//                      B/C/D). One cooperative launch: the scratch plane in
-//                      device memory, ping-pong between it and the output, one
-//                      grid.sync() a round, and a device "changed" flag over
-//                      three rotating slots that ends the loop with no
-//                      readback. A sync-only mode runs the rounds' barriers
-//                      alone: the cost of one grid.sync() against the grid.
+//                      B/C/D). Two routes, chosen from the plane's size before
+//                      the launch (probe_loop_plan):
+//                      - resident: the plane in registers for the whole
+//                        launch on one block, where its threads hold it at
+//                        up to LOOP_R rows of one column a thread. The column
+//                        roll comes from the next lane by a shuffle and, at a
+//                        warp's last lane or the plane's last column, from
+//                        the column a warp publishes in shared memory; the
+//                        row roll from the thread above's published last row
+//                        (cyclic: row 0's from the plane's last row). A round
+//                        ends on one __syncthreads_or; the published words
+//                        alternate between two buffers, so no second barrier
+//                        guards their reuse.
+//                      - grid: one cooperative launch, the scratch plane in
+//                        device memory, ping-pong between it and the output,
+//                        one grid.sync() a round, and a device "changed" flag
+//                        over three rotating slots that ends the loop with no
+//                        readback. It takes planes the resident route does not
+//                        hold, an explicit grid, and a sync-only mode that
+//                        runs the rounds' barriers alone: the cost of one
+//                        grid.sync() against the grid.
 //   probe_unpack       (hw, w) words -> (32 hw, w) u8 of 0 / 255 (TPU probe E):
 //                      one thread per word writing its 32 bytes (a warp
 //                      writes 32 neighbouring bytes of each row), or one
 //                      thread per byte (as unpack_core, and unpack before
 //                      its row runs).
 //
-// Bound: the probes' planes are small (a 40 x 256 plane is 40 KB); the loop
-// is bound by its grid barriers, the packs and unpacks by their bytes.
+// Bound: the probes' planes are small (a 40 x 256 plane is 40 KB); the grid
+// loop is bound by its grid barriers, the resident loop by a thread's rows
+// and its round's barrier, the packs and unpacks by their bytes.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <utility>
 
 #include "device_guard.cuh"
 
@@ -67,23 +93,64 @@ __global__ void __launch_bounds__(NT) pack_transpose_kernel(const uint8_t* __res
   }
 }
 
-// One warp per (word row, 32 columns); the word rows in a loop.
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int BALLOT_TASKS = 2;  // tasks a warp has in flight
+
+// Lane r's 32 bytes of row y at columns c0..c0+31, as 8 words (byte j of the
+// row in byte j % 4 of word j / 4); 0 past h and past w.
+__device__ __forceinline__ void load_row32(const uint8_t* __restrict__ x, int h, int w, int y,
+                                           int c0, uint32_t (&v)[8]) {
+  const uint8_t* p = x + (size_t)y * w + c0;
+  if (y >= h) {
+#pragma unroll
+    for (int q = 0; q < 8; ++q) v[q] = 0;
+  } else if (c0 + 32 <= w && ((uintptr_t)p & 15) == 0) {  // the row's address, not its column
+    const uint4 lo = __ldg(reinterpret_cast<const uint4*>(p));
+    const uint4 hi = __ldg(reinterpret_cast<const uint4*>(p) + 1);
+    v[0] = lo.x, v[1] = lo.y, v[2] = lo.z, v[3] = lo.w;
+    v[4] = hi.x, v[5] = hi.y, v[6] = hi.z, v[7] = hi.w;
+  } else {
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      uint32_t word = 0;
+#pragma unroll
+      for (int s = 0; s < 4; ++s)
+        word |= (c0 + 4 * q + s < w ? (uint32_t)__ldg(p + 4 * q + s) : 0u) << (8 * s);
+      v[q] = word;
+    }
+  }
+}
+
+// Tasks (word row k, 32 columns from c0), k-major, walked by every warp of
+// the grid; BALLOT_TASKS tasks' loads are issued before their ballots.
 __global__ void __launch_bounds__(NT) pack_ballot_kernel(const uint8_t* __restrict__ x,
                                                          uint32_t* __restrict__ out, int h, int w,
-                                                         int hw) {
+                                                         long long tasks) {
   const int lane = threadIdx.x & 31;
-  const int warp = (blockIdx.x * NT + threadIdx.x) >> 5;
-  const int c0 = warp * 32;
-  if (c0 >= w) return;  // the whole warp: c0 is uniform
-  for (int k = 0; k < hw; ++k) {
-    const int y = 32 * k + lane;
-    uint32_t mine = 0;  // lane j keeps the word of column c0 + j
-    for (int j = 0; j < 32 && c0 + j < w; ++j) {
-      const bool bit = y < h && x[(size_t)y * w + c0 + j] != 0;
-      const uint32_t word = __ballot_sync(0xffffffffu, bit);
-      if (lane == j) mine = word;
+  const int groups = (w + 31) / 32;
+  const long long warps = (long long)gridDim.x * (NT / 32);
+  for (long long t = ((long long)blockIdx.x * NT + threadIdx.x) >> 5; t < tasks;
+       t += BALLOT_TASKS * warps) {  // t is the same on every lane
+    uint32_t v[BALLOT_TASKS][8];
+#pragma unroll
+    for (int i = 0; i < BALLOT_TASKS; ++i) {
+      const long long ti = t + i * warps;
+      const int k = (int)(ti / groups), c0 = (int)(ti - (long long)k * groups) * 32;
+      load_row32(x, ti < tasks ? h : 0, w, 32 * k + lane, c0, v[i]);
     }
-    if (c0 + lane < w) out[(size_t)k * w + c0 + lane] = mine;
+#pragma unroll
+    for (int i = 0; i < BALLOT_TASKS; ++i) {
+      const long long ti = t + i * warps;
+      if (ti >= tasks) break;
+      const int k = (int)(ti / groups), c0 = (int)(ti - (long long)k * groups) * 32;
+      uint32_t mine = 0;  // lane b keeps the word of column c0 + b
+#pragma unroll
+      for (int b = 0; b < 32; ++b) {
+        const uint32_t word = __ballot_sync(FULL, (v[i][b >> 2] >> (8 * (b & 3))) & 0xffu);
+        mine = lane == b ? word : mine;
+      }
+      if (c0 + lane < w) out[(size_t)k * w + c0 + lane] = mine;
+    }
   }
 }
 
@@ -137,6 +204,110 @@ __global__ void __launch_bounds__(NT) loop_kernel(uint32_t* a, uint32_t* b, int*
   }
 }
 
+// The resident route: one block, thread (g, c) = g tw + c (tw: w rounded up
+// to a warp) holding rows g R .. g R + R - 1 of column c (fewer in the last
+// group; none when c >= w).
+constexpr int LOOP_NT = 1024;  // a block's threads at most
+constexpr int LOOP_R = 10;     // rows a thread at most: no instance spills (PERF.md)
+
+struct LoopPlan {
+  int resident;  // 1: the resident route; 0: the grid route
+  int blocks;
+  int threads;   // a block's
+  int words;     // words a thread at most (R on the resident route)
+  int tw;        // resident: columns rounded up to a warp
+};
+
+struct LoopShared {
+  uint32_t last[2][LOOP_NT];               // each thread's last row, by round parity
+  uint32_t edge[2][LOOP_NT / 32][LOOP_R];  // each warp's lane 0 rows, by round parity
+};
+
+// One round of a thread's R rows (downwards: f[r - 1] is still the last
+// round's): the next lane's word by a shuffle, or at an edge lane the
+// published column. Rows at or past `mine` (the last group) stay 0 and count
+// as no change when PARTIAL; in a full group every row is the plane's, and a
+// lane past w only ever meets zeros. Returns the rows' changed bits.
+template <int R, bool PARTIAL>
+__device__ __forceinline__ uint32_t round_rows(uint32_t (&f)[R], uint32_t above, bool from_edge,
+                                               const uint32_t* edge, int mine) {
+  uint32_t diff = 0;
+#pragma unroll
+  for (int r = R - 1; r >= 0; --r) {
+    const uint32_t next = __shfl_down_sync(FULL, f[r], 1);
+    const uint32_t right = from_edge ? edge[r] : next;
+    uint32_t nv = f[r] | (r > 0 ? f[r > 0 ? r - 1 : 0] : above) | right | (f[r] << 1);
+    if (PARTIAL) nv = r < mine ? nv : 0u;
+    diff |= nv ^ f[r];
+    f[r] = nv;
+  }
+  return diff;
+}
+
+// The resident loop for a thread's rows R (1..LOOP_R): a thread's words stay
+// in registers, indexed at compile time; a round reads the block's shared
+// memory and ends on one barrier. ptxas's own register choice: a
+// __launch_bounds__(1024, 1) hint cost the 10-row instance 12% (PERF.md §6).
+template <int R>
+__global__ void __launch_bounds__(LOOP_NT)
+    loop_block_kernel(uint32_t* a, int* flags, int hw, int w, int max_rounds, int tw) {
+  __shared__ LoopShared sh;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = tid / tw, c = tid - g * tw;
+  const int mine = c < w ? max(0, min(R, hw - g * R)) : 0;  // this thread's rows
+  const bool partial = (g + 1) * R > hw;                     // the last group
+  // The row above row 0 of this thread: the group above's last row, or at
+  // g = 0 the last group's (the plane's last row; 0 past w).
+  const uint32_t* up = &sh.last[0][(g > 0 ? g - 1 : blockDim.x / tw - 1) * tw + c];
+  // The column right of c: the next lane's, or past a warp's last lane and at
+  // the plane's last column (cyclic) the column a warp publishes.
+  const bool wrap = c == w - 1;
+  const bool from_edge = mine > 0 && (lane == 31 || wrap);
+  const int src_warp = min(g * (tw / 32) + (wrap ? 0 : (c + 1) / 32), LOOP_NT / 32 - 1);
+
+  uint32_t f[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) f[r] = r < mine ? a[(size_t)(g * R + r) * w + c] : 0u;
+  auto publish = [&](int buf) {
+    uint32_t last = f[R - 1];
+    if (partial)
+#pragma unroll
+      for (int r = 0; r < R; ++r) last = r == mine - 1 ? f[r] : last;
+    sh.last[buf][tid] = last;
+    if (lane == 0)
+#pragma unroll
+      for (int r = 0; r < R; ++r) sh.edge[buf][warp][r] = f[r];
+  };
+  publish(0);
+  __syncthreads();
+  int it = 0, changed = 1;
+  do {  // the first round unconditional, as the probe's body before its while_loop
+    const int buf = it & 1;
+    const uint32_t above = up[buf * LOOP_NT];
+    const uint32_t* edge = sh.edge[buf][src_warp];
+    const uint32_t diff = partial ? round_rows<R, true>(f, above, from_edge, edge, mine)
+                                  : round_rows<R, false>(f, above, from_edge, edge, mine);
+    publish(buf ^ 1);
+    changed = __syncthreads_or(diff != 0);
+    ++it;
+  } while (changed && it < max_rounds);
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+    if (r < mine) a[(size_t)(g * R + r) * w + c] = f[r];
+  if (tid == 0) {
+    flags[0] = it;
+    flags[1] = changed;
+  }
+}
+
+using ResidentKernel = void (*)(uint32_t*, int*, int, int, int, int);
+
+template <int... Rs>
+ResidentKernel resident_kernel(int R, std::integer_sequence<int, Rs...>) {
+  static const ResidentKernel table[] = {&loop_block_kernel<Rs + 1>...};
+  return table[R - 1];
+}
+
 __global__ void __launch_bounds__(NT) unpack_word_kernel(const uint32_t* __restrict__ f,
                                                          uint8_t* __restrict__ out, int hw, int w) {
   const long long n = (long long)hw * w;
@@ -165,6 +336,55 @@ unsigned blocks_for(long long items) {
   return (unsigned)(b < 1 ? 1 : (b > (1 << 20) ? (1 << 20) : b));
 }
 
+// Co-resident blocks of `kernel` a multiprocessor times the multiprocessors,
+// or a negative CUDA error.
+int resident_blocks(const void* kernel, int threads, int device) {
+  int per_sm = 0, sms = 0;
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return -(int)err;
+  return per_sm * sms;
+}
+
+// The ballot pack's grid: enough blocks that each warp holds BALLOT_TASKS
+// tasks, up to the blocks that fill the card. Cached per device.
+int ballot_blocks(long long tasks, int device) {
+  static int fill[64];
+  if (device < 0 || device >= 64) return -(int)cudaErrorInvalidDevice;
+  if (fill[device] == 0) fill[device] = resident_blocks((const void*)pack_ballot_kernel, NT, device);
+  if (fill[device] < 0) return fill[device];
+  const long long want = (tasks + BALLOT_TASKS * (NT / 32) - 1) / (BALLOT_TASKS * (NT / 32));
+  return (int)(want < 1 ? 1 : (want < fill[device] ? want : fill[device]));
+}
+
+// The loop's route. Resident: one block, where ceil(hw / (LOOP_NT / tw))
+// rows a thread is at most LOOP_R (a 40 x 256 plane at most; the fastest form
+// on it, PERF.md §6); else the grid route over `limit` blocks at most.
+// blocks >= 1 or sync_only: the grid route with that grid.
+LoopPlan probe_loop_plan(int hw, int w, int blocks, int sync_only, int limit) {
+  LoopPlan p{};
+  const int tw = (w + 31) / 32 * 32;
+  if (blocks < 1 && !sync_only && w <= LOOP_NT) {
+    const int groups = LOOP_NT / tw;
+    const int R = (hw + groups - 1) / groups;
+    if (R <= LOOP_R) {
+      p.resident = 1;
+      p.blocks = 1;
+      p.threads = (hw + R - 1) / R * tw;
+      p.words = R;
+      p.tw = tw;
+      return p;
+    }
+  }
+  const long long n = (long long)hw * w;
+  long long grid = blocks >= 1 ? blocks : (n + NT - 1) / NT;
+  if (grid > limit && blocks < 1) grid = limit;
+  p.blocks = (int)grid;
+  p.threads = NT;
+  p.words = (int)((n + grid * NT - 1) / (grid * NT));
+  return p;
+}
+
 }  // namespace
 
 extern "C" int cc_probe_pack(const void* x, void* out, int h, int w, int ballot, int device,
@@ -176,27 +396,66 @@ extern "C" int cc_probe_pack(const void* x, void* out, int h, int w, int ballot,
   auto s = static_cast<cudaStream_t>(stream);
   auto xp = static_cast<const uint8_t*>(x);
   auto op = static_cast<uint32_t*>(out);
-  if (ballot)
-    pack_ballot_kernel<<<blocks_for((w + 31) / 32 * 32LL), NT, 0, s>>>(xp, op, h, w, hw);
-  else
+  if (ballot) {
+    const long long tasks = (long long)hw * ((w + 31) / 32);
+    const int blocks = ballot_blocks(tasks, device);
+    if (blocks < 0) return -blocks;
+    pack_ballot_kernel<<<blocks, NT, 0, s>>>(xp, op, h, w, tasks);
+  } else {
     pack_transpose_kernel<<<dim3((w + PROBE_TW - 1) / PROBE_TW, hw), NT, 0, s>>>(xp, op, h, w);
+  }
   return cudaGetLastError();
 }
 
-// The most co-resident blocks of the loop kernel on `device`: the
+// The ballot pack's grid for an (h, w) mask on `device`: out[0] blocks,
+// out[1] threads a block, out[2] tasks (word rows x 32-column groups),
+// out[3] tasks a warp has in flight.
+extern "C" int cc_probe_ballot_grid(int h, int w, int device, int* out) {
+  DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return guard.err;
+  if (h < 1 || w < 1) return cudaErrorInvalidValue;
+  const long long tasks = (long long)((h + 31) / 32) * ((w + 31) / 32);
+  const int blocks = ballot_blocks(tasks, device);
+  if (blocks < 0) return -blocks;
+  out[0] = blocks;
+  out[1] = NT;
+  out[2] = (int)tasks;
+  out[3] = BALLOT_TASKS;
+  return cudaSuccess;
+}
+
+// The most co-resident blocks of the grid route's kernel on `device`: the
 // cooperative grid's limit.
 extern "C" int cc_probe_loop_max_blocks(int device) {
   DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return -(int)guard.err;
-  int per_sm = 0, sms = 0;
-  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, loop_kernel, NT, 0);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return -(int)err;
-  return per_sm * sms;
+  return resident_blocks((const void*)loop_kernel, NT, device);
 }
 
-// plane: (hw, w) words, updated in place; scratch: hw * w + 3 words; flags:
-// 2 ints. blocks < 1: cover the plane's words, up to the cooperative limit.
+// The route probe_loop takes for an (hw, w) plane with its default grid on
+// `device`: out[0] 1 resident / 0 grid, out[1] blocks, out[2] threads a
+// block, out[3] words a thread at most, out[4] a block's static shared memory
+// in bytes, out[5] barriers a round (the resident route: one
+// __syncthreads_or; the grid route: a __syncthreads_or and a grid.sync()).
+extern "C" int cc_probe_loop_layout(int hw, int w, int device, int* out) {
+  if (hw < 1 || w < 1) return cudaErrorInvalidValue;
+  const int limit = cc_probe_loop_max_blocks(device);
+  if (limit < 1) return limit < 0 ? -limit : cudaErrorCooperativeLaunchTooLarge;
+  const LoopPlan p = probe_loop_plan(hw, w, 0, 0, limit);
+  out[0] = p.resident;
+  out[1] = p.blocks;
+  out[2] = p.threads;
+  out[3] = p.words;
+  out[4] = p.resident ? (int)sizeof(LoopShared) : 0;
+  out[5] = p.resident ? 1 : 2;
+  return cudaSuccess;
+}
+
+// plane: (hw, w) words, updated in place; scratch: hw * w + 3 words (the
+// grid route's); flags: 2 ints. blocks < 1 and not sync_only: the route by
+// the plane's size (probe_loop_plan), the grid route covering the plane's
+// words up to the cooperative limit; blocks >= 1: the grid route on exactly
+// that grid.
 extern "C" int cc_probe_loop(void* plane, void* scratch, void* flags, int hw, int w,
                              int max_rounds, int sync_only, int blocks, int device, void* stream) {
   DeviceGuard guard(device);
@@ -204,18 +463,22 @@ extern "C" int cc_probe_loop(void* plane, void* scratch, void* flags, int hw, in
   if (hw < 1 || w < 1) return cudaErrorInvalidValue;
   const int limit = cc_probe_loop_max_blocks(device);
   if (limit < 1) return limit < 0 ? -limit : cudaErrorCooperativeLaunchTooLarge;
-  long long grid = blocks >= 1 ? blocks : ((long long)hw * w + NT - 1) / NT;
-  if (grid > limit) {
-    if (blocks >= 1) return cudaErrorCooperativeLaunchTooLarge;  // asked for more than fits
-    grid = limit;
-  }
+  if (blocks > limit) return cudaErrorCooperativeLaunchTooLarge;  // asked for more than fits
+  const LoopPlan p = probe_loop_plan(hw, w, blocks, sync_only, limit);
   uint32_t* a = static_cast<uint32_t*>(plane);
+  int* fl = static_cast<int*>(flags);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (p.resident) {  // one block of the instance for R = p.words
+    const ResidentKernel kernel =
+        resident_kernel(p.words, std::make_integer_sequence<int, LOOP_R>());
+    kernel<<<1, p.threads, 0, s>>>(a, fl, hw, w, max_rounds, p.tw);
+    return cudaGetLastError();
+  }
   uint32_t* b = static_cast<uint32_t*>(scratch);
   int* chg = reinterpret_cast<int*>(b + (long long)hw * w);
-  int* fl = static_cast<int*>(flags);
   void* args[] = {&a, &b, &chg, &fl, &hw, &w, &max_rounds, &sync_only};
-  cudaError_t err = cudaLaunchCooperativeKernel((void*)loop_kernel, dim3((unsigned)grid), dim3(NT),
-                                                args, 0, static_cast<cudaStream_t>(stream));
+  const cudaError_t err = cudaLaunchCooperativeKernel((void*)loop_kernel, dim3((unsigned)p.blocks),
+                                                      dim3(NT), args, 0, s);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }

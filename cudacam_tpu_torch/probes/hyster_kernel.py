@@ -9,12 +9,17 @@ beside its plain PyTorch version:
 * :func:`probe_pack` (TPU probe A): an (h, w) u8 mask -> (ceil(h/32), w)
   words, bit r of word row k = row 32k + r; a shared-memory tile transposed
   into words;
-* :func:`probe_pack_ballot` (A'): the same pack by a loop over word rows,
-  ``__ballot_sync`` over 32 lanes holding 32 rows;
+* :func:`probe_pack_ballot` (A'): the same pack with no shared memory,
+  ``__ballot_sync`` over 32 lanes holding 32 rows; warp tasks of one word
+  row x 32 columns over the whole card, full-sector loads where a row's
+  address allows (:func:`probe_pack_ballot_grid`);
 * :func:`probe_loop` (B/C/D): ``f | roll(f, 1, rows) | roll(f, w-1, cols) |
-  f << 1`` until nothing changes or the round budget, as one cooperative
-  launch with a ``grid.sync()`` a round and a device "changed" flag; its
-  sync-only mode times the barrier alone;
+  f << 1`` until nothing changes or the round budget, in one launch that
+  ends on a device flag: the plane held in one block's registers with one
+  ``__syncthreads_or`` a round where it fits, else one cooperative launch
+  with a ``grid.sync()`` a round
+  (:func:`probe_loop_layout`); its sync-only mode times the grid barrier
+  alone;
 * :func:`probe_unpack` (E): words -> (32 hw, w) u8 of 0 / 255, a thread per
   word or a thread per byte.
 
@@ -25,6 +30,7 @@ probe's inputs.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -102,8 +108,9 @@ def probe_pack(mask: torch.Tensor) -> torch.Tensor:
 
 
 def probe_pack_ballot(mask: torch.Tensor) -> torch.Tensor:
-    """:func:`probe_pack` by a loop over word rows, each word one
-    ``__ballot_sync`` of 32 lanes holding its 32 rows."""
+    """:func:`probe_pack` with no shared memory: a warp's task is one word
+    row x 32 columns, lane r holding row 32k + r, and each of the 32 words
+    is one ``__ballot_sync``; the tasks are spread over the whole card."""
     return _pack(mask, True)
 
 
@@ -129,6 +136,38 @@ def probe_loop_plain(
                                                device=plane.device)
 
 
+def probe_pack_ballot_grid(h: int, w: int, device: int = 0) -> dict:
+    """The grid :func:`probe_pack_ballot` launches for an (h, w) mask on a
+    card: blocks, threads a block, tasks (word rows x 32-column groups) and
+    the tasks a warp has in flight (``cc_probe_ballot_grid``)."""
+    out = (ctypes.c_int * 4)()
+    lib = load()
+    lib.check(lib.lib.cc_probe_ballot_grid(h, w, device, ctypes.cast(out, ctypes.c_void_p)),
+              "cc_probe_ballot_grid")
+    return dict(zip(("blocks", "threads", "tasks", "tasks_in_flight"), out))
+
+
+#: ``probe_loop_layout``'s keys, in ``cc_probe_loop_layout``'s order.
+PROBE_LOOP_LAYOUT_KEYS = ("route", "blocks", "threads", "words_per_thread", "smem_bytes",
+                          "barriers_per_round")
+
+
+def probe_loop_layout(hw: int, w: int, device: int = 0) -> dict:
+    """The route :func:`probe_loop` takes for an (hw, w) plane on a card
+    with its default grid: ``route`` ("resident": the plane in one block's
+    registers; "grid": the cooperative launch), the blocks, threads a
+    block, words a thread at most, a block's shared memory in bytes, and
+    the barriers a round (``cc_probe_loop_layout``; the rule is
+    ``probe_loop_plan``'s in C)."""
+    out = (ctypes.c_int * len(PROBE_LOOP_LAYOUT_KEYS))()
+    lib = load()
+    lib.check(lib.lib.cc_probe_loop_layout(hw, w, device, ctypes.cast(out, ctypes.c_void_p)),
+              "cc_probe_loop_layout")
+    lay = dict(zip(PROBE_LOOP_LAYOUT_KEYS, out))
+    lay["route"] = "resident" if lay["route"] else "grid"
+    return lay
+
+
 def probe_loop_max_blocks(device: torch.device) -> int:
     """The cooperative grid's limit for :func:`probe_loop` on ``device``."""
     n = load().lib.cc_probe_loop_max_blocks(torch.device(device).index or 0)
@@ -147,10 +186,13 @@ def probe_loop(
     changed a word and fewer than ``max_rounds`` ran. Returns the plane and
     a (1, 2) int32 tensor (rounds, changed), both on the plane's device.
 
-    On CUDA tensors: one cooperative launch of ``blocks`` blocks (default:
-    the plane's words, up to the cooperative limit) that ends on a device
-    flag, no readback. ``sync_only``: the rounds' grid barriers alone
-    (``max_rounds`` of them), the plane unchanged and (max_rounds, 0) out."""
+    On CUDA tensors: one launch that ends on a device flag, no readback.
+    By default the route follows the plane's size (:func:`probe_loop_layout`):
+    the plane resident in one block's registers where it fits, else the
+    cooperative grid route over the plane's words up to the cooperative
+    limit. ``blocks``: the grid route on exactly that grid. ``sync_only``:
+    the grid route's barriers alone (``max_rounds`` of them), the plane
+    unchanged and (max_rounds, 0) out."""
     _check_words(plane)
     if use_plain(plane):
         return probe_loop_plain(plane, max_rounds, sync_only=sync_only)

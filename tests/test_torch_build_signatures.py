@@ -74,13 +74,18 @@ def _out_indices(name: str) -> list:
 
 @pytest.mark.parametrize("name,keys", [("cc_hyst_layout", 6),
                                        ("cc_sharded_loop_layout", "LOOP_LAYOUT_KEYS"),
-                                       ("cc_split_layout", "SPLIT_LAYOUT_KEYS")])
+                                       ("cc_split_layout", "SPLIT_LAYOUT_KEYS"),
+                                       ("cc_probe_loop_layout", "PROBE_LOOP_LAYOUT_KEYS"),
+                                       ("cc_probe_ballot_grid", 4)])
 def test_layout_reporter_fills_every_key_once(name, keys):
     """A layout reporter writes each int its Python reader allocates once,
     and none past it: ``round_layout`` reads 6, ``loop_layout`` one per
     ``LOOP_LAYOUT_KEYS`` entry, ``split_layout`` one per
-    ``SPLIT_LAYOUT_KEYS`` entry."""
+    ``SPLIT_LAYOUT_KEYS`` entry, ``probe_loop_layout`` one per
+    ``PROBE_LOOP_LAYOUT_KEYS`` entry, ``probe_pack_ballot_grid`` 4."""
     from cudacam_tpu_torch.ops.cuda import megakernel
+    from cudacam_tpu_torch.probes import hyster_kernel
 
-    n = len(getattr(megakernel, keys)) if isinstance(keys, str) else keys
-    assert _out_indices(name) == list(range(n))
+    if isinstance(keys, str):
+        keys = len(getattr(megakernel, keys, None) or getattr(hyster_kernel, keys))
+    assert _out_indices(name) == list(range(keys))

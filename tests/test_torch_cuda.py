@@ -1327,7 +1327,8 @@ from cudacam_tpu_torch.probes import hyster_kernel as hk  # noqa: E402
 from cudacam_tpu_torch.probes import i16_swar  # noqa: E402
 
 
-@pytest.mark.parametrize("h,w", [(128, 256), (1, 1), (37, 53), (4320, 7680)])
+@pytest.mark.parametrize("h,w", [(128, 256), (1, 1), (37, 53), (4320, 7680), (4320, 7680 + 16),
+                                 (1080, 1918), (70, 53)])
 def test_probe_packs_and_unpacks_match_plain(dev, h, w):
     mask = torch.from_numpy(hk.pack_input(h * w % 7, h, w) * 3).to(dev)
     want = hk.probe_pack_plain(mask)
@@ -1338,13 +1339,57 @@ def test_probe_packs_and_unpacks_match_plain(dev, h, w):
     counts = kernels.launch_counts()
     assert counts["probe_pack"] == counts["probe_pack_ballot"] == 1
     assert counts["probe_unpack"] == 2
+    grid = hk.probe_pack_ballot_grid(h, w, dev.index)
+    assert grid["tasks"] == -(-h // 32) * -(-w // 32) and grid["tasks_in_flight"] >= 2
+    per_block = grid["threads"] // 32 * grid["tasks_in_flight"]
+    assert 1 <= grid["blocks"] <= -(-grid["tasks"] // per_block)  # no block without a task
 
 
+@pytest.mark.parametrize("offset", [1, 3, 8])
+def test_probe_packs_match_plain_on_an_unaligned_mask(dev, offset):
+    """An 8K mask whose first byte lies ``offset`` bytes past a 16-byte
+    boundary (a slice of a larger buffer): every row's address is off the
+    boundary, so the ballot pack reads byte by byte."""
+    h, w = 4320, 7680
+    buf = torch.zeros(h * w + 16, dtype=torch.uint8, device=dev)
+    mask = buf[offset:offset + h * w].view(h, w)
+    mask.copy_(torch.from_numpy(hk.pack_input(offset, h, w) * 5).to(dev))
+    assert mask.data_ptr() % 16 == offset and mask.is_contiguous()
+    want = hk.probe_pack_plain(mask)
+    assert torch.equal(hk.probe_pack_ballot(mask), want) and torch.equal(hk.probe_pack(mask), want)
+
+
+def _check_loop_layout(lay: dict, hw: int, w: int) -> None:
+    """``probe_loop_layout`` holds the plane: the resident route on one
+    block of at most 1024 threads and 10 rows a thread, in whole warps
+    a column group, with the fewest row groups; the grid route on whole
+    256-thread blocks covering the plane's words."""
+    if lay["route"] == "resident":
+        tw = -(-w // 32) * 32
+        groups = lay["threads"] // tw
+        assert lay["blocks"] == 1 and lay["barriers_per_round"] == 1 and lay["smem_bytes"] > 0
+        assert lay["threads"] <= 1024 and lay["threads"] % tw == 0
+        assert lay["words_per_thread"] <= 10
+        assert (groups - 1) * lay["words_per_thread"] < hw <= groups * lay["words_per_thread"]
+    else:
+        assert lay["barriers_per_round"] == 2 and lay["smem_bytes"] == 0 and lay["threads"] == 256
+        assert lay["blocks"] * lay["threads"] * lay["words_per_thread"] >= hw * w
+
+
+#: The probe's 40 x 256 plane is the tallest 256-column plane the resident
+#: route takes (1024 threads at 10 rows); one word row more takes the grid.
 @pytest.mark.parametrize("shape,cap", [((40, 256), 400), ((40, 256), 5), ((1, 1), 400),
-                                       ((135, 7680), 3), ((7, 9), 400)])
+                                       ((135, 7680), 3), ((7, 9), 400), ((41, 256), 400)])
 def test_probe_loop_matches_plain(dev, shape, cap):
+    lay = hk.probe_loop_layout(*shape, dev.index)
+    assert lay["route"] == ("grid" if shape in ((41, 256), (135, 7680)) else "resident")
+    if shape == (40, 256):
+        assert (lay["threads"], lay["words_per_thread"]) == (1024, 10)
+    _check_loop_layout(lay, *shape)
     plane = torch.from_numpy(hk.loop_input(*shape)).to(dev)
+    kernels.reset_launch_counts()
     got, flags = hk.probe_loop(plane, cap)
+    assert kernels.launch_counts()["probe_loop"] == 1
     want, want_flags = hk.probe_loop_plain(plane, cap)
     assert torch.equal(got, want) and torch.equal(flags, want_flags)
     if shape == (40, 256) and cap == 400:
@@ -1357,6 +1402,26 @@ def test_probe_loop_matches_plain(dev, shape, cap):
     with pytest.raises(RuntimeError):
         hk.probe_loop(plane, 1, blocks=limit + 1)
     assert [b for b, _ in hk.grid_sync_us(dev, rounds=10, reps=1)][-1] == limit
+
+
+@pytest.mark.parametrize("w", [1, 9, 31, 32, 33, 256, 1000, 1024, 1025])
+def test_probe_loop_routes_match_plain_on_random_planes(dev, w):
+    """Sparse random planes of many heights at widths around a warp and
+    the resident route's 1024 columns, on both routes (at 1024 columns the
+    resident route takes 10 rows and 11 the grid; 1025 columns always the
+    grid), cut off and run to the budget."""
+    rng = np.random.default_rng(w)
+    for hw in (1, 2, 3, 7, 10, 11, 33, 40, 41, 70):
+        words = rng.integers(0, 2**32, (3, hw, w), dtype=np.uint64).astype(np.uint32)
+        plane = torch.from_numpy((words[0] & words[1] & words[2]).view(np.int32)).to(dev)
+        lay = hk.probe_loop_layout(hw, w, dev.index)
+        _check_loop_layout(lay, hw, w)
+        if w >= 1000:
+            assert lay["route"] == ("resident" if w <= 1024 and hw <= 10 else "grid")
+        for cap in (1, 2, 5, 400):
+            got, flags = hk.probe_loop(plane, cap)
+            want, want_flags = hk.probe_loop_plain(plane, cap)
+            assert torch.equal(got, want) and torch.equal(flags, want_flags), (hw, cap)
 
 
 @pytest.mark.parametrize("shape", [(256, 512), (1, 1), (7, 9), (1080, 1920), (3, 513)])

@@ -6,10 +6,13 @@ construct of the round kernels alone, on the TPU probe's planes, through
 ``cudacam_tpu_torch/csrc/probe_hyster.cu``):
 
   A   pack of a (128, 256) u8 mask through a shared-memory tile transpose;
-  A'  the same pack by a loop over word rows, one __ballot_sync a word;
-  B/C/D  a cooperative loop with a scratch plane, a grid.sync() a round and
-      a device "changed" flag that ends it (rolls on both axes, a shift
-      inside each word), from one set bit of a (40, 256) plane;
+  A'  the same pack with no shared memory, one __ballot_sync a word, warp
+      tasks of one word row x 32 columns over the whole card;
+  B/C/D  a round loop ended by a device "changed" flag (rolls on both axes,
+      a shift inside each word), from one set bit of a (40, 256) plane: the
+      plane resident in one block's registers with one __syncthreads_or a
+      round (a cooperative grid with a scratch plane and a grid.sync() a
+      round for planes it does not hold);
   E   unpack of (4, 256) words to u8, a thread per word and per byte.
 
 Prints one OK / MISMATCH line per probe and a summary line. On a card

@@ -8,9 +8,9 @@ Run from the root of a checkout, on a host with a CUDA device and nvcc:
 ``--root`` profiles the ``cudacam_tpu_torch`` of DIR instead of this
 checkout's (another commit, unpacked with ``git archive``), so one call on
 the card can time two versions in turns on the same inputs (A, B, B, A;
-``--label`` names the rows). Thirteen parts (``--parts``; by default all but
-``rounds``, ``ff``, ``packs``, ``stages``, ``legacy``, ``loop`` and
-``devtime``), each printing one JSON line per workload
+``--label`` names the rows). Fourteen parts (``--parts``; by default all but
+``rounds``, ``ff``, ``packs``, ``stages``, ``legacy``, ``loop``, ``probes``
+and ``devtime``), each printing one JSON line per workload
 (and writing them all to ``--out`` when given):
 
 * ``trace``: ``CannyEngine(device='cuda')`` under torch.profiler, the session
@@ -128,6 +128,16 @@ the card can time two versions in turns on the same inputs (A, B, B, A;
   tile takes, summed over the collective rounds); µs a collective round and
   an inner round; and the loop's layout (``megakernel.loop_layout``; none in
   a version without it).
+
+* ``probes``: K13's ballot pack (``probe_pack_ballot``) and ``probe_pack``
+  beside it on the 8K mask of ``chip_smoke.py`` (``pack_input(0)``), and
+  the construct loop (``probe_loop``) on the TPU probe's 40 x 256 plane (326
+  rounds): CUDA-event ms a call (20 calls a window for the packs, 5 for the
+  loop; median of 5 windows), profiler device µs a call (the session opened
+  by ``devtime.open_session``), a sha256 of the outputs (the loop's with its
+  flags), the loop's rounds and device µs a round, and its layout
+  (``probe_loop_layout``) and the ballot pack's grid
+  (``probe_pack_ballot_grid``), none in a version without them.
 
 * ``devtime``: the profiler's busy time checked against itself, on the
   programs of the ``device`` profiling mode (``ff_stages`` to each display
@@ -940,6 +950,45 @@ def loop(label: str) -> list:
     return rows
 
 
+def probes(label: str) -> list:
+    """K13's ballot pack, ``probe_pack`` and the construct loop (see the
+    module's docstring)."""
+    from cudacam_tpu_torch.probes import hyster_kernel as hk
+
+    card = _card()
+    rows = []
+
+    def sha(*out):
+        return hashlib.sha256(b"".join(o.cpu().numpy().tobytes() for o in out)).hexdigest()[:16]
+
+    mask = torch.from_numpy(hk.pack_input(0, 4320, 7680)).cuda()
+    for name, fn, kernel in (("probe_pack_ballot", hk.probe_pack_ballot, "pack_ballot_kernel"),
+                             ("probe_pack", hk.probe_pack, "pack_transpose_kernel")):
+        grid = None
+        if name == "probe_pack_ballot" and hasattr(hk, "probe_pack_ballot_grid"):
+            grid = hk.probe_pack_ballot_grid(4320, 7680)
+        rows.append(dict(
+            workload=f"{name} 8K mask", label=label, card=card,
+            event_ms=ms_per_call(lambda: [fn(mask) for _ in range(20)]) / 20,
+            device_us=device_us(lambda: fn(mask), kernel, 20), sha=sha(fn(mask)),
+            bound_us=(mask.numel() + 4 * (4320 // 32) * 7680) / HBM_BYTES_PER_US, grid=grid))
+        print(json.dumps(rows[-1]), flush=True)
+    plane = torch.from_numpy(hk.loop_input()).cuda()
+    out, flags = hk.probe_loop(plane)
+    n_rounds, changed = flags[0].tolist()
+    events = device_events(lambda: hk.probe_loop(plane), 5)
+    kernels = ("loop_kernel", "loop_block_kernel")  # grid, resident
+    us = sum(t for k, t in events if any(n in k for n in kernels)) / 5
+    layout = hk.probe_loop_layout(*plane.shape) if hasattr(hk, "probe_loop_layout") else None
+    rows.append(dict(
+        workload="probe_loop 40x256", label=label, card=card, rounds=n_rounds, changed=changed,
+        event_ms=ms_per_call(lambda: [hk.probe_loop(plane) for _ in range(5)]) / 5,
+        device_us=us, us_per_round=us / n_rounds, device_records=len(events),
+        sha=sha(out, flags), layout=layout))
+    print(json.dumps(rows[-1]), flush=True)
+    return rows
+
+
 def _session(fn, calls: int, pad_s: float = 0.0, sentinels: int = 0) -> dict:
     """One profiler session of ``calls`` calls of ``fn`` (warm), idle for
     ``pad_s`` before it and, inside it, before and after the calls, and
@@ -1065,16 +1114,17 @@ def devtime() -> list:
 
 
 PARTS = ("trace", "sizes", "sweeps", "sharded", "split", "app", "rounds", "ff", "packs",
-         "stages", "legacy", "loop", "devtime")
+         "stages", "legacy", "loop", "probes", "devtime")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", type=Path, help="also write the JSON lines here")
-    ap.add_argument("--parts", default=",".join(PARTS[:-7]), help=f"comma-separated of {PARTS}")
+    ap.add_argument("--parts", default=",".join(PARTS[:-8]), help=f"comma-separated of {PARTS}")
     ap.add_argument("--root", type=Path, help="profile the package of this checkout")
     ap.add_argument("--label", default="this checkout",
-                    help="the split, rounds, ff, packs, stages, legacy and loop parts' label")
+                    help="the label of every part but trace, sizes, sweeps, sharded, app and "
+                         "devtime")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("port_profile: needs a CUDA device", file=sys.stderr)
@@ -1114,6 +1164,8 @@ def main() -> int:
         rows += legacy(args.label)
     if "loop" in parts:
         rows += loop(args.label)
+    if "probes" in parts:
+        rows += probes(args.label)
     if "devtime" in parts:
         rows += devtime()
     lines = [json.dumps(r) for r in rows]
