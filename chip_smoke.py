@@ -134,9 +134,13 @@ Phases, each printing its lines before the last:
    8K (the packs also at widths 7696, 1918 and 53 and one byte off a
    16-byte boundary, with the ballot pack's grid; the loop on both routes,
    the probe's plane (the tallest resident one) and one word row more, with
-   its layout),
+   its layout; ``swar_stencil``'s vector route at 256 x 512, 1080p and 8K
+   and its general route at 1 x 1, 7 x 9, 3 x 513 and on those three
+   planes one element off a 16-byte boundary; the unpack's byte mode at
+   the probe's words, 8K, 1 x 1, 2 x 53 and 3 x 513 words and on words one
+   word off a boundary; each with its layout and route),
    B/C/D's (326, 0); the cost of one ``grid.sync()`` against the grid
-   size, the unpack a thread per word against a thread per byte, the four
+   size, the unpack a thread per word against the byte mode, the four
    stencil bodies in both modes at 1080p, P4 in SWAR against int32 at
    1080p and 8K;
 12. the live app (``CannyApp`` on the card): 64 frames of a 1080p BGR
@@ -1959,10 +1963,13 @@ class Smoke:
         8K mask one byte past a 16-byte boundary, the loop on both routes
         (the probe's plane, the tallest 256-column plane the resident route
         takes, and one word row more), with each plane's
-        ``probe_loop_layout`` and the ballot pack's grid; B/C/D's (326, 0);
+        ``probe_loop_layout`` and the ballot pack's grid; the unpack's byte
+        mode and ``swar_stencil`` on both routes (widths off 16 and 8,
+        inputs one element off a 16-byte boundary), each plane's layout
+        required to name the route it must take; B/C/D's (326, 0);
         then the timings: one grid.sync()
-        against the grid size, the unpack a thread per word against a thread
-        per byte on an 8K plane, the four stencil bodies in both modes at
+        against the grid size, the unpack a thread per word against the
+        byte mode on an 8K plane, the four stencil bodies in both modes at
         1080p, and P4 in SWAR against its int32 mode at 1080p and 8K."""
         torch = self.torch
         from cudacam_tpu_torch.probes import hyster_kernel as hk
@@ -1993,10 +2000,34 @@ class Smoke:
         self.diff("probe_pack", hk.probe_pack(shifted), want)
         self.diff("probe_pack_ballot", hk.probe_pack_ballot(shifted), want)
         del buf, shifted
-        for hw, w in (hk.UNPACK_WORDS, (h8 // 32, w8)):
+        def at_offset(x, offset: int):
+            """A contiguous copy of ``x`` whose first byte lies ``offset``
+            bytes past a 16-byte boundary (a slice of a larger buffer)."""
+            esz = x.element_size()
+            buf = torch.zeros(x.numel() + (16 + offset) // esz, dtype=x.dtype, device=dev)
+            base = (-buf.data_ptr() % 16) // esz + offset // esz
+            view = buf[base:base + x.numel()].view(x.shape)
+            view.copy_(x)
+            require(view.data_ptr() % 16 == offset and view.is_contiguous(),
+                    f"a view {offset} bytes off a boundary")
+            return view
+
+        # The unpack's byte mode: the probe's words and 8K (every row on a
+        # 16-byte boundary), odd widths (heads and tails), words one word
+        # off a boundary (the run's words loaded one by one).
+        for hw, w in (hk.UNPACK_WORDS, (h8 // 32, w8), (1, 1), (2, 53), (3, 513)):
             f = torch.from_numpy(hk.unpack_input(2, hw, w)).to(dev)
-            for per_word in (True, False):
-                self.diff("probe_unpack", hk.probe_unpack(f, per_word), hk.probe_unpack_plain(f))
+            want = hk.probe_unpack_plain(f)
+            lays = {mode: hk.probe_unpack_layout_cc(hw, w, mode) for mode in (True, False)}
+            require(all(lay == hk.probe_unpack_layout(hw, w, mode) for mode, lay in lays.items())
+                    and (lays[True]["route"], lays[False]["route"]) == ("word", "runs"),
+                    f"probe_unpack layout at {hw}x{w}: {lays}")
+            print(f"probe_unpack_layout {hw}x{w} words: a thread per word "
+                  f"{json.dumps(lays[True])}, byte mode {json.dumps(lays[False])}")
+            for offset in (0, 4):
+                fv = at_offset(f, offset) if offset else f
+                for per_word in (True, False):
+                    self.diff("probe_unpack", hk.probe_unpack(fv, per_word), want)
         # The probe's 40 x 256 plane is the tallest 256-column plane the
         # resident route takes (every thread of a 1024-thread block at 10
         # rows); one word row more takes the grid route.
@@ -2017,18 +2048,34 @@ class Smoke:
             self.diff("probe_loop", flags, want_flags)
             if shape == hk.LOOP_SHAPE:
                 require(flags.tolist() == [[326, 0]], f"B/C/D flags {flags.tolist()}")
-        for (h, w) in (sw.SHAPE, (1080, 1920), (h8, w8)):
+        # K14: the vector route at W % 8 == 0 on aligned planes, the general
+        # route at odd widths and on the same planes one element off a
+        # 16-byte boundary (2 bytes for int16, 1 for u8).
+        for (h, w) in (sw.SHAPE, (1080, 1920), (h8, w8), (1, 1), (7, 9), (3, 513)):
             xi16, xu8 = (torch.from_numpy(a).to(dev) for a in sw.probe_inputs(h, w))
-            for body in sw.BODIES:
-                x = xu8 if body == 4 else xi16
-                want = sw.swar_stencil_plain(x, body)
-                for swar in (True, False):
-                    self.diff("swar_stencil", sw.swar_stencil(x, body, swar), want)
+            for off in ((0, 1) if w % 8 == 0 else (0,)):
+                lays = []
+                for body in sw.BODIES:
+                    x = xu8 if body == 4 else xi16
+                    offset = off * x.element_size()
+                    lay = sw.swar_layout_cc(h, w, body, offset)
+                    route = "vector" if w % 8 == 0 and offset == 0 else "general"
+                    require(lay == sw.swar_layout(h, w, body, offset) and lay["route"] == route,
+                            f"swar_layout {h}x{w} P{body} at offset {offset}: {lay}")
+                    lays.append(lay)
+                    xv = at_offset(x, offset) if offset else x
+                    want = sw.swar_stencil_plain(x, body)
+                    for swar in (True, False):
+                        self.diff("swar_stencil", sw.swar_stencil(xv, body, swar), want)
+                print(f"swar_layout {h}x{w}, input one element off a boundary: {bool(off)}: "
+                      + ", ".join(f"P{b} {json.dumps(lay)}" for b, lay in zip(sw.BODIES, lays)))
         print("probe_pack, probe_pack_ballot, probe_unpack (both modes), probe_loop and "
               "swar_stencil (P1-P4, both modes) == plain at the TPU probes' shapes and at 8K "
               "(the packs also at 8Kx7696, 1080x1918, 70x53 and one byte off a 16-byte "
-              f"boundary; the loop at {past[0]}x{past[1]} (grid); "
-              "swar_stencil at 1080p too); B/C/D (rounds, changed) = (326, 0)")
+              f"boundary; the loop at {past[0]}x{past[1]} (grid); the unpack also at 1x1, "
+              "2x53, 3x513 words and one word off a boundary; swar_stencil at 1080p, 1x1, "
+              "7x9, 3x513 and one element off a boundary too); "
+              "B/C/D (rounds, changed) = (326, 0)")
 
         # Times, each beside its bound and its plain version.
         mask = torch.from_numpy(hk.pack_input(0, h8, w8)).to(dev)
@@ -2075,7 +2122,7 @@ class Smoke:
             print(f"time {name}: kernel {self.ms[name]!r} ms, plain {self.plain_ms[name]!r} ms, "
                   f"bound {self.bound[name][0]!r} ms ({self.bound[name][1]}) ({where})")
         print(f"time probe_unpack 135x7680 words: a thread per word {self.ms['probe_unpack']!r} "
-              f"ms, a thread per byte {byte_ms!r} ms")
+              f"ms, the byte mode (a thread per 16-byte run of a row) {byte_ms!r} ms")
         print(f"time swar_stencil P4 1080p: library (circular conv2d, float32) "
               f"{self.library_ms['swar_stencil']!r} ms")
         body_ops = {1: 4, 2: 2, 3: 4, 4: 5}  # adds and multiplies a pixel

@@ -51,9 +51,11 @@
 //                        grid.sync() against the grid.
 //   probe_unpack       (hw, w) words -> (32 hw, w) u8 of 0 / 255 (TPU probe E):
 //                      one thread per word writing its 32 bytes (a warp
-//                      writes 32 neighbouring bytes of each row), or one
-//                      thread per byte (as unpack_core, and unpack before
-//                      its row runs).
+//                      writes 32 neighbouring bytes of each row), or, in the
+//                      byte mode, a thread's work inside one output row: a
+//                      16-byte run from 16 words, one vector store, a
+//                      block's 32 rows sharing the words in L1
+//                      (unpack_runs_kernel; heads and tails byte by byte).
 //
 // Bound: the probes' planes are small (a 40 x 256 plane is 40 KB); the grid
 // loop is bound by its grid barriers, the resident loop by a thread's rows
@@ -321,14 +323,65 @@ __global__ void __launch_bounds__(NT) unpack_word_kernel(const uint32_t* __restr
   }
 }
 
-__global__ void __launch_bounds__(NT) unpack_byte_kernel(const uint32_t* __restrict__ f,
+// The byte mode's runs: a block takes the 32 image rows of word row
+// blockIdx.y (+ gridDim.y, ...) at runs 8 blockIdx.x .. + 7 of each row, so
+// the rows' re-reads of the same words hit the block's L1 (no shared
+// memory: the contrast with unpack.cu's staging). Warp q of the block takes
+// rows 8 (q & 3) .. + 7, runs 4 (q >> 2) .. + 3 (lane: row lane >> 2, run
+// lane & 3): eight rows share each 16-byte word load (a warp of 4 rows x 8
+// runs took 19.6 us against 15.2 at 8K on an H100, PERF.md §6). Run m of
+// row r is its 16 bytes from column d + 16 m, d the row's first 16-byte
+// boundary as a column (the row's address, not its column): one 16-byte
+// store of the 16 words' bit r & 31, read as four 16-byte loads where the
+// words' address is 16-byte aligned, else one by one. The head (columns
+// before d, by run 0's thread) and a tail past w go byte by byte.
+constexpr int RUNS_X = 8;  // runs a block along a row
+
+__device__ __forceinline__ uint32_t expand_nibble(uint32_t n) {  // 4 bits -> 4 bytes 0 / 255
+  return ((n * 0x00204081u) & 0x01010101u) * 0xffu;
+}
+
+__global__ void __launch_bounds__(NT) unpack_runs_kernel(const uint32_t* __restrict__ f,
                                                          uint8_t* __restrict__ out, int hw, int w) {
-  const long long n = 32LL * hw * w;
-  for (long long e = (long long)blockIdx.x * NT + threadIdx.x; e < n;
-       e += (long long)gridDim.x * NT) {
-    const int r = (int)(e / w), c = (int)(e - (long long)r * w);
-    out[e] = (f[(size_t)(r >> 5) * w + c] >> (r & 31)) & 1u ? 255 : 0;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int j = 8 * (warp & 3) + (lane >> 2);                         // the bit: row 32 k + j
+  const int m = RUNS_X * blockIdx.x + 4 * (warp >> 2) + (lane & 3);  // the run of the row
+  for (int k = blockIdx.y; k < hw; k += gridDim.y) {
+    const uint32_t* fr = f + (size_t)k * w;
+    uint8_t* row = out + ((size_t)32 * k + j) * w;
+    const int d = (16 - (int)(reinterpret_cast<uintptr_t>(row) & 15)) & 15;
+    if (m == 0)
+      for (int c = 0; c < d && c < w; ++c) row[c] = (__ldg(fr + c) >> j) & 1u ? 255 : 0;
+    const int c = d + 16 * m;
+    if (c >= w) continue;
+    if (c + 16 > w) {
+      for (int cc = c; cc < w; ++cc) row[cc] = (__ldg(fr + cc) >> j) & 1u ? 255 : 0;
+      continue;
+    }
+    const uint32_t* wp = fr + c;
+    uint32_t bits = 0;
+    if ((reinterpret_cast<uintptr_t>(wp) & 15) == 0) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const uint4 v = __ldg(reinterpret_cast<const uint4*>(wp) + q);
+        bits |= (((v.x >> j) & 1u) | (((v.y >> j) & 1u) << 1) | (((v.z >> j) & 1u) << 2) |
+                 (((v.w >> j) & 1u) << 3)) << (4 * q);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 16; ++i) bits |= ((__ldg(wp + i) >> j) & 1u) << i;
+    }
+    *reinterpret_cast<uint4*>(row + c) =
+        make_uint4(expand_nibble(bits & 15u), expand_nibble((bits >> 4) & 15u),
+                   expand_nibble((bits >> 8) & 15u), expand_nibble(bits >> 12));
   }
+}
+
+// The byte mode's grid: x the runs of a row (ceil(w / 16) at most, RUNS_X a
+// block), y the word rows (a loop past 65535).
+dim3 runs_grid(int hw, int w) {
+  const int runs = (w + 15) / 16;
+  return dim3((runs + RUNS_X - 1) / RUNS_X, hw < 65535 ? hw : 65535);
 }
 
 unsigned blocks_for(long long items) {
@@ -494,6 +547,19 @@ extern "C" int cc_probe_unpack(const void* f, void* out, int hw, int w, int per_
   if (per_word)
     unpack_word_kernel<<<blocks_for((long long)hw * w), NT, 0, s>>>(fp, op, hw, w);
   else
-    unpack_byte_kernel<<<blocks_for(32LL * hw * w), NT, 0, s>>>(fp, op, hw, w);
+    unpack_runs_kernel<<<runs_grid(hw, w), NT, 0, s>>>(fp, op, hw, w);
   return cudaGetLastError();
+}
+
+// The grid probe_unpack launches for (hw, w) words: out[0] 1 the byte
+// mode's runs / 0 a thread per word, out[1] threads a block, out[2] blocks,
+// out[3] output bytes a thread (16 a run; 32 a word).
+extern "C" int cc_probe_unpack_layout(int hw, int w, int per_word, int* out) {
+  if (hw < 1 || w < 1) return cudaErrorInvalidValue;
+  const dim3 g = runs_grid(hw, w);
+  out[0] = per_word ? 0 : 1;
+  out[1] = NT;
+  out[2] = per_word ? (int)blocks_for((long long)hw * w) : (int)(g.x * g.y);
+  out[3] = per_word ? 32 : 16;
+  return cudaSuccess;
 }

@@ -64,7 +64,9 @@ SIGNATURES = {
     "cc_probe_loop_layout": (_I, [_I, _I, _I, _P]),
     "cc_probe_ballot_grid": (_I, [_I, _I, _I, _P]),
     "cc_probe_unpack": (_I, [_P, _P, _I, _I, _I, _I, _P]),
+    "cc_probe_unpack_layout": (_I, [_I, _I, _I, _P]),
     "cc_swar_stencil": (_I, [_P, _P, _I, _I, _I, _I, _I, _P]),
+    "cc_swar_layout": (_I, [_I, _I, _I, _I, _P]),
     "cc_error_string": (ctypes.c_char_p, [_I]),
 }
 

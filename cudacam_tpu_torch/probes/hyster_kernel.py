@@ -21,7 +21,9 @@ beside its plain PyTorch version:
   (:func:`probe_loop_layout`); its sync-only mode times the grid barrier
   alone;
 * :func:`probe_unpack` (E): words -> (32 hw, w) u8 of 0 / 255, a thread per
-  word or a thread per byte.
+  word or, in the byte mode, a thread's work inside one output row: a
+  16-byte run of a row from 16 words, the 32 rows of a word row in one
+  block (:func:`probe_unpack_layout`).
 
 Words cross the module as int32 tensors holding the uint32 bits. Each
 wrapper takes its plain version for CPU tensors and launches its kernel (or
@@ -217,10 +219,44 @@ def probe_unpack_plain(f: torch.Tensor, per_word: bool = True) -> torch.Tensor:
     return torch.where(reached, 255, 0).to(torch.uint8)
 
 
+#: ``probe_unpack_layout``'s keys, in ``cc_probe_unpack_layout``'s order.
+PROBE_UNPACK_LAYOUT_KEYS = ("route", "threads", "blocks", "bytes_per_thread")
+
+
+def probe_unpack_layout(hw: int, w: int, per_word: bool = True) -> dict:
+    """The launch :func:`probe_unpack` makes for (hw, w) words: ``route``
+    "word" (a thread per word, a grid-stride loop over at most 2^20 blocks)
+    or "runs" (the byte mode: a thread per 16-byte run of one output row, a
+    block the 32 rows of a word row at 8 runs each, grid (ceil(ceil(w / 16)
+    / 8), min(hw, 65535))), threads a block, blocks, output bytes a thread.
+    The rule of ``csrc/probe_hyster.cu``; :func:`probe_unpack_layout_cc`
+    reads the kernel's own."""
+    if per_word:
+        return dict(route="word", threads=256, blocks=min(max(-(-hw * w // 256), 1), 1 << 20),
+                    bytes_per_thread=32)
+    runs = -(-w // 16)  # a row's runs at most
+    return dict(route="runs", threads=256, blocks=-(-runs // 8) * min(hw, 65535),
+                bytes_per_thread=16)
+
+
+def probe_unpack_layout_cc(hw: int, w: int, per_word: bool = True) -> dict:
+    """:func:`probe_unpack_layout` as the kernel library computes it
+    (``cc_probe_unpack_layout``; needs the built library)."""
+    out = (ctypes.c_int * len(PROBE_UNPACK_LAYOUT_KEYS))()
+    lib = load()
+    lib.check(lib.lib.cc_probe_unpack_layout(hw, w, int(per_word),
+                                             ctypes.cast(out, ctypes.c_void_p)),
+              "cc_probe_unpack_layout")
+    lay = dict(zip(PROBE_UNPACK_LAYOUT_KEYS, out))
+    lay["route"] = "runs" if lay["route"] else "word"
+    return lay
+
+
 def probe_unpack(f: torch.Tensor, per_word: bool = True) -> torch.Tensor:
     """(hw, w) int32 words -> (32 hw, w) uint8: 255 where bit r of word row
     k is set at row 32k + r, else 0. ``per_word``: one thread per word
-    writing its 32 bytes; else one thread per byte."""
+    writing its 32 bytes; else the byte mode, a thread per 16-byte run of
+    one output row (:func:`probe_unpack_layout`)."""
     _check_words(f)
     if use_plain(f):
         return probe_unpack_plain(f, per_word)

@@ -5,7 +5,13 @@ bodies ``p1``-``p4`` :56-83), which asks whether the feed-forward chain's
 stencils can run on 16-bit lanes. :func:`swar_stencil` computes the four
 bodies on an (H, W) plane with two 16-bit lanes per 32-bit register
 (``csrc/probe_swar.cu``: ``__vadd2``, byte permutes for the column rolls),
-or in its int32 mode, beside the plain version in int16 torch ops:
+or in its int32 mode, beside the plain version in int16 torch ops. The
+kernel has two routes (:func:`swar_layout`): 8 columns a thread from one
+16-byte row load (8-byte for u8), the column rolls from the neighbouring
+lanes, where ``W % 8 == 0`` and the input's address is aligned; a column
+pair a thread elsewhere.
+
+The bodies:
 
 * P1 (int16): ``x * 3 + (x + x) * 2``;
 * P2 (int16): ``x + roll(x, 1, rows) + roll(x, H-1, rows)``;
@@ -18,6 +24,7 @@ Every result is int16 arithmetic (wrapping, as jnp's) widened to int32.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import List, Tuple
 
 import numpy as np
@@ -70,7 +77,8 @@ def swar_stencil(x: torch.Tensor, body: int, swar: bool = True) -> torch.Tensor:
     """Body ``body`` (1-4) of the 16-bit probe on an (H, W) plane (int16 for
     P1-P3, uint8 for P4) -> (H, W) int32. On CUDA tensors one launch: two
     16-bit lanes per register with ``swar``, else the int32 mode of the same
-    kernel; equal either way."""
+    kernel; equal either way. The route follows the plane's width and
+    address (:func:`swar_layout`)."""
     _check(x, body)
     if use_plain(x):
         return swar_stencil_plain(x, body, swar)
@@ -82,6 +90,42 @@ def swar_stencil(x: torch.Tensor, body: int, swar: bool = True) -> torch.Tensor:
                                       x.device.index, stream_of(x)), "swar_stencil")
     count_launch("swar_stencil")
     return out
+
+
+#: ``swar_layout``'s keys, in ``cc_swar_layout``'s order.
+SWAR_LAYOUT_KEYS = ("route", "threads", "blocks", "columns_per_thread")
+#: A block's threads; a vector-route thread's columns; a grid's y at most.
+SWAR_THREADS, VEC_COLS, MAX_GRID_Y = 256, 8, 65535
+
+
+def swar_layout(h: int, w: int, body: int, offset: int = 0) -> dict:
+    """The launch :func:`swar_stencil` makes for an (h, w) plane of body
+    ``body`` whose input starts ``offset`` bytes past a 16-byte boundary
+    (``x.data_ptr() % 16``; the output is the wrapper's own, aligned):
+    ``route`` "vector" (``w % 8 == 0`` and the input 16-byte aligned, 8-byte
+    for the u8 plane: a thread's 8 columns of one row, a warp's 256, a
+    block's 8 rows) or "general" (a column pair a thread, a block's row),
+    threads a block, blocks, columns a thread. ``swar_plan``'s rule in
+    ``csrc/probe_swar.cu``; :func:`swar_layout_cc` reads the kernel's own."""
+    vector = w % VEC_COLS == 0 and offset % (8 if body == 4 else 16) == 0
+    if vector:
+        gx, gy = -(-w // (32 * VEC_COLS)), -(-h // (SWAR_THREADS // 32))
+    else:
+        gx, gy = -(-((w + 1) // 2) // SWAR_THREADS), h
+    return dict(route="vector" if vector else "general", threads=SWAR_THREADS,
+                blocks=gx * min(gy, MAX_GRID_Y), columns_per_thread=VEC_COLS if vector else 2)
+
+
+def swar_layout_cc(h: int, w: int, body: int, offset: int = 0) -> dict:
+    """:func:`swar_layout` as the kernel library computes it
+    (``cc_swar_layout``; needs the built library)."""
+    out = (ctypes.c_int * len(SWAR_LAYOUT_KEYS))()
+    lib = load()
+    lib.check(lib.lib.cc_swar_layout(h, w, body, offset, ctypes.cast(out, ctypes.c_void_p)),
+              "cc_swar_layout")
+    lay = dict(zip(SWAR_LAYOUT_KEYS, out))
+    lay["route"] = "vector" if lay["route"] else "general"
+    return lay
 
 
 def wide_reference(x: torch.Tensor, body: int) -> torch.Tensor:

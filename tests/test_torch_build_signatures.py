@@ -76,16 +76,21 @@ def _out_indices(name: str) -> list:
                                        ("cc_sharded_loop_layout", "LOOP_LAYOUT_KEYS"),
                                        ("cc_split_layout", "SPLIT_LAYOUT_KEYS"),
                                        ("cc_probe_loop_layout", "PROBE_LOOP_LAYOUT_KEYS"),
-                                       ("cc_probe_ballot_grid", 4)])
+                                       ("cc_probe_ballot_grid", 4),
+                                       ("cc_probe_unpack_layout", "PROBE_UNPACK_LAYOUT_KEYS"),
+                                       ("cc_swar_layout", "SWAR_LAYOUT_KEYS")])
 def test_layout_reporter_fills_every_key_once(name, keys):
     """A layout reporter writes each int its Python reader allocates once,
     and none past it: ``round_layout`` reads 6, ``loop_layout`` one per
     ``LOOP_LAYOUT_KEYS`` entry, ``split_layout`` one per
     ``SPLIT_LAYOUT_KEYS`` entry, ``probe_loop_layout`` one per
-    ``PROBE_LOOP_LAYOUT_KEYS`` entry, ``probe_pack_ballot_grid`` 4."""
+    ``PROBE_LOOP_LAYOUT_KEYS`` entry, ``probe_pack_ballot_grid`` 4,
+    ``probe_unpack_layout_cc`` one per ``PROBE_UNPACK_LAYOUT_KEYS`` entry,
+    ``swar_layout_cc`` one per ``SWAR_LAYOUT_KEYS`` entry."""
     from cudacam_tpu_torch.ops.cuda import megakernel
-    from cudacam_tpu_torch.probes import hyster_kernel
+    from cudacam_tpu_torch.probes import hyster_kernel, i16_swar
 
     if isinstance(keys, str):
-        keys = len(getattr(megakernel, keys, None) or getattr(hyster_kernel, keys))
+        keys = len(next(getattr(m, keys) for m in (megakernel, hyster_kernel, i16_swar)
+                        if hasattr(m, keys)))
     assert _out_indices(name) == list(range(keys))

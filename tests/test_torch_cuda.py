@@ -1435,6 +1435,68 @@ def test_swar_stencil_matches_plain(dev, shape, body):
         assert torch.equal(i16_swar.swar_stencil(x, body, swar), want), swar
 
 
+def _view_at(x: torch.Tensor, offset: int) -> torch.Tensor:
+    """A contiguous copy of ``x`` whose first byte lies ``offset`` bytes
+    past a 16-byte boundary (a slice of a larger buffer)."""
+    esz = x.element_size()
+    assert offset % esz == 0
+    buf = torch.zeros(x.numel() + 16 // esz + offset // esz, dtype=x.dtype, device=x.device)
+    base = (-buf.data_ptr() % 16) // esz  # the first element on a boundary
+    view = buf[base + offset // esz:base + offset // esz + x.numel()].view(x.shape)
+    view.copy_(x)
+    assert view.data_ptr() % 16 == offset and view.is_contiguous()
+    return view
+
+
+#: Planes of both routes: the vector route's widths (W % 8 == 0) and the
+#: general route's (odd W, W % 8 != 0, the tiny planes).
+SWAR_PLANES = [(256, 512), (1080, 1920), (9, 8), (3, 264), (70, 2056), (1, 1), (7, 9), (3, 513),
+               (2, 6), (5, 12)]
+
+
+@pytest.mark.parametrize("shape", SWAR_PLANES)
+@pytest.mark.parametrize("body", [1, 2, 3, 4])
+def test_swar_stencil_routes_match_plain_at_every_offset(dev, shape, body):
+    """Each route at the input's offsets from a 16-byte boundary: 0 (the
+    vector route where W % 8 == 0), a pair (2 bytes for int16, 1 for u8)
+    and 8 bytes (the u8 plane's vector route, the int16 plane's general
+    one); the kernel library's layout equals the Python mirror."""
+    g = torch.Generator().manual_seed(body * 7 + shape[1])
+    x = (torch.randint(0, 255, shape, generator=g, dtype=torch.uint8) if body == 4
+         else torch.randint(-2**15, 2**15, shape, generator=g, dtype=torch.int16)).to(dev)
+    want = i16_swar.swar_stencil_plain(x, body)
+    for offset in (0, x.element_size(), 8):
+        xv = _view_at(x, offset)
+        lay = i16_swar.swar_layout_cc(*shape, body, offset)
+        assert lay == i16_swar.swar_layout(*shape, body, offset)
+        vector = shape[1] % 8 == 0 and offset % (8 if body == 4 else 16) == 0
+        assert lay["route"] == ("vector" if vector else "general")
+        for swar in (True, False):
+            kernels.reset_launch_counts()
+            assert torch.equal(i16_swar.swar_stencil(xv, body, swar), want), (offset, swar)
+            assert kernels.launch_counts()["swar_stencil"] == 1
+
+
+@pytest.mark.parametrize("hw,w", [(4, 256), (1, 1), (2, 53), (3, 70), (1, 1918), (135, 7680),
+                                  (2, 17), (1, 4)])
+def test_probe_unpack_byte_mode_at_every_offset(dev, hw, w):
+    """The byte mode's runs at widths whose rows start off a 16-byte
+    boundary (heads and tails), and words 4, 8 and 12 bytes off one (the
+    loads one by one); the kernel library's layout equals the mirror."""
+    rng = np.random.default_rng(hw * 1000 + w)
+    f = torch.from_numpy(rng.integers(0, 2**32, (hw, w), dtype=np.uint64).astype(np.uint32)
+                         .view(np.int32)).to(dev)
+    want = hk.probe_unpack_plain(f)
+    for per_word in (True, False):
+        assert hk.probe_unpack_layout_cc(hw, w, per_word) == hk.probe_unpack_layout(hw, w, per_word)
+    for offset in (0, 4, 8, 12):
+        fv = _view_at(f, offset)
+        kernels.reset_launch_counts()
+        assert torch.equal(hk.probe_unpack(fv, False), want), offset
+        assert torch.equal(hk.probe_unpack(fv, True), want), offset
+        assert kernels.launch_counts()["probe_unpack"] == 2
+
+
 @pytest.mark.parametrize("domain,pair", [("reference", (10, 40)), ("reference", (30, 90)),
                                          ("opencv", (20, 80)), ("opencv", (60, 180))])
 def test_parity_card_route_equals_cpu_route(dev, domain, pair):

@@ -31,7 +31,8 @@ from jax.experimental import pallas as pl
 
 from cudacam_tpu.ops.bitpack import pack_mask
 from cudacam_tpu_torch.probes import hyster_kernel as hk
-from test_torch_probes import _loop_numpy, hyster_calls  # noqa: F401 (a fixture)
+from cudacam_tpu_torch.probes import i16_swar
+from test_torch_probes import _loop_numpy, hyster_calls, swar_calls  # noqa: F401 (fixtures)
 
 #: The kernel's constants: a block's threads and a thread's rows at most.
 LOOP_NT, LOOP_R = 1024, 10
@@ -236,3 +237,358 @@ def test_ballot_pack_tasks_equal_the_jax_probe(hyster_calls):
         got, paths = _ballot_pack(buf, offset, *mask.shape)
         np.testing.assert_array_equal(got, words.view(np.int32))
         assert paths["vector" if offset == 0 else "byte"] == mask.shape[0] * mask.shape[1] // 32
+
+
+# -- the byte-mode unpack's runs ---------------------------------------------
+
+
+def _unpack_runs(f: np.ndarray, f_offset: int, out_offset: int, seed: int = 0):
+    """``unpack_runs_kernel`` on (hw, w) words whose first word lies
+    ``f_offset`` bytes past a 16-byte boundary, into an output buffer whose
+    first byte lies ``out_offset`` bytes past one (garbage before it and
+    beyond, as an allocator leaves it): returns (the (32 hw, w) map, how
+    often each output byte was written, the bytes before and after the map,
+    counts of the paths taken)."""
+    hw, w = f.shape
+    lay = hk.probe_unpack_layout(hw, w, per_word=False)
+    runs = -(-w // 16)  # a row's runs at most
+    gx, gy = -(-runs // 8), min(hw, 65535)
+    assert lay == dict(route="runs", threads=256, blocks=gx * gy, bytes_per_thread=16)
+    rng = np.random.default_rng(seed)
+    n = 32 * hw * w
+    out = rng.integers(0, 256, out_offset + n + 16, dtype=np.uint8)
+    writes = np.zeros_like(out, dtype=np.int32)
+    paths = {"vector loads": 0, "word loads": 0, "runs": 0, "head bytes": 0, "tail bytes": 0}
+    fw = f.view(np.uint32)
+    tid = np.arange(gx * 256)
+    bx, t = tid // 256, tid % 256
+    lane, warp = t % 32, t // 32
+    j = 8 * (warp & 3) + (lane >> 2)
+    m = 8 * bx + 4 * (warp >> 2) + (lane & 3)
+    assert len(set(zip(j.tolist(), m.tolist()))) == len(tid)  # one thread a (row, run)
+
+    def byte(k, r, c):
+        return 255 if (int(fw[k, c]) >> r) & 1 else 0
+
+    for by in range(gy):
+        k = by
+        while k < hw:
+            row = out_offset + (32 * k + j) * w  # the rows' first bytes
+            d = (16 - row % 16) % 16
+            for i in np.flatnonzero(m == 0):  # heads
+                for c in range(min(int(d[i]), w)):
+                    out[row[i] + c] = byte(k, j[i], c)
+                    writes[row[i] + c] += 1
+                    paths["head bytes"] += 1
+            c = d + 16 * m
+            for i in np.flatnonzero((c < w) & (c + 16 > w)):  # tails
+                for cc in range(int(c[i]), w):
+                    out[row[i] + cc] = byte(k, j[i], cc)
+                    writes[row[i] + cc] += 1
+                    paths["tail bytes"] += 1
+            full = np.flatnonzero(c + 16 <= w)
+            if full.size:
+                at = row[full] + c[full]
+                assert (at % 16 == 0).all()  # every 16-byte store on its boundary
+                word_at = f_offset + 4 * (k * w + c[full])
+                vec = word_at % 16 == 0
+                paths["vector loads"] += 4 * int(vec.sum())
+                paths["word loads"] += 16 * int((~vec).sum())
+                paths["runs"] += full.size
+                cols = c[full, None] + np.arange(16)
+                bits = (fw[k][cols] >> j[full, None].astype(np.uint32)) & np.uint32(1)
+                packed = (bits << np.arange(16, dtype=np.uint32)).sum(1)
+                nib = [(packed >> np.uint32(4 * q)) & np.uint32(15) for q in range(4)]
+                words = np.stack([((x * np.uint32(0x00204081)) & np.uint32(0x01010101))
+                                  * np.uint32(0xFF) for x in nib], 1).astype("<u4")
+                idx = at[:, None] + np.arange(16)
+                out[idx] = words.view(np.uint8).reshape(-1, 16)
+                np.add.at(writes, idx.ravel(), 1)
+            k += gy
+    outside = np.concatenate([out[:out_offset], out[out_offset + n:]])
+    return (out[out_offset:out_offset + n].reshape(32 * hw, w),
+            writes[out_offset:out_offset + n], outside, paths)
+
+
+UNPACK_PLANES = [(4, 256), (1, 1), (2, 53), (1, 70), (1, 1918), (2, 17), (1, 4), (3, 16),
+                 (1, 33), (2, 7680 + 4)]
+
+
+@pytest.mark.parametrize("hw,w", UNPACK_PLANES)
+@pytest.mark.parametrize("f_offset,out_offset", [(0, 0), (4, 0), (0, 3), (8, 15)])
+def test_unpack_runs_write_every_byte_once(hw, w, f_offset, out_offset):
+    f = np.random.default_rng(hw * 100 + w).integers(0, 2**32, (hw, w), dtype=np.uint64)
+    f = f.astype(np.uint32).view(np.int32)
+    rng_before = np.random.default_rng(1).integers(0, 256, out_offset + 32 * hw * w + 16,
+                                                   dtype=np.uint8)
+    got, writes, outside, paths = _unpack_runs(f, f_offset, out_offset, seed=1)
+    assert (writes == 1).all()
+    np.testing.assert_array_equal(  # the garbage around the map is untouched
+        outside, np.concatenate([rng_before[:out_offset], rng_before[out_offset + got.size:]]))
+    assert torch.equal(torch.from_numpy(got.copy()),
+                       hk.probe_unpack_plain(torch.from_numpy(f.copy()), per_word=False))
+    n = 32 * hw * w
+    assert paths["head bytes"] + paths["tail bytes"] + 16 * paths["runs"] == n
+    if w % 16 == 0 and out_offset % 16 == 0:
+        assert paths["head bytes"] == 0  # every row starts on a boundary
+    if f_offset % 16 == 0 and w % 16 == 0 and out_offset == 0:
+        assert paths["word loads"] == 0 and paths["tail bytes"] == 0
+    if f_offset % 16 == 4 and w % 4 == 0 and out_offset == 0 and w % 16 == 0:
+        assert paths["vector loads"] == 0  # every run's words off the boundary
+
+
+def test_unpack_runs_equal_the_jax_probe(hyster_calls):
+    """The probe's own words and map (TPU probe E in interpret mode)."""
+    _, _, (words,), (out,) = hyster_calls[3]
+    for f_offset, out_offset in ((0, 0), (4, 5)):
+        got, writes, _, _ = _unpack_runs(words.view(np.int32), f_offset, out_offset)
+        np.testing.assert_array_equal(got, out)
+        assert (writes == 1).all()
+
+
+# -- K14's two routes --------------------------------------------------------
+
+M16 = np.uint64(0xFFFF)
+
+
+def _vadd2(a, b):
+    """``__vadd2`` on words held in uint64: two 16-bit lanes, each wrapping."""
+    return ((a & M16) + (b & M16)) & M16 | (((a >> np.uint64(16)) + (b >> np.uint64(16))) & M16) \
+        << np.uint64(16)
+
+
+def _left_of(a, b):
+    """``__byte_perm(a, b, 0x5432)``: a's high lane low, b's low lane high."""
+    return (a >> np.uint64(16)) | ((b & M16) << np.uint64(16))
+
+
+def _lane(word, half):
+    """Lane ``half`` of a word, sign-extended to int64."""
+    v = (word >> np.uint64(16 * half)) & M16
+    return v.astype(np.uint16).view(np.int16).astype(np.int64)
+
+
+def _bits16(x: np.ndarray) -> np.ndarray:
+    """The 16 bits the kernel reads of each value (u8 zero-extended)."""
+    return (x.view(np.uint16) if x.dtype == np.int16 else x).astype(np.uint64)
+
+
+def _swar_vector(x: np.ndarray, offset: int, body: int, swar: bool, seed: int = 0):
+    """``swar_vec_kernel`` on the (h, w) plane x whose first byte lies
+    ``offset`` bytes past a 16-byte boundary: the grid's row loop, a
+    thread's 8 columns from one vector load a row (each load's and store's
+    address checked against its width), the column before and after a
+    chunk from the neighbouring lanes or, at a warp's edge lanes and the
+    plane's last chunk, a load; lanes past w hold garbage, which no live
+    lane may read and no store may write; the results staged a warp at a
+    time and stored as 16-byte quads, lane l taking quads l and 32 + l of
+    its warp's 256 columns. Returns (out, writes, edge loads)."""
+    h, w = x.shape
+    esz = x.itemsize
+    gx, gy = -(-w // 256), min(-(-h // 8), 65535)
+    lay = i16_swar.swar_layout(h, w, body, offset)
+    assert lay == dict(route="vector", threads=256, blocks=gx * gy, columns_per_thread=8)
+    rng = np.random.default_rng(seed)
+    out = np.zeros((h, w), np.int32)
+    writes = np.zeros((h, w), np.int32)
+    edge_loads = 0
+    bits = _bits16(x)
+    t = np.arange(gx * 32)  # the threads of one row: (bx, lane), warp-major
+    lane, c0 = t % 32, 8 * t
+    live = c0 < w
+    load_left, load_right = lane == 0, (lane == 31) | (c0 + 8 == w)
+    lc, rc = np.where(c0 == 0, w - 1, c0 - 1), np.where(c0 + 8 == w, 0, c0 + 8)
+    rows_body, cols_body = body in (2, 4), body in (3, 4)
+    cols8 = np.minimum(c0[:, None] + np.arange(8), w - 1)
+    for by in range(gy):
+        for warp in range(8):
+            i = by * 8 + warp
+            while i < h:
+                up, dn = (i - 1) % h, (i + 1) % h
+                assert ((offset + (i * w + c0[live]) * esz) % (8 * esz) == 0).all()  # the load
+                src = (i, up, dn) if rows_body else (i,)
+                chunk = [np.where(live[:, None], bits[r][cols8],
+                                  rng.integers(0, 2**16, (len(t), 8)).astype(np.uint64))
+                         for r in src]
+                # The 16 bits before and after a chunk, where a lane loads them.
+                el = [np.where(live & load_left, bits[r][np.minimum(lc, w - 1)], 0) for r in src]
+                er = [np.where(live & load_right, bits[r][np.minimum(rc, w - 1)], 0) for r in src]
+                if cols_body:
+                    edge_loads += len(src) * int((live & load_left).sum()
+                                                 + (live & load_right).sum())
+                if swar:
+                    words = [[c[:, 2 * q] | (c[:, 2 * q + 1] << np.uint64(16)) for q in range(4)]
+                             for c in chunk]
+                    s = words[0]
+                    if rows_body:
+                        s = [_vadd2(_vadd2(words[0][q], words[1][q]), words[2][q])
+                             for q in range(4)]
+                    if cols_body:
+                        fl = s[3] >> np.uint64(16)
+                        fr = s[0] & M16
+                        fl = np.where(lane > 0, np.roll(fl, 1), fl)  # __shfl_up_sync
+                        fr = np.where(lane < 31, np.roll(fr, -1), fr)  # __shfl_down_sync
+                        p = np.where(load_left, sum(el) & M16, fl) << np.uint64(16)
+                        n = np.where(load_right, sum(er) & M16, fr)
+                        y = []
+                        for q in range(4):
+                            l = _left_of(p if q == 0 else s[q - 1], s[q])
+                            r = _left_of(s[q], n if q == 3 else s[q + 1])
+                            lw = _vadd2(_vadd2(l, l), l) if body == 3 else l
+                            y.append(_vadd2(_vadd2(_vadd2(s[q], s[q]), lw), r))
+                    elif body == 1:
+                        y = [_vadd2(_vadd2(_vadd2(v, v), v), _vadd2(_vadd2(v, v), _vadd2(v, v)))
+                             for v in s]
+                    else:
+                        y = s
+                    res = np.stack([_lane(y[k // 2], k % 2) for k in range(8)], 1)
+                else:
+                    v = sum(_lane(c, 0) for c in chunk)
+                    if cols_body:
+                        fl = np.where(lane > 0, np.roll(v[:, 7], 1), v[:, 7])
+                        fr = np.where(lane < 31, np.roll(v[:, 0], -1), v[:, 0])
+                        l0 = np.where(load_left, sum(_lane(e, 0) for e in el), fl)
+                        r7 = np.where(load_right, sum(_lane(e, 0) for e in er), fr)
+                        left = np.concatenate([l0[:, None], v[:, :7]], 1)
+                        right = np.concatenate([v[:, 1:], r7[:, None]], 1)
+                        res = 2 * v + (3 * left if body == 3 else left) + right
+                    else:
+                        res = 7 * v if body == 1 else v
+                    res = res.astype(np.int16).astype(np.int64)
+                # The warp's stage: its 256 results in column order; lane l
+                # stores quads l and 32 + l, each 16 bytes on a boundary.
+                stage = res.reshape(gx, 64, 4)
+                for q in (lane, 32 + lane):
+                    col = 256 * (t // 32) + 4 * q
+                    st = col < w
+                    assert ((4 * (i * w + col[st])) % 16 == 0).all()
+                    for k in np.flatnonzero(st):
+                        out[i, col[k]:col[k] + 4] = stage[k // 32, q[k]]
+                        writes[i, col[k]:col[k] + 4] += 1
+                i += gy * 8
+    return out, writes, edge_loads
+
+
+def _swar_pairs(x: np.ndarray, offset: int, body: int, swar: bool):
+    """``swar_pair_kernel`` on the (h, w) plane x at ``offset``: a column
+    pair a thread, the grid's row loop, a pair read as one word only where
+    ``w`` is even and the base aligned to a pair (every such load's address
+    checked), else lane by lane. Returns (out, writes, word loads)."""
+    h, w = x.shape
+    esz = x.itemsize
+    npair = (w + 1) // 2
+    gx, gy = -(-npair // 256), min(h, 65535)
+    assert i16_swar.swar_layout(h, w, body, offset) == dict(
+        route="general", threads=256, blocks=gx * gy, columns_per_thread=2)
+    pairs = w % 2 == 0 and offset % (2 * esz) == 0
+    bits = _bits16(x)
+    out = np.zeros((h, w), np.int32)
+    writes = np.zeros((h, w), np.int32)
+    word_loads = 0
+    j = 2 * np.arange(gx * 256)
+    j = j[j < w]
+
+    def pair(i, jj):
+        nonlocal word_loads
+        jj = jj % w
+        if pairs:
+            assert ((offset + (i * w + jj) * esz) % (2 * esz) == 0).all()
+            word_loads += len(jj)
+        return bits[i][jj] | (bits[i][(jj + 1) % w] << np.uint64(16))
+
+    def val(i, jj):
+        return bits[i][jj % w].astype(np.uint16).view(np.int16).astype(np.int64)
+
+    for by in range(gy):
+        i = by
+        while i < h:
+            up, dn = (i - 1) % h, (i + 1) % h
+            if swar:
+                if body == 1:
+                    v = pair(i, j)
+                    t2 = _vadd2(v, v)
+                    y = _vadd2(_vadd2(t2, v), _vadd2(t2, t2))
+                elif body == 2:
+                    y = _vadd2(_vadd2(pair(i, j), pair(up, j)), pair(dn, j))
+                elif body == 3:
+                    p, c, n = pair(i, j - 2), pair(i, j), pair(i, j + 2)
+                    l, r = _left_of(p, c), _left_of(c, n)
+                    y = _vadd2(_vadd2(_vadd2(c, c), _vadd2(_vadd2(l, l), l)), r)
+                else:
+                    v = [_vadd2(_vadd2(pair(i, j + 2 * dd), pair(up, j + 2 * dd)),
+                                pair(dn, j + 2 * dd)) for dd in (-1, 0, 1)]
+                    y = _vadd2(_vadd2(_vadd2(v[1], v[1]), _left_of(v[0], v[1])),
+                               _left_of(v[1], v[2]))
+                r0, r1 = _lane(y, 0), _lane(y, 1)
+            else:
+                def body_i32(jj):
+                    if body == 1:
+                        return 7 * val(i, jj)
+                    if body == 2:
+                        return val(i, jj) + val(up, jj) + val(dn, jj)
+                    if body == 3:
+                        return 2 * val(i, jj) + 3 * val(i, jj - 1) + val(i, jj + 1)
+                    v = [val(i, jj + dd) + val(up, jj + dd) + val(dn, jj + dd) for dd in (-1, 0, 1)]
+                    return 2 * v[1] + v[0] + v[2]
+                r0, r1 = body_i32(j).astype(np.int16), body_i32(j + 1).astype(np.int16)
+            out[i, j] = r0
+            writes[i, j] += 1
+            second = j + 1 < w
+            out[i, j[second] + 1] = r1[second]
+            writes[i, j[second] + 1] += 1
+            i += gy
+    return out, writes, word_loads
+
+
+def _stencil_input(shape, body: int, seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, 255, shape, np.uint8) if body == 4
+            else rng.integers(-2**15, 2**15, shape, np.int16))  # wrapping lanes included
+
+
+SWAR_PLANES = [(16, 512), (9, 8), (3, 264), (2, 2056), (1, 1), (7, 9), (3, 513), (2, 6), (5, 12),
+               (1, 16)]
+
+
+@pytest.mark.parametrize("shape", SWAR_PLANES)
+@pytest.mark.parametrize("body", [1, 2, 3, 4])
+def test_swar_routes_write_every_output_once(shape, body):
+    """Both routes, both modes, at the input's offsets 0, one element and
+    8 bytes from a 16-byte boundary: the route the mirror names is the one
+    whose loads fit the addresses, every output is written once and equals
+    the plain version; the vector route loads edge values only at a warp's
+    first and last lane and the plane's last chunk."""
+    x = _stencil_input(shape, body, seed=shape[0] * 7 + shape[1] + body)
+    want = i16_swar.swar_stencil_plain(torch.from_numpy(x), body).numpy()
+    h, w = shape
+    for offset in (0, x.itemsize, 8):
+        vector = w % 8 == 0 and offset % (8 if body == 4 else 16) == 0
+        assert i16_swar.swar_layout(h, w, body, offset)["route"] == ("vector" if vector
+                                                                     else "general")
+        for swar in (True, False):
+            if vector:
+                got, writes, edges = _swar_vector(x, offset, body, swar, seed=offset)
+                if body in (3, 4):  # per row and source row: two a warp (first, last live lane)
+                    assert edges == (3 if body == 4 else 1) * 2 * -(-w // 256) * h
+            else:
+                got, writes, loads = _swar_pairs(x, offset, body, swar)
+                assert (loads > 0) == (swar and w % 2 == 0 and offset % (2 * x.itemsize) == 0)
+            assert (writes == 1).all(), (offset, swar)
+            np.testing.assert_array_equal(got, want, err_msg=f"offset {offset} swar {swar}")
+
+
+def test_swar_routes_equal_the_jax_probe(swar_calls):
+    """The probe's own planes and outputs (TPU probe P1-P4 in interpret
+    mode) through the vector route, and the general route one element
+    off the boundary."""
+    for body, (_, _, (x,), (out,)) in enumerate(swar_calls, 1):
+        for swar in (True, False):
+            np.testing.assert_array_equal(_swar_vector(x, 0, body, swar)[0], out)
+            np.testing.assert_array_equal(_swar_pairs(x, x.itemsize, body, swar)[0], out)
+
+
+def test_swar_layout_mirror_rows_past_the_grid():
+    """Planes taller than 65535 blocks of rows take the grid's row loop."""
+    assert i16_swar.swar_layout(65535 * 8 + 8, 8, 1)["blocks"] == 65535
+    assert i16_swar.swar_layout(70000, 9, 1)["blocks"] == 65535
+    assert hk.probe_unpack_layout(70000, 16, per_word=False)["blocks"] == 65535

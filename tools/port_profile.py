@@ -130,13 +130,18 @@ and ``devtime``), each printing one JSON line per workload
   a version without it).
 
 * ``probes``: K13's ballot pack (``probe_pack_ballot``) and ``probe_pack``
-  beside it on the 8K mask of ``chip_smoke.py`` (``pack_input(0)``), and
-  the construct loop (``probe_loop``) on the TPU probe's 40 x 256 plane (326
-  rounds): CUDA-event ms a call (20 calls a window for the packs, 5 for the
-  loop; median of 5 windows), profiler device µs a call (the session opened
-  by ``devtime.open_session``), a sha256 of the outputs (the loop's with its
-  flags), the loop's rounds and device µs a round, and its layout
-  (``probe_loop_layout``) and the ballot pack's grid
+  beside it on the 8K mask of ``chip_smoke.py`` (``pack_input(0)``), the
+  construct loop (``probe_loop``) on the TPU probe's 40 x 256 plane (326
+  rounds), ``probe_unpack`` in both modes on the 8K words (135 x 7680,
+  ``unpack_input(2)``), and K14's ``swar_stencil``, P1-P4 in SWAR and in
+  int32 mode, at 1080p and 8K (``probe_inputs``): CUDA-event ms a call (20
+  calls a window, 5 for the loop; median of 5 windows), profiler device µs
+  a call (the session opened by ``devtime.open_session``; the events of
+  either tree's kernel names), the bound in µs (the larger of the bytes
+  over 3.35 TB/s and the operations over 67 T/s), a sha256 of the outputs
+  (the loop's with its flags), the loop's rounds and device µs a round, and
+  the layouts (``probe_loop_layout``, ``probe_unpack_layout_cc``,
+  ``swar_layout_cc``) and the ballot pack's grid
   (``probe_pack_ballot_grid``), none in a version without them.
 
 * ``devtime``: the profiler's busy time checked against itself, on the
@@ -592,6 +597,13 @@ def device_us(fn, kernel: str, calls: int) -> float:
     return sum(us for name, us in device_events(fn, calls) if kernel in name) / calls
 
 
+def device_us_any(fn, kernels, calls: int) -> float:
+    """Profiler device µs a call of ``fn`` in the events whose name holds
+    any of ``kernels`` (the names of two versions of one kernel)."""
+    return sum(us for name, us in device_events(fn, calls)
+               if any(k in name for k in kernels)) / calls
+
+
 def ff(label: str) -> list:
     from cudacam_tpu_torch.ops.cuda.feedforward import ff_pack_batched, ff_pack_tiles
     from cudacam_tpu_torch.ops.cuda.megakernel import unpack
@@ -645,6 +657,7 @@ def ff(label: str) -> list:
 
 
 HBM_BYTES_PER_US = 3.35e6  # the H100 SXM's 3.35 TB/s
+OPS_PER_US = 67e6  # its 32-bit peak outside the tensor cores, 67 T/s
 
 
 def unpack_core_bound_us(t, frames: int = 1) -> float:
@@ -986,6 +999,42 @@ def probes(label: str) -> list:
         device_us=us, us_per_round=us / n_rounds, device_records=len(events),
         sha=sha(out, flags), layout=layout))
     print(json.dumps(rows[-1]), flush=True)
+
+    # K13's unpack in both modes on the 8K words, and K14's four bodies in
+    # both modes at 1080p and 8K: a kernel name of either tree matches.
+    f8 = torch.from_numpy(hk.unpack_input(2, 4320 // 32, 7680)).cuda()
+    for per_word, kernels in ((True, ("unpack_word_kernel",)),
+                              (False, ("unpack_byte_kernel", "unpack_runs_kernel"))):
+        run = functools.partial(hk.probe_unpack, f8, per_word)
+        layout = (hk.probe_unpack_layout_cc(*f8.shape, per_word)
+                  if hasattr(hk, "probe_unpack_layout_cc") else None)
+        rows.append(dict(
+            workload=f"probe_unpack {'a thread per word' if per_word else 'byte mode'} "
+                     f"135x7680 words", label=label, card=card,
+            event_ms=ms_per_call(lambda: [run() for _ in range(20)]) / 20,
+            device_us=device_us_any(run, kernels, 20), sha=sha(run()),
+            bound_us=(4 * f8.numel() + 32 * f8.numel()) / HBM_BYTES_PER_US, layout=layout))
+        print(json.dumps(rows[-1]), flush=True)
+    from cudacam_tpu_torch.probes import i16_swar as sw
+
+    body_ops = {1: 4, 2: 2, 3: 4, 4: 5}  # adds and multiplies a pixel, as chip_smoke.py counts
+    for tag, (h, w) in (("1080p", (1080, 1920)), ("8K", (4320, 7680))):
+        xi16, xu8 = (torch.from_numpy(a).cuda() for a in sw.probe_inputs(h, w))
+        for body in sw.BODIES:
+            x = xu8 if body == 4 else xi16
+            bound = max(h * w * (x.element_size() + 4) / HBM_BYTES_PER_US,
+                        body_ops[body] * h * w / OPS_PER_US)
+            layout = sw.swar_layout_cc(h, w, body) if hasattr(sw, "swar_layout_cc") else None
+            for swar in (True, False):
+                run = functools.partial(sw.swar_stencil, x, body, swar)
+                rows.append(dict(
+                    workload=f"swar_stencil P{body} {'SWAR' if swar else 'int32'} {tag}",
+                    label=label, card=card,
+                    event_ms=ms_per_call(lambda: [run() for _ in range(20)]) / 20,
+                    device_us=device_us_any(run, ("swar_",), 20), sha=sha(run()),
+                    bound_us=bound, layout=layout))
+                print(json.dumps(rows[-1]), flush=True)
+        del xi16, xu8
     return rows
 
 
