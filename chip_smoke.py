@@ -517,7 +517,7 @@ class Smoke:
                 "ff_pack_kernel", "ff_stages_kernel", "pack_thresh_kernel", "unpack_kernel",
                 "unpack_core_kernel", "sweep_pack_all_kernel", "sweep_seed_kernel",
                 "hyst_kernel", "split_kernel", "sharded_loop_kernel", "exchange_kernel",
-                "pack_ballot_kernel", "loop_block_kernel")):
+                "pack_ballot_kernel", "loop_block_kernel", "pack_tile_kernel")):
             print(f"nvcc report {name}: {json.dumps(rep)}")
 
     def phase_kernels(self) -> None:
@@ -1959,8 +1959,10 @@ class Smoke:
         """K13 and K14: the port's probe tools' runs as paths (counts set to
         0 just before, read just after), every probe kernel against its
         plain version at the TPU probes' shapes and at larger ones
-        (tolerance 0): the packs also at widths 7696, 1918 and 53 and on an
-        8K mask one byte past a 16-byte boundary, the loop on both routes
+        (tolerance 0): the packs also at widths 7696, 1918 and 53, at 4321 x
+        7680, 33 x 1024 and 1 x 1, and on an 8K mask 1, 4 and 8 bytes past a
+        16-byte boundary, each shape's ``probe_pack_layout`` required to
+        name the route it must take, the loop on both routes
         (the probe's plane, the tallest 256-column plane the resident route
         takes, and one word row more), with each plane's
         ``probe_loop_layout`` and the ballot pack's grid; the unpack's byte
@@ -1986,20 +1988,7 @@ class Smoke:
         require(all(ok for _, ok, _ in rows), "a probe failed")
 
         h8, w8 = 4320, 7680
-        for h, w in (hk.PACK_SHAPE, (h8, w8), (h8, w8 + 16), (1080, 1918), (70, 53)):
-            mask = torch.from_numpy(hk.pack_input(0, h, w)).to(dev)
-            want = hk.probe_pack_plain(mask)
-            self.diff("probe_pack", hk.probe_pack(mask), want)
-            self.diff("probe_pack_ballot", hk.probe_pack_ballot(mask), want)
-            print(f"probe_pack_ballot grid {h}x{w}: "
-                  f"{json.dumps(hk.probe_pack_ballot_grid(h, w, dev.index))}")
-        buf = torch.zeros(h8 * w8 + 16, dtype=torch.uint8, device=dev)
-        shifted = buf[1:1 + h8 * w8].view(h8, w8)  # every row's address off the boundary
-        shifted.copy_(torch.from_numpy(hk.pack_input(0, h8, w8)).to(dev))
-        want = hk.probe_pack_plain(shifted)
-        self.diff("probe_pack", hk.probe_pack(shifted), want)
-        self.diff("probe_pack_ballot", hk.probe_pack_ballot(shifted), want)
-        del buf, shifted
+
         def at_offset(x, offset: int):
             """A contiguous copy of ``x`` whose first byte lies ``offset``
             bytes past a 16-byte boundary (a slice of a larger buffer)."""
@@ -2012,6 +2001,27 @@ class Smoke:
                     f"a view {offset} bytes off a boundary")
             return view
 
+        # The packs: the vector route at w % 16 == 0 (h off 32 too), the
+        # general one at odd widths and on the 8K mask 1, 4 and 8 bytes off
+        # a 16-byte boundary (aligned words cut by a funnel shift; words).
+        for h, w, offset in ((*hk.PACK_SHAPE, 0), (h8, w8, 0), (h8, w8 + 16, 0), (1080, 1918, 0),
+                             (70, 53, 0), (4321, w8, 0), (33, 1024, 0), (1, 1, 0), (h8, w8, 1),
+                             (h8, w8, 4), (h8, w8, 8)):
+            mask = torch.from_numpy(hk.pack_input(0, h, w)).to(dev)
+            mask = at_offset(mask, offset) if offset else mask
+            lay = hk.probe_pack_layout_cc(h, w, mask.data_ptr() % 16)
+            route = "vector" if w % 16 == 0 and offset == 0 else "general"
+            require(lay == hk.probe_pack_layout(h, w, offset) and lay["route"] == route,
+                    f"probe_pack layout at {h}x{w}, offset {offset}: {lay}")
+            print(f"probe_pack_layout {h}x{w} mask {offset} bytes off a boundary: "
+                  f"{json.dumps(lay)}")
+            want = hk.probe_pack_plain(mask)
+            self.diff("probe_pack", hk.probe_pack(mask), want)
+            self.diff("probe_pack_ballot", hk.probe_pack_ballot(mask), want)
+            if offset == 0:
+                print(f"probe_pack_ballot grid {h}x{w}: "
+                      f"{json.dumps(hk.probe_pack_ballot_grid(h, w, dev.index))}")
+            del mask
         # The unpack's byte mode: the probe's words and 8K (every row on a
         # 16-byte boundary), odd widths (heads and tails), words one word
         # off a boundary (the run's words loaded one by one).
@@ -2071,8 +2081,9 @@ class Smoke:
                       + ", ".join(f"P{b} {json.dumps(lay)}" for b, lay in zip(sw.BODIES, lays)))
         print("probe_pack, probe_pack_ballot, probe_unpack (both modes), probe_loop and "
               "swar_stencil (P1-P4, both modes) == plain at the TPU probes' shapes and at 8K "
-              "(the packs also at 8Kx7696, 1080x1918, 70x53 and one byte off a 16-byte "
-              f"boundary; the loop at {past[0]}x{past[1]} (grid); the unpack also at 1x1, "
+              "(the packs also at 8Kx7696, 1080x1918, 70x53, 4321x7680, 33x1024, 1x1 and 1, "
+              "4 and 8 bytes off a 16-byte boundary, each probe_pack layout its route; "
+              f"the loop at {past[0]}x{past[1]} (grid); the unpack also at 1x1, "
               "2x53, 3x513 words and one word off a boundary; swar_stencil at 1080p, 1x1, "
               "7x9, 3x513 and one element off a boundary too); "
               "B/C/D (rounds, changed) = (326, 0)")
@@ -2084,6 +2095,9 @@ class Smoke:
             self.ms[name] = self.time_ms(lambda _: fn(mask), 20)
             self.plain_ms[name] = self.time_ms(lambda _: hk.probe_pack_plain(mask), 3)
             self.set_bound(name, h8 * w8 + 4 * words, 3 * h8 * w8)
+        shifted = at_offset(mask, 1)  # probe_pack's general route, words cut by a funnel shift
+        general_ms = self.time_ms(lambda _: hk.probe_pack(shifted), 20)
+        del shifted
         f8 = torch.from_numpy(hk.unpack_input(2, h8 // 32, w8)).to(dev)
         self.ms["probe_unpack"] = self.time_ms(lambda _: hk.probe_unpack(f8, True), 20)
         byte_ms = self.time_ms(lambda _: hk.probe_unpack(f8, False), 20)
@@ -2121,6 +2135,8 @@ class Smoke:
                             ("swar_stencil", "P4 SWAR at 1080p")):
             print(f"time {name}: kernel {self.ms[name]!r} ms, plain {self.plain_ms[name]!r} ms, "
                   f"bound {self.bound[name][0]!r} ms ({self.bound[name][1]}) ({where})")
+        print(f"time probe_pack 8K mask one byte off a boundary (the general route): "
+              f"{general_ms!r} ms (aligned: {self.ms['probe_pack']!r} ms)")
         print(f"time probe_unpack 135x7680 words: a thread per word {self.ms['probe_unpack']!r} "
               f"ms, the byte mode (a thread per 16-byte run of a row) {byte_ms!r} ms")
         print(f"time swar_stencil P4 1080p: library (circular conv2d, float32) "

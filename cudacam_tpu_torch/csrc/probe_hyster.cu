@@ -9,10 +9,20 @@
 //
 //   probe_pack         (h, w) u8 mask -> (ceil(h/32), w) words, bit r of word
 //                      row k = row 32k + r != 0 (TPU probe A). A 32-row x
-//                      PROBE_TW-column tile staged in shared memory from
-//                      coalesced loads, then transposed: thread c builds its
-//                      column's word from 32 shared bytes (the packs of
-//                      pack_walk.cuh hold a column in registers instead).
+//                      PACK_TW-column tile staged in shared memory, then
+//                      transposed (the packs of pack_walk.cuh hold a column
+//                      in registers instead). A warp stages 512 bytes of a
+//                      row a step: 16 bytes a lane by cp.async where every
+//                      row's address is 16-byte aligned, else through
+//                      registers: 16-byte loads for a row whose address is
+//                      aligned, aligned 4-byte words cut by a funnel shift
+//                      (the next word from the next lane) for any other,
+//                      bytes only at the mask's own ends; thread t
+//                      then builds the words of columns 4t..4t+3 from one
+//                      32-bit shared word a row by SWAR (a byte's != 0 as
+//                      its bit 7, shifted into bit r & 7 of that byte), a
+//                      4 x 4 byte transpose by __byte_perm, one 16-byte
+//                      store where the words' address allows.
 //   probe_pack_ballot  the same pack with no shared memory (TPU probe A'):
 //                      lane r of a warp holds row 32k + r, and __ballot_sync
 //                      is the word. A warp's task is one word row x 32
@@ -74,28 +84,188 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int NT = 256;
-constexpr int PROBE_TW = 128;  // probe_pack tile columns
+constexpr unsigned FULL = 0xffffffffu;
 
-__global__ void __launch_bounds__(NT) pack_transpose_kernel(const uint8_t* __restrict__ x,
-                                                            uint32_t* __restrict__ out, int h,
-                                                            int w) {
-  __shared__ uint8_t tile[32][PROBE_TW + 4];  // +4: a column's 32 bytes spread over banks
-  const int k = blockIdx.y, r0 = 32 * k, c0 = blockIdx.x * PROBE_TW;
-  for (int i = threadIdx.x; i < 32 * PROBE_TW; i += NT) {
-    const int r = i / PROBE_TW, c = i - r * PROBE_TW;
-    const int y = r0 + r, xc = c0 + c;
-    tile[r][c] = (y < h && xc < w) ? x[(size_t)y * w + xc] : 0;
-  }
-  __syncthreads();
-  for (int c = threadIdx.x; c < PROBE_TW; c += NT) {
-    uint32_t word = 0;
+// probe_pack: a block's tile is 32 rows x PACK_TW columns, a thread 4
+// columns. Warp q stages segment q % PACK_SEGS (512 bytes) of rows q /
+// PACK_SEGS + 4 j, j < 8: every thread makes 8 loads a tile.
+constexpr int PACK_TW = 512;
+constexpr int PACK_NT = PACK_TW / 4;
+constexpr int PACK_SEGS = PACK_TW / 512;
+constexpr int PACK_STEPS = 8;
+static_assert(PACK_TW % 512 == 0 && PACK_NT / 32 / PACK_SEGS * PACK_STEPS == 32,
+              "8 steps of 4 rows cover the tile's 32 rows");
+
+// The aligned 4 bytes of a row at columns c .. c + 3 (c > -4; row + c
+// 4-byte aligned) as a little-endian word, `at` the row's offset in the mask
+// of n bytes: no load where they lie wholly past w; one 4-byte load where
+// they lie inside the mask (bytes before 0 or from w on are the rows' before
+// and after, shifted out or left in tile columns past w, which reach no
+// stored word); byte by byte only at the mask's own first and last bytes.
+__device__ __forceinline__ uint32_t row_word(const uint8_t* row, long long at, long long n, int c,
+                                             int w) {
+  if (c >= w) return 0;
+  if (at + c >= 0 && at + c + 4 <= n) return __ldg(reinterpret_cast<const uint32_t*>(row + c));
+  uint32_t v = 0;
 #pragma unroll
-    for (int r = 0; r < 32; ++r) word |= (uint32_t)(tile[r][c] != 0) << r;
-    if (c0 + c < w) out[(size_t)k * w + c0 + c] = word;
+  for (int s = 0; s < 4; ++s)
+    if (c + s >= 0 && c + s < w) v |= (uint32_t)__ldg(row + c + s) << (8 * s);
+  return v;
+}
+
+// A lane's loads of the 512-byte segment of a row from column cs, the row
+// at `at` in the mask of n bytes and a16 its address mod 16. A row whose
+// address is 16-byte aligned: 16 bytes from cs + 16 lane, in v[0..3]. Any
+// other row, a = a16 % 4: the aligned words at columns cs + 4 (32 q + lane)
+// - a in v[q], and, at lane 31, the one at cs + 512 - a in *next;
+// words_of_row cuts them into the row's own words. Where the segment and a
+// word either side lie inside the mask (every segment but the mask's first
+// and last), the loads go unchecked: bytes past w land in tile columns that
+// reach no stored word. Elsewhere each word goes through row_word.
+__device__ __forceinline__ void load_row_segment(const uint8_t* __restrict__ row, long long at,
+                                                 long long n, int w, int cs, int lane, int a16,
+                                                 uint32_t (&v)[4], uint32_t* next) {
+  const int a = a16 & 3;
+  if (at + cs - 4 >= 0 && at + cs + 516 <= n) {
+    if (a16 == 0) {
+      const uint4 u = __ldg(reinterpret_cast<const uint4*>(row + cs) + lane);
+      v[0] = u.x, v[1] = u.y, v[2] = u.z, v[3] = u.w;
+    } else {
+      const uint32_t* p = reinterpret_cast<const uint32_t*>(row + cs - a);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) v[q] = __ldg(p + 32 * q + lane);
+      *next = lane == 31 ? __ldg(p + 128) : 0u;
+    }
+  } else if (a16 == 0) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) v[q] = row_word(row, at, n, cs + 16 * lane + 4 * q, w);
+  } else {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) v[q] = row_word(row, at, n, cs + 4 * (32 * q + lane) - a, w);
+    *next = lane == 31 ? row_word(row, at, n, cs + 512 - a, w) : 0u;
   }
 }
 
-constexpr unsigned FULL = 0xffffffffu;
+// The row's words at columns cs + 4 (32 q + lane) .. + 3 from the aligned
+// words load_row_segment read at a bytes before them: each is the high 4 - a
+// bytes of its own aligned word and the low a bytes of the next (the next
+// lane's, at lane 31 lane 0's of q + 1, past q = 3 the extra word).
+__device__ __forceinline__ void words_of_row(uint32_t (&v)[4], uint32_t next, int a, int lane) {
+  if (a == 0) return;  // the aligned words are the row's (a is the same on every lane)
+  uint32_t hi[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const uint32_t down = __shfl_down_sync(FULL, v[q], 1);
+    const uint32_t wrap = q < 3 ? __shfl_sync(FULL, v[q < 3 ? q + 1 : 0], 0) : next;
+    hi[q] = lane == 31 ? wrap : down;
+  }
+#pragma unroll
+  for (int q = 0; q < 4; ++q) v[q] = __funnelshift_r(v[q], hi[q], 8 * a);
+}
+
+// 16 bytes from global memory into shared memory with no registers
+// between (cp.async.cg); `bytes` 0 writes 16 zeros and reads nothing.
+__device__ __forceinline__ void copy16_async(void* dst, const void* src, int bytes) {
+  const unsigned to = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(to), "l"(src), "r"(bytes));
+}
+
+// Word rows blockIdx.y (+ gridDim.y, ...) at columns blockIdx.x PACK_TW ..
+// + PACK_TW - 1. VEC: every row's address is 16-byte aligned and w % 16 ==
+// 0, so a lane's 16 bytes lie wholly inside w or past it: the tile is staged
+// by cp.async (one commit and wait). Else through registers: 16-byte loads
+// for a row whose address is 16-byte aligned, aligned 4-byte words cut by a
+// funnel shift for any other, every load issued before the first shared
+// store (and, past the first word row, before the barrier).
+template <bool VEC>
+__global__ void __launch_bounds__(PACK_NT) pack_tile_kernel(const uint8_t* __restrict__ x,
+                                                            uint32_t* __restrict__ out, int h,
+                                                            int w) {
+  __shared__ __align__(16) uint32_t tile[32][PACK_TW / 4];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int seg = warp % PACK_SEGS, r0 = warp / PACK_SEGS;
+  const int c0 = blockIdx.x * PACK_TW, cs = c0 + 512 * seg;
+  const int hw = (h + 31) / 32;
+  for (int k = blockIdx.y; k < hw; k += gridDim.y) {
+    if (VEC) {
+      if (k != (int)blockIdx.y) __syncthreads();  // the last word row's transpose is done
+#pragma unroll
+      for (int j = 0; j < PACK_STEPS; ++j) {
+        const int y = 32 * k + r0 + 4 * j, c = cs + 16 * lane;
+        const bool in = y < h && c < w;
+        copy16_async(reinterpret_cast<uint8_t*>(tile[r0 + 4 * j]) + 512 * seg + 16 * lane,
+                     in ? x + (size_t)y * w + c : x, in ? 16 : 0);
+      }
+      asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+    } else {
+      uint32_t v[PACK_STEPS][4], next[PACK_STEPS];
+      int a[PACK_STEPS];  // the row's address mod 16 (c0 is a multiple of 512)
+#pragma unroll
+      for (int j = 0; j < PACK_STEPS; ++j) {
+        const int y = 32 * k + r0 + 4 * j;
+        const uint8_t* row = x + (size_t)y * w;
+        a[j] = (int)(reinterpret_cast<uintptr_t>(row) & 15);
+        if (y < h) {
+          load_row_segment(row, (long long)y * w, (long long)h * w, w, cs, lane, a[j], v[j],
+                           &next[j]);
+        } else {
+          a[j] = 0;
+#pragma unroll
+          for (int q = 0; q < 4; ++q) v[j][q] = 0;
+        }
+      }
+      if (k != (int)blockIdx.y) __syncthreads();  // the last word row's transpose is done
+#pragma unroll
+      for (int j = 0; j < PACK_STEPS; ++j) {
+        uint32_t* seg_at = tile[r0 + 4 * j] + 128 * seg;
+        if (a[j] == 0) {
+          *reinterpret_cast<uint4*>(seg_at + 4 * lane) =
+              make_uint4(v[j][0], v[j][1], v[j][2], v[j][3]);
+        } else {
+          words_of_row(v[j], next[j], a[j] & 3, lane);
+#pragma unroll
+          for (int q = 0; q < 4; ++q) seg_at[32 * q + lane] = v[j][q];
+        }
+      }
+    }
+    __syncthreads();
+    // Byte b of acc[g]: bit s is row 8 g + s of column 4 tid + b.
+    uint32_t acc[4] = {0, 0, 0, 0};
+#pragma unroll
+    for (int r = 0; r < 32; ++r) {
+      const uint32_t b = tile[r][tid];  // a warp's lanes: consecutive words, no bank conflict
+      const uint32_t nz = (((b & 0x7f7f7f7fu) + 0x7f7f7f7fu) | b) & 0x80808080u;  // bit 7: != 0
+      acc[r >> 3] |= nz >> (7 - (r & 7));
+    }
+    // The 4 x 4 byte transpose: word b = byte b of acc[0..3].
+    const uint32_t t0 = __byte_perm(acc[0], acc[1], 0x5140);
+    const uint32_t t1 = __byte_perm(acc[0], acc[1], 0x7362);
+    const uint32_t t2 = __byte_perm(acc[2], acc[3], 0x5140);
+    const uint32_t t3 = __byte_perm(acc[2], acc[3], 0x7362);
+    const uint32_t word[4] = {__byte_perm(t0, t2, 0x5410), __byte_perm(t0, t2, 0x7632),
+                              __byte_perm(t1, t3, 0x5410), __byte_perm(t1, t3, 0x7632)};
+    const int c = c0 + 4 * tid;
+    uint32_t* o = out + (size_t)k * w + c;
+    if (c + 4 <= w && (reinterpret_cast<uintptr_t>(o) & 15) == 0) {
+      *reinterpret_cast<uint4*>(o) = make_uint4(word[0], word[1], word[2], word[3]);
+    } else {
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if (c + q < w) o[q] = word[q];
+    }
+  }
+}
+
+// probe_pack's grid: x the column tiles, y the word rows (a loop past 65535).
+dim3 pack_grid(int h, int w) {
+  const int hw = (h + 31) / 32;
+  return dim3((w + PACK_TW - 1) / PACK_TW, hw < 65535 ? hw : 65535);
+}
+
+// probe_pack's route from the mask's address mod 16: the vector instance
+// where every row's address is 16-byte aligned.
+bool pack_vector(uintptr_t address, int w) { return w % 16 == 0 && (address & 15) == 0; }
+
 constexpr int BALLOT_TASKS = 2;  // tasks a warp has in flight
 
 // Lane r's 32 bytes of row y at columns c0..c0+31, as 8 words (byte j of the
@@ -454,10 +624,28 @@ extern "C" int cc_probe_pack(const void* x, void* out, int h, int w, int ballot,
     const int blocks = ballot_blocks(tasks, device);
     if (blocks < 0) return -blocks;
     pack_ballot_kernel<<<blocks, NT, 0, s>>>(xp, op, h, w, tasks);
+  } else if (pack_vector(reinterpret_cast<uintptr_t>(x), w)) {
+    pack_tile_kernel<true><<<pack_grid(h, w), PACK_NT, 0, s>>>(xp, op, h, w);
   } else {
-    pack_transpose_kernel<<<dim3((w + PROBE_TW - 1) / PROBE_TW, hw), NT, 0, s>>>(xp, op, h, w);
+    pack_tile_kernel<false><<<pack_grid(h, w), PACK_NT, 0, s>>>(xp, op, h, w);
   }
   return cudaGetLastError();
+}
+
+// The launch probe_pack makes for an (h, w) mask whose first byte lies
+// `offset` bytes past a 16-byte boundary: out[0] 1 the vector instance / 0
+// the general one, out[1] threads a block, out[2] blocks, out[3] a tile's
+// columns, out[4] columns a thread, out[5] a block's shared memory in bytes.
+extern "C" int cc_probe_pack_layout(int h, int w, int offset, int* out) {
+  if (h < 1 || w < 1) return cudaErrorInvalidValue;
+  const dim3 g = pack_grid(h, w);
+  out[0] = pack_vector((uintptr_t)offset, w) ? 1 : 0;
+  out[1] = PACK_NT;
+  out[2] = (int)(g.x * g.y);
+  out[3] = PACK_TW;
+  out[4] = 4;
+  out[5] = 32 * PACK_TW;
+  return cudaSuccess;
 }
 
 // The ballot pack's grid for an (h, w) mask on `device`: out[0] blocks,

@@ -59,6 +59,7 @@ SIGNATURES = {
     "cc_sweep_pack_all": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "cc_sweep_seed": (_I, [_P, _P, _I, _I, _I, _I, _P]),
     "cc_probe_pack": (_I, [_P, _P, _I, _I, _I, _I, _P]),
+    "cc_probe_pack_layout": (_I, [_I, _I, _I, _P]),
     "cc_probe_loop": (_I, [_P, _P, _P] + [_I] * 6 + [_P]),
     "cc_probe_loop_max_blocks": (_I, [_I]),
     "cc_probe_loop_layout": (_I, [_I, _I, _I, _P]),

@@ -7,8 +7,10 @@ kernel (``csrc/probe_hyster.cu``) that tries the construct risky on Hopper,
 beside its plain PyTorch version:
 
 * :func:`probe_pack` (TPU probe A): an (h, w) u8 mask -> (ceil(h/32), w)
-  words, bit r of word row k = row 32k + r; a shared-memory tile transposed
-  into words;
+  words, bit r of word row k = row 32k + r; a 32-row tile staged in shared
+  memory (16 bytes a lane where a row's address allows, else aligned 4-byte
+  words cut by a funnel shift) and transposed into words, a thread's 4
+  columns by SWAR (:func:`probe_pack_layout`);
 * :func:`probe_pack_ballot` (A'): the same pack with no shared memory,
   ``__ballot_sync`` over 32 lanes holding 32 rows; warp tasks of one word
   row x 32 columns over the whole card, full-sector loads where a row's
@@ -105,8 +107,46 @@ def _pack(mask: torch.Tensor, ballot: bool) -> torch.Tensor:
 def probe_pack(mask: torch.Tensor) -> torch.Tensor:
     """(h, w) uint8 mask -> (ceil(h/32), w) int32 words: bit r of word row
     k is ``mask[32k + r] != 0`` (rows past h are 0). The kernel stages a
-    32-row tile in shared memory and transposes it into words."""
+    32-row tile in shared memory and transposes it into words
+    (:func:`probe_pack_layout`)."""
     return _pack(mask, False)
+
+
+#: ``probe_pack_layout``'s keys, in ``cc_probe_pack_layout``'s order.
+PROBE_PACK_LAYOUT_KEYS = ("route", "threads", "blocks", "tile_columns", "columns_per_thread",
+                          "smem_bytes")
+#: :func:`probe_pack`'s tile columns (``PACK_TW`` in ``csrc/probe_hyster.cu``).
+PACK_TILE_COLUMNS = 512
+
+
+def probe_pack_layout(h: int, w: int, offset: int = 0) -> dict:
+    """The launch :func:`probe_pack` makes for an (h, w) mask whose first
+    byte lies ``offset`` bytes past a 16-byte boundary: ``route`` "vector"
+    (every row's address 16-byte aligned: ``w % 16 == 0`` and an aligned
+    mask; a lane stages 16 bytes of a row a step) or "general" (16 bytes
+    a lane for a row whose address is 16-byte aligned, else aligned 4-byte
+    words cut by a funnel shift), threads a block (a thread's 4 columns),
+    blocks (grid
+    (ceil(w / 512), min(ceil(h / 32), 65535))), the tile's columns, columns
+    a thread and a block's shared memory (the 32-row tile). The rule of
+    ``csrc/probe_hyster.cu``; :func:`probe_pack_layout_cc` reads the
+    kernel library's own."""
+    tw = PACK_TILE_COLUMNS
+    return dict(route="vector" if w % 16 == 0 and offset % 16 == 0 else "general",
+                threads=tw // 4, blocks=-(-w // tw) * min(-(-h // 32), 65535), tile_columns=tw,
+                columns_per_thread=4, smem_bytes=32 * tw)
+
+
+def probe_pack_layout_cc(h: int, w: int, offset: int = 0) -> dict:
+    """:func:`probe_pack_layout` as the kernel library computes it
+    (``cc_probe_pack_layout``; needs the built library)."""
+    out = (ctypes.c_int * len(PROBE_PACK_LAYOUT_KEYS))()
+    lib = load()
+    lib.check(lib.lib.cc_probe_pack_layout(h, w, offset, ctypes.cast(out, ctypes.c_void_p)),
+              "cc_probe_pack_layout")
+    lay = dict(zip(PROBE_PACK_LAYOUT_KEYS, out))
+    lay["route"] = "vector" if lay["route"] else "general"
+    return lay
 
 
 def probe_pack_ballot(mask: torch.Tensor) -> torch.Tensor:

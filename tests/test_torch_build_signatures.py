@@ -77,6 +77,7 @@ def _out_indices(name: str) -> list:
                                        ("cc_split_layout", "SPLIT_LAYOUT_KEYS"),
                                        ("cc_probe_loop_layout", "PROBE_LOOP_LAYOUT_KEYS"),
                                        ("cc_probe_ballot_grid", 4),
+                                       ("cc_probe_pack_layout", "PROBE_PACK_LAYOUT_KEYS"),
                                        ("cc_probe_unpack_layout", "PROBE_UNPACK_LAYOUT_KEYS"),
                                        ("cc_swar_layout", "SWAR_LAYOUT_KEYS")])
 def test_layout_reporter_fills_every_key_once(name, keys):
@@ -86,6 +87,7 @@ def test_layout_reporter_fills_every_key_once(name, keys):
     ``SPLIT_LAYOUT_KEYS`` entry, ``probe_loop_layout`` one per
     ``PROBE_LOOP_LAYOUT_KEYS`` entry, ``probe_pack_ballot_grid`` 4,
     ``probe_unpack_layout_cc`` one per ``PROBE_UNPACK_LAYOUT_KEYS`` entry,
+    ``probe_pack_layout_cc`` one per ``PROBE_PACK_LAYOUT_KEYS`` entry,
     ``swar_layout_cc`` one per ``SWAR_LAYOUT_KEYS`` entry."""
     from cudacam_tpu_torch.ops.cuda import megakernel
     from cudacam_tpu_torch.probes import hyster_kernel, i16_swar

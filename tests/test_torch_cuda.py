@@ -1328,10 +1328,13 @@ from cudacam_tpu_torch.probes import i16_swar  # noqa: E402
 
 
 @pytest.mark.parametrize("h,w", [(128, 256), (1, 1), (37, 53), (4320, 7680), (4320, 7680 + 16),
-                                 (1080, 1918), (70, 53)])
+                                 (1080, 1918), (70, 53), (4321, 7680), (33, 1024), (1080, 1920)])
 def test_probe_packs_and_unpacks_match_plain(dev, h, w):
     mask = torch.from_numpy(hk.pack_input(h * w % 7, h, w) * 3).to(dev)
     want = hk.probe_pack_plain(mask)
+    lay = hk.probe_pack_layout_cc(h, w, mask.data_ptr() % 16)
+    assert lay == hk.probe_pack_layout(h, w) and mask.data_ptr() % 16 == 0
+    assert lay["route"] == ("vector" if w % 16 == 0 else "general")
     kernels.reset_launch_counts()
     assert torch.equal(hk.probe_pack(mask), want) and torch.equal(hk.probe_pack_ballot(mask), want)
     for per_word in (True, False):
@@ -1345,18 +1348,25 @@ def test_probe_packs_and_unpacks_match_plain(dev, h, w):
     assert 1 <= grid["blocks"] <= -(-grid["tasks"] // per_block)  # no block without a task
 
 
-@pytest.mark.parametrize("offset", [1, 3, 8])
-def test_probe_packs_match_plain_on_an_unaligned_mask(dev, offset):
-    """An 8K mask whose first byte lies ``offset`` bytes past a 16-byte
-    boundary (a slice of a larger buffer): every row's address is off the
-    boundary, so the ballot pack reads byte by byte."""
-    h, w = 4320, 7680
-    buf = torch.zeros(h * w + 16, dtype=torch.uint8, device=dev)
-    mask = buf[offset:offset + h * w].view(h, w)
+@pytest.mark.parametrize("offset", [1, 3, 4, 8, 12])
+@pytest.mark.parametrize("h,w", [(4320, 7680), (4321, 1918), (33, 1024)])
+def test_probe_packs_match_plain_on_an_unaligned_mask(dev, offset, h, w):
+    """A mask whose first byte lies ``offset`` bytes past a 16-byte
+    boundary (a slice of a larger buffer): at 8K every row's address is off
+    the boundary, so the ballot pack reads byte by byte and ``probe_pack``
+    takes its general route (4-byte words at offsets 4, 8 and 12; at 1
+    and 3 aligned words cut by a funnel shift)."""
+    buf = torch.zeros(h * w + 32, dtype=torch.uint8, device=dev)
+    at = -buf.data_ptr() % 16 + offset
+    mask = buf[at:at + h * w].view(h, w)
     mask.copy_(torch.from_numpy(hk.pack_input(offset, h, w) * 5).to(dev))
     assert mask.data_ptr() % 16 == offset and mask.is_contiguous()
+    lay = hk.probe_pack_layout_cc(h, w, offset)
+    assert lay == hk.probe_pack_layout(h, w, offset) and lay["route"] == "general"
     want = hk.probe_pack_plain(mask)
+    kernels.reset_launch_counts()
     assert torch.equal(hk.probe_pack_ballot(mask), want) and torch.equal(hk.probe_pack(mask), want)
+    assert kernels.launch_counts()["probe_pack"] == 1
 
 
 def _check_loop_layout(lay: dict, hw: int, w: int) -> None:

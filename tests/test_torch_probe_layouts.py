@@ -1,4 +1,4 @@
-"""NumPy models of the schedules of K13's ballot pack and resident loop
+"""NumPy models of the schedules of K13's packs and resident loop
 (``cudacam_tpu_torch/csrc/probe_hyster.cu``) against the contracts.
 
 The kernels run only on a card (``tests/test_torch_cuda.py``). Here each
@@ -19,7 +19,19 @@ masks and integers):
   columns, a lane's row read as two 16-byte vectors where the row's
   address is 16-byte aligned and the 32 columns lie inside w, else byte by
   byte; rows past h as 0; the ballot as bit assembly over lanes. Held to
-  the JAX ``bitpack.pack_mask`` and to the recorded outputs of JAX probe A'.
+  the JAX ``bitpack.pack_mask`` and to the recorded outputs of JAX probe A';
+* the shared-memory pack (``pack_tile_kernel``): 32-row x 512-column tiles,
+  a warp staging 512 bytes of a row a step: 16 bytes a lane where the row's
+  address is 16-byte aligned (copied by ``cp.async`` on the vector route),
+  else aligned 4-byte words cut by a funnel shift, the next word from the
+  next lane; unchecked loads where the segment and a word either side lie
+  inside the mask (tile columns past w reach no stored word), checked
+  words elsewhere, bytes only at the mask's own ends, no load outside the
+  mask; a thread's 4 columns by the SWAR normaliser and the
+  ``__byte_perm`` transpose as uint32 arithmetic, 16-byte stores where the
+  words' address allows; every tile byte and output word written once.
+  Held to ``bitpack.pack_mask``, ``probe_pack_plain``, the recorded output
+  of JAX probe A and ``probe_pack_layout``;
 """
 from __future__ import annotations
 
@@ -237,6 +249,254 @@ def test_ballot_pack_tasks_equal_the_jax_probe(hyster_calls):
         got, paths = _ballot_pack(buf, offset, *mask.shape)
         np.testing.assert_array_equal(got, words.view(np.int32))
         assert paths["vector" if offset == 0 else "byte"] == mask.shape[0] * mask.shape[1] // 32
+
+
+# -- the shared-memory pack ----------------------------------------------------
+
+#: The kernel's tile columns, threads a block and staging steps a thread.
+PACK_TW, PACK_NT, PACK_STEPS = 512, 128, 8
+U32 = np.uint32
+
+
+def _byte_perm(x, y, sel: int):
+    """``__byte_perm(x, y, sel)`` on uint32 arrays: byte i of the result is
+    byte ``(sel >> 4 i) & 7`` of the 8 bytes y:x."""
+    xy = (np.asarray(y, np.uint64) << np.uint64(32)) | np.asarray(x, np.uint64)
+    out = np.zeros(np.shape(x), np.uint32)
+    for i in range(4):
+        b = (xy >> np.uint64(8 * ((sel >> (4 * i)) & 7))) & np.uint64(0xFF)
+        out |= b.astype(np.uint32) << U32(8 * i)
+    return out
+
+
+def _swar_words(rows: np.ndarray) -> np.ndarray:
+    """A thread's transpose: ``rows`` (32, n) uint32 shared words (4 columns
+    each) -> (n, 4) words, by the kernel's SWAR normaliser, shifts and
+    ``__byte_perm`` transpose, as uint32 arithmetic."""
+    acc = np.zeros((4, rows.shape[1]), np.uint32)
+    for r in range(32):
+        b = rows[r]
+        nz = (((b & U32(0x7F7F7F7F)) + U32(0x7F7F7F7F)) | b) & U32(0x80808080)
+        acc[r >> 3] |= nz >> U32(7 - (r & 7))
+    t0, t1 = _byte_perm(acc[0], acc[1], 0x5140), _byte_perm(acc[0], acc[1], 0x7362)
+    t2, t3 = _byte_perm(acc[2], acc[3], 0x5140), _byte_perm(acc[2], acc[3], 0x7362)
+    return np.stack([_byte_perm(t0, t2, 0x5410), _byte_perm(t0, t2, 0x7632),
+                     _byte_perm(t1, t3, 0x5410), _byte_perm(t1, t3, 0x7632)], 1)
+
+
+def _tile_pack(buf: np.ndarray, offset: int, h: int, w: int, gy=None):
+    """``pack_tile_kernel`` on the (h, w) mask at ``buf[offset:]`` (a
+    16-byte load stands for the vector route's ``cp.async`` copy too), with
+    ``buf`` starting on a 16-byte boundary and the output on one (a fresh
+    allocation): returns (words, how often each word was written, counts of
+    the rows by route, the loads by width and the stores by kind). ``gy``
+    (the grid's rows; the kernel's is ``min(hw, 65535)``) exercises the
+    word-row loop at small sizes. Every load's address is checked against
+    its width and against the mask's bytes, and every tile byte is written
+    once a word row."""
+    hw = -(-h // 32)
+    gx = -(-w // PACK_TW)
+    lay = hk.probe_pack_layout(h, w, offset)
+    vec = w % 16 == 0 and offset % 16 == 0
+    assert lay == dict(route="vector" if vec else "general", threads=PACK_NT,
+                       blocks=gx * min(hw, 65535), tile_columns=PACK_TW, columns_per_thread=4,
+                       smem_bytes=32 * PACK_TW)
+    gy = gy or min(hw, 65535)
+    out = np.zeros(hw * w, np.uint32)
+    writes = np.zeros(hw * w, np.int32)
+    counts = {"rows 16": 0, "rows 4": 0, "rows shifted": 0, "rows past h": 0, "loads 16": 0,
+              "loads 4": 0, "loads 1": 0, "stores 16": 0, "stores 4": 0, "checked": 0}
+    lane = np.arange(32)
+    segs = PACK_TW // 512
+    tid = np.arange(PACK_NT)
+
+    def load(addr, width):
+        assert (addr % width == 0).all()  # every load on its width's boundary
+        assert (addr >= offset).all() and (addr + width <= offset + h * w).all()  # the mask's
+        if width == 1:  # bytes only at the mask's own first and last 3 bytes
+            assert ((addr - offset < 3) | (offset + h * w - addr <= 3)).all()
+        counts[f"loads {width}"] += addr.size
+        return buf[addr[..., None] + np.arange(width)] if width > 1 else buf[addr]
+
+    def row_word(row, c):
+        """``row_word``: (n,) columns of the row at ``row`` -> (n,) words: 0
+        and no load where the word lies wholly past w, one 4-byte load where
+        it lies inside the mask (neighbouring rows' bytes and all), else its
+        bytes inside [0, w)."""
+        c = np.asarray(c)
+        assert (c > -4).all()
+        cols = c[:, None] + np.arange(4)
+        inside = (cols >= 0) & (cols < w)
+        got = np.zeros((c.size, 4), np.uint8)
+        some = c < w
+        word = some & (row + c >= offset) & (row + c + 4 <= offset + h * w)
+        if word.any():
+            got[word] = load(row + c[word], 4)
+        by = some & ~word
+        part = got[by]
+        part[inside[by]] = load((row + cols[by])[inside[by]], 1)
+        got[by] = part
+        return got.view("<u4").ravel().astype(np.uint32)
+
+    for bx in range(gx):
+        c0 = bx * PACK_TW
+        for by in range(gy):
+            for k in range(by, hw, gy):
+                tile = np.zeros((32, PACK_TW // 4), np.uint32)
+                tile_writes = np.zeros((32, PACK_TW // 4), np.int32)
+                for warp in range(PACK_NT // 32):
+                    seg, r0 = warp % segs, warp // segs
+                    cs = c0 + 512 * seg
+                    for j in range(PACK_STEPS):
+                        r = r0 + 4 * j
+                        y = 32 * k + r
+                        row = offset + y * w  # the row's address, not its column
+                        a = row % 16
+                        v = np.zeros((32, 4), np.uint32)  # (lane, q)
+                        at = y * w  # the row's offset in the mask
+                        # every segment but the mask's first and last: no checks
+                        fast = vec or (at + cs - 4 >= 0 and at + cs + 516 <= h * w)
+                        counts["checked"] += y < h and not fast
+                        if y >= h:
+                            counts["rows past h"] += 1
+                            place = 4 * lane[:, None] + np.arange(4)  # one 16-byte store
+                        elif a == 0:  # 16 bytes from cs + 16 lane
+                            counts["rows 16"] += 1
+                            c = cs + 16 * lane
+                            if fast and vec:  # cp.async: nothing past w
+                                live = c < w
+                                v[live] = load(row + c[live], 16).reshape(-1, 16).view("<u4")
+                            elif fast:
+                                v[:] = load(row + c, 16).reshape(-1, 16).view("<u4")
+                            else:
+                                v = row_word(row, (c[:, None] + 4 * np.arange(4)).ravel())
+                                v = v.reshape(32, 4)
+                            place = 4 * lane[:, None] + np.arange(4)
+                        else:  # aligned words a % 4 bytes before the row's, a funnel shift
+                            am = a % 4
+                            counts["rows shifted" if am else "rows 4"] += 1
+                            cols = cs + 4 * (32 * np.arange(4)[None, :] + lane[:, None]) - am
+                            if fast:
+                                v = load(row + cols.ravel(), 4).view("<u4").reshape(32, 4)
+                                nxt = load(np.array([row + cs + 512 - am]), 4).view("<u4")[0, 0]
+                            else:
+                                v = row_word(row, cols.ravel()).reshape(32, 4)
+                                nxt = row_word(row, [cs + 512 - am])[0]  # lane 31's
+                            v = v.astype(np.uint32)
+                            if am:
+                                hi = np.roll(v, -1, 0)  # __shfl_down_sync: the next lane's
+                                hi[31] = np.append(v[0, 1:], nxt)  # lane 0's of q + 1
+                                both = (hi.astype(np.uint64) << np.uint64(32)) | v
+                                v = (both >> np.uint64(8 * am)).astype(np.uint32)
+                            place = 32 * np.arange(4)[None, :] + lane[:, None]
+                        tile[r, 128 * seg + place] = v
+                        np.add.at(tile_writes[r], (128 * seg + place).ravel(), 1)
+                assert (tile_writes == 1).all()  # the staging covers the tile once
+                # Inside w the tile holds the mask's rows (0 past h); past w,
+                # whatever was loaded: those columns reach no stored word.
+                n_in = min(PACK_TW, w - c0)
+                rows = 32 * k + np.arange(32)
+                want = np.zeros((32, n_in), np.uint8)
+                live = rows < h
+                want[live] = buf[offset + rows[live, None] * w + c0 + np.arange(n_in)]
+                np.testing.assert_array_equal(tile.view(np.uint8)[:, :n_in], want)
+                words = _swar_words(tile)  # (threads, 4)
+                c = c0 + 4 * tid
+                at = k * w + c
+                vector = (c + 4 <= w) & ((4 * at) % 16 == 0)
+                counts["stores 16"] += int(vector.sum())
+                for q in range(4):
+                    keep = c + q < w
+                    out[at[keep] + q] = words[keep, q]
+                    writes[at[keep] + q] += 1
+                    counts["stores 4"] += int((keep & ~vector).sum())
+    return out.reshape(hw, w).view(np.int32), writes.reshape(hw, w), counts
+
+
+#: The ballot pack's shapes, and h off 32 at an aligned width.
+PACK_SHAPES = [(128, 256), (1, 1), (37, 53), (70, 1918), (33, 7680 + 16), (64, 96), (40, 31),
+               (33, 1024)]
+
+
+@pytest.mark.parametrize("h,w", PACK_SHAPES)
+@pytest.mark.parametrize("offset", [0, 1, 4, 8, 16])
+def test_tile_pack_equals_pack_mask(h, w, offset):
+    buf = _buffer(h, w, offset, seed=h + w)
+    mask = buf[offset:offset + h * w].reshape(h, w)
+    got, writes, n = _tile_pack(buf, offset, h, w)
+    np.testing.assert_array_equal(got, np.asarray(pack_mask(jnp.asarray(mask != 0))).view(np.int32))
+    assert torch.equal(hk.probe_pack_plain(torch.from_numpy(mask.copy())), torch.from_numpy(got))
+    assert (writes == 1).all()  # every output word written once
+    hw, segs = -(-h // 32), -(-w // PACK_TW) * (PACK_TW // 512)  # a row's warp segments
+    assert n["rows past h"] == (32 * hw - h) * segs
+    assert n["rows 16"] + n["rows 4"] + n["rows shifted"] == h * segs
+    assert n["loads 1"] <= 16  # words at the mask's first and last 3 bytes only
+    if w % 16 == 0:
+        route = {0: "rows 16", 4: "rows 4", 8: "rows 4", 1: "rows shifted"}[offset % 16]
+        assert n[route] == h * segs  # every row takes one route
+    if w % 16 == 0 and offset % 4 == 0:
+        assert n["loads 1"] == 0
+    if w % 4 == 0:
+        assert n["stores 4"] == 0  # every row's words on a 16-byte boundary
+    if w == 1918 and offset == 0:
+        assert n["rows 16"] and n["rows 4"] and n["rows shifted"]  # rows take all three
+    if h * w > 20000 and not (w % 16 == 0 and offset % 16 == 0):
+        assert 0 < n["checked"] < h * segs // 8  # the mask's first and last segments only
+
+
+@pytest.mark.parametrize("values", [(0x00, 0x01), (0x00, 0x7F), (0x00, 0x80), (0x00, 0xFF),
+                                    (0x01, 0x7F, 0x80, 0xFF, 0x00, 0x40, 0x03)])
+@pytest.mark.parametrize("offset", [0, 1, 4])
+def test_tile_pack_normalises_every_byte(values, offset):
+    """Masks of the normaliser's edge bytes: bit 7 alone, the low 7 bits
+    alone, all bits."""
+    h, w = 37, 528
+    rng = np.random.default_rng(len(values) * 10 + offset)
+    mask = np.asarray(values, np.uint8)[rng.integers(0, len(values), (h, w))]
+    buf = np.zeros(offset + h * w + 32, np.uint8)
+    buf[offset:offset + h * w] = mask.ravel()
+    got, writes, _ = _tile_pack(buf, offset, h, w)
+    np.testing.assert_array_equal(got, np.asarray(pack_mask(jnp.asarray(mask != 0))).view(np.int32))
+    assert (writes == 1).all()
+
+
+def test_tile_pack_swar_equals_the_bit_sum():
+    """The normaliser over all 256 byte values at every row position, and
+    the byte transpose, against the direct bit sum."""
+    rng = np.random.default_rng(0)
+    cols = np.concatenate([np.repeat(np.arange(256, dtype=np.uint8)[None], 32, 0),
+                           rng.integers(0, 256, (32, 256), dtype=np.uint8)], 1)
+    words = _swar_words(cols.view("<u4").astype(np.uint32)).ravel()
+    want = ((cols != 0).astype(np.uint64) << np.arange(32, dtype=np.uint64)[:, None]).sum(0)
+    np.testing.assert_array_equal(words, want.astype(np.uint32))
+
+
+def test_tile_pack_word_row_loop():
+    """A grid with fewer rows than word rows (the kernel's past 65535)
+    walks every word row once."""
+    h, w = 32 * 5 + 3, 1100
+    buf = _buffer(h, w, 4, seed=9)
+    mask = buf[4:4 + h * w].reshape(h, w)
+    for gy in (1, 2, 3):
+        got, writes, _ = _tile_pack(buf, 4, h, w, gy=gy)
+        np.testing.assert_array_equal(got, np.asarray(pack_mask(jnp.asarray(mask != 0)))
+                                      .view(np.int32))
+        assert (writes == 1).all()
+    assert hk.probe_pack_layout(32 * 70000, 16)["blocks"] == 65535
+    assert hk.probe_pack_layout(32 * 70000, 1030)["blocks"] == 3 * 65535
+
+
+def test_tile_pack_equals_the_jax_probe(hyster_calls):
+    """The probe's own mask and words (TPU probe A in interpret mode), on
+    both routes."""
+    _, _, (mask,), (words,) = hyster_calls[0]
+    for offset in (0, 1, 4):
+        buf = np.zeros(offset + mask.size + 32, np.uint8)
+        buf[offset:offset + mask.size] = mask.ravel()
+        got, writes, n = _tile_pack(buf, offset, *mask.shape)
+        np.testing.assert_array_equal(got, words.view(np.int32))
+        assert (writes == 1).all()
+        assert n[{0: "rows 16", 1: "rows shifted", 4: "rows 4"}[offset]] == mask.shape[0]
 
 
 # -- the byte-mode unpack's runs ---------------------------------------------

@@ -5,14 +5,19 @@ Run from the root of a checkout, on a host with a CUDA device and nvcc:
 
     python3 tools/port_probe_variants.py --swar NAME=SRC [NAME=SRC ...]
     python3 tools/port_probe_variants.py --unpack NAME=SRC [NAME=SRC ...]
+    python3 tools/port_probe_variants.py --pack NAME=SRC [NAME=SRC ...]
 
 Each SRC is a version of ``csrc/probe_swar.cu`` (``--swar``) or of
-``csrc/probe_hyster.cu`` (``--unpack``): this checkout's, another commit's
-(unpacked with ``git archive``) or an edited copy. nvcc builds each one
-alone into its own library (seconds: no other source of the port), and
-its C entry point (``cc_swar_stencil``, ``cc_probe_unpack``) runs on the
-inputs of ``tools/port_profile.py --parts probes``: K14's four bodies in
-both modes at 1080p and 8K, the unpack's two modes on the 8K words. Every
+``csrc/probe_hyster.cu`` (``--unpack``, ``--pack``): this checkout's,
+another commit's (unpacked with ``git archive``) or an edited copy. nvcc
+builds each one alone into its own library (seconds: no other source of
+the port), and its C entry point (``cc_swar_stencil``, ``cc_probe_unpack``,
+``cc_probe_pack`` with ``ballot=0``) runs on the inputs of
+``tools/port_profile.py --parts probes``: K14's four bodies in both modes
+at 1080p and 8K, the unpack's two modes on the 8K words, ``probe_pack`` on
+the 8K mask, on that mask one byte and four bytes past a 16-byte
+boundary, at 1080 x 1920, 1080 x 1918 (rows of every alignment) and at
+4320 x 7696. Every
 version's output must equal the first's and the plain version's. Then
 three rounds, the versions in turns (forward, backward, forward), of
 profiler device µs a call (20 calls a session, opened by
@@ -105,6 +110,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--swar", nargs="*", default=[], help="NAME=SRC versions of probe_swar.cu")
     ap.add_argument("--unpack", nargs="*", default=[], help="NAME=SRC versions of probe_hyster.cu")
+    ap.add_argument("--pack", nargs="*", default=[], help="NAME=SRC versions of probe_hyster.cu")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("port_probe_variants: needs a CUDA device", file=sys.stderr)
@@ -139,6 +145,27 @@ def main() -> int:
                   lambda fn, pw=pw: fn(f.data_ptr(), out.data_ptr(), *f.shape, pw, 0, stream),
                   out, want) for pw in (1, 0)]
         compare(cases, fns, "unpack_", card)
+        del f, out
+    if args.pack:
+        fns = build(dict(v.split("=", 1) for v in args.pack), "cc_probe_pack",
+                    [_P, _P, _I, _I, _I, _I, _P])
+        cases = []
+        for tag, (h, w), offset in (("8K mask", (4320, 7680), 0),
+                                    ("8K mask one byte off", (4320, 7680), 1),
+                                    ("8K mask four bytes off", (4320, 7680), 4),
+                                    ("1080x1920 mask", (1080, 1920), 0),
+                                    ("1080x1918 mask", (1080, 1918), 0),
+                                    ("4320x7696 mask", (4320, 7696), 0)):
+            buf = torch.zeros(h * w + 32, dtype=torch.uint8, device="cuda")
+            at = -buf.data_ptr() % 16 + offset  # the mask's first byte `offset` past a boundary
+            mask = buf[at:at + h * w].view(h, w)
+            mask.copy_(torch.from_numpy(hk.pack_input(0, h, w)).cuda())
+            out = torch.empty((-(-h // 32), w), dtype=torch.int32, device="cuda")
+            cases.append((f"probe_pack {tag}",
+                          lambda fn, mask=mask, out=out: fn(mask.data_ptr(), out.data_ptr(),
+                                                            *mask.shape, 0, 0, stream),
+                          out, hk.probe_pack_plain(mask)))
+        compare(cases, fns, "pack_", card)
     return 0
 
 

@@ -130,7 +130,11 @@ and ``devtime``), each printing one JSON line per workload
   a version without it).
 
 * ``probes``: K13's ballot pack (``probe_pack_ballot``) and ``probe_pack``
-  beside it on the 8K mask of ``chip_smoke.py`` (``pack_input(0)``), the
+  beside it on the 8K mask of ``chip_smoke.py`` (``pack_input(0)``),
+  ``probe_pack`` also on that mask one byte past a 16-byte boundary, at
+  1080 x 1920, 1080 x 1918 and 4320 x 7696, and K6's ``pack_thresh`` (u8 mode,
+  ``pack_walk.cuh``'s column walk) on the same 8K mask as 0 / 255 (its
+  FINAL plane is ``probe_pack``'s words), the
   construct loop (``probe_loop``) on the TPU probe's 40 x 256 plane (326
   rounds), ``probe_unpack`` in both modes on the 8K words (135 x 7680,
   ``unpack_input(2)``), and K14's ``swar_stencil``, P1-P4 in SWAR and in
@@ -140,8 +144,8 @@ and ``devtime``), each printing one JSON line per workload
   either tree's kernel names), the bound in µs (the larger of the bytes
   over 3.35 TB/s and the operations over 67 T/s), a sha256 of the outputs
   (the loop's with its flags), the loop's rounds and device µs a round, and
-  the layouts (``probe_loop_layout``, ``probe_unpack_layout_cc``,
-  ``swar_layout_cc``) and the ballot pack's grid
+  the layouts (``probe_pack_layout_cc``, ``probe_loop_layout``,
+  ``probe_unpack_layout_cc``, ``swar_layout_cc``) and the ballot pack's grid
   (``probe_pack_ballot_grid``), none in a version without them.
 
 * ``devtime``: the profiler's busy time checked against itself, on the
@@ -975,17 +979,50 @@ def probes(label: str) -> list:
         return hashlib.sha256(b"".join(o.cpu().numpy().tobytes() for o in out)).hexdigest()[:16]
 
     mask = torch.from_numpy(hk.pack_input(0, 4320, 7680)).cuda()
-    for name, fn, kernel in (("probe_pack_ballot", hk.probe_pack_ballot, "pack_ballot_kernel"),
-                             ("probe_pack", hk.probe_pack, "pack_transpose_kernel")):
-        grid = None
+    # probe_pack also on the 8K mask one byte past a 16-byte boundary (a
+    # slice of a larger buffer), at 1080p, 1080 x 1918 and 8K x 7696.
+    buf = torch.zeros(mask.numel() + 32, dtype=torch.uint8, device="cuda")
+    at = -buf.data_ptr() % 16 + 1
+    shifted = buf[at:at + mask.numel()].view(mask.shape)
+    shifted.copy_(mask)
+    masks = {"8K mask": mask, "8K mask one byte off": shifted,
+             "1080x1920 mask": torch.from_numpy(hk.pack_input(0, 1080, 1920)).cuda(),
+             "1080x1918 mask": torch.from_numpy(hk.pack_input(0, 1080, 1918)).cuda(),
+             "4320x7696 mask": torch.from_numpy(hk.pack_input(0, 4320, 7696)).cuda()}
+    cases = [("probe_pack_ballot", hk.probe_pack_ballot, ("pack_ballot_kernel",), "8K mask")]
+    cases += [("probe_pack", hk.probe_pack, ("pack_transpose_kernel", "pack_tile_kernel"), m)
+              for m in masks]
+    for name, fn, kernels, where in cases:
+        x = masks[where]
+        h, w = x.shape
+        grid = layout = None
         if name == "probe_pack_ballot" and hasattr(hk, "probe_pack_ballot_grid"):
-            grid = hk.probe_pack_ballot_grid(4320, 7680)
+            grid = hk.probe_pack_ballot_grid(h, w)
+        if name == "probe_pack" and hasattr(hk, "probe_pack_layout_cc"):
+            layout = hk.probe_pack_layout_cc(h, w, x.data_ptr() % 16)
         rows.append(dict(
-            workload=f"{name} 8K mask", label=label, card=card,
-            event_ms=ms_per_call(lambda: [fn(mask) for _ in range(20)]) / 20,
-            device_us=device_us(lambda: fn(mask), kernel, 20), sha=sha(fn(mask)),
-            bound_us=(mask.numel() + 4 * (4320 // 32) * 7680) / HBM_BYTES_PER_US, grid=grid))
+            workload=f"{name} {where}", label=label, card=card,
+            event_ms=ms_per_call(lambda: [fn(x) for _ in range(20)]) / 20,
+            device_us=device_us_any(lambda: fn(x), kernels, 20), sha=sha(fn(x)),
+            bound_us=(x.numel() + 4 * -(-h // 32) * w) / HBM_BYTES_PER_US, grid=grid,
+            layout=layout))
         print(json.dumps(rows[-1]), flush=True)
+    del buf, shifted, masks
+    # K6's u8 pack (pack_walk.cuh's column walk, a user path) on the same 8K
+    # bytes as 0 / 255: its FINAL plane is probe_pack's words.
+    from cudacam_tpu_torch.ops.cuda.hysteresis_fused import pack_thresh
+
+    tmap = mask * 255
+    final, _ = pack_thresh(tmap)
+    rows.append(dict(
+        workload="pack_thresh u8 8K mask", label=label, card=card,
+        event_ms=ms_per_call(lambda: [pack_thresh(tmap) for _ in range(20)]) / 20,
+        device_us=device_us(lambda: pack_thresh(tmap), "pack_thresh_kernel", 20),
+        sha=sha(*pack_thresh(tmap)),
+        final_equals_probe_pack=torch.equal(final, hk.probe_pack(mask)),
+        bound_us=(tmap.numel() + 2 * 4 * final.numel()) / HBM_BYTES_PER_US))
+    print(json.dumps(rows[-1]), flush=True)
+    del tmap, final
     plane = torch.from_numpy(hk.loop_input()).cuda()
     out, flags = hk.probe_loop(plane)
     n_rounds, changed = flags[0].tolist()
