@@ -107,6 +107,15 @@
 //   reads them on the device, works only on frames still growing, and
 //   returns at once when none is, so the host never reads a flag back.
 //   Phase 2 writes flags[b][1] for every frame.
+// * The main path's launches count their rounds in two 64-bit words
+//   (Params::count, a slot of the wrappers' counter block, round_counts()):
+//   block 0's thread 0 adds the frames of the loop's layout (phase 1: every
+//   frame; phase 2: those it continues) once, and after each round's last
+//   barrier the frames that round ran, so the sum is the rounds phase 1
+//   took, or phase 2 added. No barrier waits on the atomics, and a launch
+//   adds nothing after its last round. The local saturate, split_kernel
+//   and sharded_loop_kernel's rounds count nothing (null, or CARRY);
+//   sharded_loop_kernel adds (1, collective rounds) at its end.
 // * The rounds see the h x w image only: the bits of rows at and past h
 //   are cleared as a plane is loaded, so they come out zero (every pack
 //   leaves them zero; the plain versions clear them the same way). A band
@@ -230,6 +239,7 @@ struct Params {
   int* cnt;           // per tile: the popcount of its core
   int* chg;           // [3][B] per-round change flags
   int* flags;         // (B, 2, 2): phase-1 (it, growing), final (it, growing); null: not written
+  unsigned long long* count;  // the main path's (planes, rounds) counters; null: nothing counted
   int nb;             // frames in the batch
   int hw, w;          // plane rows, plane columns (= image columns)
   uint32_t tail;      // the bits of the last plane row that lie above h
@@ -1112,6 +1122,7 @@ __device__ void round_loop(const Params& a, uint32_t* sm, cg::grid_group& grid,
     for (int b = 0; b < a.nb; ++b)
       if (st.on[b]) st.lay[nl++] = b;
     *st.nl = nl;
+    if (lead && a.count && nl) atomicAdd(a.count, (unsigned long long)nl);
   }
   __syncthreads();
   if (PHASE2 && *st.n == 0) {  // every frame converged in phase 1
@@ -1239,6 +1250,7 @@ __device__ void round_loop(const Params& a, uint32_t* sm, cg::grid_group& grid,
         st.grow[b] = *(volatile int*)&a.chg[slot * a.nb + b];
         ++st.it[b];
       }
+      if (!CARRY && lead && a.count) atomicAdd(a.count + 1, (unsigned long long)*st.n);
       list_active<PHASE2, SEAM>(a, st, r + 1);
     }
     __syncthreads();
@@ -1272,6 +1284,7 @@ __global__ void __launch_bounds__(NT, 1) hyst_kernel(Params a) {
 struct LoopParams {
   int* pend;
   int* rounds;
+  unsigned long long* count;  // (calls, collective rounds) added to; null: nothing counted
   int max_rounds;
 };
 
@@ -1391,7 +1404,13 @@ __global__ void __launch_bounds__(NT, 1) sharded_loop_kernel(Params a, Params a1
     if (resident && (int)blockIdx.x < bands)
       store_core(a, ws.x[c.cur], a.f, band_of<SEG>(a, st, blockIdx.x));
   }
-  if (blockIdx.x == 0 && threadIdx.x == 0) *l.rounds = it;
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    *l.rounds = it;
+    if (l.count) {
+      atomicAdd(l.count, 1ull);
+      atomicAdd(l.count + 1, (unsigned long long)it);
+    }
+  }
 }
 
 // The column-split continuation of a batch of frames (see the head of this
@@ -1858,6 +1877,7 @@ Params make_params(void* f, const void* p, void* scratch, void* flags, int nb, i
   a.cnt = reinterpret_cast<int*>(a.seam + nb * ns * N_SEAM * w);
   a.chg = a.cnt + bands * ns;
   a.flags = static_cast<int*>(flags);
+  a.count = nullptr;
   a.dilate_steps = dilate_steps;
   a.cap = cap;
   a.scan_from = scan_from;
@@ -1972,21 +1992,26 @@ extern "C" long long cc_hyst_scratch_words(int nb, int h, int w, int phase) {
   return rounds_scratch_words(nb, h, w);
 }
 
-extern "C" int cc_hyst_phase1(void* f, const void* p, void* scratch, void* flags, int nb, int h,
-                              int w, int dilate_steps, int scan_after, int max_iters, int device,
-                              void* stream) {
+// count: two unsigned 64-bit words the launch adds (planes, rounds) to
+// (phase 2: the planes it continued and the rounds it added), or null.
+extern "C" int cc_hyst_phase1(void* f, const void* p, void* scratch, void* flags, void* count,
+                              int nb, int h, int w, int dilate_steps, int scan_after, int max_iters,
+                              int device, void* stream) {
   DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return guard.err;
   int cap = scan_after < max_iters ? scan_after : max_iters;
   Params a = make_params(f, p, scratch, flags, nb, h, w, dilate_steps, cap, INT_MAX);
+  a.count = static_cast<unsigned long long*>(count);
   return launch_rounds<false>(a, device, static_cast<cudaStream_t>(stream));
 }
 
-extern "C" int cc_hyst_phase2(void* f, const void* p, void* scratch, void* flags, int nb, int h,
-                              int w, int dilate_steps, int max_iters, int device, void* stream) {
+extern "C" int cc_hyst_phase2(void* f, const void* p, void* scratch, void* flags, void* count,
+                              int nb, int h, int w, int dilate_steps, int max_iters, int device,
+                              void* stream) {
   DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return guard.err;
   Params a = make_params(f, p, scratch, flags, nb, h, w, dilate_steps, max_iters, 0);
+  a.count = static_cast<unsigned long long*>(count);
   return launch_rounds<true>(a, device, static_cast<cudaStream_t>(stream));
 }
 
@@ -2112,10 +2137,11 @@ extern "C" long long cc_sharded_loop_scratch_words(int tiles, int h, int w) {
 // f, p are the (T, ceil(h/32), w) extended-tile planes at the export's
 // phase-1 exit (T = nb ny nx, h x w the extended tile; both refreshed in
 // place before the first round), flags the (T, 2, 2) round flags, rounds the
-// one int it writes. geo: 5 ints (e_top, h_loc, e_left, w_loc, ext_h), as
+// one int it writes, count two unsigned 64-bit words it adds (1, rounds) to
+// (or null). geo: 5 ints (e_top, h_loc, e_left, w_loc, ext_h), as
 // cc_halo_exchange's.
 extern "C" int cc_sharded_loop(void* f, void* p, void* scratch, void* flags, void* rounds,
-                               int nb, int ny, int nx, int h, int w, const int* geo,
+                               void* count, int nb, int ny, int nx, int h, int w, const int* geo,
                                int dilate_steps, int scan_after, int max_iters, int max_rounds,
                                int device, void* stream) {
   DeviceGuard guard(device);
@@ -2141,6 +2167,7 @@ extern "C" int cc_sharded_loop(void* f, void* p, void* scratch, void* flags, voi
   LoopParams l;
   l.pend = reinterpret_cast<int*>(xp.rows + halo::strips_words(tiles, a.hw, w));
   l.rounds = static_cast<int*>(rounds);
+  l.count = static_cast<unsigned long long*>(count);
   l.max_rounds = max_rounds;
   Layout lay;
   unsigned grid = 0;

@@ -42,12 +42,13 @@ from typing import Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
+from torch.autograd import profiler as autograd_profiler
 
 from cudacam_tpu_torch.config import CannyConfig
 from cudacam_tpu_torch.stages import CANNY_STAGE_NAMES, CannyStage
 from cudacam_tpu_torch.ops import bitpack, torch_ops
 from cudacam_tpu_torch.ops.cuda import canny
-from cudacam_tpu_torch.ops.cuda._build import load
+from cudacam_tpu_torch.ops.cuda._build import close_span, load, open_span
 from cudacam_tpu_torch.ops.cuda.feedforward import ff_stages_batched
 from cudacam_tpu_torch.utils.devtime import (
     device_time_ms_per_call, event_time_ms_per_call, open_session,
@@ -104,13 +105,20 @@ class ThresholdControls:
         """The device [low, high] tensor, cached BY VALUE: the entry carries
         the pair it was built from, so a setter on another thread can never
         leave a stale pair in use."""
-        cached = self._thresh_dev
-        lo, hi = self._low, self._high
-        if cached is None or cached[0] != lo or cached[1] != hi:
+        t = self._cached_thresholds()
+        if t is None:
+            lo, hi = self._low, self._high
             t = torch.tensor([lo, hi], dtype=torch.int32).to(self._device)
-            cached = (lo, hi, t)
-            self._thresh_dev = cached
-        return cached[2]
+            self._thresh_dev = (lo, hi, t)
+        return t
+
+    def _cached_thresholds(self) -> Optional[torch.Tensor]:
+        """The cached device pair when it holds the current values, else
+        None (:meth:`_thresholds` then makes it)."""
+        cached = self._thresh_dev
+        if cached is not None and cached[0] == self._low and cached[1] == self._high:
+            return cached[2]
+        return None
 
 
 class CannyEngine(ThresholdControls):
@@ -180,6 +188,12 @@ class CannyEngine(ThresholdControls):
     def _validate(self, frame: FrameLike) -> Tuple[torch.Tensor, bool]:
         """Spec lock + type checks; returns (tensor on the engine's device,
         batched?)."""
+        arr, batched = self._spec_lock(frame)
+        return arr.to(self._device).contiguous(), batched
+
+    def _spec_lock(self, frame: FrameLike) -> Tuple[torch.Tensor, bool]:
+        """:meth:`_validate`'s checks: (the frame as a tensor where it lies,
+        batched?)."""
         if frame is None:
             raise ValueError("Cannot process empty frame")
         if isinstance(frame, np.ndarray):
@@ -208,16 +222,25 @@ class CannyEngine(ThresholdControls):
                 f"Frame specs differ from initialization: got {shape}, "
                 f"expected {expected} or (B,)+{expected}"
             )
-        return arr.to(self._device).contiguous(), batched
+        return arr, batched
 
     def process(
         self, frame: FrameLike, final_stage: CannyStage = CannyStage.HYSTER
     ) -> torch.Tensor:
         """Run stages 0..final_stage; returns that stage's uint8 buffer on
-        the engine's device."""
-        arr, batched = self._validate(frame)
+        the engine's device. Under a ``torch.profiler`` session the checks
+        are the host span ``cc.validate`` (the launch wrappers' are
+        ``cc.prep.<launch name>``); a copy of the frame or the thresholds to
+        the device comes after it."""
+        span = open_span("cc.validate") if autograd_profiler._is_profiler_enabled else None
+        arr, batched = self._spec_lock(frame)
         final_stage = CannyStage(final_stage)
-        thr = self._thresholds()
+        thr = self._cached_thresholds()
+        if span is not None:
+            close_span(span)
+        arr = arr.to(self._device).contiguous()
+        if thr is None:
+            thr = self._thresholds()
         if self._profiling:
             return self._process_profiled(arr, batched, final_stage, thr)
         return self._to_stage(arr, batched, final_stage, thr)

@@ -19,9 +19,11 @@ from typing import Dict, Optional, Union
 
 import numpy as np
 import torch
+from torch.autograd import profiler as autograd_profiler
 
 from cudacam_tpu_torch.config import CannyConfig
 from cudacam_tpu_torch.engine.engine import ThresholdControls, resolve_device
+from cudacam_tpu_torch.ops.cuda._build import close_span, open_span
 from cudacam_tpu_torch.parallel.mesh import TileMesh, single_device_mesh
 from cudacam_tpu_torch.parallel.sharded import (
     ShardedPipeline, build_sharded_pipeline, shard_frame,
@@ -80,7 +82,10 @@ class ShardedCannyEngine(ThresholdControls):
         """Run stages 0..final_stage on a (B, H, W[, C]) uint8 batch; B must
         be a multiple of the mesh batch axis. Returns the (B, H, W) uint8
         buffer on the engine's device (a distributed mesh: this process's
-        shard of it)."""
+        shard of it). Under a ``torch.profiler`` session the checks are the
+        host span ``cc.validate``; :meth:`shard` (a copy to the device)
+        comes after it."""
+        span = open_span("cc.validate") if autograd_profiler._is_profiler_enabled else None
         c = self._cfg.channels
         expected = (self._cfg.height, self._cfg.width) + ((c,) if c == 3 else ())
         dtype_ok = (frames.dtype == np.uint8 if isinstance(frames, np.ndarray)
@@ -91,7 +96,12 @@ class ShardedCannyEngine(ThresholdControls):
         nb = self._mesh.batch
         if shape[0] % nb:
             raise ValueError(f"batch {shape[0]} not divisible by mesh batch {nb}")
-        return self.pipeline(final_stage)(self.shard(frames), self._thresholds())
+        fn = self.pipeline(final_stage)
+        thr = self._cached_thresholds()
+        if span is not None:
+            close_span(span)
+        frames = self.shard(frames)
+        return fn(frames, thr if thr is not None else self._thresholds())
 
     def warmup(self, final_stage: CannyStage = CannyStage.HYSTER,
                batch: Optional[int] = None) -> None:

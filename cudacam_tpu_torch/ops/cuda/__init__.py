@@ -2,13 +2,17 @@
 
 Every kernel keeps a plain-integer launch count (``_build.LAUNCHES``),
 raised by one by its wrapper where it launches the kernel and nowhere else,
-so a run can show that a path went through the kernels.
+so a run can show that a path went through the kernels. The round kernels
+of the main path also count their rounds on the device (``_build.ROUNDS``:
+:func:`round_counts`), so a run can tell rounds a frame from time a round.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional, Tuple, Union
 
-from cudacam_tpu_torch.ops.cuda._build import LAUNCHES
+import torch
+
+from cudacam_tpu_torch.ops.cuda._build import LAUNCHES, PLAIN_ROUNDS, ROUND_KERNELS, ROUNDS
 from cudacam_tpu_torch.ops.cuda.hysteresis import hysteresis_sweeps, hysteresis_sweeps_plain
 from cudacam_tpu_torch.ops.cuda.hysteresis_fused import (
     hysteresis_fused_batched, hysteresis_fused_batched_plain,
@@ -31,7 +35,8 @@ KERNELS = ("ff_pack", "hyst_phase1", "hyst_phase2", "unpack", "ff_stages", "pack
            "swar_stencil")
 
 __all__ = ["KERNELS", "hysteresis_fused_batched", "hysteresis_fused_batched_plain",
-           "hysteresis_sweeps", "hysteresis_sweeps_plain", "launch_counts", "reset_launch_counts"]
+           "hysteresis_sweeps", "hysteresis_sweeps_plain", "launch_counts", "reset_launch_counts",
+           "reset_round_counts", "round_counts"]
 
 
 def launch_counts() -> Dict[str, int]:
@@ -40,3 +45,39 @@ def launch_counts() -> Dict[str, int]:
 
 def reset_launch_counts() -> None:
     LAUNCHES.clear()
+
+
+def round_counts(device: Optional[Union[str, torch.device]] = None) -> Dict[str, Tuple[int, int]]:
+    """The round counters since the first counted launch (or the last
+    :func:`reset_round_counts`): ``hyst_phase1`` (planes, rounds),
+    ``hyst_phase2`` (planes continued, rounds added), ``sharded_loop``
+    (calls, collective rounds). A plane is a frame on the whole-frame path
+    and an extended tile on the tile path. ``device``: that device's block
+    (``"cpu"``: the plain versions'); None sums every block. Every launch
+    named ``hyst_phase1`` / ``hyst_phase2`` counts (the K6 and sweep paths'
+    too); the local saturate (K9), ``split_converge`` (K11) and the
+    distributed host loop count nothing. One device-to-host copy a block,
+    which waits for the device: never on the hot path."""
+    blocks = [PLAIN_ROUNDS]
+    if device is None:
+        blocks += [t.tolist() for t, _ in ROUNDS.values()]
+    else:
+        device = torch.device(device)
+        if device.type != "cpu":
+            index = torch.cuda.current_device() if device.index is None else device.index
+            blocks = [ROUNDS[index][0].tolist()] if index in ROUNDS else []
+    total = [[0, 0] for _ in ROUND_KERNELS]
+    for block in blocks:
+        for row, got in zip(total, block):
+            row[0] += got[0]
+            row[1] += got[1]
+    return {name: tuple(row) for name, row in zip(ROUND_KERNELS, total)}
+
+
+def reset_round_counts() -> None:
+    """Zeroes every device's counters (on its current stream) and the plain
+    versions'."""
+    for t, _ in ROUNDS.values():
+        t.zero_()
+    for row in PLAIN_ROUNDS:
+        row[:] = [0, 0]

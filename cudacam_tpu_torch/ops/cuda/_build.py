@@ -8,6 +8,10 @@ which is loaded with ctypes. The library lands in ``cudacam_tpu_torch/_build``
 source rebuilds and an unchanged one loads the library already built.
 Nothing here runs at import time: this module imports on a host with no
 nvcc and no GPU.
+
+Beside the build: the wrappers' launch counter (``LAUNCHES``), the round
+kernels' counter blocks (``ROUNDS``) and the host spans of the launch
+wrappers (:func:`open_span`).
 """
 from __future__ import annotations
 
@@ -19,8 +23,12 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
+from typing import Dict, List, Optional, Tuple
+
+import torch
 
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -40,8 +48,8 @@ SIGNATURES = {
     "cc_ff_pack_route": (_I, [_P, _I, _I]),
     "cc_ff_stages": (_I, [_P] * 8 + [_I] * 13 + [_P]),
     "cc_pack_thresh": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
-    "cc_hyst_phase1": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
-    "cc_hyst_phase2": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "cc_hyst_phase1": (_I, [_P] * 5 + [_I] * 7 + [_P]),
+    "cc_hyst_phase2": (_I, [_P] * 5 + [_I] * 6 + [_P]),
     "cc_hyst_scratch_words": (ctypes.c_longlong, [_I, _I, _I, _I]),
     "cc_hyst_layout": (_I, [_I, _I, _I, _I, _I, _I, _P]),
     "cc_split_converge": (_I, [_P, _P, _P, _P] + [_I] * 9 + [_P]),
@@ -53,7 +61,7 @@ SIGNATURES = {
     "cc_unpack_core": (_I, [_P, _P] + [_I] * 12 + [_P]),
     "cc_halo_exchange": (_I, [_P, _P, _P, _I, _I, _P, _I, _I, _I, _I, _I, _P, _I, _P]),
     "cc_exchange_scratch_words": (ctypes.c_longlong, [_I, _I, _I]),
-    "cc_sharded_loop": (_I, [_P] * 5 + [_I] * 5 + [_P] + [_I] * 5 + [_P]),
+    "cc_sharded_loop": (_I, [_P] * 6 + [_I] * 5 + [_P] + [_I] * 5 + [_P]),
     "cc_sharded_loop_scratch_words": (ctypes.c_longlong, [_I, _I, _I]),
     "cc_sharded_loop_layout": (_I, [_I] * 7 + [_P]),
     "cc_sweep_pack_all": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
@@ -75,6 +83,22 @@ SIGNATURES = {
 #: and nowhere else (``ops/cuda/__init__.py`` reads and resets them).
 LAUNCHES: collections.Counter = collections.Counter()
 
+#: The round kernels whose rounds are counted, in a counter block's row
+#: order: ``hyst_phase1`` (planes, rounds), ``hyst_phase2`` (planes
+#: continued, rounds added), ``sharded_loop`` (calls, collective rounds).
+ROUND_KERNELS = ("hyst_phase1", "hyst_phase2", "sharded_loop")
+#: A counter block per CUDA device, by device index: an int64 (3, 2)
+#: tensor, one row per ``ROUND_KERNELS`` entry, and its address. A device's
+#: block is made and zeroed at its first counted launch; the kernels add to
+#: their row with atomics, on the device (``ops/cuda/__init__.py`` reads and
+#: resets the blocks and ``PLAIN_ROUNDS``).
+ROUNDS: Dict[int, Tuple[torch.Tensor, int]] = {}
+_ROUNDS_MADE = threading.Lock()
+_ROW_BYTES = {name: 16 * i for i, name in enumerate(ROUND_KERNELS)}
+#: The plain versions' counters, in ``ROUND_KERNELS`` order: they add the
+#: same values as the kernels, whatever device their tensors lie on.
+PLAIN_ROUNDS: List[List[int]] = [[0, 0] for _ in ROUND_KERNELS]
+
 
 @dataclasses.dataclass(frozen=True)
 class KernelLibrary:
@@ -93,8 +117,6 @@ class KernelLibrary:
             msg = self.lib.cc_error_string(code).decode()
             raise RuntimeError(f"{what} failed: CUDA error {code} ({msg})")
         if _sync_after_launch:
-            import torch
-
             torch.cuda.synchronize()
 
 
@@ -168,6 +190,62 @@ def count_launch(name: str) -> None:
     LAUNCHES[name] += 1
 
 
+def _make_block(device: torch.device) -> Tuple[torch.Tensor, int]:
+    with _ROUNDS_MADE:  # two threads' first launches make one block
+        block = ROUNDS.get(device.index)
+        if block is None:
+            t = torch.zeros((len(ROUND_KERNELS), 2), dtype=torch.int64, device=device)
+            block = ROUNDS[device.index] = (t, t.data_ptr())
+    return block
+
+
+def round_slot(name: str, device: torch.device) -> Optional[int]:
+    """Address of round kernel ``name``'s two counters in ``device``'s
+    block, which a launch of it on the device's current stream adds to;
+    None for a launch name with no counters (the local saturate's). The
+    first call on a device makes the block (a fill on that stream), so a
+    wrapper asks for the slot after its prep span."""
+    row = _ROW_BYTES.get(name)
+    if row is None:
+        return None
+    block = ROUNDS.get(device.index)
+    if block is None:
+        block = _make_block(device)
+    return block[1] + row
+
+
+def count_rounds(name: str, planes: int, rounds: int) -> None:
+    """A plain version's count: adds (planes, rounds) to ``name``'s row of
+    ``PLAIN_ROUNDS``, as the kernel adds to its device's block."""
+    row = PLAIN_ROUNDS[ROUND_KERNELS.index(name)]
+    row[0] += planes
+    row[1] += rounds
+
+
+def open_span(name: str):
+    """Opens a ``torch.profiler`` range named ``name``; :func:`close_span`
+    ends it. A wrapper opens one only while a profiler session records,
+    which it reads in place from ``torch.autograd.profiler``'s flag (the
+    one torch's own compiled-kernel launchers read for the same purpose;
+    a function call there would cost the untraced path a few tenths of a
+    µs a span)::
+
+        span = open_span(name) if autograd_profiler._is_profiler_enabled else None
+        ...
+        if span is not None:
+            close_span(span)
+
+    The wrappers' spans (``cc.validate``, ``cc.prep.<launch name>``) hold
+    host work only: no launch, copy or fill, so they leave no entry on the
+    device lane."""
+    return torch.profiler.record_function(name).__enter__()
+
+
+def close_span(span) -> None:
+    """Ends a span from :func:`open_span`."""
+    span.__exit__(None, None, None)
+
+
 def use_plain(*tensors) -> bool:
     """Route of a wrapper: True (the plain PyTorch version) when every
     tensor lies on the CPU, False (the kernel) when every tensor lies on a
@@ -186,8 +264,6 @@ def use_plain(*tensors) -> bool:
 
 def stream_of(t) -> int:
     """Handle of PyTorch's current stream on ``t``'s device."""
-    import torch
-
     return torch.cuda.current_stream(t.device).cuda_stream
 
 

@@ -23,12 +23,13 @@ import dataclasses
 from typing import Optional, Sequence, Tuple, Union
 
 import torch
+from torch.autograd import profiler as autograd_profiler
 
 from cudacam_tpu_torch.config import CannyConfig
 from cudacam_tpu_torch.stages import CannyStage
 from cudacam_tpu_torch.ops import bitpack, torch_ops
 from cudacam_tpu_torch.ops.cuda._build import (
-    count_launch, load, require_contiguous, stream_of, use_plain,
+    close_span, count_launch, load, open_span, require_contiguous, stream_of, use_plain,
 )
 
 #: ``ff_stages``' threshold-free output: the int32 ``keep * g`` plane (the
@@ -169,10 +170,12 @@ def ff_pack_plain(
 
 
 def _ff_pack(frames: torch.Tensor, thresholds: torch.Tensor, kw: dict, tiling: Tiling,
-             name: str = "ff_pack"):
+             name: str = "ff_pack", span=None):
     """One launch for a (B, H, W[, 3]) batch of source frames -> (B ny nx,
     ceil(ext_h/32), ext_w) planes; counted as ``name`` (``ff_pack_export``
-    for the tiles of a sharded frame, K8's front half)."""
+    for the tiles of a sharded frame, K8's front half). ``span``: the
+    caller's prep span, ended before the statement that calls the C
+    entry."""
     require_contiguous(frames, thresholds)
     b, h, w = frames.shape[:3]
     t = tiling
@@ -180,6 +183,8 @@ def _ff_pack(frames: torch.Tensor, thresholds: torch.Tensor, kw: dict, tiling: T
                     device=frames.device)
     p = torch.empty_like(f)
     lib = load()
+    if span is not None:
+        close_span(span)
     lib.check(
         lib.lib.cc_ff_pack(
             frames.data_ptr(), thresholds.data_ptr(), f.data_ptr(), p.data_ptr(), b,
@@ -219,12 +224,16 @@ def ff_pack(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(H, W, 3) BGR or (H, W) mono uint8 frame and an int32 [low, high]
     tensor -> packed FINAL and CANDIDATE planes, (ceil(H/32), W) int32."""
+    span = open_span("cc.prep.ff_pack") if autograd_profiler._is_profiler_enabled else None
     _check_frames(frame, batched=False)
     _check_thresholds(thresholds)
     kw = dict(kernel_size=kernel_size, grad_coeff=grad_coeff, norm=norm, parity=parity)
     if use_plain(frame, thresholds):
+        if span is not None:
+            close_span(span)
         return ff_pack_plain(frame, thresholds, **kw)
-    f, p = _ff_pack(frame.unsqueeze(0), thresholds, kw, Tiling.whole(*frame.shape[:2]))
+    f, p = _ff_pack(frame.unsqueeze(0), thresholds, kw, Tiling.whole(*frame.shape[:2]),
+                    span=span)
     return f[0], p[0]
 
 
@@ -240,13 +249,16 @@ def ff_pack_batched(
     """(B, H, W, 3) or (B, H, W) uint8 frames -> (B, ceil(H/32), W) int32
     FINAL and CANDIDATE planes, one launch for the batch. The plain version
     is :func:`ff_pack_plain` frame by frame."""
+    span = open_span("cc.prep.ff_pack") if autograd_profiler._is_profiler_enabled else None
     _check_frames(frames, batched=True)
     _check_thresholds(thresholds)
     kw = dict(kernel_size=kernel_size, grad_coeff=grad_coeff, norm=norm, parity=parity)
     if use_plain(frames, thresholds):
+        if span is not None:
+            close_span(span)
         planes = [ff_pack_plain(fr, thresholds, **kw) for fr in frames]
         return torch.stack([f for f, _ in planes]), torch.stack([p for _, p in planes])
-    return _ff_pack(frames, thresholds, kw, Tiling.whole(*frames.shape[1:3]))
+    return _ff_pack(frames, thresholds, kw, Tiling.whole(*frames.shape[1:3]), span=span)
 
 
 def ff_pack_tiles(
@@ -264,13 +276,16 @@ def ff_pack_tiles(
     every extended tile of ``tiling``, tiles in (b, i, j) order, one launch.
     The kernel reads each extended tile straight out of the source frames;
     the plain version is :func:`ff_pack_plain` frame by frame."""
+    span = open_span("cc.prep.ff_pack_export") if autograd_profiler._is_profiler_enabled else None
     _check_frames(frames, batched=True)
     _check_thresholds(thresholds)
     kw = dict(kernel_size=kernel_size, grad_coeff=grad_coeff, norm=norm, parity=parity)
     if use_plain(frames, thresholds):
+        if span is not None:
+            close_span(span)
         planes = [ff_pack_plain(fr, thresholds, tiling=tiling, **kw) for fr in frames]
         return torch.cat([f for f, _ in planes]), torch.cat([p for _, p in planes])
-    return _ff_pack(frames, thresholds, kw, tiling, "ff_pack_export")
+    return _ff_pack(frames, thresholds, kw, tiling, "ff_pack_export", span)
 
 
 def _check_stages(stages: Sequence[Stage], thresholds: Optional[torch.Tensor]) -> Tuple[Stage, ...]:

@@ -399,11 +399,13 @@ def saturate_packed_plain(
     max_iters: int = 100,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of :func:`saturate_packed`, on any device:
-    ``bitpack``'s two phases tile by tile."""
+    ``bitpack``'s two phases tile by tile. Counts no rounds, as the kernels'
+    local saturate does not."""
     hyst_phase1_plain(f, p, flags, h, dilate_steps=dilate_steps, scan_after=scan_after,
-                      max_iters=max_iters)
+                      max_iters=max_iters, count=False)
     if scan_after < max_iters:
-        hyst_phase2_plain(f, p, flags, h, dilate_steps=dilate_steps, max_iters=max_iters)
+        hyst_phase2_plain(f, p, flags, h, dilate_steps=dilate_steps, max_iters=max_iters,
+                          count=False)
     else:
         flags[:, 1] = flags[:, 0]
     return f, flags[:, 1, 1]

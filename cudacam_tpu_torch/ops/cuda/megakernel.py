@@ -51,11 +51,13 @@ import functools
 from typing import Optional, Tuple
 
 import torch
+from torch.autograd import profiler as autograd_profiler
 
 from cudacam_tpu_torch.stages import FINAL_EDGE, NO_EDGE
 from cudacam_tpu_torch.ops import bitpack
 from cudacam_tpu_torch.ops.cuda._build import (
-    count_launch, load, require_contiguous, stream_of, use_plain,
+    close_span, count_launch, count_rounds, load, open_span, require_contiguous, round_slot,
+    stream_of, use_plain,
 )
 from cudacam_tpu_torch.ops.cuda.feedforward import (
     Tiling, ff_pack, ff_pack_batched, ff_pack_plain, ff_pack_tiles,
@@ -180,20 +182,23 @@ def split_layout(nb: int, h: int, w: int, n_split: int, dilate_steps: int = 16,
     return dict(zip(SPLIT_LAYOUT_KEYS, out))
 
 
-def _launch_rounds(phase: int, f, p, flags, h: int, *args, name: Optional[str] = None) -> None:
-    """One launch of a round kernel, counted as ``hyst_phase1`` /
-    ``hyst_phase2`` or as ``name`` (the sharded host loop's local saturate,
-    K9, counts its launches as ``saturate_phase1`` / ``saturate_phase2``)."""
+def _launch_rounds(phase: int, f, p, flags, h: int, *args, name: str, span=None) -> None:
+    """One launch of a round kernel, counted as ``name``: ``hyst_phase1`` /
+    ``hyst_phase2``, which add to their round counters (:func:`round_slot`),
+    or the sharded host loop's local saturate (K9), ``saturate_phase1`` /
+    ``saturate_phase2``, which counts none. ``span``: the caller's prep
+    span, ended before the statement that calls the C entry."""
     require_contiguous(f, p, flags)
     nb, w = (f.shape[0] if f.ndim == 3 else 1), f.shape[-1]
     lib = load()
     # Stream-ordered: the scratch is reusable once the kernel ran.
     scratch = torch.empty(_scratch_words(nb, h, w, phase), dtype=torch.int32, device=f.device)
     entry = lib.lib.cc_hyst_phase1 if phase == 1 else lib.lib.cc_hyst_phase2
-    name = name or f"hyst_phase{phase}"
+    if span is not None:
+        close_span(span)
     lib.check(
-        entry(f.data_ptr(), p.data_ptr(), scratch.data_ptr(), flags.data_ptr(), nb, h, w, *args,
-              f.device.index, stream_of(f)),
+        entry(f.data_ptr(), p.data_ptr(), scratch.data_ptr(), flags.data_ptr(),
+              round_slot(name, f.device), nb, h, w, *args, f.device.index, stream_of(f)),
         name,
     )
     count_launch(name)
@@ -208,15 +213,22 @@ def hyst_phase1_plain(
     dilate_steps: int = 16,
     scan_after: int = 10,
     max_iters: int = 100,
+    count: bool = True,
 ) -> None:
     """Plain PyTorch version of :func:`hyst_phase1`, on any device:
-    ``bitpack``'s phase 1 frame by frame, on the h x w image."""
+    ``bitpack``'s phase 1 frame by frame, on the h x w image. Adds its
+    planes and rounds to the plain round counters unless ``count`` is False
+    (the local saturate's plain version)."""
+    rounds = 0
     for fb, pb, flb in zip(_frames(f, 2), _frames(p, 2), _frames(flags, 2)):
         pb = _clear_past_h(fb, pb, h)
         nf, it, growing = bitpack.converge_phase1(
             fb, pb, h, fb.shape[1], dilate_steps, scan_after, max_iters)
         fb.copy_(nf)
         flb[0, 0], flb[0, 1] = int(it), int(growing)
+        rounds += int(it)
+    if count:
+        count_rounds("hyst_phase1", len(_frames(f, 2)), rounds)
 
 
 def hyst_phase1(
@@ -242,14 +254,19 @@ def hyst_phase1(
     and below); a round is the dilations in shared memory and one grid
     barrier, and a tile changed iff its popcount grew
     (``csrc/hyst_rounds.cu``). Rows at and past h are cleared
-    (:func:`_check_planes`)."""
+    (:func:`_check_planes`). The launch adds its planes and rounds to the
+    device's round counters (``round_counts()["hyst_phase1"]``)."""
+    span = open_span("cc.prep.hyst_phase1") if autograd_profiler._is_profiler_enabled else None
     _check_planes(f, p, h, flags)
     if use_plain(f, p, flags):
+        if span is not None:
+            close_span(span)
         hyst_phase1_plain(f, p, flags, h, dilate_steps=dilate_steps, scan_after=scan_after,
                           max_iters=max_iters)
         return
     _check_steps(dilate_steps)
-    _launch_rounds(1, f, p, flags, h, dilate_steps, scan_after, max_iters)
+    _launch_rounds(1, f, p, flags, h, dilate_steps, scan_after, max_iters, name="hyst_phase1",
+                   span=span)
 
 
 def hyst_phase2_plain(
@@ -260,10 +277,14 @@ def hyst_phase2_plain(
     *,
     dilate_steps: int = 16,
     max_iters: int = 100,
+    count: bool = True,
 ) -> None:
     """Plain PyTorch version of :func:`hyst_phase2`, on any device:
     ``bitpack``'s phase 2 on the frames still growing and below the cap, on
-    the h x w image."""
+    the h x w image. Adds the planes it continued and the rounds it added
+    to the plain round counters unless ``count`` is False (the local
+    saturate's plain version)."""
+    planes = rounds = 0
     for fb, pb, flb in zip(_frames(f, 2), _frames(p, 2), _frames(flags, 2)):
         it0, growing = (int(v) for v in flb[0])
         if growing and it0 < max_iters:
@@ -272,8 +293,12 @@ def hyst_phase2_plain(
                 fb, pb, h, fb.shape[1], it0, dilate_steps, max_iters)
             fb.copy_(nf)
             flb[1, 0], flb[1, 1] = int(it), int(still)
+            planes += 1
+            rounds += int(it) - it0
         else:
             flb[1] = flb[0]
+    if count and planes:
+        count_rounds("hyst_phase2", planes, rounds)
 
 
 def hyst_phase2(
@@ -301,13 +326,18 @@ def hyst_phase2(
     diagonals then also carry across segments, a grid barrier each (13 a
     round). With more frames still growing than fit one frame's layout, the
     blocks stream their tiles through shared memory stage by stage. Rows at
-    and past h are cleared (:func:`_check_planes`)."""
+    and past h are cleared (:func:`_check_planes`). The launch adds the
+    planes it continues and the rounds it adds to the device's round
+    counters (``round_counts()["hyst_phase2"]``)."""
+    span = open_span("cc.prep.hyst_phase2") if autograd_profiler._is_profiler_enabled else None
     _check_planes(f, p, h, flags)
     if use_plain(f, p, flags):
+        if span is not None:
+            close_span(span)
         hyst_phase2_plain(f, p, flags, h, dilate_steps=dilate_steps, max_iters=max_iters)
         return
     _check_steps(dilate_steps)
-    _launch_rounds(2, f, p, flags, h, dilate_steps, max_iters)
+    _launch_rounds(2, f, p, flags, h, dilate_steps, max_iters, name="hyst_phase2", span=span)
 
 
 def unpack_plain(f: torch.Tensor, h: int, index: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -330,17 +360,22 @@ def unpack(f: torch.Tensor, h: int, index: Optional[torch.Tensor] = None) -> tor
     (remaining candidates are dropped). With ``index``, a (B,) int32
     permutation of range(B) on the planes' device, plane b lands at
     ``out[index[b]]``."""
+    span = open_span("cc.prep.unpack") if autograd_profiler._is_profiler_enabled else None
     if f.dtype != torch.int32 or f.ndim not in (2, 3) or f.shape[-2] != -(-h // 32):
         raise ValueError(f"plane {tuple(f.shape)} does not pack {h} rows")
     if index is not None and (f.ndim != 3 or index.dtype != torch.int32
                               or tuple(index.shape) != (f.shape[0],)):
         raise ValueError("index must be a (B,) int32 tensor for (B, hw, w) planes")
     if use_plain(f, index):
+        if span is not None:
+            close_span(span)
         return unpack_plain(f, h, index)
     require_contiguous(f, *([index] if index is not None else []))
     nb, w = (f.shape[0] if f.ndim == 3 else 1), f.shape[-1]
     out = torch.empty(tuple(f.shape[:-2]) + (h, w), dtype=torch.uint8, device=f.device)
     lib = load()
+    if span is not None:
+        close_span(span)
     lib.check(
         lib.lib.cc_unpack(f.data_ptr(), out.data_ptr(),
                           index.data_ptr() if index is not None else None, nb, h, w,
@@ -379,12 +414,17 @@ def unpack_core(f: torch.Tensor, out: torch.Tensor, tiling: Tiling) -> torch.Ten
     maps ``out``, written in place: 255 where the bit is set, else 0. Tile
     (b, i, j)'s core (rows from ``e_top``, lanes from ``e_left``) lands at
     out[b, i h_loc:, j w_loc:], so a sharded frame needs no gather."""
+    span = open_span("cc.prep.unpack_core") if autograd_profiler._is_profiler_enabled else None
     _check_core(f, out, tiling)
     if use_plain(f, out):
+        if span is not None:
+            close_span(span)
         return unpack_core_plain(f, out, tiling)
     require_contiguous(f, out)
     t = tiling
     lib = load()
+    if span is not None:
+        close_span(span)
     lib.check(
         lib.lib.cc_unpack_core(f.data_ptr(), out.data_ptr(), f.shape[0], f.shape[1], f.shape[2],
                                t.e_top, t.e_left, t.h_loc, t.w_loc, t.ny, t.nx, out.shape[1],

@@ -29,9 +29,11 @@ from __future__ import annotations
 from typing import Callable, Tuple
 
 import torch
+from torch.autograd import profiler as autograd_profiler
 
 from cudacam_tpu_torch.ops.cuda._build import (
-    count_launch, load, require_contiguous, stream_of, use_plain,
+    close_span, count_launch, count_rounds, load, open_span, require_contiguous, round_slot,
+    stream_of, use_plain,
 )
 from cudacam_tpu_torch.ops.cuda.halo import geo_args, halo_exchange_plain
 from cudacam_tpu_torch.ops.cuda.hysteresis_fused import saturate_packed_plain
@@ -106,12 +108,16 @@ def sharded_loop_plain(
 ) -> torch.Tensor:
     """Plain PyTorch version of :func:`sharded_loop`, on any device: the
     host loop with the plain saturate (``bitpack``'s two phases tile by
-    tile) and the plain refresh, reading the pending flag once per round."""
+    tile) and the plain refresh, reading the pending flag once per round.
+    Adds (1, collective rounds) to the plain round counters, as the kernel
+    adds to its device's."""
     _check_loop(f, p, flags, grid, geo, max_rounds)
     kw = dict(dilate_steps=dilate_steps, scan_after=scan_after, max_iters=max_iters)
-    return packed_hysteresis_loop(
+    rounds = packed_hysteresis_loop(
         f, p, flags[:, 0, 1], lambda ff, pp: saturate_packed_plain(ff, pp, flags, geo.ext_h, **kw)[1],
         lambda x, **k: halo_exchange_plain(x, grid, geo, **k), max_rounds)
+    count_rounds("sharded_loop", 1, int(rounds))
+    return rounds
 
 
 def sharded_loop(
@@ -135,11 +141,15 @@ def sharded_loop(
     On CUDA tensors: one launch of the loop kernel, the two refreshes before
     the loop (CANDIDATE, then FINAL with the entry state's flags, which sets
     the pending flag) included, whatever the budget (0 too) and however soon
-    the tiles converge; no host sync. Byte for byte the host loop, which CPU
-    tensors run (:func:`sharded_loop_plain`)."""
+    the tiles converge; no host sync; it adds (1, the rounds) to the
+    device's round counters (``round_counts()["sharded_loop"]``). Byte for
+    byte the host loop, which CPU tensors run (:func:`sharded_loop_plain`)."""
+    span = open_span("cc.prep.sharded_loop") if autograd_profiler._is_profiler_enabled else None
     _check_loop(f, p, flags, grid, geo, max_rounds)
     kw = dict(dilate_steps=dilate_steps, scan_after=scan_after, max_iters=max_iters)
     if use_plain(f, p, flags):
+        if span is not None:
+            close_span(span)
         return sharded_loop_plain(f, p, flags, grid, geo, max_rounds=max_rounds, **kw)
     _check_steps(dilate_steps)
     require_contiguous(f, p, flags)
@@ -149,11 +159,14 @@ def sharded_loop(
     # Stream-ordered: the scratch is reusable once the kernel ran.
     scratch = torch.empty(lib.lib.cc_sharded_loop_scratch_words(f.shape[0], geo.ext_h, geo.ext_w),
                           dtype=torch.int32, device=f.device)
+    if span is not None:
+        close_span(span)
     lib.check(
         lib.lib.cc_sharded_loop(
             f.data_ptr(), p.data_ptr(), scratch.data_ptr(), flags.data_ptr(), rounds.data_ptr(),
-            nb, ny, nx, geo.ext_h, geo.ext_w, geo_args(geo), dilate_steps,
-            scan_after, max_iters, max_rounds, f.device.index, stream_of(f)),
+            round_slot("sharded_loop", f.device), nb, ny, nx, geo.ext_h, geo.ext_w,
+            geo_args(geo), dilate_steps, scan_after, max_iters, max_rounds, f.device.index,
+            stream_of(f)),
         "sharded_loop",
     )
     count_launch("sharded_loop")

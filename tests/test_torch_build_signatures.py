@@ -96,3 +96,26 @@ def test_layout_reporter_fills_every_key_once(name, keys):
         keys = len(next(getattr(m, keys) for m in (megakernel, hyster_kernel, i16_swar)
                         if hasattr(m, keys)))
     assert _out_indices(name) == list(range(keys))
+
+
+def _params(name: str) -> list:
+    """(C type, parameter name) of entry point ``name``'s declaration."""
+    for src in sorted(CSRC_DIR.glob("*.cu")):
+        for _, found, params in _DECL.findall(src.read_text()):
+            if found == name:
+                return [tuple(p.rsplit(None, 1)) for p in " ".join(params.split()).split(",")]
+    raise AssertionError(f"{name} not found in csrc")
+
+
+@pytest.mark.parametrize("name,after", [("cc_hyst_phase1", "flags"), ("cc_hyst_phase2", "flags"),
+                                        ("cc_sharded_loop", "rounds")])
+def test_round_entry_points_take_their_counter_slot(name, after):
+    """The main path's round kernels take the address of their two 64-bit
+    round counters (``_build.round_slot``, null for none) right after the
+    flags (the loop: after the rounds it writes), a pointer in
+    ``SIGNATURES``."""
+    params = _params(name)
+    names = [p[1].lstrip("*") for p in params]
+    i = names.index("count")
+    assert names[i - 1] == after and "*" in " ".join(params[i])
+    assert SIGNATURES[name][1][i] is ctypes.c_void_p

@@ -1603,3 +1603,123 @@ def test_save_frame_after_close_on_the_card(dev, tmp_path, ring_slots):
     np.testing.assert_array_equal(app._last_input, clip[-1])
     with open(app.save_frame(str(tmp_path / "b.png")), "rb") as f:
         assert f.read() == before
+
+
+# -- the round counters and the host spans of the main path (their CPU
+# cases: tests/test_torch_round_counts.py).
+
+from collections import Counter  # noqa: E402
+
+from cudacam_tpu_torch.ops.cuda._build import ROUNDS  # noqa: E402
+from cudacam_tpu_torch.utils.devtime import open_session  # noqa: E402
+
+
+def _count_delta(before, after):
+    return {k: (after[k][0] - before[k][0], after[k][1] - before[k][1]) for k in after}
+
+
+def _counted(device, run):
+    """``run()``'s result and the round counters it added on ``device``."""
+    before = kernels.round_counts(device)
+    out = run()
+    return out, _count_delta(before, kernels.round_counts(device))
+
+
+def test_round_counts_of_a_batch_with_a_spiral_match_plain_and_flags(dev):
+    """The kernels' counters against the plain route's on the same frames,
+    and both against the flags: phase 1 every frame and its rounds, phase 2
+    the spiral, the one frame it continues, and the rounds it added."""
+    h, w = 512, 1024
+    frames = torch.stack([_frame(h, w, dev, seed=s) for s in range(3)]
+                         + [torch.from_numpy(make_spiral_frame(h, w)).to(dev)])
+    kw = dict(dilate_steps=16, scan_after=12, max_iters=100)
+    thr = _thr(10, 40, dev)
+    (_, flags), got = _counted(dev, lambda: canny_mega_pipeline_batched(frames, thr, **kw))
+    (_, pflags), want = _counted("cpu", lambda: canny_mega_pipeline_batched(
+        frames.cpu(), thr.cpu(), **kw))
+    assert torch.equal(flags.cpu(), pflags) and got == want
+    it0, it1 = pflags[:, 0, 0], pflags[:, 1, 0]
+    continued = (pflags[:, 0, 1] == 1) & (it0 < 100)
+    assert continued.tolist() == [False, False, False, True]
+    assert got == {"hyst_phase1": (4, int(it0.sum())),
+                   "hyst_phase2": (1, int((it1 - it0)[continued].sum())), "sharded_loop": (0, 0)}
+
+
+def test_round_counts_of_the_8k_tiles_match_plain_and_flags(dev):
+    """The 8K frame over (1, 4, 2): phase 1 counts the 8 extended tiles and
+    their rounds (the export's flags), the loop (1, its rounds); the plain
+    versions, run on the card's tensors, count the same into the plain counters;
+    the engine's loop count equals ``ShardedPipeline.rounds``."""
+    h, w = 4320, 7680
+    cfg = CannyConfig(height=h, width=w)
+    frame = torch.from_numpy(make_scene(1080, 1920, seed=0)).repeat(4, 4, 1)[None].to(dev)
+    pipe = build_sharded_pipeline(cfg, make_mesh(1, 4, 2))
+    kw = dict(dilate_steps=16, scan_after=cfg.hysteresis_scan_after, max_iters=100)
+    thr = _thr(10, 40, dev)
+    counts = []
+    for block, export, loop in ((dev, mega_export, sharded_loop),
+                                ("cpu", mega_export_plain, sharded_loop_plain)):
+        (f, p, flags), exported = _counted(block, lambda: export(frame, thr, pipe.tiling, **kw))
+        assert exported["hyst_phase1"] == (8, int(flags[:, 0, 0].sum()))
+        rounds, looped = _counted(block, lambda: loop(f, p, flags, (1, 4, 2), pipe.geo,
+                                                      max_rounds=100, **kw))
+        assert looped["sharded_loop"] == (1, int(rounds)) and looped["hyst_phase1"] == (0, 0)
+        counts.append((exported, looped))
+    assert counts[0] == counts[1]
+    eng = ShardedCannyEngine(cfg, make_mesh(1, 4, 2))
+    _, got = _counted(dev, lambda: eng.process(frame))
+    assert got["sharded_loop"] == (1, int(eng.pipeline().rounds))
+    assert got["hyst_phase1"] == counts[0][0]["hyst_phase1"]
+
+
+def _engines(dev):
+    """(engine, input, the cc spans one HYSTER call enters) of both
+    engines, warmed up."""
+    h, w = 256, 384
+    cfg = CannyConfig(height=h, width=w)
+    x = torch.stack([_frame(h, w, dev, seed=s) for s in range(2)])
+    out = [(CannyEngine(cfg, device="cuda"), x,
+            {"cc.validate": 1, "cc.prep.ff_pack": 1, "cc.prep.hyst_phase1": 1,
+             "cc.prep.hyst_phase2": 1, "cc.prep.unpack": 1}),
+           (ShardedCannyEngine(cfg, make_mesh(1, 2, 2)), x,
+            {"cc.validate": 1, "cc.prep.ff_pack_export": 1, "cc.prep.hyst_phase1": 1,
+             "cc.prep.sharded_loop": 1, "cc.prep.unpack_core": 1})]
+    for eng, x, _ in out:
+        eng.process(x)
+    torch.cuda.synchronize()
+    return out
+
+
+def test_spans_leave_the_device_lane_alone(dev):
+    """In a profiled HYSTER call of each engine the program's spans are host
+    ranges only: no device entry carries a ``cc.`` name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cpu = torch.autograd.DeviceType.CPU
+    for eng, x, spans in _engines(dev):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            open_session(dev)
+            eng.process(x)
+            torch.cuda.synchronize()
+        host = Counter(e.name for e in prof.events()
+                       if e.device_type == cpu and e.name.startswith("cc."))
+        device = [e.name for e in prof.events() if e.device_type != cpu]
+        assert host == spans and device
+        assert not [n for n in device if n.startswith("cc.")], type(eng).__name__
+
+
+def test_process_makes_no_host_sync_with_counters(dev):
+    """``process`` of each engine syncs nothing: with its device's counter
+    block made anew at the call's first round launch, and with it in place."""
+    for eng, x, _ in _engines(dev):
+        for fresh in (True, False):
+            if fresh:
+                ROUNDS.pop(dev.index, None)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                eng.process(x)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            assert dev.index in ROUNDS
+    torch.cuda.synchronize()
