@@ -20,7 +20,8 @@
 //
 // Design: one cooperative persistent kernel per phase, launched with
 // cudaLaunchCooperativeKernel, 512 threads a block. One implementation of a
-// round, round_loop, which every kernel here runs. Each frame's (hw, w)
+// round, round_loop, which every kernel here runs but phase 1's register
+// route (below). Each frame's (hw, w)
 // planes are cut into full-height column bands of bw columns, chosen at
 // launch so that the bands of the frames a launch starts on are about as
 // many as the SMs (a multiple of 32 where the launch scans, of 16 for phase
@@ -90,10 +91,41 @@
 //   with height segments 6 more (the vertical directions' and the
 //   diagonals' carries across segments): 13. A phase-1 round: one.
 //   cc_hyst_layout reports a launch's layout and count.
-// * Bound: latency. Phase 1 by the dilation steps in shared memory (a
-//   __syncthreads each) and the round's barrier; phase 2 besides by the
-//   folds' L2 round trips and the barriers. The words moved and the
-//   operations are a few percent of it (PERF.md §6).
+// * Bound: latency. Phase 1 by the dilation steps in shared memory, each a
+//   warp's serial pass over its rows and columns and a __syncthreads, far
+//   more than by the round's one grid barrier (~1.2 us of a 1080p x8
+//   round's ~32 us); phase 2 besides by the folds' L2 round trips and the
+//   barriers. The words moved and the operations are a few percent of it
+//   (PERF.md §5, §6).
+//
+// Phase 1's register route (hyst_kernel<false, false, R>, reg_plan). A
+// phase-1 launch whose columns a thread pair holds whole (hw <= HW_MAX word
+// rows) and whose bands, with a halo of dilate_steps columns, all fit the
+// co-resident grid takes a round loop that keeps each band's words in
+// registers instead: a block a band, its lanes the columns of the band and
+// its halo, 16 to a warp, each column's R word rows (R = hw rounded up to
+// even) of FINAL and CANDIDATE split between lane i (the top R / 2) and
+// lane i + 16 of the warp (the bottom R / 2). A dilation step is the Jacobi
+// step of dilate_band on the thread's rows: the words left and right by
+// __shfl_up/down_sync within the half-warp; the column across a warp's edge
+// from the block's shared memory, where the edge lanes publish theirs after
+// each step (two buffers by the step's parity, one __syncthreads a step,
+// which the step's shuffles run before); at the exact steps, the rows above
+// and below from the thread's own registers and, across the halves, by
+// __shfl_xor_sync. No other word crosses a thread within a round. The halo
+// lanes reload their words from the edge slot once a round, the core's edge
+// columns are published there, a core thread changed iff its popcount grew
+// (one __syncthreads_or), and one grid barrier ends the round. The round
+// schedule, the change flags, the frame state, the counters and the flags
+// are round_loop's; the two routes give the same bits. Every other launch
+// (taller planes: 4K, 8K whole frames; dilate_steps past the lanes; batches
+// past the grid) and every other loop (phase 2, sharded_loop_kernel,
+// split_kernel, which need the bands in shared memory) keeps round_loop.
+// cc_hyst_layout reports the route a launch takes. Bound: the SMs' 32-bit
+// integer lanes (six logic and shift operations a word a step, over about
+// 1.25 times the frame's words with the halos), the step's barrier and,
+// once a round, the L2 round trips of the halo and the change flags
+// (PERF.md §6).
 // * Per-frame state. Each block holds a copy of every frame's (round count,
 //   still growing) in shared memory and updates it after each round's last
 //   barrier from the frame's "changed" slot, so all blocks agree on which
@@ -207,6 +239,7 @@
 #include <map>
 #include <mutex>
 #include <tuple>
+#include <utility>
 
 #include "device_guard.cuh"
 #include "halo.cuh"
@@ -1277,6 +1310,216 @@ __global__ void __launch_bounds__(NT, 1) hyst_kernel(Params a) {
   round_loop<PHASE2, SEG>(a, sm, grid);
 }
 
+// --- Phase 1 on the register route (see the head of this file) ---------------
+
+constexpr int HW_MAX = 36;   // word rows of a column the register route holds at most (1152 rows)
+constexpr int REG_NT = 576;  // a register band's threads at most: two a lane, bw + 2 halo lanes
+                             // (ptxas then allots up to 96 registers a thread: no instance spills)
+
+// Words of a register block's shared memory before its warps' edge columns:
+// the per-frame state (frame_state with a.wsw = 0), rounded to 16 bytes.
+__host__ __device__ inline int reg_state_words(int nb) { return (2 + 4 * nb + 2 + 3) & ~3; }
+
+// Words of a published column's half in shared memory: H rounded up to
+// even, so that each half starts 8-byte aligned.
+__host__ __device__ constexpr int reg_half_words(int h) { return (h + 1) & ~1; }
+
+// Each of a thread's H rows ORed with the rows of the columns left and
+// right within its half-warp (a lane past its half's end gets its own
+// word, which changes nothing): dilate_band's row_or but for the column
+// across the warp's edge, which reg_step adds.
+template <int H>
+__device__ __forceinline__ void reg_row_ors(const uint32_t (&f)[H], uint32_t (&v)[H]) {
+#pragma unroll
+  for (int k = 0; k < H; ++k)
+    v[k] = f[k] | __shfl_up_sync(FULL, f[k], 1, 16) | __shfl_down_sync(FULL, f[k], 1, 16);
+}
+
+// The rest of a dilation step on a thread's H rows, Jacobi: v holds every
+// row's reg_row_ors of the step before's words; at an edge lane it ORs in
+// the column across the warp's edge at its rows, as the neighbour warp
+// published it the step before (e, 8-byte aligned), every other lane's edge
+// words being 0. EXACT (every CARRY_EVERY-th step and the round's last):
+// across words too, bit 31 of the row above and bit 0 of the row below,
+// from the thread's own rows and, across the halves of the column, the
+// other half-warp's by shuffle.
+template <int H, bool EXACT>
+__device__ __forceinline__ void reg_step(uint32_t (&f)[H], const uint32_t (&p)[H],
+                                         uint32_t (&v)[H], const uint32_t* __restrict__ e,
+                                         bool edge, bool top) {
+  uint2 x = make_uint2(0u, 0u);  // the edge words of rows k, k + 1 (k even)
+#pragma unroll
+  for (int k = 0; k < H; ++k) {
+    if (k % 2 == 0 && edge)
+      x = k + 1 < H ? *reinterpret_cast<const uint2*>(e + k) : make_uint2(e[k], 0u);
+    v[k] |= k % 2 ? x.y : x.x;
+    if (!EXACT) f[k] |= p[k] & (v[k] | (v[k] << 1) | (v[k] >> 1));
+  }
+  if (EXACT) {  // rows H - 1 and H of the column meet across the halves
+    const uint32_t first = __shfl_xor_sync(FULL, v[0], 16), last = __shfl_xor_sync(FULL, v[H - 1], 16);
+    uint32_t vp = top ? 0u : last;
+#pragma unroll
+    for (int k = 0; k < H; ++k) {
+      const uint32_t vn = k + 1 < H ? v[k + 1] : (top ? first : 0u);
+      f[k] |= p[k] & (v[k] | __funnelshift_l(vp, v[k], 1) | __funnelshift_r(v[k], vn, 1));
+      vp = v[k];
+    }
+  }
+}
+
+// An edge lane's H rows into its warp's published column (8-byte aligned).
+template <int H>
+__device__ __forceinline__ void publish_rows(uint32_t* dst, const uint32_t (&f)[H]) {
+#pragma unroll
+  for (int k = 0; k < H; k += 2) {
+    if (k + 1 < H)
+      *reinterpret_cast<uint2*>(dst + k) = make_uint2(f[k], f[k + 1]);
+    else
+      dst[k] = f[k];
+  }
+}
+
+// Phase 1's round loop with each band's words in registers: block g is band
+// g % nbw of frame g / nbw (every frame of the batch, a block a band, all
+// resident), over bw + 2 halo lanes, the band's columns and `halo` more
+// each side (zero outside the frame and past the band's halo). A warp takes
+// 16 lanes (columns) side by side, its lanes 0-15 the top H = R / 2 word
+// rows of those columns and lanes 16-31 the bottom H (R = hw rounded up to
+// even; a row past hw stays 0), so a thread holds H FINAL and H CANDIDATE
+// words in registers and an SM's four schedulers get near equal shares of
+// its rows. The round schedule, the change flags, the frame state, the
+// counters and the flags are round_loop's for phase 1 with one segment of
+// dilate_steps = halo steps; a frame's round:
+// * dilate_steps steps in registers: each step's shuffles (reg_row_ors)
+//   run before the barrier that publishes the edge columns they do not
+//   need, the rest (reg_step) after it; the two edge lanes of each
+//   half-warp publish their rows into the block's shared memory by the
+//   step's parity, and one __syncthreads follows each step but the last;
+// * the change test: a round only adds bits, so a core thread changed iff
+//   its popcount grew; one __syncthreads_or over the block;
+// * the core lanes within `halo` of the band's edges publish their rows
+//   into edge slot (round & 1);
+// then one grid barrier, after which the halo lanes reload their rows from
+// the edge slot the round filled (in round 0 they hold the frame's own,
+// loaded with the core) while the block reads the round's change flags,
+// one frame a thread, into its copy of the frame state.
+template <bool PHASE2, bool SEG, int R>
+__global__ void __launch_bounds__(REG_NT, 1) hyst_kernel(Params a) {
+  static_assert(!PHASE2 && !SEG && R % 2 == 0 && R <= HW_MAX,
+                "the register route runs phase 1 on one-segment layouts");
+  constexpr int H = R / 2, HP = reg_half_words(H);  // word rows a thread; its half's words
+  extern __shared__ uint32_t sm[];
+  cg::grid_group grid = cg::this_grid();
+  const FrameState st = frame_state(a, sm);                 // a.wsw == 0
+  uint32_t* xb = sm + reg_state_words(a.nb);                // [2][warps][2 sides][2 HP]
+  const int lane = lane_id(), warp = warp_id(), nw = blockDim.x >> 5, per_buf = 4 * nw * HP;
+  const bool top = lane < 16;
+  const int i = lane & 15, k0 = top ? 0 : H, ks = top ? 0 : HP;  // column in the warp, rows
+  const int b = blockIdx.x / a.nbw, c0 = (blockIdx.x - b * a.nbw) * a.bw;
+  const int cb = min(a.bw, a.w - c0), cc = 16 * warp + i, c = c0 - a.halo + cc;
+  const bool in = c >= 0 && c < a.w && cc < cb + 2 * a.halo;
+  const bool core = cc >= a.halo && cc < a.halo + cb;
+  const bool pub = core && (cc < 2 * a.halo || cc >= cb);  // within halo of the band's edges
+  const bool side = i == 0 || i == 15;                      // publishes the warp's edge column
+  const bool edge = (i == 0 && warp > 0) || (i == 15 && warp < nw - 1);
+  const uint32_t* nbr = xb + (i == 0 ? 2 * warp - 1 : 2 * warp + 2) * 2 * HP + ks;  // when edge
+  uint32_t* mine = xb + (2 * warp + (i == 15)) * 2 * HP + ks;
+  const bool lead = blockIdx.x == 0 && threadIdx.x == 0;
+  const long long col = b * a.plane + c;
+  // Row k of the thread is the plane's row k0 + k: below hw but for the
+  // bottom half's last where hw is odd.
+  auto row_in = [&](int k) { return k < H - 1 || k0 + k < a.hw; };
+  uint32_t f[H], p[H], v[H];
+#pragma unroll
+  for (int k = 0; k < H; ++k) {
+    const bool row = in && row_in(k);
+    const uint32_t m = k0 + k == a.hw - 1 ? a.tail : FULL;
+    p[k] = row ? __ldcg(a.p + col + (long long)(k0 + k) * a.w) & m : 0u;
+    f[k] = row ? __ldcg(a.f + col + (long long)(k0 + k) * a.w) & m : 0u;
+  }
+  int pc = 0;  // the thread's core words' popcount at the last change test
+#pragma unroll
+  for (int k = 0; k < H; ++k) pc += core ? __popc(f[k]) : 0;
+  if (threadIdx.x == 0) {
+    for (int j = 0; j < a.nb; ++j) {
+      st.it[j] = 0;
+      st.grow[j] = 1;
+    }
+    list_active<false>(a, st, 0);
+  }
+  if (lead) {
+    if (a.count) atomicAdd(a.count, (unsigned long long)a.nb);
+    for (int j = 0; j < 3 * a.nb; ++j) a.chg[j] = 0;
+  }
+  grid.sync();
+  for (int r = 0; *st.n > 0; ++r) {
+    const int slot = r % 3;
+    const bool on = st.on[b];
+    if (lead)
+      for (int j = 0; j < a.nb; ++j) a.chg[((r + 1) % 3) * a.nb + j] = 0;
+    if (on) {
+      if (side) publish_rows(mine, f);
+      reg_row_ors(f, v);
+      __syncthreads();
+      for (int s = 1; s <= a.dilate_steps; ++s) {
+        const uint32_t* e = nbr + ((s - 1) & 1) * per_buf;
+        if (s % CARRY_EVERY == 0 || s == a.dilate_steps)
+          reg_step<H, true>(f, p, v, e, edge, top);
+        else
+          reg_step<H, false>(f, p, v, e, edge, top);
+        if (s < a.dilate_steps) {
+          if (side) publish_rows(mine + (s & 1) * per_buf, f);
+          reg_row_ors(f, v);
+          __syncthreads();
+        }
+      }
+      int n = 0;
+#pragma unroll
+      for (int k = 0; k < H; ++k) n += core ? __popc(f[k]) : 0;
+      const bool grew = n != pc;
+      pc = n;
+      if (__syncthreads_or(grew) && threadIdx.x == 0) atomicOr(&a.chg[slot * a.nb + b], 1);
+      if (pub) {
+        uint32_t* e = a.edge + ((long long)(r & 1) * a.nb + b) * a.plane + c;
+#pragma unroll
+        for (int k = 0; k < H; ++k)
+          if (row_in(k)) e[(long long)(k0 + k) * a.w] = f[k];
+      }
+    }
+    grid.sync();
+    // The next round's halo (a frame that stopped discards it: its halo is
+    // never stored), in flight with the change flags' reads.
+    if (on && in && !core) {
+      const uint32_t* e = a.edge + ((long long)(r & 1) * a.nb + b) * a.plane + c;
+#pragma unroll
+      for (int k = 0; k < H; ++k)
+        if (row_in(k)) f[k] = __ldcg(e + (long long)(k0 + k) * a.w);
+    }
+    for (int j = threadIdx.x; j < a.nb; j += blockDim.x) {
+      if (!st.on[j]) continue;
+      st.grow[j] = *(volatile int*)&a.chg[slot * a.nb + j];
+      ++st.it[j];
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      if (lead && a.count) atomicAdd(a.count + 1, (unsigned long long)*st.n);
+      list_active<false>(a, st, r + 1);
+    }
+    __syncthreads();
+  }
+  if (core) {
+#pragma unroll
+    for (int k = 0; k < H; ++k)
+      if (row_in(k)) a.f[col + (long long)(k0 + k) * a.w] = f[k];
+  }
+  if (lead && a.flags) {
+    for (int j = 0; j < a.nb; ++j) {
+      a.flags[4 * j] = st.it[j];
+      a.flags[4 * j + 1] = st.grow[j];
+    }
+  }
+}
+
 // The collective round loop of a one-card sharded batch of extended tiles
 // (see the head of this file): four slots of scratch flags (three of a
 // round's flag, rotating, then the prologue's); the round count it writes at
@@ -1747,13 +1990,13 @@ size_t smem_bytes(int hw, int ns, int bw, int halo, int nb) {
 }
 
 // The most blocks of the cooperative kernel ``kern`` with ``smem`` bytes of
-// shared memory each that can be co-resident on `device` (the cooperative
-// grid's limit), cached.
-cudaError_t co_resident(const void* kern, int device, size_t smem, int* out) {
+// shared memory and ``threads`` threads each that can be co-resident on
+// `device` (the cooperative grid's limit), cached.
+cudaError_t co_resident(const void* kern, int device, size_t smem, int* out, int threads = NT) {
   static std::mutex mu;
-  static std::map<std::tuple<const void*, int, size_t>, int> cache;
+  static std::map<std::tuple<const void*, int, size_t, int>, int> cache;
   std::lock_guard<std::mutex> lock(mu);
-  const auto key = std::make_tuple(kern, device, smem);
+  const auto key = std::make_tuple(kern, device, smem, threads);
   const auto hit = cache.find(key);
   if (hit != cache.end()) {
     *out = hit->second;
@@ -1765,7 +2008,7 @@ cudaError_t co_resident(const void* kern, int device, size_t smem, int* out) {
   if (smem > (size_t)optin) return cudaErrorInvalidValue;
   err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
   if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, NT, smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads, smem);
   if (err != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return err;
@@ -1913,14 +2156,106 @@ cudaError_t plan(const Kern& kern, Params& a, int frames, int unit, int device, 
   return cudaSuccess;
 }
 
+// A round kernel's type: hyst_kernel names both the shared-memory kernels
+// <PHASE2, SEG> and the register route's <false, false, R>.
+using RoundKernel = void (*)(Params);
+
+// The register route's instance for hw word rows: R = hw rounded up to even.
+template <int... Ks>
+const void* reg_kernel(int hw, std::integer_sequence<int, Ks...>) {
+  static const void* const table[] = {(const void*)(RoundKernel)hyst_kernel<false, false, 2 * (Ks + 1)>...};
+  return table[(hw + 1) / 2 - 1];
+}
+
+// The register route's launch for phase 1 over nb (hw, w) planes.
+struct RegPlan {
+  const void* kern;  // the instance for hw; null: the launch takes the shared route
+  int bw, halo, threads, bands;
+  size_t smem;
+};
+
+// Phase 1's route, decided by what the launch observes: the register route
+// where a column's word rows fit a thread pair (hw <= HW_MAX) and the
+// bands, with a halo of dilate_steps columns each side (one segment of
+// steps a round), all fit the co-resident grid of one block a band, two
+// threads a lane and bw + 2 halo lanes a multiple of 16, up to REG_NT
+// threads. Of those layouts, the one whose busiest scheduler steps through
+// the fewest warps (the bands an SM holds times a band's warps over the
+// SM's four schedulers), then the fewest warps an SM, then the narrowest
+// band. Else (taller planes, halos past the lanes, batches past the grid)
+// kern is null and the launch takes hyst_kernel<false, SEG>. Cached.
+cudaError_t reg_plan(int device, int nb, int hw, int w, int dilate_steps, RegPlan* out) {
+  if (dilate_steps < 1 || dilate_steps > MAX_DILATE_STEPS || nb < 1) return cudaErrorInvalidValue;
+  static std::mutex mu;
+  static std::map<std::tuple<int, int, int, int, int>, RegPlan> cache;
+  const auto key = std::make_tuple(device, nb, hw, w, dilate_steps);
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    const auto hit = cache.find(key);
+    if (hit != cache.end()) {
+      *out = hit->second;
+      return cudaSuccess;
+    }
+  }
+  RegPlan pick{nullptr, 0, 0, 0, 0, 0};
+  if (hw <= HW_MAX) {
+    int sms = 0;
+    cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return err;
+    const void* kern = reg_kernel(hw, std::make_integer_sequence<int, HW_MAX / 2>{});
+    const int hp = reg_half_words((hw + 1) / 2);
+    std::pair<long long, long long> best{LLONG_MAX, LLONG_MAX};
+    for (int t = 32; t <= REG_NT; t += 32) {  // t threads: t / 2 lanes
+      const int bw = t / 2 - 2 * dilate_steps, warps = t / 32;
+      if (bw < 1) continue;
+      const size_t smem = (size_t)(reg_state_words(nb) + 8 * warps * hp) * sizeof(uint32_t);
+      int limit = 0;
+      err = co_resident(kern, device, smem, &limit, t);
+      if (err != cudaSuccess) return err;
+      const long long bands = (long long)nb * ((w + bw - 1) / bw);
+      if (bands > limit) continue;
+      const long long per_sm = (bands + sms - 1) / sms;
+      const std::pair<long long, long long> cost{per_sm * ((warps + 3) / 4), per_sm * warps};
+      if (cost < best) {
+        best = cost;
+        pick = RegPlan{kern, bw, dilate_steps, t, (int)bands, smem};
+      }
+    }
+  }
+  std::lock_guard<std::mutex> lock(mu);
+  *out = cache[key] = pick;
+  return cudaSuccess;
+}
+
+void set_reg_layout(Params& a, const RegPlan& r) {
+  a.bw = r.bw;
+  a.halo = r.halo;
+  a.ns = 1;
+  a.nbw = (a.w + r.bw - 1) / r.bw;
+  a.wsw = 0;  // the frame state at the start of shared memory
+}
+
 template <bool PHASE2>
 cudaError_t launch_rounds(Params a, int device, cudaStream_t stream) {
+  if constexpr (!PHASE2) {
+    RegPlan r;
+    cudaError_t err = reg_plan(device, a.nb, a.hw, a.w, a.dilate_steps, &r);
+    if (err != cudaSuccess) return err;
+    if (r.kern) {
+      set_reg_layout(a, r);
+      void* args[] = {&a};
+      err = cudaLaunchCooperativeKernel(r.kern, dim3(r.bands), dim3(r.threads), args, r.smem, stream);
+      if (err != cudaSuccess) return err;
+      return cudaGetLastError();
+    }
+  }
   // Phase 1 starts with every frame active: its layout covers the batch.
   // Phase 2 works on the escalated frames, rarely more than one, and a grid
   // barrier costs more the more blocks take part, so its layout covers one
   // frame; more frames still growing share the blocks, each block then
   // streaming its bands.
-  const Kern kern{(const void*)hyst_kernel<PHASE2, false>, (const void*)hyst_kernel<PHASE2, true>};
+  const Kern kern{(const void*)(RoundKernel)hyst_kernel<PHASE2, false>,
+                  (const void*)(RoundKernel)hyst_kernel<PHASE2, true>};
   Layout l;
   unsigned grid = 0;
   cudaError_t err = plan(kern, a, PHASE2 ? 1 : a.nb, PHASE2 ? BAND_UNIT : MIN_BAND, device, &l, &grid);
@@ -2019,20 +2354,31 @@ extern "C" int cc_hyst_phase2(void* f, const void* p, void* scratch, void* flags
 // (phase 1 or 2): out = (band width, halo columns, blocks, bands of one
 // frame, grid barriers a round: ceil(dilate_steps / halo) segments of steps,
 // plus in phase 2 the scan stages (6, or 12 with height segments), height
-// segments).
+// segments); *route = 1 where the launch takes phase 1's register route
+// (reg_plan; its blocks are its bands), else 0.
 extern "C" int cc_hyst_layout(int nb, int h, int w, int dilate_steps, int phase, int device,
-                              int* out) {
+                              int* out, int* route) {
   DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return guard.err;
   Params a = make_params(nullptr, nullptr, nullptr, nullptr, nb, h, w, dilate_steps, 0, 0);
-  const Kern kern = phase == 2
-                        ? Kern{(const void*)hyst_kernel<true, false>, (const void*)hyst_kernel<true, true>}
-                        : Kern{(const void*)hyst_kernel<false, false>, (const void*)hyst_kernel<false, true>};
-  Layout l;
-  unsigned grid = 0;
-  cudaError_t err = plan(kern, a, phase == 2 ? 1 : nb, phase == 2 ? BAND_UNIT : MIN_BAND, device,
-                         &l, &grid);
+  RegPlan r{nullptr, 0, 0, 0, 0, 0};
+  cudaError_t err = phase == 2 ? cudaSuccess : reg_plan(device, nb, a.hw, w, dilate_steps, &r);
   if (err != cudaSuccess) return err;
+  unsigned grid = 0;
+  if (r.kern) {
+    set_reg_layout(a, r);
+    grid = (unsigned)r.bands;
+  } else {
+    const Kern kern =
+        phase == 2 ? Kern{(const void*)(RoundKernel)hyst_kernel<true, false>,
+                          (const void*)(RoundKernel)hyst_kernel<true, true>}
+                   : Kern{(const void*)(RoundKernel)hyst_kernel<false, false>,
+                          (const void*)(RoundKernel)hyst_kernel<false, true>};
+    Layout l;
+    err = plan(kern, a, phase == 2 ? 1 : nb, phase == 2 ? BAND_UNIT : MIN_BAND, device, &l, &grid);
+    if (err != cudaSuccess) return err;
+  }
+  *route = r.kern != nullptr;
   out[0] = a.bw;
   out[1] = a.halo;
   out[2] = (int)grid;

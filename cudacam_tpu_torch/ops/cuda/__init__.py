@@ -12,7 +12,9 @@ from typing import Dict, Optional, Tuple, Union
 
 import torch
 
-from cudacam_tpu_torch.ops.cuda._build import LAUNCHES, PLAIN_ROUNDS, ROUND_KERNELS, ROUNDS
+from cudacam_tpu_torch.ops.cuda._build import (
+    LAUNCHES, PHASE1_ROUTES, PLAIN_ROUNDS, ROUND_KERNELS, ROUNDS, ROUTES,
+)
 from cudacam_tpu_torch.ops.cuda.hysteresis import hysteresis_sweeps, hysteresis_sweeps_plain
 from cudacam_tpu_torch.ops.cuda.hysteresis_fused import (
     hysteresis_fused_batched, hysteresis_fused_batched_plain,
@@ -35,8 +37,9 @@ KERNELS = ("ff_pack", "hyst_phase1", "hyst_phase2", "unpack", "ff_stages", "pack
            "swar_stencil")
 
 __all__ = ["KERNELS", "hysteresis_fused_batched", "hysteresis_fused_batched_plain",
-           "hysteresis_sweeps", "hysteresis_sweeps_plain", "launch_counts", "reset_launch_counts",
-           "reset_round_counts", "round_counts"]
+           "hysteresis_sweeps", "hysteresis_sweeps_plain", "launch_counts", "phase1_route_counts",
+           "reset_launch_counts", "reset_phase1_route_counts", "reset_round_counts",
+           "round_counts"]
 
 
 def launch_counts() -> Dict[str, int]:
@@ -45,6 +48,19 @@ def launch_counts() -> Dict[str, int]:
 
 def reset_launch_counts() -> None:
     LAUNCHES.clear()
+
+
+def phase1_route_counts() -> Dict[str, int]:
+    """The ``hyst_phase1`` launches since the start (or the last
+    :func:`reset_phase1_route_counts`) by the route each took on the card:
+    ``registers`` (the bands' words in registers) or ``shared`` (in shared
+    memory), as ``megakernel.round_layout`` reports it. The plain version
+    (CPU tensors) launches nothing and counts nothing here."""
+    return {route: ROUTES[route] for route in PHASE1_ROUTES}
+
+
+def reset_phase1_route_counts() -> None:
+    ROUTES.clear()
 
 
 def round_counts(device: Optional[Union[str, torch.device]] = None) -> Dict[str, Tuple[int, int]]:

@@ -9,9 +9,9 @@ source rebuilds and an unchanged one loads the library already built.
 Nothing here runs at import time: this module imports on a host with no
 nvcc and no GPU.
 
-Beside the build: the wrappers' launch counter (``LAUNCHES``), the round
-kernels' counter blocks (``ROUNDS``) and the host spans of the launch
-wrappers (:func:`open_span`).
+Beside the build: the wrappers' launch counter (``LAUNCHES``), phase 1's
+launches by route (``ROUTES``), the round kernels' counter blocks
+(``ROUNDS``) and the host spans of the launch wrappers (:func:`open_span`).
 """
 from __future__ import annotations
 
@@ -51,7 +51,7 @@ SIGNATURES = {
     "cc_hyst_phase1": (_I, [_P] * 5 + [_I] * 7 + [_P]),
     "cc_hyst_phase2": (_I, [_P] * 5 + [_I] * 6 + [_P]),
     "cc_hyst_scratch_words": (ctypes.c_longlong, [_I, _I, _I, _I]),
-    "cc_hyst_layout": (_I, [_I, _I, _I, _I, _I, _I, _P]),
+    "cc_hyst_layout": (_I, [_I, _I, _I, _I, _I, _I, _P, _P]),
     "cc_split_converge": (_I, [_P, _P, _P, _P] + [_I] * 9 + [_P]),
     "cc_split_scratch_words": (ctypes.c_longlong, [_I] * 6),
     "cc_split_layout": (_I, [_I] * 6 + [_P]),
@@ -82,6 +82,14 @@ SIGNATURES = {
 #: Launches per kernel, raised by one by its wrapper right after each launch
 #: and nowhere else (``ops/cuda/__init__.py`` reads and resets them).
 LAUNCHES: collections.Counter = collections.Counter()
+
+#: The routes of a ``hyst_phase1`` launch (``csrc/hyst_rounds.cu``): the
+#: band's words in registers, or in shared memory.
+PHASE1_ROUTES = ("registers", "shared")
+#: ``hyst_phase1`` launches by route, raised by one by its wrapper right
+#: after each launch (``ops/cuda/__init__.py`` reads and resets them); not
+#: part of ``LAUNCHES``' counts by kernel.
+ROUTES: collections.Counter = collections.Counter()
 
 #: The round kernels whose rounds are counted, in a counter block's row
 #: order: ``hyst_phase1`` (planes, rounds), ``hyst_phase2`` (planes

@@ -56,8 +56,8 @@ from torch.autograd import profiler as autograd_profiler
 from cudacam_tpu_torch.stages import FINAL_EDGE, NO_EDGE
 from cudacam_tpu_torch.ops import bitpack
 from cudacam_tpu_torch.ops.cuda._build import (
-    close_span, count_launch, count_rounds, load, open_span, require_contiguous, round_slot,
-    stream_of, use_plain,
+    PHASE1_ROUTES, ROUTES, close_span, count_launch, count_rounds, load, open_span,
+    require_contiguous, round_slot, stream_of, use_plain,
 )
 from cudacam_tpu_torch.ops.cuda.feedforward import (
     Tiling, ff_pack, ff_pack_batched, ff_pack_plain, ff_pack_tiles,
@@ -124,13 +124,22 @@ def round_layout(nb: int, h: int, w: int, dilate_steps: int, phase: int,
                  device: int = 0) -> dict:
     """The band layout a round kernel's launch takes on a card for nb (h, w)
     frames: band width, halo columns, blocks, bands of one frame, grid
-    barriers a round and height segments (``cc_hyst_layout``)."""
-    out = (ctypes.c_int * 6)()
+    barriers a round and height segments, and the route (``registers`` for
+    phase 1's register route, else ``shared``) (``cc_hyst_layout``)."""
+    out, route = (ctypes.c_int * 6)(), (ctypes.c_int * 1)()
     lib = load()
     lib.check(lib.lib.cc_hyst_layout(nb, h, w, dilate_steps, phase, device,
-                                     ctypes.cast(out, ctypes.c_void_p)), "cc_hyst_layout")
-    return dict(zip(("band_width", "halo", "blocks", "bands", "barriers_per_round",
-                     "segments"), out))
+                                     ctypes.cast(out, ctypes.c_void_p),
+                                     ctypes.cast(route, ctypes.c_void_p)), "cc_hyst_layout")
+    layout = dict(zip(("band_width", "halo", "blocks", "bands", "barriers_per_round",
+                       "segments"), out))
+    layout["route"] = PHASE1_ROUTES[0] if route[0] else PHASE1_ROUTES[1]
+    return layout
+
+
+@functools.lru_cache(maxsize=None)
+def _phase1_route(nb: int, h: int, w: int, dilate_steps: int, device: int) -> str:
+    return round_layout(nb, h, w, dilate_steps, 1, device)["route"]
 
 
 #: ``loop_layout``'s keys, in ``cc_sharded_loop_layout``'s order.
@@ -245,17 +254,33 @@ def hyst_phase1(
     place: each frame's plane becomes its phase-1 exit state and its
     flags[0] = (round count, still growing).
 
-    On the card one cooperative launch: each frame is cut into column
-    bands (multiples of 16 columns, about one a streaming multiprocessor
-    over the batch) that span every word row, or, past the rows a block's
-    shared memory holds (785 word rows), into tiles of stacked height
-    segments; each tile is kept in a block's shared memory for the whole
-    loop with ``dilate_steps`` halo columns (and the rows they reach above
-    and below); a round is the dilations in shared memory and one grid
-    barrier, and a tile changed iff its popcount grew
-    (``csrc/hyst_rounds.cu``). Rows at and past h are cleared
+    On the card one cooperative launch that takes one of two routes, by
+    what it observes (``round_layout``'s ``route``; both give the same
+    bits, ``csrc/hyst_rounds.cu``):
+
+    * ``registers``, where two threads can hold a column's word rows
+      (ceil(h/32) <= 36) and the bands, with ``dilate_steps`` halo columns
+      each side, all fit the card at once: a block a column band, the
+      band's and its halo's columns 16 to a warp, each column's FINAL and
+      CANDIDATE words in the registers of two of its threads (the top and
+      the bottom half of the rows) for the whole loop; a dilation step
+      takes the neighbouring columns by warp shuffles and across a warp's
+      edge from shared memory (one ``__syncthreads`` a step); a round ends
+      on one grid barrier;
+    * ``shared`` elsewhere (4K and 8K whole frames, taller planes, larger
+      batches or halos): each frame is cut into column bands (multiples of
+      16 columns, about one a streaming multiprocessor over the batch)
+      that span every word row, or, past the rows a block's shared memory
+      holds (785 word rows), into tiles of stacked height segments; each
+      tile is kept in a block's shared memory for the whole loop with
+      ``dilate_steps`` halo columns (and the rows they reach above and
+      below); a round is the dilations in shared memory and one grid
+      barrier.
+
+    A band changed iff its popcount grew. Rows at and past h are cleared
     (:func:`_check_planes`). The launch adds its planes and rounds to the
-    device's round counters (``round_counts()["hyst_phase1"]``)."""
+    device's round counters (``round_counts()["hyst_phase1"]``) and one to
+    its route's count (``phase1_route_counts()``)."""
     span = open_span("cc.prep.hyst_phase1") if autograd_profiler._is_profiler_enabled else None
     _check_planes(f, p, h, flags)
     if use_plain(f, p, flags):
@@ -267,6 +292,8 @@ def hyst_phase1(
     _check_steps(dilate_steps)
     _launch_rounds(1, f, p, flags, h, dilate_steps, scan_after, max_iters, name="hyst_phase1",
                    span=span)
+    ROUTES[_phase1_route(f.shape[0] if f.ndim == 3 else 1, h, f.shape[-1], dilate_steps,
+                         f.device.index)] += 1
 
 
 def hyst_phase2_plain(

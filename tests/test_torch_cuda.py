@@ -1723,3 +1723,110 @@ def test_process_makes_no_host_sync_with_counters(dev):
                 torch.cuda.set_sync_debug_mode(0)
             assert dev.index in ROUNDS
     torch.cuda.synchronize()
+
+
+# -- phase 1's two routes (csrc/hyst_rounds.cu: the register route,
+# hyst_kernel<false, false, R>, and the shared-memory kernels; their CPU model:
+# tests/test_torch_round_bands.py).
+
+from cudacam_tpu_torch.ops.cuda.feedforward import ff_pack_tiles  # noqa: E402
+from cudacam_tpu_torch.ops.cuda.megakernel import hyst_phase1_plain, round_layout  # noqa: E402
+
+
+def _scene_batch(h, w, n, dev, spiral=False):
+    """n scene frames (seeds 0..), the last one the spiral where asked."""
+    frames = [torch.from_numpy(make_scene(h, w, seed=s)).to(dev) for s in range(n - spiral)]
+    if spiral:
+        frames.append(torch.from_numpy(make_spiral_frame(h, w)).to(dev))
+    return torch.stack(frames)
+
+
+def _route_planes(case, dev):
+    """(F, P, h, scan_after, max_iters, route) of a register-route case."""
+    thr = _thr(10, 40, dev)
+    if case == "1080p":
+        return (*ff_pack_batched(_scene_batch(1080, 1920, 1, dev), thr), 1080, 64, 100, "registers")
+    if case == "x8 with the spiral":
+        return (*ff_pack_batched(_scene_batch(1080, 1920, 8, dev, True), thr), 1080, 64, 100,
+                "registers")
+    if case == "8K tiles (1, 4, 2)":
+        pipe = build_sharded_pipeline(CannyConfig(height=4320, width=7680), make_mesh(1, 4, 2))
+        frame = torch.from_numpy(make_scene(1080, 1920, seed=0)).repeat(4, 4, 1)[None].to(dev)
+        f, p = ff_pack_tiles(frame, thr, pipe.tiling)
+        return f, p, pipe.tiling.ext_h, 32, 100, "registers"
+    if case == "ragged 768x1366":
+        return (*ff_pack_batched(_scene_batch(768, 1366, 3, dev, True), thr), 768, 64, 100,
+                "registers")
+    if case == "hw at HW_MAX":
+        return (*ff_pack_batched(_scene_batch(1152, 600, 2, dev, True), thr), 1152, 64, 100,
+                "registers")
+    if case == "hw past HW_MAX":
+        return (*ff_pack_batched(_scene_batch(1153, 600, 2, dev, True), thr), 1153, 64, 100,
+                "shared")
+    if case == "scan_after 1":
+        return (*ff_pack_batched(_scene_batch(1080, 1920, 4, dev, True), thr), 1080, 1, 100,
+                "registers")
+    assert case == "cap cuts the spiral"
+    return (*ff_pack_batched(_scene_batch(1080, 1920, 2, dev, True), thr), 1080, 64, 6,
+            "registers")
+
+
+ROUTE_CASES = ["1080p", "x8 with the spiral", "8K tiles (1, 4, 2)", "ragged 768x1366",
+               "hw at HW_MAX", "hw past HW_MAX", "scan_after 1", "cap cuts the spiral"]
+
+
+@pytest.mark.parametrize("case", ROUTE_CASES)
+def test_phase1_route_matches_plain(dev, case):
+    """Each case takes the route ``round_layout`` reports (``registers`` up
+    to 36 word rows, ``shared`` past them), counts one launch on it in
+    ``phase1_route_counts()``, and gives ``hyst_phase1_plain``'s FINAL
+    planes and flags (round count, still growing) bit for bit: one 1080p
+    frame, an x8 batch with the spiral cut at scan_after 64, the 8K
+    extended tiles, a ragged width, 36 word rows and 37, one unconditional
+    round, and a cap of 6 rounds that cuts the spiral off while it grows."""
+    f, p, h, scan_after, max_iters, route = _route_planes(case, dev)
+    nb, w = f.shape[0], f.shape[-1]
+    kw = dict(dilate_steps=16, scan_after=scan_after, max_iters=max_iters)
+    lay = round_layout(nb, h, w, 16, 1, dev.index)
+    assert lay["route"] == route, lay
+    fk, flags = f.clone(), torch.zeros((nb, 2, 2), dtype=torch.int32, device=dev)
+    before = kernels.phase1_route_counts()
+    hyst_phase1(fk, p, flags, h, **kw)
+    after = kernels.phase1_route_counts()
+    assert {k: after[k] - before[k] for k in after} == {
+        r: int(r == route) for r in ("registers", "shared")}
+    fp, pflags = f.clone(), torch.zeros_like(flags)
+    hyst_phase1_plain(fp, p, pflags, h, count=False, **kw)
+    assert torch.equal(fk, fp)
+    assert torch.equal(flags[:, 0], pflags[:, 0])
+    if case == "cap cuts the spiral":
+        assert flags[-1, 0].tolist() == [6, 1]  # cut off at the cap, still growing
+    if case == "scan_after 1":
+        assert (flags[:, 0, 0] == 1).all()
+
+
+def test_register_route_round_counts_match_the_shared_route(dev):
+    """The same x8 1080p frames (7 scenes and the spiral) on both routes: a
+    batch of 8 takes the register route; repeated until the register bands
+    no longer fit the card at once, the batch takes the shared route. Every
+    frame's plane and flags, and the round counters a plane, agree."""
+    h, w = 1080, 1920
+    f, p = ff_pack_batched(_scene_batch(h, w, 8, dev, True), _thr(10, 40, dev))
+    kw = dict(dilate_steps=16, scan_after=64, max_iters=100)
+    assert round_layout(8, h, w, 16, 1, dev.index)["route"] == "registers"
+    reps = next((r for r in (2, 4, 8, 16, 32)
+                 if round_layout(8 * r, h, w, 16, 1, dev.index)["route"] == "shared"), None)
+    assert reps, "no batch of the x8 frames takes the shared route"
+    out = []
+    for n in (1, reps):
+        fk, flags = f.repeat(n, 1, 1), torch.zeros((8 * n, 2, 2), dtype=torch.int32, device=dev)
+        routes = kernels.phase1_route_counts()
+        _, got = _counted(dev, lambda: hyst_phase1(fk, p.repeat(n, 1, 1), flags, h, **kw))
+        taken = {k: v - routes[k] for k, v in kernels.phase1_route_counts().items()}
+        assert taken == {"registers": int(n == 1), "shared": int(n > 1)}
+        out.append((fk[:8], flags[:8], got["hyst_phase1"]))
+        assert torch.equal(fk, fk[:8].repeat(n, 1, 1)) and torch.equal(flags, flags[:8].repeat(n, 1, 1))
+    (f1, fl1, (planes1, rounds1)), (f2, fl2, (planes2, rounds2)) = out
+    assert torch.equal(f1, f2) and torch.equal(fl1, fl2)
+    assert planes1 == 8 and rounds1 == int(fl1[:, 0, 0].sum())
+    assert (planes2, rounds2) == (8 * reps, rounds1 * reps)

@@ -25,10 +25,22 @@ fix-up), which makes its L and Q the full band's, so the fold and apply
 follow unchanged (its carry column over ``bw / 32`` rows more each side).
 The kernels clear the bits of rows at and past h when they load a plane.
 
-The model below is that algorithm, step for step, on NumPy words; the tests
-hold it to ``bitpack._make_ops`` of the port and of the JAX package (and to
-each package's ``_scan_dir`` direction by direction) on seeded random planes
-and the spiral.
+Phase 1's register route (``hyst_kernel<false, false, R>``) keeps each
+band's words in registers instead: its lanes are the columns of the band
+and its ``halo`` = dilate_steps columns each side (zero outside the frame
+and past the band's halo), 16 to a warp, each column's word rows split
+between two threads of the warp (the top half, the bottom half). A step
+takes the columns left and right by shuffles and, beside a warp's edge,
+the column across it that the neighbouring warp published the step
+before; an exact step takes the rows above and below from the thread's own
+words, and across the halves from the other thread's. Once a round the
+halo lanes reload from the edge slot the neighbouring bands published, and
+a core thread changed iff its popcount grew.
+
+The model below is those algorithms, step for step, on NumPy words; the
+tests hold it to ``bitpack._make_ops`` of the port and of the JAX package
+(and to each package's ``_scan_dir`` direction by direction) on seeded
+random planes and the spiral.
 
 Tolerance: 0. Every value is a packed word or a round count.
 """
@@ -427,6 +439,122 @@ def band_converge(f, p, h, bw, halo, dilate_steps, scan_after, max_iters, ns=1):
     return f, it, grew
 
 
+#: Columns a warp takes side by side on the register route (lanes 0-15 the
+#: top half of their word rows, lanes 16-31 the bottom half).
+WARP_COLS = 16
+
+
+def shfl(x, up):
+    """``__shfl_up_sync(FULL, x, 1, 16)`` (up) or ``__shfl_down_sync(FULL, x,
+    1, 16)`` on x (columns, ...) of whole warps: each column's thread gets
+    the word of the column before (after) it in its warp; a thread whose
+    source lies outside its warp gets its own."""
+    y = x.copy()
+    i = np.arange(x.shape[0]) % WARP_COLS
+    if up:
+        take = i[1:] != 0
+        y[1:][take] = x[:-1][take]
+    else:
+        take = i[:-1] != WARP_COLS - 1
+        y[:-1][take] = x[1:][take]
+    return y
+
+
+def warp_sides(lanes):
+    """The columns whose threads publish their warp's edge columns (the
+    first and the last of each warp)."""
+    return np.isin(np.arange(lanes) % WARP_COLS, (0, WARP_COLS - 1))
+
+
+def reg_step(f, p, pub, exact):
+    """One dilation step of the register route on a band's lanes: f, p
+    (lanes, 2, H) words, the top and the bottom half of each column's rows
+    (two threads); pub the warps' edge columns as published the step
+    before (read only beside a warp's edge). The first column of a warp
+    past the first ORs in the column of the warp before's last, the last
+    column of a warp before the last the next warp's first; an exact step
+    carries across words from the thread's own rows above and below, and
+    across the halves from the other half's first and last rows (the
+    kernel's ``__shfl_xor_sync`` by 16 lanes)."""
+    n = f.shape[0]
+    t = np.arange(n)
+    e = np.zeros_like(f)
+    left = (t % WARP_COLS == 0) & (t >= WARP_COLS)
+    right = (t % WARP_COLS == WARP_COLS - 1) & (t < n - 1)
+    e[left] = pub[t[left] - 1]
+    e[right] = pub[t[right] + 1]
+    v = f | shfl(f, True) | shfl(f, False) | e
+    h = v | _shl(v, 1) | _shr(v, 1)
+    if exact:
+        h[:, :, 1:] |= _shr(v[:, :, :-1], 31)
+        h[:, :, :-1] |= _shl(v[:, :, 1:], 31)
+        first, last = v[:, 1, 0], v[:, 0, -1]  # exchanged across the halves
+        h[:, 0, -1] |= _shl(first, 31)
+        h[:, 1, 0] |= _shr(last, 31)
+    return f | (p & h)
+
+
+def reg_phase1(f, p, h, steps, lanes, scan_after, max_iters, edge=None, fresh=True):
+    """Phase 1 on the register route: bands of ``lanes - 2 steps`` columns,
+    each with ``steps`` halo columns, ``lanes`` columns of R = ceil(hw / 2) 2
+    word rows, split between two threads (a row past hw stays 0).
+    ``edge``: the two edge slots' starting words (the kernel's scratch,
+    never read before written). ``fresh`` False publishes the warps' edge
+    columns once a round only: the wrong exchange. Returns (plane, rounds,
+    still growing, each round's (plane before, plane after))."""
+    f, p = clear_past_h(f, h), clear_past_h(p, h)
+    hw, w = f.shape
+    halo, bw, r_rows = steps, lanes - 2 * steps, -(-hw // 2) * 2
+    edge = np.zeros((2, hw, w), U32) if edge is None else edge.copy()
+    t, sides = np.arange(lanes), warp_sides(lanes)
+
+    def halves(x):
+        return x.reshape(x.shape[0], 2, r_rows // 2)
+
+    bands = []
+    for c0, cb in bands_of(w, bw):
+        cols = c0 - halo + t
+        inside = (cols >= 0) & (cols < w) & (t < cb + 2 * halo)
+        core = (t >= halo) & (t < halo + cb)
+        F, P = np.zeros((lanes, r_rows), U32), np.zeros((lanes, r_rows), U32)
+        F[inside, :hw], P[inside, :hw] = f[:, cols[inside]].T, p[:, cols[inside]].T
+        pub = core & ((t < 2 * halo) | (t >= cb))  # core lanes within halo of the band's edges
+        bands.append(dict(cols=cols, halo=inside & ~core, core=core, pub=pub, F=halves(F),
+                          P=halves(P), pc=np.where(core, [_popc(r) for r in F], 0)))
+
+    def plane():
+        out = np.zeros_like(f)
+        for b in bands:
+            out[:, b["cols"][b["core"]]] = b["F"].reshape(lanes, r_rows)[b["core"], :hw].T
+        return out
+
+    it, rounds = 0, []
+    while True:
+        before, grew = plane(), False
+        for b in bands:
+            F, P = b["F"], b["P"]
+            if it > 0:
+                whole = F.reshape(lanes, r_rows).copy()
+                whole[b["halo"], :hw] = edge[(it - 1) & 1][:, b["cols"][b["halo"]]].T
+                F = halves(whole)
+            pub = np.where(sides[:, None, None], F, 0)
+            for s in range(1, steps + 1):
+                F = reg_step(F, P, pub, s % 8 == 0 or s == steps)
+                if fresh:
+                    pub = np.where(sides[:, None, None], F, 0)
+            whole = F.reshape(lanes, r_rows)
+            assert not whole[:, hw:].any()
+            pc = np.where(b["core"], [_popc(r) for r in whole], 0)
+            grew |= bool((pc != b["pc"]).any())
+            b["F"], b["pc"] = F, pc
+        for b in bands:
+            edge[it & 1][:, b["cols"][b["pub"]]] = b["F"].reshape(lanes, r_rows)[b["pub"], :hw].T
+        it += 1
+        rounds.append((before, plane()))
+        if not (grew and it < min(scan_after, max_iters)):
+            return plane(), it, grew, rounds
+
+
 # -- the references ----------------------------------------------------------
 
 
@@ -656,3 +784,67 @@ def test_rows_past_h_are_not_read(h, w, ns):
     mk.hyst_phase2(ft, pt, flags, h, dilate_steps=16, max_iters=40)
     assert torch.equal(ft, want) and flags[1].tolist() == [wit, int(wgrew)]
     assert torch.equal(pt, p_before)  # the CANDIDATE planes are not written
+
+
+#: (dilate_steps, lanes a band): bands of lanes - 2 dilate_steps columns
+#: (16, 48, 32, 128, 16, 64), in three to ten warps of 16 columns.
+REG_LAYOUTS = [(8, 32), (8, 64), (16, 64), (16, 160), (32, 80), (32, 128)]
+#: Ragged last bands (53 columns under one band of most layouts) and h % 32 in 6, 1, 31, 0.
+REG_SHAPES = [(70, 130), (33, 53), (31, 97), (64, 161)]
+
+
+@pytest.mark.parametrize("h,w", REG_SHAPES)
+@pytest.mark.parametrize("steps,lanes", REG_LAYOUTS)
+@pytest.mark.parametrize("kind", ["random", "spiral"])
+def test_register_route_matches_make_ops(h, w, steps, lanes, kind):
+    """Every round of the register route's phase 1 equals both packages'
+    ``_make_ops`` dilate round on the same plane, and its round loop (the
+    popcount change test, the cap) the port's ``converge_phase1``; the
+    edge slots start as garbage."""
+    f, p = planes(h, w, kind, seed=steps)
+    junk = np.random.default_rng(lanes).integers(0, 2**32, (2,) + f.shape, dtype=np.uint64)
+    got, it, grew, rounds = reg_phase1(f, p, h, steps, lanes, 6, 100, edge=junk.astype(U32))
+    dil, _ = _port_ops(h, w, steps)
+    jdil, _ = jbp._make_ops(h, w, steps)
+    for before, after in rounds:
+        want = _np(dil(_torch(before), _torch(p)))
+        assert np.array_equal(after, want)
+        assert np.array_equal(np.asarray(jdil(jnp.asarray(before), jnp.asarray(p))).astype(U32),
+                              want)
+    wf, wit, wgrew = tbp.converge_phase1(tbp.from_words(_torch(f)), tbp.from_words(_torch(p)),
+                                         h, w, steps, 6, 100)
+    assert np.array_equal(got, _np(tbp.to_words(wf)))
+    assert (it, grew) == (wit, wgrew)
+
+
+def test_register_route_needs_each_steps_edge_columns():
+    """A candidate row that crosses the warps' edges: the register route
+    equals ``_make_ops``, and the same route with the warps' edge columns
+    published once a round, not after each step, does not."""
+    h, w, steps, lanes = 32, 160, 16, 160
+    cand = np.zeros((h, w), bool)
+    cand[5, :] = True
+    seed = np.zeros((h, w), bool)
+    seed[5, 0] = True
+    f, p = _pack(seed), _pack(cand & ~seed)
+    dil, _ = _port_ops(h, w, steps)
+    want = _np(dil(_torch(f), _torch(p)))
+    got = reg_phase1(f, p, h, steps, lanes, 1, 1)[0]
+    stale = reg_phase1(f, p, h, steps, lanes, 1, 1, fresh=False)[0]
+    assert np.array_equal(got, want) and not np.array_equal(stale, want)
+
+
+def test_register_route_carries_across_the_halves():
+    """A candidate column that crosses the row where a column's two threads
+    meet (row 32 R / 2 of the image): the register route equals
+    ``_make_ops``, exact steps carrying the seed across the halves."""
+    h, w, steps = 150, 40, 16  # hw 5, R 6: threads of 3 word rows, rows 0-95 and 96-191
+    cand = np.zeros((h, w), bool)
+    cand[:, 20] = True
+    seed = np.zeros((h, w), bool)
+    seed[100, 20] = True
+    f, p = _pack(seed), _pack(cand & ~seed)
+    dil, _ = _port_ops(h, w, steps)
+    want = _np(dil(_torch(f), _torch(p)))
+    got = reg_phase1(f, p, h, steps, 64, 1, 1)[0]
+    assert np.array_equal(got, want) and _popc(want[2]) > 0  # reached row 95 and above

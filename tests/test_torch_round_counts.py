@@ -154,3 +154,64 @@ def test_no_profiler_enters_no_range(monkeypatch):
     sharded = ShardedCannyEngine(CannyConfig(height=h, width=w), make_mesh(1, 2, 2),
                                  device="cpu")
     assert sharded.process(frames[:1]).shape == (1, h, w)
+
+
+def test_phase1_route_counts_count_kernel_launches_only(monkeypatch):
+    """``phase1_route_counts()`` counts each ``hyst_phase1`` launch under
+    the route ``round_layout`` reports for its shape; the plain version
+    launches nothing and counts nothing; ``launch_counts()`` is not split."""
+    from cudacam_tpu_torch.ops.cuda import megakernel as mk
+
+    kernels.reset_phase1_route_counts()
+    assert kernels.phase1_route_counts() == {"registers": 0, "shared": 0}
+    canny_mega_pipeline_batched(_batch(32, 64), THR, **KW)
+    assert kernels.phase1_route_counts() == {"registers": 0, "shared": 0}
+    asked = []
+
+    def route(nb, h, w, steps, device):
+        asked.append((nb, h, w, steps, device))
+        return "registers" if h <= 1152 else "shared"
+
+    launches = kernels.launch_counts()["hyst_phase1"]
+    monkeypatch.setattr(mk, "use_plain", lambda *t: False)
+    monkeypatch.setattr(mk, "_launch_rounds", lambda *a, **k: None)
+    monkeypatch.setattr(mk, "_phase1_route", route)
+    flags = torch.zeros((3, 2, 2), dtype=torch.int32)
+    for h in (1080, 1152, 1153):
+        hw = (h + 31) // 32
+        f, p = torch.zeros((3, hw, 40), dtype=torch.int32), torch.zeros((3, hw, 40), dtype=torch.int32)
+        mk.hyst_phase1(f, p, flags, h, dilate_steps=8)
+    assert asked == [(3, 1080, 40, 8, None), (3, 1152, 40, 8, None), (3, 1153, 40, 8, None)]
+    assert kernels.phase1_route_counts() == {"registers": 2, "shared": 1}
+    assert kernels.launch_counts()["hyst_phase1"] == launches  # the stub launched nothing
+    kernels.reset_phase1_route_counts()
+    assert kernels.phase1_route_counts() == {"registers": 0, "shared": 0}
+
+
+def _route_share_reader():
+    """The benchmark's reader of ``hyst_phase1.register_route_share``,
+    loaded from its file (``benchmarks/metrics``)."""
+    import importlib.util
+    from pathlib import Path
+
+    path = (Path(__file__).resolve().parents[1] / "benchmarks" / "metrics"
+            / "hyst_phase1.register_route_share.py")
+    spec = importlib.util.spec_from_file_location("register_route_share", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.read
+
+
+@pytest.mark.parametrize("counts,share", [({"registers": 3, "shared": 0}, 100.0),
+                                          ({"registers": 1, "shared": 3}, 25.0),
+                                          ({"registers": 0, "shared": 2}, 0.0),
+                                          ({"registers": 0, "shared": 0}, None)])
+def test_register_route_share_reads_the_route_counter(monkeypatch, counts, share):
+    """The metric's reader: the % of ``hyst_phase1`` launches on the
+    register route, None where no launch was counted, and None (no raise)
+    where the program has no route counter."""
+    read = _route_share_reader()
+    monkeypatch.setattr(kernels, "phase1_route_counts", lambda: dict(counts))
+    assert read(None) == share
+    monkeypatch.delattr(kernels, "phase1_route_counts")
+    assert read(None) is None
